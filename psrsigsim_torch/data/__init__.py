@@ -1,0 +1,22 @@
+"""Packaged data assets (counterpart: psrsigsim_tpu/data/): the measured
+J1713+0747 L-band template profile of the upstream project.
+
+Use :func:`data_path` to locate an asset on disk::
+
+    from psrsigsim_torch.data import data_path
+    prof = np.load(data_path("J1713+0747_profile.npy"))
+"""
+
+import os
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+
+__all__ = ["data_path"]
+
+
+def data_path(name):
+    """Absolute path of a packaged data asset; raises if it doesn't exist."""
+    p = os.path.join(_DIR, name)
+    if not os.path.exists(p):
+        raise FileNotFoundError(f"no packaged data asset {name!r} in {_DIR}")
+    return p

@@ -1,0 +1,8 @@
+"""Simulation pipelines (counterpart: psrsigsim_tpu/simulate/; this slice
+ports the fold-mode pipeline)."""
+
+from .pipeline import (FoldPipelineConfig, build_fold_config,
+                       default_shift_mode, fold_pipeline, natural_nbin)
+
+__all__ = ["FoldPipelineConfig", "build_fold_config", "default_shift_mode",
+           "fold_pipeline", "natural_nbin"]

@@ -1,0 +1,46 @@
+"""Shared utilities: units at the config boundary, constants, jax-compatible
+PRNG keys, device resolution and host-side numerics (counterpart:
+psrsigsim_tpu/utils/)."""
+
+from .constants import DM_K, DM_K_MS_MHZ2, KB_JY_M2_PER_K, KOLMOGOROV_BETA
+from .device import resolve_device
+from .quantity import Quantity, Unit, UnitConversionError, make_quant
+from .rng import STAGES, as_key, fold_in, key, random_bits, stage_key
+from .utils import (
+    acf2d,
+    down_sample,
+    find_nearest,
+    make_par,
+    rebin,
+    savitzky_golay,
+    shift_t,
+    text_search,
+    top_hat_width,
+)
+
+__all__ = [
+    "make_quant",
+    "Quantity",
+    "Unit",
+    "UnitConversionError",
+    "DM_K",
+    "DM_K_MS_MHZ2",
+    "KOLMOGOROV_BETA",
+    "KB_JY_M2_PER_K",
+    "resolve_device",
+    "STAGES",
+    "key",
+    "as_key",
+    "fold_in",
+    "stage_key",
+    "random_bits",
+    "shift_t",
+    "down_sample",
+    "rebin",
+    "top_hat_width",
+    "savitzky_golay",
+    "find_nearest",
+    "acf2d",
+    "text_search",
+    "make_par",
+]
