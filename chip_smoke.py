@@ -47,7 +47,10 @@ PEAK_OPS_PER_S = 67e12
 # operations per sample of the sampler kernel, counted from its source:
 # Philox4x32-10 is 10 rounds of 4 multiplies and 4 XORs plus 9 key bumps
 # of 2 adds (98); two 24-bit uniforms (7); Box-Muller with each libm call
-# counted as one operation (6); the Wilson-Hilferty cube and clamp (6)
+# counted as one operation (6); the Wilson-Hilferty cube and clamp (6).
+# Each is held to PEAK_OPS_PER_S, the float32 rate that counts an FMA as two
+# operations; 32-bit integer multiplies and logic issue at a quarter of that
+# on Hopper (64 per SM per clock), so this bound is optimistic for Philox.
 RNG_OPS_PER_SAMPLE = 98 + 7 + 6 + 6
 
 MAIN_NOBS = 128

@@ -160,7 +160,12 @@ def rng_field_plain(seeds, dfs, pos, mode, nchan, length, bits=philox_bits):
 # -- kernel build and launch ---------------------------------------------------
 
 
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+# the checkout's build/ (ignored by git); an installed package, with no
+# checkout around it, builds beside its own sources instead
+_PKG_DIR = Path(__file__).resolve().parents[1]
+_BUILD_DIR = (_PKG_DIR.parent / "build"
+              if (_PKG_DIR.parent / "pyproject.toml").exists()
+              else _PKG_DIR / "build")
 
 
 def _nvcc():

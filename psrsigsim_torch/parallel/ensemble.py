@@ -186,8 +186,8 @@ class FoldEnsemble:
         return result
 
     def iter_chunks(self, n_obs, chunk_size=256, seed=0, dms=None,
-                    noise_norms=None, quantized=False, progress=None,
-                    skip_chunk=None, byte_order="little", finite_mask=False):
+                    noise_norms=None, quantized=False, byte_order="little",
+                    finite_mask=False):
         """Stream a large ensemble in fixed-size chunks.
 
         Yields ``(start, block)`` with host numpy arrays for observations
@@ -202,10 +202,6 @@ class FoldEnsemble:
         device: ``data.view('>i2')`` then reads the true values, as the
         PSRFITS writer wants them.  Quantized chunks cross to the host as
         one packed buffer and are split there.
-
-        ``progress(done, total)`` is called after each chunk;
-        ``skip_chunk(start, count)`` returning True skips a chunk's work
-        (resuming exporters).
         """
         if byte_order not in ("little", "big"):
             raise ValueError("byte_order must be 'little' or 'big'")
@@ -220,10 +216,6 @@ class FoldEnsemble:
         nbin = self.cfg.nph
         for start in range(0, n_obs, chunk_size):
             count = min(chunk_size, n_obs - start)
-            if skip_chunk is not None and skip_chunk(start, count):
-                if progress is not None:
-                    progress(start + count, n_obs)
-                continue
             idx = (start + np.arange(chunk_size)) % n_obs
             keys, dms_c, norms_c = self._prep_chunk(idx, seed, dms,
                                                     noise_norms)
@@ -237,6 +229,4 @@ class FoldEnsemble:
                     block = block + (_fetch(finite[:count]),)
             else:
                 block = _fetch(self._blocks(keys, dms_c, norms_c)[:count])
-            if progress is not None:
-                progress(start + count, n_obs)
             yield start, block

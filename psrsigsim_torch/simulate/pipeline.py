@@ -140,17 +140,19 @@ def fold_pipeline(key, dm, noise_norm, profiles, cfg, freqs=None,
 
     # pulse term: tiled portrait x chi2(nfold) x draw_norm, written into the
     # pulse field in place (the product commutes, so the rounding is the
-    # reference's)
+    # reference's; a draw_norm of 1.0, as for float32 signals, is exact and
+    # skips its pass over the block)
     block = _chan_chi2(kp, chan_ids, cfg.nfold, nsamp)
     if cfg.shift_mode == "envelope":
         # dispersion applied to the PERIODIC envelope: one small
         # (Nchan, Nph) FFT instead of the full-length pair
         prof = fourier_shift(profiles, delays_ms, dt=cfg.dt_ms)
         block.view(lead + (nchan, nsub, nph)).mul_(prof[..., None, :])
-        block.mul_(cfg.draw_norm)
     else:
         block.view(lead + (nchan, nsub, nph)).mul_(profiles[:, None, :])
+    if cfg.draw_norm != 1.0:
         block.mul_(cfg.draw_norm)
+    if cfg.shift_mode != "envelope":
         block = fourier_shift(block, delays_ms, dt=cfg.dt_ms)
 
     if null_frac is not None:

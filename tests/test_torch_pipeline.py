@@ -369,14 +369,12 @@ def test_iter_chunks_invariant_to_chunk_size(ensemble):
 
 
 def test_iter_chunks_float_and_progress(ensemble):
-    seen = []
-    chunks = list(ensemble.iter_chunks(
-        N_OBS, chunk_size=4, seed=SEED, progress=lambda d, t: seen.append((d, t)),
-        skip_chunk=lambda s, c: s == 4))
-    assert [c[0] for c in chunks] == [0]
-    assert seen == [(4, N_OBS), (N_OBS, N_OBS)]
-    np.testing.assert_array_equal(chunks[0][1],
-                                  ensemble.run(N_OBS, seed=SEED)[:4].numpy())
+    """Float chunks (the tail chunk trimmed) reassemble into ``run``."""
+    chunks = list(ensemble.iter_chunks(N_OBS, chunk_size=4, seed=SEED))
+    assert [c[0] for c in chunks] == [0, 4]
+    assert [len(c[1]) for c in chunks] == [4, N_OBS - 4]
+    np.testing.assert_array_equal(np.concatenate([c[1] for c in chunks]),
+                                  ensemble.run(N_OBS, seed=SEED).numpy())
     with pytest.raises(ValueError):
         next(ensemble.iter_chunks(N_OBS, finite_mask=True))
 
