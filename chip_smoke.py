@@ -5,20 +5,29 @@
 
 Drives psrsigsim_torch's fold-mode ensemble main path on the card, from
 configured signal/pulsar/telescope objects to packed int16 PSRFITS
-buffers, with the random fields drawn by the hand-written CUDA sampler
-kernel (psrsigsim_torch/csrc/rng_field.cu, built here with nvcc into
-build/).  Phases:
+buffers, through the port's two hand-written CUDA kernels, built here with
+nvcc into build/: the random-field sampler (psrsigsim_torch/csrc/
+rng_field.cu), which draws the float blocks of FoldEnsemble.run, and the
+fused fold -> quantize -> pack kernel (csrc/fold_quantize.cu), which draws
+the same samples inside and writes the packed codes of run_quantized and
+iter_chunks.  Phases:
 
 1. the card, its power limit, and the torch/CUDA versions;
-2. the kernel build;
-3. the kernel against its plain PyTorch version, on the card, in every
-   mode: edge shapes (three keys, first channel 8, 13 channels, an
-   unaligned span) and the main path's own shape;
-4. statistics of the kernel's fields and their split invariance;
-5. the main path at full width: BASELINE config 1 (J1713+0747 template,
-   64 channels, 2048 bins, 20 x 60 s subints) x 128 observations through
-   FoldEnsemble.run_quantized and iter_chunks, with the kernel's launch
-   count read around it;
+2. the build of both kernels (one nvcc each, started together);
+3. the sampler against its plain PyTorch version, on the card, in every
+   mode: edge shapes (three keys, first channel 8, 13 channels, a ragged
+   span, an unaligned span) and the main path's own shape;
+3b. the fused kernel against its plain version and against the unfused
+   path (sampler fields + the PyTorch body), bit for bit: the main path at
+   full width and edge shapes (13 channels, nph 1000, nph 935, rows too
+   long for shared memory, both byte orders, a per-observation df, a NaN
+   row, a constant row);
+4. statistics of the sampler's fields and their split invariance;
+5. the main paths at full width, BASELINE config 1 (J1713+0747 template,
+   64 channels, 2048 bins, 20 x 60 s subints): 128 observations through
+   FoldEnsemble.run_quantized and iter_chunks (the fused kernel), then 16
+   through FoldEnsemble.run (the sampler), each with every kernel's launch
+   count set to 0 just before and read just after;
 6. parity: the threefry sampler on the card against the CPU;
 7. one JSON line with each kernel's launches, error, times and bound.
 
@@ -40,20 +49,44 @@ import traceback
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
-# float32 rate outside the tensor cores
+# float32 rate outside the tensor cores, which counts an FMA as two
+# operations (132 SMs x 128 lanes x 2 x 1.98 GHz)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 
-# operations per sample of the sampler kernel, counted from its source:
-# Philox4x32-10 is 10 rounds of 4 multiplies and 4 XORs plus 9 key bumps
-# of 2 adds (98); two 24-bit uniforms (7); Box-Muller with each libm call
-# counted as one operation (6); the Wilson-Hilferty cube and clamp (6).
-# Each is held to PEAK_OPS_PER_S, the float32 rate that counts an FMA as two
-# operations; 32-bit integer multiplies and logic issue at a quarter of that
-# on Hopper (64 per SM per clock), so this bound is optimistic for Philox.
-RNG_OPS_PER_SAMPLE = 98 + 7 + 6 + 6
+# Issue rates per instruction class, per SM per clock on compute capability
+# 9.0 (CUDA C++ programming guide, arithmetic instruction throughput), at
+# the same 132 SMs and 1.98 GHz: float32 add/multiply 128; 32-bit integer
+# multiply, add, logic and shift, and compare/min/max 64; special functions
+# and type conversions 16.
+SMS, CLOCK_HZ = 132, 1.98e9
+RATES = {"int32": 64 * SMS * CLOCK_HZ, "fp32": 128 * SMS * CLOCK_HZ,
+         "sfu": 16 * SMS * CLOCK_HZ}
+
+# Operations per output sample, by class, counted from the sources
+# (csrc/philox_field.cuh, rng_field.cu, fold_quantize.cu).  One Philox
+# call makes four samples: 10 rounds of 2 low and 2 high 32x32 multiplies
+# and 4 XORs plus 9 key bumps of 2 adds (98 integer), 4 mask ANDs, ~10 of
+# index arithmetic and bounds; two Box-Muller pairs of 7 float32 add/mul
+# each, and per sample the Wilson-Hilferty map (2 add/mul for t, 3
+# multiplies, 1 max: 6); per pair log, sqrt, sin and cos and 2 int->float
+# conversions (6 special).  The accurate libm routines expand into more
+# float work than one special op each, so the bound is a lower one.
+DRAW_OPS = {"int32": (98 + 4 + 10) / 4, "fp32": (2 * 7) / 4 + 6,
+            "sfu": (2 * 6) / 4}
+# the fused kernel: two draws per sample (their index arithmetic shared:
+# 2.5 per sample), the fold (2 multiplies, 1 add), min, max and isfinite
+# (3 compares), the quantizer (subtract and multiply; clamp 2 compares;
+# rint and float->int conversions), lane bounds (2) and packing (2)
+FUSED_OPS = {"int32": 2 * (98 + 4) / 4 + 2.5 + 3 + 2 + 2 + 2,
+             "fp32": 2 * DRAW_OPS["fp32"] + 3 + 2,
+             "sfu": 2 * DRAW_OPS["sfu"] + 2}
+# the single-rate count of the first sampler design (one Philox call per
+# sample, every operation at the float32 FMA rate), kept for continuity
+RNG_OPS_PER_SAMPLE_ONE_CALL = 98 + 7 + 6 + 6
 
 MAIN_NOBS = 128
+FLOAT_NOBS = 16  # FoldEnsemble.run's float blocks: 16 x 64 x 40960 x 4 bytes
 MAIN = dict(nchan=64, period_s=0.005, samprate_mhz=0.4096, sublen_s=60.0,
             tobs_s=1200.0, fcent=1380.0, bw=400.0, smean=0.009, dm=15.9)
 PARITY = dict(nchan=16, period_s=0.005, samprate_mhz=0.0512, sublen_s=60.0,
@@ -117,6 +150,24 @@ def cuda_time_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def bound(ops, n, nbytes):
+    """The least time the card could take for ``n`` samples of ``ops``
+    operations per sample by class, moving ``nbytes``: ``(bound_ms,
+    bound_by, parts)``, ``parts`` holding each class's time, the bytes'
+    time, and the single-rate figure (every operation at the float32 FMA
+    rate) for continuity with earlier records."""
+    parts = {c: ops[c] * n / RATES[c] * 1e3 for c in ops}
+    t_ops = max(parts.values())
+    parts["bytes"] = nbytes / PEAK_BYTES_PER_S * 1e3
+    parts["single_rate"] = sum(ops.values()) * n / PEAK_OPS_PER_S * 1e3
+    by = "bytes" if parts["bytes"] >= t_ops else "operations"
+    return max(t_ops, parts["bytes"]), by, parts
+
+
+def fmt_parts(parts):
+    return ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+
+
 class Smoke:
     def __init__(self):
         import torch
@@ -124,7 +175,7 @@ class Smoke:
         self.torch = torch
         self.dev = torch.device("cuda")
         self.failed = []
-        self.kernel = {}
+        self.kernels = {"rng_field": {}, "fold_quantize": {}}
         self._main = None
 
     def main_ensemble(self):
@@ -132,6 +183,31 @@ class Smoke:
         if self._main is None:
             self._main = geometry(MAIN, self.dev)
         return self._main
+
+    def main_fused_args(self, nobs=MAIN_NOBS):
+        """The fused kernel's arguments on the main path for observations
+        0..nobs-1 of seed 0, from the pipeline's own front half; and the
+        chunk's (keys, dms, norms)."""
+        torch = self.torch
+        import numpy as np
+
+        from psrsigsim_torch.ops import stats
+        from psrsigsim_torch.ops.rng_hw import seed_words
+        from psrsigsim_torch.simulate import pipeline
+
+        ens = self.main_ensemble()
+        cfg = ens.cfg
+        chunk = ens._prep_chunk(np.arange(nobs), 0, None, None)
+        f = pipeline._fold_front(*chunk, ens._profiles, cfg, ens._freqs,
+                                 ens._chan_ids, None, None)
+        args = dict(
+            seeds=seed_words(torch.stack([f.kp, f.kn])).to(self.dev).contiguous(),
+            dfs=torch.tensor([[cfg.nfold] * nobs, [cfg.noise_df] * nobs],
+                             dtype=torch.float32, device=self.dev),
+            modes=(stats._hw_chi2_mode(cfg.nfold),
+                   stats._hw_chi2_mode(cfg.noise_df)),
+            prof=f.prof.contiguous(), noise_norm=f.noise_norm.contiguous())
+        return args, dict(nsub=cfg.nsub, draw_norm=cfg.draw_norm), chunk
 
     def phase(self, name, fn):
         log(f"== {name}")
@@ -161,14 +237,16 @@ class Smoke:
 
     # -- 2 ------------------------------------------------------------------
     def build(self):
-        from psrsigsim_torch.ops import rng_hw
+        from psrsigsim_torch.ops import _build
 
         t0 = time.perf_counter()
-        lib = rng_hw.build()
-        log(f"built rng_field in {time.perf_counter() - t0:.1f} s")
-        for line in lib.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log("  " + line.strip())
+        libs = _build.build_all()
+        log(f"built {', '.join(libs)} in {time.perf_counter() - t0:.1f} s "
+            "(one nvcc each, in parallel)")
+        for name, lib in libs.items():
+            for line in lib.build_log.splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"  {name}: {line.strip()}")
 
     # -- 3 ------------------------------------------------------------------
     def kernel_vs_plain(self):
@@ -177,27 +255,37 @@ class Smoke:
         from psrsigsim_torch.utils import fold_in, key
 
         keys = fold_in(key(1, self.dev), torch.arange(3, device=self.dev))
-        seeds = torch.where(keys >= 2**31, keys - 2**32, keys).to(torch.int32)
+        seeds = rng_hw.seed_words(keys)
         pos = torch.tensor([[1, 2]] * 3, dtype=torch.int32, device=self.dev)
         worst = 0.0
         cases = [("normal", 0.0), ("chi2_1", 0.0), ("chi2_wh", 12000.0),
                  ("chi2_sel", 12000.0), ("chi2_sel", 1.0)]
         for mode, df in cases:
             dfs = torch.full((3,), df, device=self.dev)
-            got = rng_hw.rng_field(seeds, dfs, pos, mode, 13, 5000)
-            want = rng_hw.rng_field_plain(seeds, dfs, pos, mode, 13, 5000)
-            err, ok = ulp_close(got, want)
+            errs = []
+            # 5000: float4 stores; 4999: a ragged last quad, scalar stores
+            for length in (5000, 4999):
+                want = rng_hw.rng_field_plain(seeds, dfs, pos, mode, 13, length)
+                for tiles in (1, 2):
+                    got = rng_hw.rng_field(seeds, dfs, pos, mode, 13, length,
+                                           tiles=tiles)
+                    err, ok = ulp_close(got, want)
+                    if not ok:
+                        raise AssertionError(f"{mode} length {length} tiles "
+                                             f"{tiles}: kernel disagrees with "
+                                             "plain version")
+                    errs.append(err)
             # an unaligned span: overdraw one block and slice, as the
             # pipelines' dispatch does
             span = stats._hw_field_span(keys, torch.arange(8, 21),
                                         dfs, 2 * 4096 + 1234, mode, 5000)
             full = rng_hw.rng_field_plain(seeds, dfs, pos, mode, 13, 3 * 4096)
             err2, ok2 = ulp_close(span, full[..., 1234:6234])
-            log(f"  {mode:8s} df={df:<8g} max|kernel-plain| {err:.3g} "
-                f"(unaligned span {err2:.3g})")
-            if not (ok and ok2):
-                raise AssertionError(f"{mode}: kernel disagrees with plain version")
-            worst = max(worst, err, err2)
+            log(f"  {mode:8s} df={df:<8g} max|kernel-plain| {max(errs):.3g} "
+                f"(lengths 5000/4999, tiles 1/2; unaligned span {err2:.3g})")
+            if not ok2:
+                raise AssertionError(f"{mode}: unaligned span disagrees")
+            worst = max(worst, err2, *errs)
 
         # the main path's own shape and keys: both fields of observations
         # 0..127 of seed 0
@@ -210,9 +298,9 @@ class Smoke:
             k = stage_key(obs, stage)
             got = rng_hw.hw_chan_field(k, 0, 12000.0, 0, mode="chi2_wh",
                                        nchan=MAIN["nchan"], length=nsamp)
-            s = torch.where(k >= 2**31, k - 2**32, k).to(torch.int32)
             want = rng_hw.rng_field_plain(
-                s, torch.full((MAIN_NOBS,), 12000.0, device=self.dev),
+                rng_hw.seed_words(k),
+                torch.full((MAIN_NOBS,), 12000.0, device=self.dev),
                 torch.zeros((MAIN_NOBS, 2), dtype=torch.int32, device=self.dev),
                 "chi2_wh", MAIN["nchan"], nsamp)
             err, ok = ulp_close(got, want)
@@ -223,7 +311,143 @@ class Smoke:
                                      "the main-path shape")
             worst = max(worst, err)
             del got, want
-        self.kernel["max_abs_err"] = worst
+        self.kernels["rng_field"]["max_abs_err"] = worst
+
+    # -- 3b -----------------------------------------------------------------
+    def fused_vs_plain(self):
+        """The fused kernel, its plain version and the unfused path (sampler
+        fields + the PyTorch body + quantizer + packing), bit for bit."""
+        torch = self.torch
+        import numpy as np
+
+        from psrsigsim_torch.ops import fold_quantize as fq
+        from psrsigsim_torch.ops import rng_hw
+        from psrsigsim_torch.ops.quantize import subint_quantize, swap16
+        from psrsigsim_torch.parallel.ensemble import _pack_triple
+        from psrsigsim_torch.simulate import fold_pipeline_quantized
+        from psrsigsim_torch.utils import fold_in, key
+
+        dev = self.dev
+        worst = 0
+
+        def unfused(a, nsub, draw_norm=1.0, chan0=0, t0=0, byte_order="little"):
+            B, C, nph = a["prof"].shape
+            nsamp = nsub * nph
+            b0, off = divmod(t0, rng_hw.RNG_BLOCK)
+            pos = torch.tensor([[chan0 // rng_hw.CHAN_GROUP, b0]] * B,
+                               dtype=torch.int32, device=dev)
+            f = [rng_hw.rng_field(a["seeds"][i].contiguous(),
+                                  a["dfs"][i].contiguous(), pos, a["modes"][i],
+                                  C, off + nsamp)[..., off:] for i in (0, 1)]
+            block = f[0].reshape(B, C, nsub, nph) * a["prof"][:, :, None, :]
+            if draw_norm != 1.0:
+                block = block * draw_norm
+            block = block.reshape(B, C, nsamp) + f[1] * a["noise_norm"][:, None, None]
+            finite = torch.isfinite(block).all(dim=-1)
+            d, s, o = subint_quantize(block, nsub, nph)
+            if byte_order == "big":
+                d = swap16(d)
+            return _pack_triple(d, s, o), finite
+
+        def inputs(B, C, nph, modes, dfs, seed):
+            r = np.random.default_rng(seed)
+            keys = fold_in(key(seed + 17, "cpu"), torch.arange(2 * B))
+            d = np.broadcast_to(np.asarray(dfs, np.float32).reshape(2, -1),
+                                (2, B))
+            return dict(
+                seeds=rng_hw.seed_words(keys).reshape(2, B, 2).to(dev).contiguous(),
+                dfs=torch.tensor(np.ascontiguousarray(d), device=dev),
+                modes=modes,
+                prof=torch.tensor(r.normal(0.3, 0.4, (B, C, nph)).astype(np.float32),
+                                  device=dev),
+                noise_norm=torch.tensor(r.uniform(0.5, 2.0, B).astype(np.float32),
+                                        device=dev))
+
+        def compare(label, got, others, skip=None):
+            nonlocal worst
+            (g, gf) = got
+            keep = torch.ones(g.shape[:3], dtype=torch.bool, device=dev)
+            if skip is not None:
+                keep[skip] = False
+            for name, (w, wf) in others.items():
+                err = int((g[keep].int() - w[keep].int()).abs().max())
+                worst = max(worst, err)
+                if not (torch.equal(g[keep], w[keep]) and torch.equal(gf, wf)):
+                    raise AssertionError(f"{label}: fused kernel differs from "
+                                         f"the {name} (max |diff| {err})")
+            log(f"  {label}: bit-equal to {' and '.join(others)}")
+
+        sel = ((1.0, 12000.0, 12000.0), (12000.0, 1.0, 12000.0))
+        wh = (12000.0, 12000.0)
+        cases = [
+            ("13 ch from 8, nph 1000, chi2_sel, little", 3, 13, 1000, 5,
+             ("chi2_sel", "chi2_sel"), sel, dict(chan0=8)),
+            ("13 ch from 8, nph 1000, chi2_sel, big, draw_norm 0.37", 3, 13,
+             1000, 5, ("chi2_sel", "chi2_sel"), sel,
+             dict(chan0=8, draw_norm=0.37, byte_order="big")),
+            ("16 ch, nph 935 (quads straddle rows)", 2, 16, 935, 3,
+             ("chi2_wh", "chi2_wh"), wh, {}),
+            ("8 ch, nph 8192 (two-pass route), big", 2, 8, 8192, 2,
+             ("chi2_wh", "chi2_wh"), wh, dict(byte_order="big")),
+            ("5 ch from 16, nph 700, t0 1234, normal/chi2_1", 1, 5, 700, 3,
+             ("normal", "chi2_1"), (0.0, 0.0), dict(chan0=16, t0=1234)),
+        ]
+        if fq.staged(8192) or not fq.staged(2048):
+            raise AssertionError("unexpected shared-memory route: nph 8192 "
+                                 f"staged={fq.staged(8192)}, 2048 "
+                                 f"staged={fq.staged(2048)}")
+        log("  route: nph 2048 rows kept in shared memory; nph 8192 rows "
+            "drawn twice (two-pass)")
+        for i, (label, B, C, nph, nsub, modes, dfs, kw) in enumerate(cases):
+            a = inputs(B, C, nph, modes, dfs, seed=i)
+            compare(label, fq.fold_quantize(**a, nsub=nsub, **kw),
+                    {"plain version": fq.fold_quantize_plain(**a, nsub=nsub, **kw),
+                     "unfused path": unfused(a, nsub, **kw)})
+        # a NaN in one row: flagged, and no other row disturbed
+        a = inputs(3, 13, 1000, ("chi2_wh", "chi2_wh"), wh, seed=9)
+        a["prof"][0, 3, 17] = float("nan")
+        got = fq.fold_quantize(**a, nsub=5, chan0=8)
+        if bool(got[1][0, 3]) or int(got[1].sum()) != 3 * 13 - 1:
+            raise AssertionError("the NaN row's finite flag is wrong")
+        compare("NaN in obs 0 channel 3 (its 5 rows skipped)", got,
+                {"plain version": fq.fold_quantize_plain(**a, nsub=5, chan0=8),
+                 "unfused path": unfused(a, 5, chan0=8)},
+                skip=(0, slice(None), 3))
+        # a constant row: zero portrait and zero noise scale
+        a = inputs(2, 8, 1000, ("chi2_wh", "chi2_wh"), wh, seed=10)
+        a["prof"][1, 5] = 0.0
+        a["noise_norm"][1] = 0.0
+        got = fq.fold_quantize(**a, nsub=3)
+        row = got[0][1, :, 5].cpu()
+        tail = row[:, 1000:].contiguous().view(torch.float32)
+        if row[:, :1000].any() or not bool((tail[:, 0] == 1.0).all()) \
+                or tail[:, 1].any():
+            raise AssertionError("constant row: codes, scl or offs wrong")
+        compare("constant row (codes 0, scl 1, offs 0)", got,
+                {"plain version": fq.fold_quantize_plain(**a, nsub=3),
+                 "unfused path": unfused(a, 3)})
+
+        # the main path at full width: the fused route against the
+        # ensemble's unfused body on the sampler kernel's fields
+        ens = self.main_ensemble()
+        cfg = ens.cfg
+        a, kw, (keys, dms, norms) = self.main_fused_args()
+        blocks = ens._blocks(keys, dms, norms)
+        finite = torch.isfinite(blocks).all(dim=-1)
+        d, s, o = subint_quantize(blocks, cfg.nsub, cfg.nph)
+        del blocks
+        for order in ("little", "big"):
+            want = _pack_triple(swap16(d) if order == "big" else d, s, o)
+            got = fold_pipeline_quantized(keys, dms, norms, ens._profiles, cfg,
+                                          freqs=ens._freqs,
+                                          chan_ids=ens._chan_ids,
+                                          byte_order=order)
+            compare(f"main path {tuple(got[0].shape)} {order}", got,
+                    {"unfused path": (want, finite),
+                     "plain version": fq.fold_quantize_plain(
+                         **a, **kw, byte_order=order)})
+            del want, got
+        self.kernels["fold_quantize"]["max_abs_err"] = float(worst)
 
     # -- 4 ------------------------------------------------------------------
     def statistics(self):
@@ -261,22 +485,38 @@ class Smoke:
         log("  split invariance: (64 x 40960) == channels {0,32} x blocks {0,5}")
 
     # -- 5 ------------------------------------------------------------------
+    def _zero_counts(self):
+        from psrsigsim_torch.ops import fold_quantize as fq
+        from psrsigsim_torch.ops import rng_hw
+
+        rng_hw.rng_field.launches = 0
+        fq.fold_quantize.launches = 0
+
+    def _counts(self):
+        from psrsigsim_torch.ops import fold_quantize as fq
+        from psrsigsim_torch.ops import rng_hw
+
+        return {"rng_field": rng_hw.rng_field.launches,
+                "fold_quantize": fq.fold_quantize.launches}
+
     def main_path(self):
         torch = self.torch
         import numpy as np
-
-        from psrsigsim_torch.ops import rng_hw
 
         os.environ.pop("PSS_SAMPLER", None)
         ens = self.main_ensemble()
         cfg = ens.cfg
         log(f"  config1_fold64: nchan {cfg.meta.nchan} nph {cfg.nph} "
             f"nsub {cfg.nsub} nsamp {cfg.nsamp} nfold {cfg.nfold:g} "
-            f"noise_norm {ens.noise_norm:.6g}")
+            f"noise_df {cfg.noise_df:g} noise_norm {ens.noise_norm:.6g}")
+        prof = ens._profiles_np.astype(np.float64)
+        expect = (cfg.draw_norm * cfg.nfold * prof.mean(axis=1)
+                  + cfg.noise_df * ens.noise_norm)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
 
-        rng_hw.rng_field.launches = 0
+        # (a) the quantized path: run_quantized + iter_chunks, fused kernel
+        self._zero_counts()
         t0 = time.perf_counter()
         data, scl, offs, fin = ens.run_quantized(MAIN_NOBS, seed=0,
                                                  return_finite=True)
@@ -287,12 +527,16 @@ class Smoke:
                                       seed=0, quantized=True,
                                       byte_order="big", finite_mask=True))
         t_ic = time.perf_counter() - t0
-        launches = rng_hw.rng_field.launches
+        counts = self._counts()
         peak = torch.cuda.max_memory_allocated()
-        self.kernel["launches"] = launches
-        log(f"  rng_field launches in the main-path run: {launches}")
-        if launches <= 0:
-            raise AssertionError("the main path never launched the kernel")
+        self.kernels["fold_quantize"]["launches"] = counts["fold_quantize"]
+        log(f"  launches in run_quantized({MAIN_NOBS}) + iter_chunks"
+            f"({2 * MAIN_NOBS}, quantized): {counts}")
+        if counts["fold_quantize"] <= 0:
+            raise AssertionError("the quantized path never launched the fused "
+                                 "kernel")
+        if counts["rng_field"] != 0:
+            raise AssertionError("the quantized path ran the unfused body")
 
         d = data.cpu().numpy()
         s = scl.cpu().numpy()
@@ -314,19 +558,16 @@ class Smoke:
             raise AssertionError("big-endian chunk differs from run_quantized")
 
         # dequantized channel means: draw_norm*nfold*<profile> + noise_df*norm
-        prof = ens._profiles_np.astype(np.float64)
         deq = d.astype(np.float64) * s[..., None] + o[..., None]
-        got = deq.mean(axis=(0, 1, 3))
-        want = (cfg.draw_norm * cfg.nfold * prof.mean(axis=1)
-                + cfg.noise_df * ens.noise_norm)
-        rel = np.abs(got / want - 1)
-        log(f"  channel means vs expectation: max rel dev {rel.max():.3g}")
+        rel = np.abs(deq.mean(axis=(0, 1, 3)) / expect - 1)
+        log(f"  dequantized channel means vs expectation: max rel dev "
+            f"{rel.max():.3g}")
         if rel.max() > 0.01:
             raise AssertionError("dequantized channel means off by > 1%")
+        del data, scl, offs, chunks, cd, cs, co, d, s, o, deq
 
         # steady state: the same chunk again, timed on the host clock
-        del data, scl, offs, chunks, cd, cs, co
-        reps = 5
+        reps = 20
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -344,11 +585,50 @@ class Smoke:
         log(f"  first run_quantized({MAIN_NOBS}) {t_rq:.3f} s; "
             f"iter_chunks({2 * MAIN_NOBS}, chunk {MAIN_NOBS}, big-endian, "
             f"host copy) {t_ic:.3f} s = {2 * MAIN_NOBS / t_ic:.1f} obs/s")
-        log(f"  steady iter_chunks({2 * MAIN_NOBS}): {t_ic2:.3f} s = "
+        log(f"  steady iter_chunks({2 * MAIN_NOBS}): {t_ic2:.4f} s = "
             f"{2 * MAIN_NOBS / t_ic2:.1f} obs/s")
-        log(f"  steady run_quantized({MAIN_NOBS}): {t_ss * 1e3:.2f} ms = "
-            f"{MAIN_NOBS / t_ss:.1f} obs/s; peak memory "
-            f"{peak / 2**30:.2f} GiB ({name}, {self.card_line})")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = ens.run_quantized(MAIN_NOBS, seed=0)
+        torch.cuda.synchronize()
+        chunk_peak = torch.cuda.max_memory_allocated() - base
+        del out
+        log(f"  steady run_quantized({MAIN_NOBS}): {t_ss * 1e3:.3f} ms = "
+            f"{MAIN_NOBS / t_ss:.1f} obs/s; peak memory of one chunk "
+            f"{chunk_peak / 2**30:.3f} GiB, of run_quantized + iter_chunks "
+            f"{peak / 2**30:.3f} GiB ({name}, {self.card_line})")
+
+        # (b) the float path: FoldEnsemble.run, sampler kernel
+        torch.cuda.synchronize()
+        self._zero_counts()
+        blocks = ens.run(FLOAT_NOBS, seed=0)
+        torch.cuda.synchronize()
+        counts = self._counts()
+        self.kernels["rng_field"]["launches"] = counts["rng_field"]
+        log(f"  launches in run({FLOAT_NOBS}): {counts}")
+        if counts["rng_field"] <= 0:
+            raise AssertionError("the float path never launched the sampler")
+        if counts["fold_quantize"] != 0:
+            raise AssertionError("the float path launched the fused kernel")
+        if tuple(blocks.shape) != (FLOAT_NOBS, cfg.meta.nchan, cfg.nsamp):
+            raise AssertionError(f"unexpected shape {tuple(blocks.shape)}")
+        if not bool(torch.isfinite(blocks).all()):
+            raise AssertionError("non-finite samples in run")
+        rel = np.abs(blocks.double().mean(dim=(0, 2)).cpu().numpy() / expect - 1)
+        log(f"  float channel means vs expectation: max rel dev {rel.max():.3g}")
+        if rel.max() > 0.01:
+            raise AssertionError("float channel means off by > 1%")
+        del blocks
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            out = ens.run(FLOAT_NOBS, seed=0)
+        torch.cuda.synchronize()
+        t_run = (time.perf_counter() - t0) / 5
+        del out
+        log(f"  steady run({FLOAT_NOBS}): {t_run * 1e3:.3f} ms = "
+            f"{FLOAT_NOBS / t_run:.1f} obs/s ({self.card_line})")
 
     # -- optional -----------------------------------------------------------
     def profile(self):
@@ -390,6 +670,11 @@ class Smoke:
             f"on {self.card_line}")
         for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]:
             log(f"  {us / 1e3:9.3f} ms {n:4d}x  {name[:110]}")
+        log("  host: self CPU time by operator")
+        host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+        for ev in host[:12]:
+            log(f"  {ev.self_cpu_time_total / 1e3:9.3f} ms {ev.count:4d}x  "
+                f"{ev.key[:100]}")
 
     # -- 6 ------------------------------------------------------------------
     def parity(self):
@@ -426,44 +711,75 @@ class Smoke:
     # -- 7 ------------------------------------------------------------------
     def measure(self):
         torch = self.torch
+        from psrsigsim_torch.ops import fold_quantize as fq
         from psrsigsim_torch.ops import rng_hw
         from psrsigsim_torch.utils import key, stage_key
 
+        # the sampler: one chi2_wh field at the main path's shape
         B, C, L = MAIN_NOBS, MAIN["nchan"], self.main_ensemble().cfg.nsamp
         k = stage_key(stage_key(key(0, self.dev), "user",
                                 torch.arange(B, device=self.dev)), "pulse")
-        seeds = torch.where(k >= 2**31, k - 2**32, k).to(torch.int32).contiguous()
+        seeds = rng_hw.seed_words(k).contiguous()
         dfs = torch.full((B,), 12000.0, device=self.dev)
         pos = torch.zeros((B, 2), dtype=torch.int32, device=self.dev)
-        ms = cuda_time_ms(lambda: rng_hw.rng_field(seeds, dfs, pos, "chi2_wh",
-                                                   C, L), 20)
+        by_tiles = {t: cuda_time_ms(lambda t=t: rng_hw.rng_field(
+            seeds, dfs, pos, "chi2_wh", C, L, tiles=t), 20) for t in (1, 2, 4)}
+        ms = by_tiles[1]  # the shipped launch: one tile per CUDA block
         plain_ms = cuda_time_ms(lambda: rng_hw.rng_field_plain(
             seeds, dfs, pos, "chi2_wh", C, L), 1)
         library_ms = cuda_time_ms(lambda: torch.randn(
             (B, C, L), device=self.dev), 20)
         n = B * C * L
-        bytes_moved = 4 * n + B * (8 + 4 + 8)
-        t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-        t_ops = RNG_OPS_PER_SAMPLE * n / PEAK_OPS_PER_S * 1e3
-        self.kernel.update(
+        b_ms, b_by, parts = bound(DRAW_OPS, n, 4 * n + B * (8 + 4 + 8))
+        self.kernels["rng_field"].update(
             name="rng_field", route="cuda",
             source="psrsigsim_torch/csrc/rng_field.cu",
             replaces="psrsigsim_tpu/ops/rng_pallas.py:115",
-            ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=library_ms)
-        log(f"  rng_field (B={B}, C={C}, L={L}, chi2_wh): {ms:.4f} ms; plain "
+        one_call = RNG_OPS_PER_SAMPLE_ONE_CALL * n / PEAK_OPS_PER_S * 1e3
+        log(f"  rng_field (B={B}, C={C}, L={L}, chi2_wh): {ms:.4f} ms "
+            f"(tiles per block 1/2/4: "
+            f"{', '.join(f'{v:.4f}' for v in by_tiles.values())} ms); plain "
             f"{plain_ms:.2f} ms; torch.randn {library_ms:.4f} ms; bound "
-            f"{max(t_bytes, t_ops):.4f} ms ({self.kernel['bound_by']}: bytes "
-            f"{t_bytes:.4f}, ops {t_ops:.4f}) on {self.card_line}")
+            f"{b_ms:.4f} ms, {b_by} ({fmt_parts(parts)}; one-call-per-sample "
+            f"single-rate count {one_call:.4f}) on {self.card_line}")
+
+        # the fused kernel: the main path's chunk
+        a, kw, _ = self.main_fused_args()
+        Bf, Cf, nph = a["prof"].shape
+        nsub = kw["nsub"]
+        ms = cuda_time_ms(lambda: fq.fold_quantize(**a, **kw), 20)
+        ms_big = cuda_time_ms(lambda: fq.fold_quantize(**a, **kw,
+                                                       byte_order="big"), 20)
+        plain_ms = cuda_time_ms(lambda: fq.fold_quantize_plain(**a, **kw), 1)
+        n = Bf * Cf * nsub * nph
+        nbytes = (4 * Bf * Cf * nph                   # shifted portraits
+                  + 2 * Bf * nsub * Cf * (nph + 4)    # packed codes
+                  + Bf * nsub * Cf                    # finite flags
+                  + Bf * (2 * 8 + 2 * 4 + 4))         # seeds, dfs, norms
+        b_ms, b_by, parts = bound(FUSED_OPS, n, nbytes)
+        self.kernels["fold_quantize"].update(
+            name="fold_quantize", route="cuda",
+            source="psrsigsim_torch/csrc/fold_quantize.cu",
+            replaces="psrsigsim_tpu/simulate/pipeline.py:272 (XLA fusion "
+                     "with psrsigsim_tpu/parallel/ensemble.py:284-322)",
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None)
+        log(f"  fold_quantize (B={Bf}, C={Cf}, nsub={nsub}, nph={nph}): "
+            f"{ms:.4f} ms (big-endian {ms_big:.4f}); plain {plain_ms:.2f} ms; "
+            f"bound {b_ms:.4f} ms, {b_by} ({fmt_parts(parts)}) on "
+            f"{self.card_line}")
 
     def run(self, with_profile=False):
         self.phase("1 card", self.card)
         built = self.phase("2 build", self.build)
         if built:
-            self.phase("3 kernel vs plain", self.kernel_vs_plain)
+            self.phase("3 rng_field vs plain", self.kernel_vs_plain)
+            self.phase("3b fold_quantize vs plain and unfused",
+                       self.fused_vs_plain)
             self.phase("4 statistics", self.statistics)
-            self.phase("5 main path", self.main_path)
+            self.phase("5 main paths", self.main_path)
             if with_profile:
                 self.phase("5b profile", self.profile)
         self.phase("6 threefry parity", self.parity)
@@ -475,7 +791,8 @@ class Smoke:
         keys = ("name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
-        print(json.dumps({"kernels": [{k: self.kernel[k] for k in keys}]}))
+        print(json.dumps({"kernels": [{k: kern[k] for k in keys}
+                                      for kern in self.kernels.values()]}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": self.torch.cuda.get_device_name(0),
             "count": self.torch.cuda.device_count()}}))

@@ -1,2 +1,2 @@
 """CUDA C++ sources of the port's hand-written kernels, compiled with nvcc
-on first use (see :func:`psrsigsim_torch.ops.rng_hw.build`)."""
+on first use (see :mod:`psrsigsim_torch.ops._build`)."""

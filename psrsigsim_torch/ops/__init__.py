@@ -2,10 +2,12 @@
 
 Plain functions on tensors: the random fields (:mod:`.stats`, with the
 CUDA sampler kernel in :mod:`.rng_hw`), the Fourier shift (:mod:`.shift`,
-on :mod:`.dfloat`), and the PSRFITS quantizer (:mod:`.quantize`); plus the
+on :mod:`.dfloat`), the PSRFITS quantizer (:mod:`.quantize`) and the fused
+fold → quantize → pack kernel (:mod:`.fold_quantize`); plus the
 host helpers the portrait layer needs (:mod:`.interp`, :mod:`.window`).
 """
 
+from . import fold_quantize
 from .interp import PchipCoeffs, pchip_eval_np, pchip_fit_np
 from .quantize import clip_cast, subint_dequantize, subint_quantize, swap16
 from .rng_hw import hw_chan_field, rng_field, rng_field_plain
@@ -25,6 +27,7 @@ __all__ = [
     "rng_field",
     "rng_field_plain",
     "hw_chan_field",
+    "fold_quantize",
     "fourier_shift",
     "chan_chi2_field",
     "chan_normal_field",

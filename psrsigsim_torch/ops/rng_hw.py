@@ -4,15 +4,19 @@ psrsigsim_tpu/ops/rng_pallas.py).
 The fold pipelines are random-draw bound: every observation draws two full
 ``(Nchan, Nsamp)`` χ² fields against one tiny profile FFT.  On a TPU the
 JAX package draws them with a Pallas kernel on the hardware PRNG; here
-they come from a hand-written CUDA kernel, ``csrc/rng_field.cu``:
+they come from a hand-written CUDA kernel, ``csrc/rng_field.cu``, on the
+stream of ``csrc/philox_field.cuh``:
 
-    Philox4x32-10 bits -> 24-bit uniforms -> Box-Muller normal -> (χ²)
+    Philox4x32-10, four words -> two pairs of 24-bit uniforms ->
+    Box-Muller, both branches -> four normals -> (χ²)
 
 seeded per (batch element, GLOBAL 8-channel group, GLOBAL 4096-sample RNG
-block) from the key data with the TPU kernel's murmur3 mixing, so any split
-of channels or time draws the same samples.  The stream is not the TPU's
-(its hardware bits cannot be reproduced elsewhere): psrsigsim_torch/
-DIVERGENCES.md P1.
+block) from the key data with the TPU kernel's murmur3 mixing; sample ``e``
+of the 8×4096 tile is lane ``e & 3`` (cos A, sin A, cos B, sin B) of the
+call on counter ``e >> 2``, so any split of channels or time draws the same
+samples.  The stream is not the TPU's (its hardware bits cannot be
+reproduced elsewhere): psrsigsim_torch/DIVERGENCES.md P1.  The fused kernel
+of :mod:`.fold_quantize` draws the same samples.
 
 * :func:`rng_field` — the wrapper.  A CUDA tensor launches the kernel (the
   launch is counted in ``rng_field.launches``); a CPU tensor runs
@@ -20,30 +24,26 @@ DIVERGENCES.md P1.
   ops.  There is no fallback from one to the other.
 * :func:`hw_chan_field` — the key-data → seed-words glue the pipelines
   call (reference: ``hw_chan_field``).
-* :func:`build` — compiles the kernel with ``nvcc`` into a shared library
-  with a plain C interface (loaded with ctypes) under ``build/``, at first
-  use.  Nothing is compiled at import.
+
+The kernel is built by :mod:`._build` at first use.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from . import _build
 from .stats import wilson_hilferty
 
-__all__ = ["RNG_BLOCK", "CHAN_GROUP", "MODES", "build", "rng_field",
-           "rng_field_plain", "hw_chan_field"]
+__all__ = ["RNG_BLOCK", "CHAN_GROUP", "MODES", "rng_field", "rng_field_plain",
+           "hw_chan_field", "seed_words"]
 
 RNG_BLOCK = 4096  # must equal ops.stats.SEQ_RNG_BLOCK
 CHAN_GROUP = 8    # channels per independent stream
 _TILE = CHAN_GROUP * RNG_BLOCK
+LANES = 4         # samples per Philox call
 
 MODES = {"normal": 0, "chi2_1": 1, "chi2_wh": 2, "chi2_sel": 3}
 
@@ -57,11 +57,6 @@ _PHILOX_W0 = 0x9E3779B9
 _PHILOX_W1 = 0xBB67AE85
 _INV24 = 2.0 ** -24
 _TWO_PI = float(torch.tensor(6.283185307179586, dtype=torch.float32))
-
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "rng_field.cu"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
 
 
 # -- plain version --------------------------------------------------------------
@@ -93,7 +88,7 @@ def _mix32(h):
 
 
 def philox_bits(h0, h1, counter):
-    """Output words 0 and 1 of Philox4x32-10 keyed by ``(h0, h1)`` on the
+    """The four output words of Philox4x32-10 keyed by ``(h0, h1)`` on the
     counter ``(counter, 0, 0, 0)`` (int64 tensors of uint32 values,
     broadcasting)."""
     k0, k1 = h0, h1
@@ -106,16 +101,28 @@ def philox_bits(h0, h1, counter):
         hi0, lo0 = _mulhilo32(_PHILOX_M0, x0)
         hi1, lo1 = _mulhilo32(_PHILOX_M1, x2)
         x0, x1, x2, x3 = hi1 ^ x1 ^ k0, lo1, hi0 ^ x3 ^ k1, lo0
-    return x0, x1
+    return x0, x1, x2, x3
 
 
-def transform(bits1, bits2, mode, df):
-    """Bits → value, the TPU kernel's arithmetic (rng_pallas.py:143-161):
-    24-bit uniforms, Box-Muller (cos branch), then the mode's χ² map.
-    ``df`` is a float32 scalar tensor."""
+def _box_muller(bits1, bits2):
+    """One Box-Muller pair from two words: 24-bit uniforms ``u1`` in (0, 1]
+    and ``u2`` in [0, 1), then ``(r·cos, r·sin)`` of ``2π·u2`` with
+    ``r = sqrt(-2·log u1)``."""
     u1 = ((bits1 & 0x00FFFFFF).to(torch.float32) + 1.0) * _INV24
     u2 = (bits2 & 0x00FFFFFF).to(torch.float32) * _INV24
-    z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI * u2)
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    theta = _TWO_PI * u2
+    return r * torch.cos(theta), r * torch.sin(theta)
+
+
+def transform(w0, w1, w2, w3, mode, df):
+    """Four words → four values ``(..., 4)`` in lane order cos A, sin A,
+    cos B, sin B: Box-Muller on words (0, 1) and (2, 3), then the mode's χ²
+    map, the TPU kernel's arithmetic (rng_pallas.py:143-161) on every lane.
+    ``df`` is a float32 scalar tensor."""
+    cos_a, sin_a = _box_muller(w0, w1)
+    cos_b, sin_b = _box_muller(w2, w3)
+    z = torch.stack([cos_a, sin_a, cos_b, sin_b], dim=-1)
     if mode == "normal":
         return z
     if mode == "chi2_1":
@@ -129,15 +136,15 @@ def transform(bits1, bits2, mode, df):
 def rng_field_plain(seeds, dfs, pos, mode, nchan, length, bits=philox_bits):
     """The kernel's function in torch ops, on any device: ``(B, nchan,
     length)`` float32.  One batch element at a time keeps the int64
-    intermediates small.  ``bits(h0, h1, counter)`` supplies the two random
-    words (the tests feed zeros through it)."""
+    intermediates small.  ``bits(h0, h1, counter)`` supplies the four
+    random words (the tests feed zeros through it)."""
     _check_args(seeds, dfs, pos, mode, nchan, length)
     dev = seeds.device
     B = seeds.shape[0]
     ngrp = -(-nchan // CHAN_GROUP)
     nblk = -(-length // RNG_BLOCK)
     out = torch.empty((B, nchan, length), dtype=torch.float32, device=dev)
-    counter = torch.arange(_TILE, dtype=torch.int64, device=dev)
+    counter = torch.arange(_TILE // LANES, dtype=torch.int64, device=dev)
     grp = torch.arange(ngrp, dtype=torch.int64, device=dev)
     blk = torch.arange(nblk, dtype=torch.int64, device=dev)
     s64 = seeds.to(torch.int64) & _MASK32
@@ -148,8 +155,8 @@ def rng_field_plain(seeds, dfs, pos, mode, nchan, length, bits=philox_bits):
         h0 = _mix32(s64[b, 0] ^ ((_mul_lo32(cg, _GOLD) + 0x5851) & _MASK32))
         h1 = _mix32(s64[b, 1] ^ _mul_lo32(gb, _M1)[None, :]
                     ^ ((_mul_lo32(cg, _M2) + 0x7F4A) & _MASK32)[:, None])
-        w0, w1 = bits(h0[:, None, None], h1[:, :, None], counter)
-        val = transform(w0, w1, mode, dfs[b])                  # (G, N, 8*4096)
+        words = bits(h0[:, None, None], h1[:, :, None], counter)
+        val = transform(*words, mode, dfs[b])                  # (G, N, 8192, 4)
         val = val.reshape(ngrp, nblk, CHAN_GROUP, RNG_BLOCK)
         val = val.permute(0, 2, 1, 3).reshape(ngrp * CHAN_GROUP,
                                               nblk * RNG_BLOCK)
@@ -157,60 +164,16 @@ def rng_field_plain(seeds, dfs, pos, mode, nchan, length, bits=philox_bits):
     return out
 
 
-# -- kernel build and launch ---------------------------------------------------
+# -- kernel launch ----------------------------------------------------------------
 
 
-# the checkout's build/ (ignored by git); an installed package, with no
-# checkout around it, builds beside its own sources instead
-_PKG_DIR = Path(__file__).resolve().parents[1]
-_BUILD_DIR = (_PKG_DIR.parent / "build"
-              if (_PKG_DIR.parent / "pyproject.toml").exists()
-              else _PKG_DIR / "build")
-
-
-def _nvcc():
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(cuda_home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return found
-
-
-_LIB = None
-
-
-def build():
-    """Compile ``csrc/rng_field.cu`` into ``build/`` (once per source and
-    flag set: the library name carries their hash) and load it.  Returns
-    the ctypes library; after a fresh compile ``lib.build_log`` holds
-    nvcc's output (ptxas register and spill counts), else it is empty."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    src = _SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    so = _BUILD_DIR / f"rng_field-{digest[:16]}.so"
-    log = ""
-    if not so.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = _BUILD_DIR / f".rng_field-{digest[:16]}-{os.getpid()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        log = proc.stdout + proc.stderr
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    lib.build_log = log
-    lib.rng_field_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
-    lib.rng_field_launch.restype = ctypes.c_int
-    _LIB = lib
+def _lib():
+    lib = _build.library("rng_field")
+    fn = lib.rng_field_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -233,14 +196,15 @@ def _check_args(seeds, dfs, pos, mode, nchan, length):
         raise ValueError("seeds, dfs and pos must be on one device")
 
 
-def rng_field(seeds, dfs, pos, mode, nchan, length):
+def rng_field(seeds, dfs, pos, mode, nchan, length, tiles=1):
     """``(B, nchan, length)`` float32 random fields.
 
     ``seeds`` ``(B, 2)`` int32 key-data words, ``dfs`` ``(B,)`` float32 χ²
     degrees of freedom (read by the ``chi2_wh``/``chi2_sel`` modes),
     ``pos`` ``(B, 2)`` int32 (first global channel group, first global RNG
-    block).  CUDA tensors launch the kernel on the current stream; CPU
-    tensors run :func:`rng_field_plain`.
+    block).  CUDA tensors launch the kernel on the current stream, with
+    ``tiles`` RNG blocks per CUDA block (the values do not depend on it);
+    CPU tensors run :func:`rng_field_plain`.
     """
     _check_args(seeds, dfs, pos, mode, nchan, length)
     dev = seeds.device
@@ -254,12 +218,12 @@ def rng_field(seeds, dfs, pos, mode, nchan, length):
     if not (seeds.is_contiguous() and dfs.is_contiguous()
             and pos.is_contiguous()):
         raise ValueError("seeds, dfs and pos must be contiguous")
-    lib = build()
+    lib = _lib()
     out = torch.empty((B, nchan, length), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.rng_field_launch(seeds.data_ptr(), dfs.data_ptr(),
                                pos.data_ptr(), out.data_ptr(), B, nchan,
-                               length, MODES[mode], stream)
+                               length, MODES[mode], int(tiles), stream)
     if err != 0:
         raise RuntimeError(f"rng_field kernel launch failed: cudaError {err}")
     rng_field.launches += 1
@@ -279,8 +243,7 @@ def hw_chan_field(key, chan0, df, t0, *, mode, nchan, length):
     ``t0``: GLOBAL first sample, a multiple of :data:`RNG_BLOCK`.
     """
     lead = key.shape[:-1]
-    kd = key.reshape(-1, 2).to(torch.int64) & _MASK32
-    seeds = torch.where(kd >= 2**31, kd - 2**32, kd).to(torch.int32)
+    seeds = seed_words(key.reshape(-1, 2))
     B = seeds.shape[0]
     # scalars become fills, never host->device copies: a pageable copy
     # waits for the stream and would stall the host between launches
@@ -294,3 +257,10 @@ def hw_chan_field(key, chan0, df, t0, *, mode, nchan, length):
     pos[:, 1] = int(t0) // RNG_BLOCK
     out = rng_field(seeds.contiguous(), dfs, pos, mode, nchan, length)
     return out.reshape(lead + (nchan, length))
+
+
+def seed_words(key):
+    """Key data ``(..., 2)`` (uint32 values in an int64 tensor) as the
+    int32 seed words the kernels read, bit for bit."""
+    kd = key.to(torch.int64) & _MASK32
+    return torch.where(kd >= 2**31, kd - 2**32, kd).to(torch.int32)

@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 from ..ops.quantize import subint_quantize, swap16
-from ..simulate.pipeline import build_fold_config, fold_pipeline
+from ..simulate.pipeline import (build_fold_config, fold_pipeline,
+                                 fold_pipeline_quantized, fused_route)
 from ..utils.device import resolve_device, to_device
 from ..utils.rng import key, stage_key
 
@@ -139,7 +140,17 @@ class FoldEnsemble:
         """One batch through the pipeline, the finite guard and the
         quantizer: ``(packed, finite)`` with ``packed`` ``(B, nsub, C,
         nbin+4)`` int16 and ``finite`` ``(B, C)`` bool (True where every
-        sample was finite BEFORE quantization)."""
+        sample was finite BEFORE quantization).
+
+        On the card with the ``hw`` sampler in envelope mode this is one
+        fused kernel (:func:`~psrsigsim_torch.simulate.fold_pipeline_quantized`);
+        the threefry parity sampler, ``PSS_EXACT_SHIFT=1`` and the CPU run
+        the unfused float body, quantizer and packing.  The route follows
+        the configuration (:func:`~psrsigsim_torch.simulate.pipeline.fused_route`)."""
+        if fused_route(self.cfg, self.device):
+            return fold_pipeline_quantized(
+                keys, dms, norms, self._profiles, self.cfg, freqs=self._freqs,
+                chan_ids=self._chan_ids, byte_order=byte_order)
         blocks = self._blocks(keys, dms, norms)
         finite = torch.isfinite(blocks).all(dim=-1)
         data, scl, offs = subint_quantize(blocks, self.cfg.nsub, self.cfg.nph)
@@ -227,6 +238,9 @@ class FoldEnsemble:
                 block = (data, scl, offs)
                 if finite_mask:
                     block = block + (_fetch(finite[:count]),)
+                # the device buffer is on the host now: free it before the
+                # next chunk allocates its own
+                del packed, finite
             else:
                 block = _fetch(self._blocks(keys, dms_c, norms_c)[:count])
             yield start, block

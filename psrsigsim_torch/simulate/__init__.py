@@ -2,7 +2,10 @@
 ports the fold-mode pipeline)."""
 
 from .pipeline import (FoldPipelineConfig, build_fold_config,
-                       default_shift_mode, fold_pipeline, natural_nbin)
+                       default_shift_mode, fold_pipeline,
+                       fold_pipeline_quantized, fused_route,
+                       natural_nbin)
 
 __all__ = ["FoldPipelineConfig", "build_fold_config", "default_shift_mode",
-           "fold_pipeline", "natural_nbin"]
+           "fold_pipeline", "fold_pipeline_quantized", "fused_route",
+           "natural_nbin"]

@@ -19,19 +19,24 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..ops.fold_quantize import fold_quantize
+from ..ops.rng_hw import seed_words
 from ..ops.shift import fourier_shift
-from ..ops.stats import chan_chi2_field, uniform
+from ..ops.stats import (_exact_chi2_unported, _hw_chi2_mode,
+                         chan_chi2_field, sampler_backend, uniform)
 from ..signal.state import SignalMeta
 from ..utils.constants import DM_K_MS_MHZ2
 from ..utils.device import resolve_device, to_device
 from ..utils.rng import as_key, stage_key
 
 __all__ = ["default_shift_mode", "FoldPipelineConfig", "fold_pipeline",
-           "build_fold_config", "natural_nbin"]
+           "fold_pipeline_quantized", "fused_route", "build_fold_config",
+           "natural_nbin"]
 
 
 def default_shift_mode():
@@ -81,6 +86,54 @@ def _dispersion_delays(dm, freqs, extra_delays_ms):
     return delays_ms
 
 
+class _FoldFront(NamedTuple):
+    """What both fold routes start from (see :func:`_fold_front`)."""
+
+    dev: torch.device
+    lead: tuple
+    key: torch.Tensor         # observation keys, where ``key`` lies
+    kp: torch.Tensor          # pulse stage keys, where ``key`` lies
+    kn: torch.Tensor          # noise stage keys, where ``key`` lies
+    noise_norm: torch.Tensor  # (...) on dev
+    delays_ms: torch.Tensor   # (..., Nchan) on dev
+    profiles: torch.Tensor    # (Nchan, Nph) on dev
+    chan_ids: torch.Tensor
+    prof: torch.Tensor | None  # envelope mode: (..., Nchan, Nph) shifted
+
+
+def _fold_front(key, dm, noise_norm, profiles, cfg, freqs, chan_ids,
+                extra_delays_ms, device):
+    """The front half shared by :func:`fold_pipeline` and
+    :func:`fold_pipeline_quantized`: inputs on the device, the pulse and
+    noise stage keys, the DM (+ extra) delays and, in envelope mode, the
+    portrait shifted by them (one small ``(..., Nchan, Nph)`` FFT)."""
+    if isinstance(profiles, torch.Tensor):
+        dev = profiles.device
+    else:
+        dev = resolve_device(device)
+        profiles = torch.as_tensor(np.asarray(profiles, np.float32), device=dev)
+    key = as_key(key) if isinstance(key, torch.Tensor) else as_key(key, "cpu")
+    lead = key.shape[:-1]
+    f32 = torch.float32
+    dm = torch.as_tensor(dm, dtype=f32, device=dev).expand(lead)
+    noise_norm = torch.as_tensor(noise_norm, dtype=f32, device=dev).expand(lead)
+    if freqs is None:
+        freqs = np.asarray(cfg.meta.dat_freq_mhz(), np.float32)
+    freqs = torch.as_tensor(freqs, dtype=f32, device=dev)
+    if chan_ids is None:
+        chan_ids = torch.arange(freqs.shape[0])
+    if extra_delays_ms is not None:
+        extra_delays_ms = torch.as_tensor(extra_delays_ms, dtype=f32, device=dev)
+    delays_ms = _dispersion_delays(dm, freqs, extra_delays_ms)
+    # dispersion applied to the PERIODIC envelope: one small (Nchan, Nph)
+    # FFT instead of the full-length pair
+    prof = (fourier_shift(profiles, delays_ms, dt=cfg.dt_ms)
+            if cfg.shift_mode == "envelope" else None)
+    return _FoldFront(dev, lead, key, stage_key(key, "pulse"),
+                      stage_key(key, "noise"), noise_norm, delays_ms,
+                      profiles, chan_ids, prof)
+
+
 def fold_pipeline(key, dm, noise_norm, profiles, cfg, freqs=None,
                   chan_ids=None, extra_delays_ms=None, null_frac=None,
                   device=None):
@@ -113,59 +166,95 @@ def fold_pipeline(key, dm, noise_norm, profiles, cfg, freqs=None,
     Returns:
         ``(..., Nchan, nsub*Nph)`` float32 blocks (unclipped).
     """
-    if isinstance(profiles, torch.Tensor):
-        dev = profiles.device
-    else:
-        dev = resolve_device(device)
-        profiles = torch.as_tensor(np.asarray(profiles, np.float32), device=dev)
-    key = as_key(key) if isinstance(key, torch.Tensor) else as_key(key, "cpu")
-    lead = key.shape[:-1]
-    f32 = torch.float32
-    dm = torch.as_tensor(dm, dtype=f32, device=dev).expand(lead)
-    noise_norm = torch.as_tensor(noise_norm, dtype=f32, device=dev).expand(lead)
-    if freqs is None:
-        freqs = np.asarray(cfg.meta.dat_freq_mhz(), np.float32)
-    freqs = torch.as_tensor(freqs, dtype=f32, device=dev)
-    if chan_ids is None:
-        chan_ids = torch.arange(freqs.shape[0])
-    if extra_delays_ms is not None:
-        extra_delays_ms = torch.as_tensor(extra_delays_ms, dtype=f32, device=dev)
-
+    f = _fold_front(key, dm, noise_norm, profiles, cfg, freqs, chan_ids,
+                    extra_delays_ms, device)
+    dev, lead = f.dev, f.lead
     nsub, nph = cfg.nsub, cfg.nph
     nsamp = nsub * nph
-    nchan = profiles.shape[0]
-    kp = to_device(stage_key(key, "pulse"), dev)
-    kn = to_device(stage_key(key, "noise"), dev)
-    delays_ms = _dispersion_delays(dm, freqs, extra_delays_ms)
+    nchan = f.profiles.shape[0]
 
     # pulse term: tiled portrait x chi2(nfold) x draw_norm, written into the
     # pulse field in place (the product commutes, so the rounding is the
     # reference's; a draw_norm of 1.0, as for float32 signals, is exact and
     # skips its pass over the block)
-    block = _chan_chi2(kp, chan_ids, cfg.nfold, nsamp)
+    block = _chan_chi2(to_device(f.kp, dev), f.chan_ids, cfg.nfold, nsamp)
+    shape = lead + (nchan, nsub, nph)
     if cfg.shift_mode == "envelope":
-        # dispersion applied to the PERIODIC envelope: one small
-        # (Nchan, Nph) FFT instead of the full-length pair
-        prof = fourier_shift(profiles, delays_ms, dt=cfg.dt_ms)
-        block.view(lead + (nchan, nsub, nph)).mul_(prof[..., None, :])
+        block.view(shape).mul_(f.prof[..., None, :])
     else:
-        block.view(lead + (nchan, nsub, nph)).mul_(profiles[:, None, :])
+        block.view(shape).mul_(f.profiles[:, None, :])
     if cfg.draw_norm != 1.0:
         block.mul_(cfg.draw_norm)
     if cfg.shift_mode != "envelope":
-        block = fourier_shift(block, delays_ms, dt=cfg.dt_ms)
+        block = fourier_shift(block, f.delays_ms, dt=cfg.dt_ms)
 
     if null_frac is not None:
         # per-subint nulling between synthesis and noise, on its own stage
-        u = to_device(uniform(stage_key(key, "null_select"), nsub), dev)
-        nf = torch.as_tensor(null_frac, dtype=f32, device=dev).expand(lead)
-        live = (u >= nf[..., None]).to(f32)
-        block.view(lead + (nchan, nsub, nph)).mul_(live[..., None, :, None])
+        u = to_device(uniform(stage_key(f.key, "null_select"), nsub), dev)
+        nf = torch.as_tensor(null_frac, dtype=torch.float32,
+                             device=dev).expand(lead)
+        live = (u >= nf[..., None]).to(torch.float32)
+        block.view(shape).mul_(live[..., None, :, None])
 
     # radiometer noise, added after dispersion (never shifted)
-    noise = _chan_chi2(kn, chan_ids, cfg.noise_df, nsamp)
-    noise.mul_(noise_norm[..., None, None])
+    noise = _chan_chi2(to_device(f.kn, dev), f.chan_ids, cfg.noise_df, nsamp)
+    noise.mul_(f.noise_norm[..., None, None])
     return block.add_(noise)
+
+
+def fused_route(cfg, device, null_frac=None):
+    """Whether the fold → quantize → pack body runs as the one fused kernel
+    (:func:`fold_pipeline_quantized`): on a CUDA device, with the ``hw``
+    sampler, in envelope mode and without nulling.  Decided from the
+    configuration alone, before anything is launched; the threefry parity
+    sampler (``PSS_SAMPLER=threefry``), ``PSS_EXACT_SHIFT=1`` and the CPU
+    keep the unfused path."""
+    return (torch.device(device).type == "cuda"
+            and sampler_backend(device) == "hw"
+            and cfg.shift_mode == "envelope" and null_frac is None)
+
+
+def fold_pipeline_quantized(key, dm, noise_norm, profiles, cfg, freqs=None,
+                            chan_ids=None, extra_delays_ms=None,
+                            byte_order="little", device=None):
+    """:func:`fold_pipeline` in envelope mode on the ``hw`` sampler's
+    stream, quantized per (subint, channel) and packed, in one kernel
+    (:func:`~psrsigsim_torch.ops.fold_quantize.fold_quantize`): the float
+    block never exists.
+
+    Arguments as for :func:`fold_pipeline`; ``byte_order="big"``
+    byte-swaps the codes.  Returns ``(packed, finite)``: ``(..., nsub,
+    Nchan, Nph+4)`` int16 (codes, then DAT_SCL and DAT_OFFS as int16
+    halves, the layout ``FoldEnsemble.iter_chunks`` transports) and the
+    ``(..., Nchan)`` finite guard.  The codes equal the unfused path's
+    (hw fields → :func:`fold_pipeline` → ``subint_quantize`` → pack) bit
+    for bit.
+    """
+    if cfg.shift_mode != "envelope":
+        raise ValueError("the fused route shifts the periodic envelope; "
+                         f"shift_mode={cfg.shift_mode!r} takes fold_pipeline")
+    f = _fold_front(key, dm, noise_norm, profiles, cfg, freqs, chan_ids,
+                    extra_delays_ms, device)
+    modes = (_hw_chi2_mode(cfg.nfold), _hw_chi2_mode(cfg.noise_df))
+    for df, mode in zip((cfg.nfold, cfg.noise_df), modes):
+        if mode is None:
+            _exact_chi2_unported(df)
+    nchan = f.profiles.shape[0]
+    # the seed words of both stages and their dfs cross in one copy each
+    seeds = to_device(seed_words(torch.stack([f.kp, f.kn]).reshape(2, -1, 2)),
+                      f.dev)
+    B = seeds.shape[1]
+    dfs = torch.tensor([[0.0 if m == "chi2_1" else df] * B
+                        for df, m in zip((cfg.nfold, cfg.noise_df), modes)],
+                       dtype=torch.float32)
+    packed, finite = fold_quantize(
+        seeds, to_device(dfs, f.dev), modes,
+        f.prof.reshape(B, nchan, cfg.nph).contiguous(),
+        f.noise_norm.reshape(B).contiguous(), nsub=cfg.nsub,
+        draw_norm=cfg.draw_norm, chan0=int(f.chan_ids[0]), t0=0,
+        byte_order=byte_order)
+    return (packed.reshape(f.lead + packed.shape[1:]),
+            finite.reshape(f.lead + (nchan,)))
 
 
 def natural_nbin(signal, pulsar):

@@ -7,7 +7,8 @@ bound is 2 ulp (a handful of values in a million round differently).  The
 χ² fields apply the reference's float32 transforms to those normals and
 are held to 4 ulp.  The CUDA sampler's plain version is held to the TPU
 kernel's own arithmetic through Pallas interpret mode, whose PRNG stub
-returns zero bits.
+returns zero bits: the port's cos lanes equal it, its sin lanes equal the
+same arithmetic with sin.
 
 Reference values come from a child process (this file run as a script),
 which applies the JAX-version shim the reference needs to import its ops
@@ -149,30 +150,54 @@ def test_chan_chi2_field_threefry_within_4_ulp(ref, case, monkeypatch):
     assert _ulp(got, ref[f"field{case}"]).max() <= 4
 
 
+def _sin_lane_zero_bits(mode, df):
+    """The sin branch of Box-Muller on zero bits, in float32 with the TPU
+    kernel's arithmetic (rng_pallas.py:143-161) and sin for cos."""
+    f = np.float32
+    u1 = f((f(0) + f(1)) * f(2.0**-24))
+    z = np.sqrt(f(-2) * np.log(u1)) * np.sin(f(rng_hw._TWO_PI) * f(0))
+    if mode == "normal":
+        return z
+    if mode == "chi2_1" or (mode == "chi2_sel" and df == 1.0):
+        return z * z
+    k = f(df)
+    c = f(2) / (f(9) * k)
+    t = (f(1) - c) + z * np.sqrt(c)
+    return max(k * (t * (t * t)), f(0))
+
+
 @pytest.mark.parametrize("case", range(len(HW_CASES)))
 def test_plain_transform_equals_tpu_kernel_arithmetic(ref, case):
-    """Zero bits through the plain version equal the TPU kernel run in
-    interpret mode (whose PRNG stub returns zeros), mode by mode."""
+    """Zero bits through the plain version: the cos lanes (0 and 2 of each
+    Philox call, columns 0 and 2 mod 4) equal the TPU kernel run in
+    interpret mode (whose PRNG stub returns zeros), mode by mode; the sin
+    lanes equal the same arithmetic with sin."""
     mode, df = HW_CASES[case]
 
     def zero_bits(h0, h1, counter):
         shape = torch.broadcast_shapes(h0.shape, h1.shape, counter.shape)
         z = torch.zeros(shape, dtype=torch.int64)
-        return z, z
+        return z, z, z, z
 
     seeds = torch.tensor([[0, 7]], dtype=torch.int32)
     pos = torch.tensor([[8 // rng_hw.CHAN_GROUP, 4096 // rng_hw.RNG_BLOCK]],
                        dtype=torch.int32)
     got = rng_hw.rng_field_plain(seeds, torch.tensor([df]), pos, mode, 12,
                                  5000, bits=zero_bits)[0].numpy()
-    np.testing.assert_array_equal(got, ref[f"hw{case}"])
+    cos_lane = np.arange(5000) % 2 == 0
+    np.testing.assert_array_equal(got[:, cos_lane], ref[f"hw{case}"][:, cos_lane])
+    np.testing.assert_array_equal(got[:, ~cos_lane],
+                                  np.full((12, 2500), _sin_lane_zero_bits(mode, df),
+                                          np.float32))
 
 
 def test_philox_known_answer():
-    """Random123's Philox4x32-10 known-answer vector (key 0, counter 0)."""
+    """Random123's Philox4x32-10 known-answer vector (key 0, counter 0):
+    all four output words."""
     z = torch.tensor(0, dtype=torch.int64)
-    w0, w1 = rng_hw.philox_bits(z, z, z)
-    assert (int(w0), int(w1)) == (0x6627E8D5, 0xE169C58D)
+    words = rng_hw.philox_bits(z, z, z)
+    assert tuple(int(w) for w in words) == (0x6627E8D5, 0xE169C58D,
+                                            0xBC57AC4C, 0x9B00DBD8)
 
 
 def test_hw_plain_split_invariance():
@@ -280,13 +305,18 @@ def test_kernel_matches_plain_version_on_card():
         pytest.skip("needs an NVIDIA GPU (CUDA kernel, no CPU mode)")
     dev = torch.device("cuda")
     keys = rng.fold_in(rng.key(1, device=dev), torch.arange(3, device=dev))
+    seeds = rng_hw.seed_words(keys)
+    pos = torch.tensor([[1, 2]] * 3, dtype=torch.int32, device=dev)
     for mode, df in HW_CASES:
         dfs = torch.full((3,), df, device=dev)
-        seeds = torch.where(keys >= 2**31, keys - 2**32, keys).to(torch.int32)
-        pos = torch.tensor([[1, 2]] * 3, dtype=torch.int32, device=dev)
-        got = rng_hw.rng_field(seeds, dfs, pos, mode, 12, 5000)
-        want = rng_hw.rng_field_plain(seeds, dfs, pos, mode, 12, 5000)
-        torch.testing.assert_close(got, want, rtol=4 * 2.0**-23, atol=1e-6)
+        # 5000: float4 stores; 4999: a ragged last quad and scalar stores
+        for length in (5000, 4999):
+            want = rng_hw.rng_field_plain(seeds, dfs, pos, mode, 12, length)
+            for tiles in (1, 2):
+                got = rng_hw.rng_field(seeds, dfs, pos, mode, 12, length,
+                                       tiles=tiles)
+                torch.testing.assert_close(got, want, rtol=4 * 2.0**-23,
+                                           atol=1e-6)
 
 
 if __name__ == "__main__":
