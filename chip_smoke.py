@@ -63,22 +63,24 @@ SMS, CLOCK_HZ = 132, 1.98e9
 RATES = {"int32": 64 * SMS * CLOCK_HZ, "fp32": 128 * SMS * CLOCK_HZ,
          "sfu": 16 * SMS * CLOCK_HZ}
 
-# Operations per output sample, by class, counted from the sources
-# (csrc/philox_field.cuh, rng_field.cu, fold_quantize.cu).  One Philox
-# call makes four samples: 10 rounds of 2 low and 2 high 32x32 multiplies
-# and 4 XORs plus 9 key bumps of 2 adds (98 integer), 4 mask ANDs, ~10 of
-# index arithmetic and bounds; two Box-Muller pairs of 7 float32 add/mul
-# each, and per sample the Wilson-Hilferty map (2 add/mul for t, 3
-# multiplies, 1 max: 6); per pair log, sqrt, sin and cos and 2 int->float
-# conversions (6 special).  The accurate libm routines expand into more
-# float work than one special op each, so the bound is a lower one.
-DRAW_OPS = {"int32": (98 + 4 + 10) / 4, "fp32": (2 * 7) / 4 + 6,
+# Operations per output sample, by class, that the function itself needs,
+# counted as ptxas emits them from the sources (csrc/philox_field.cuh,
+# rng_field.cu, fold_quantize.cu), without this implementation's index
+# arithmetic, bounds checks or packing.  One Philox4x32-10 call makes four
+# samples: 10 rounds of 2 low and 2 high 32x32 multiplies and 2 three-input
+# XORs (one LOP3 each), plus 9 key bumps of 2 adds (78 integer), and 4 mask
+# ANDs; two Box-Muller pairs of 7 float32 add/mul each, and per sample the
+# Wilson-Hilferty map (2 add/mul for t, 3 multiplies, 1 max: 6); per pair
+# log, sqrt, sin and cos and 2 int->float conversions (6 special).  The
+# accurate libm routines expand into more float work than one special op
+# each, so the bound is a lower one.
+PHILOX_INT_OPS = 78 + 4
+DRAW_OPS = {"int32": PHILOX_INT_OPS / 4, "fp32": (2 * 7) / 4 + 6,
             "sfu": (2 * 6) / 4}
-# the fused kernel: two draws per sample (their index arithmetic shared:
-# 2.5 per sample), the fold (2 multiplies, 1 add), min, max and isfinite
-# (3 compares), the quantizer (subtract and multiply; clamp 2 compares;
-# rint and float->int conversions), lane bounds (2) and packing (2)
-FUSED_OPS = {"int32": 2 * (98 + 4) / 4 + 2.5 + 3 + 2 + 2 + 2,
+# the fused kernel: two draws per sample, the fold (2 multiplies, 1 add),
+# min, max and isfinite (3 compares), the quantizer (subtract and
+# multiply; clamp 2 compares; rint and float->int conversions)
+FUSED_OPS = {"int32": 2 * DRAW_OPS["int32"] + 3 + 2,
              "fp32": 2 * DRAW_OPS["fp32"] + 3 + 2,
              "sfu": 2 * DRAW_OPS["sfu"] + 2}
 # the single-rate count of the first sampler design (one Philox call per
@@ -266,15 +268,12 @@ class Smoke:
             # 5000: float4 stores; 4999: a ragged last quad, scalar stores
             for length in (5000, 4999):
                 want = rng_hw.rng_field_plain(seeds, dfs, pos, mode, 13, length)
-                for tiles in (1, 2):
-                    got = rng_hw.rng_field(seeds, dfs, pos, mode, 13, length,
-                                           tiles=tiles)
-                    err, ok = ulp_close(got, want)
-                    if not ok:
-                        raise AssertionError(f"{mode} length {length} tiles "
-                                             f"{tiles}: kernel disagrees with "
-                                             "plain version")
-                    errs.append(err)
+                got = rng_hw.rng_field(seeds, dfs, pos, mode, 13, length)
+                err, ok = ulp_close(got, want)
+                if not ok:
+                    raise AssertionError(f"{mode} length {length}: kernel "
+                                         "disagrees with plain version")
+                errs.append(err)
             # an unaligned span: overdraw one block and slice, as the
             # pipelines' dispatch does
             span = stats._hw_field_span(keys, torch.arange(8, 21),
@@ -282,7 +281,7 @@ class Smoke:
             full = rng_hw.rng_field_plain(seeds, dfs, pos, mode, 13, 3 * 4096)
             err2, ok2 = ulp_close(span, full[..., 1234:6234])
             log(f"  {mode:8s} df={df:<8g} max|kernel-plain| {max(errs):.3g} "
-                f"(lengths 5000/4999, tiles 1/2; unaligned span {err2:.3g})")
+                f"(lengths 5000/4999; unaligned span {err2:.3g})")
             if not ok2:
                 raise AssertionError(f"{mode}: unaligned span disagrees")
             worst = max(worst, err2, *errs)
@@ -322,32 +321,26 @@ class Smoke:
 
         from psrsigsim_torch.ops import fold_quantize as fq
         from psrsigsim_torch.ops import rng_hw
-        from psrsigsim_torch.ops.quantize import subint_quantize, swap16
-        from psrsigsim_torch.parallel.ensemble import _pack_triple
         from psrsigsim_torch.simulate import fold_pipeline_quantized
         from psrsigsim_torch.utils import fold_in, key
 
         dev = self.dev
         worst = 0
 
-        def unfused(a, nsub, draw_norm=1.0, chan0=0, t0=0, byte_order="little"):
+        def unfused(a, nsub, chan0=0, t0=0, **kw):
+            """The sampler kernel's fields through the plain version's body
+            (fold, quantizer, packing)."""
             B, C, nph = a["prof"].shape
-            nsamp = nsub * nph
             b0, off = divmod(t0, rng_hw.RNG_BLOCK)
             pos = torch.tensor([[chan0 // rng_hw.CHAN_GROUP, b0]] * B,
                                dtype=torch.int32, device=dev)
-            f = [rng_hw.rng_field(a["seeds"][i].contiguous(),
-                                  a["dfs"][i].contiguous(), pos, a["modes"][i],
-                                  C, off + nsamp)[..., off:] for i in (0, 1)]
-            block = f[0].reshape(B, C, nsub, nph) * a["prof"][:, :, None, :]
-            if draw_norm != 1.0:
-                block = block * draw_norm
-            block = block.reshape(B, C, nsamp) + f[1] * a["noise_norm"][:, None, None]
-            finite = torch.isfinite(block).all(dim=-1)
-            d, s, o = subint_quantize(block, nsub, nph)
-            if byte_order == "big":
-                d = swap16(d)
-            return _pack_triple(d, s, o), finite
+            fields = [rng_hw.rng_field(a["seeds"][i].contiguous(),
+                                       a["dfs"][i].contiguous(), pos,
+                                       a["modes"][i], C,
+                                       off + nsub * nph)[..., off:]
+                      for i in (0, 1)]
+            return fq.fold_quantize_plain(**a, nsub=nsub, chan0=chan0, t0=t0,
+                                          fields=fields, **kw)
 
         def inputs(B, C, nph, modes, dfs, seed):
             r = np.random.default_rng(seed)
@@ -432,18 +425,14 @@ class Smoke:
         ens = self.main_ensemble()
         cfg = ens.cfg
         a, kw, (keys, dms, norms) = self.main_fused_args()
-        blocks = ens._blocks(keys, dms, norms)
-        finite = torch.isfinite(blocks).all(dim=-1)
-        d, s, o = subint_quantize(blocks, cfg.nsub, cfg.nph)
-        del blocks
         for order in ("little", "big"):
-            want = _pack_triple(swap16(d) if order == "big" else d, s, o)
+            want = ens._unfused_packed(keys, dms, norms, order)
             got = fold_pipeline_quantized(keys, dms, norms, ens._profiles, cfg,
                                           freqs=ens._freqs,
                                           chan_ids=ens._chan_ids,
                                           byte_order=order)
             compare(f"main path {tuple(got[0].shape)} {order}", got,
-                    {"unfused path": (want, finite),
+                    {"unfused path": want,
                      "plain version": fq.fold_quantize_plain(
                          **a, **kw, byte_order=order)})
             del want, got
@@ -722,9 +711,8 @@ class Smoke:
         seeds = rng_hw.seed_words(k).contiguous()
         dfs = torch.full((B,), 12000.0, device=self.dev)
         pos = torch.zeros((B, 2), dtype=torch.int32, device=self.dev)
-        by_tiles = {t: cuda_time_ms(lambda t=t: rng_hw.rng_field(
-            seeds, dfs, pos, "chi2_wh", C, L, tiles=t), 20) for t in (1, 2, 4)}
-        ms = by_tiles[1]  # the shipped launch: one tile per CUDA block
+        ms = cuda_time_ms(lambda: rng_hw.rng_field(seeds, dfs, pos, "chi2_wh",
+                                                   C, L), 20)
         plain_ms = cuda_time_ms(lambda: rng_hw.rng_field_plain(
             seeds, dfs, pos, "chi2_wh", C, L), 1)
         library_ms = cuda_time_ms(lambda: torch.randn(
@@ -738,9 +726,7 @@ class Smoke:
             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=library_ms)
         one_call = RNG_OPS_PER_SAMPLE_ONE_CALL * n / PEAK_OPS_PER_S * 1e3
-        log(f"  rng_field (B={B}, C={C}, L={L}, chi2_wh): {ms:.4f} ms "
-            f"(tiles per block 1/2/4: "
-            f"{', '.join(f'{v:.4f}' for v in by_tiles.values())} ms); plain "
+        log(f"  rng_field (B={B}, C={C}, L={L}, chi2_wh): {ms:.4f} ms; plain "
             f"{plain_ms:.2f} ms; torch.randn {library_ms:.4f} ms; bound "
             f"{b_ms:.4f} ms, {b_by} ({fmt_parts(parts)}; one-call-per-sample "
             f"single-rate count {one_call:.4f}) on {self.card_line}")

@@ -18,7 +18,7 @@
 //   code = clamp(rint((x - offs) * (65534 / span)), -32767, 32767)
 //
 // written straight into the packed (B, nsub, C, nph + 4) int16 layout of
-// parallel/ensemble.py::_pack_triple (codes optionally byte-swapped for
+// ops/quantize.py::pack_triple (codes optionally byte-swapped for
 // big-endian PSRFITS, then scl and offs as native-order int16 halves), plus
 // a per-row all-finite flag.
 //
@@ -33,7 +33,7 @@
 // twice instead, once to reduce and once to quantize — counter-based draws
 // make the second pass free of state.
 //
-// Bound: two draws per output sample, ~60 32-bit integer operations at 64
+// Bound: two draws per output sample, ~46 32-bit integer operations at 64
 // per SM per clock, against 2 bytes written per sample: operations, not
 // bytes (chip_smoke.py states both per instruction class).
 //

@@ -9,17 +9,18 @@
 // Bound.  The kernel writes 4 bytes per sample and reads nothing of size:
 // 1.34 GB on the main path (128 x 64 x 40960), 0.40 ms at 3.35 TB/s.  Its
 // instructions are mostly 32-bit integer work, which Hopper issues at 64
-// per SM per clock: Philox4x32-10 is ~98 integer operations per call, so
-// one call per sample would hold a field at that integer limit (~2.1 ms).
+// per SM per clock: Philox4x32-10 needs 78 integer operations per call (10
+// rounds of 4 multiplies and 2 three-input XORs, 9 key bumps of 2 adds), so
+// one call per sample would hold a field at >= 1.6 ms of integer issue.
 // The kernel keeps all four output words: one call makes two Box-Muller
 // pairs and both branches of each, four samples, a quarter of the integer
 // work per sample, and the thread stores the four contiguous samples of
 // one channel as one 16-byte float4 (scalar stores where the row is not
 // 16-byte aligned or at its ragged end).
 //
-// Layout: one block of 256 threads per (batch element, channel group, run
-// of `tiles` consecutive RNG blocks); each thread takes tile counters
-// threadIdx.x, +256, ..., so a warp stores 512 contiguous bytes of a row.
+// Layout: one block of 256 threads per (batch element, channel group, RNG
+// block) tile; each thread takes tile counters threadIdx.x, +256, ..., so a
+// warp stores 512 contiguous bytes of a row.
 //
 // Built with nvcc for sm_90a, --fmad=false, no fast math (see the header).
 
@@ -37,36 +38,33 @@ __global__ void __launch_bounds__(kThreads)
 rng_field_kernel(const int32_t* __restrict__ seeds,
                  const float* __restrict__ dfs,
                  const int32_t* __restrict__ pos, float* __restrict__ out,
-                 int nchan, int length, int mode, int nblk, int tiles) {
+                 int nchan, int length, int mode) {
+  const int lblk = blockIdx.x;  // RNG block within the span
   const int lgrp = blockIdx.y;  // channel group within the span
   const int b = blockIdx.z;     // batch element
 
   const uint32_t s1 = static_cast<uint32_t>(seeds[2 * b + 1]);
   const uint32_t cg = static_cast<uint32_t>(pos[2 * b]) + lgrp;
   const uint32_t h0 = seed_h0(static_cast<uint32_t>(seeds[2 * b]), cg);
+  const uint32_t h1 =
+      seed_h1(s1, cg, static_cast<uint32_t>(pos[2 * b + 1]) + lblk);
   const Chi2Map map = make_chi2_map(mode, dfs[b]);
   const bool aligned = (length & 3) == 0;
   float* __restrict__ ob = out + static_cast<size_t>(b) * nchan * length;
 
-  for (int t = 0; t < tiles; ++t) {
-    const int lblk = blockIdx.x * tiles + t;  // RNG block within the span
-    if (lblk >= nblk) break;
-    const uint32_t h1 =
-        seed_h1(s1, cg, static_cast<uint32_t>(pos[2 * b + 1]) + lblk);
-    for (int q = threadIdx.x; q < kQuadsPerTile; q += kThreads) {
-      const int ch = lgrp * kChanGroup + q / kQuadsPerRow;
-      const int col = lblk * kRngBlock + (q % kQuadsPerRow) * kLanes;
-      if (ch >= nchan || col >= length) continue;
-      const float4 v = draw4(h0, h1, static_cast<uint32_t>(q), map);
-      float* dst = ob + static_cast<size_t>(ch) * length + col;
-      if (aligned && col + kLanes <= length) {
-        *reinterpret_cast<float4*>(dst) = v;
-      } else {
-        dst[0] = v.x;
-        if (col + 1 < length) dst[1] = v.y;
-        if (col + 2 < length) dst[2] = v.z;
-        if (col + 3 < length) dst[3] = v.w;
-      }
+  for (int q = threadIdx.x; q < kQuadsPerTile; q += kThreads) {
+    const int ch = lgrp * kChanGroup + q / kQuadsPerRow;
+    const int col = lblk * kRngBlock + (q % kQuadsPerRow) * kLanes;
+    if (ch >= nchan || col >= length) continue;
+    const float4 v = draw4(h0, h1, static_cast<uint32_t>(q), map);
+    float* dst = ob + static_cast<size_t>(ch) * length + col;
+    if (aligned && col + kLanes <= length) {
+      *reinterpret_cast<float4*>(dst) = v;
+    } else {
+      dst[0] = v.x;
+      if (col + 1 < length) dst[1] = v.y;
+      if (col + 2 < length) dst[2] = v.z;
+      if (col + 3 < length) dst[3] = v.w;
     }
   }
 }
@@ -76,22 +74,20 @@ rng_field_kernel(const int32_t* __restrict__ seeds,
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 // seeds (B, 2) int32 key-data words, dfs (B,) float32, pos (B, 2) int32
 // (first global channel group, first global RNG block), out (B, nchan,
-// length) float32, all contiguous on the device; `tiles` RNG blocks per
-// CUDA block.
+// length) float32, all contiguous on the device.
 extern "C" int rng_field_launch(const void* seeds, const void* dfs,
                                 const void* pos, void* out, int batch,
-                                int nchan, int length, int mode, int tiles,
+                                int nchan, int length, int mode,
                                 void* stream) {
-  if (mode < kModeNormal || mode > kModeChi2Sel || tiles <= 0) {
+  if (mode < kModeNormal || mode > kModeChi2Sel) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch <= 0 || nchan <= 0 || length <= 0) return 0;
-  const int nblk = (length + kRngBlock - 1) / kRngBlock;
-  const dim3 grid((nblk + tiles - 1) / tiles,
+  const dim3 grid((length + kRngBlock - 1) / kRngBlock,
                   (nchan + kChanGroup - 1) / kChanGroup, batch);
   rng_field_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(seeds), static_cast<const float*>(dfs),
       static_cast<const int32_t*>(pos), static_cast<float*>(out), nchan,
-      length, mode, nblk, tiles);
+      length, mode);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,9 +17,10 @@ never exists.
   (counted in ``fold_quantize.launches``); CPU tensors run
   :func:`fold_quantize_plain`.  There is no fallback from one to the
   other.
-* :func:`fold_quantize_plain` — the same function in torch ops, on any
-  device, one observation at a time; ``fields=`` feeds given pulse and
-  noise fields in place of the draws.
+* :func:`fold_quantize_plain` — the same function as the unfused path
+  computes it, on any device, one observation at a time: the sampler's
+  plain fields, the fold, then :func:`.quantize.quantize_packed`;
+  ``fields=`` feeds given pulse and noise fields in place of the draws.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import ctypes
 import torch
 
 from . import _build
-from .quantize import _I16_HALF_SPAN, _INV_FULL_SPAN
+from .quantize import quantize_packed
 from .rng_hw import CHAN_GROUP, MODES, RNG_BLOCK, rng_field_plain
 
 __all__ = ["fold_quantize", "fold_quantize_plain"]
@@ -65,17 +66,6 @@ def _check_args(seeds, dfs, modes, prof, noise_norm, nsub, chan0, t0,
         raise ValueError(f"chan0={chan0} and t0={t0} must be non-negative")
 
 
-def _int16(u):
-    """uint16 values in an int32 tensor as int16 (two's complement)."""
-    return torch.where(u >= 0x8000, u - 0x10000, u).to(torch.int16)
-
-
-def _halves(x):
-    """float32 ``x`` as its (low, high) 16-bit halves, int16 ``(..., 2)``."""
-    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    return torch.stack([_int16(bits & 0xFFFF), _int16(bits >> 16)], dim=-1)
-
-
 def _span(seeds, dfs, mode, b, chan0, t0, nchan, nsamp):
     """Observation ``b``'s field over global samples ``[t0, t0+nsamp)``:
     whole RNG blocks drawn, the span sliced out."""
@@ -91,7 +81,8 @@ def _span(seeds, dfs, mode, b, chan0, t0, nchan, nsamp):
 def fold_quantize_plain(seeds, dfs, modes, prof, noise_norm, *, nsub,
                         draw_norm=1.0, chan0=0, t0=0, byte_order="little",
                         fields=None):
-    """The kernel's function in torch ops, on any device.
+    """The kernel's function in torch ops, on any device: the unfused
+    path, one observation at a time.
 
     Same arguments and result as :func:`fold_quantize`.  ``fields``, when
     given, is a pair of ``(B, C, nsub*nph)`` float32 pulse and noise fields
@@ -112,27 +103,12 @@ def fold_quantize_plain(seeds, dfs, modes, prof, noise_norm, *, nsub,
                           nsub * nph)
         else:
             pulse, noise = fields[0][b], fields[1][b]
-        # (nsub, C, nph) rows, folded in the reference's order
+        # the fold in the reference's order (simulate/pipeline.py::fold_pipeline)
         x = pulse.reshape(C, nsub, nph) * prof[b][:, None, :]
         if draw_norm != 1.0:
             x = x * draw_norm
-        x = (x + noise.reshape(C, nsub, nph) * noise_norm[b]).transpose(0, 1)
-        lo = x.amin(dim=-1)
-        hi = x.amax(dim=-1)
-        span = hi - lo
-        live = span > 0
-        scl = torch.where(live, span * _INV_FULL_SPAN, 1.0)
-        offs = (hi + lo) * 0.5
-        inv = torch.where(live, torch.full_like(span, 2.0 * _I16_HALF_SPAN)
-                          / span, 1.0)
-        q = torch.round((x - offs[..., None]) * inv[..., None])
-        q = q.clamp(-_I16_HALF_SPAN, _I16_HALF_SPAN).to(torch.int32) & 0xFFFF
-        if byte_order == "big":
-            q = ((q & 0xFF) << 8) | (q >> 8)
-        packed[b, ..., :nph] = _int16(q)
-        packed[b, ..., nph:nph + 2] = _halves(scl)
-        packed[b, ..., nph + 2:] = _halves(offs)
-        finite[b] = torch.isfinite(x).all(dim=-1).all(dim=0)
+        x = x.reshape(C, nsub * nph) + noise * noise_norm[b]
+        packed[b], finite[b] = quantize_packed(x, nsub, nph, byte_order)
     return packed, finite
 
 

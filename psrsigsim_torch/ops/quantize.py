@@ -9,6 +9,9 @@ psrsigsim_tpu/ops/quantize.py).
   psrsigsim/io/psrfits.py:386-388).
 - :func:`subint_dequantize` — the inverse.
 - :func:`swap16` — byte-swap int16 codes for big-endian PSRFITS columns.
+- :func:`pack_triple` — codes, DAT_SCL and DAT_OFFS in one int16 buffer.
+- :func:`quantize_packed` — the finite guard, the quantizer, the optional
+  byte swap and the packing of float blocks, the unfused path's tail.
 
 Every function works on a leading batch of observations as well as on one.
 """
@@ -18,7 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["clip_cast", "subint_quantize", "subint_dequantize", "swap16"]
+__all__ = ["clip_cast", "subint_quantize", "subint_dequantize", "swap16",
+           "pack_triple", "quantize_packed"]
 
 # int16 span used for DAT_SCL scaling: map [lo, hi] onto [-32767, 32767]
 # symmetrically, so -32768 never appears
@@ -79,3 +83,28 @@ def swap16(data):
     b = data.contiguous().view(torch.uint8)
     b = b.reshape(data.shape + (2,)).flip(-1)
     return b.reshape(b.shape[:-2] + (b.shape[-2] * 2,)).view(torch.int16)
+
+
+def pack_triple(data, scl, offs):
+    """``(..., nsub, C, nbin)`` int16 codes + ``(..., nsub, C)`` float32
+    scl/offs -> ONE ``(..., nsub, C, nbin+4)`` int16 buffer (reference:
+    psrsigsim_tpu/parallel/ensemble.py:312-314): each float32 rides along as
+    its two native-order int16 halves (a bit-exact reinterpretation), so a
+    chunk leaves the device in one transfer."""
+    def halves(x):
+        return x.contiguous().view(torch.int16).reshape(x.shape + (2,))
+
+    return torch.cat([data, halves(scl), halves(offs)], dim=-1)
+
+
+def quantize_packed(block, nsub, nbin, byte_order="little"):
+    """``(..., C, nsub*nbin)`` float32 blocks -> ``(packed, finite)``:
+    :func:`subint_quantize`, :func:`swap16` of the codes for
+    ``byte_order="big"``, then :func:`pack_triple`; ``finite`` ``(..., C)``
+    is True where every sample of the channel was finite BEFORE
+    quantization."""
+    finite = torch.isfinite(block).all(dim=-1)
+    data, scl, offs = subint_quantize(block, nsub, nbin)
+    if byte_order == "big":
+        data = swap16(data)
+    return pack_triple(data, scl, offs), finite

@@ -171,7 +171,7 @@ def _lib():
     lib = _build.library("rng_field")
     fn = lib.rng_field_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -196,15 +196,14 @@ def _check_args(seeds, dfs, pos, mode, nchan, length):
         raise ValueError("seeds, dfs and pos must be on one device")
 
 
-def rng_field(seeds, dfs, pos, mode, nchan, length, tiles=1):
+def rng_field(seeds, dfs, pos, mode, nchan, length):
     """``(B, nchan, length)`` float32 random fields.
 
     ``seeds`` ``(B, 2)`` int32 key-data words, ``dfs`` ``(B,)`` float32 χ²
     degrees of freedom (read by the ``chi2_wh``/``chi2_sel`` modes),
     ``pos`` ``(B, 2)`` int32 (first global channel group, first global RNG
-    block).  CUDA tensors launch the kernel on the current stream, with
-    ``tiles`` RNG blocks per CUDA block (the values do not depend on it);
-    CPU tensors run :func:`rng_field_plain`.
+    block).  CUDA tensors launch the kernel on the current stream; CPU
+    tensors run :func:`rng_field_plain`.
     """
     _check_args(seeds, dfs, pos, mode, nchan, length)
     dev = seeds.device
@@ -223,7 +222,7 @@ def rng_field(seeds, dfs, pos, mode, nchan, length, tiles=1):
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.rng_field_launch(seeds.data_ptr(), dfs.data_ptr(),
                                pos.data_ptr(), out.data_ptr(), B, nchan,
-                               length, MODES[mode], int(tiles), stream)
+                               length, MODES[mode], stream)
     if err != 0:
         raise RuntimeError(f"rng_field kernel launch failed: cudaError {err}")
     rng_field.launches += 1

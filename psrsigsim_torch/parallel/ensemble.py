@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.quantize import subint_quantize, swap16
+from ..ops.quantize import quantize_packed
 from ..simulate.pipeline import (build_fold_config, fold_pipeline,
                                  fold_pipeline_quantized, fused_route)
 from ..utils.device import resolve_device, to_device
@@ -34,17 +34,6 @@ def _split_packed_chunk(packed, nbin):
     data = packed[..., :nbin]
     tail = np.ascontiguousarray(packed[..., nbin:]).view(np.float32)
     return data, tail[..., 0], tail[..., 1]
-
-
-def _pack_triple(data, scl, offs):
-    """``(B, nsub, C, nbin)`` int16 codes + ``(B, nsub, C)`` float32 scl/offs
-    -> ONE ``(B, nsub, C, nbin+4)`` int16 buffer: each float32 rides along
-    as its two native-order int16 halves (a bit-exact reinterpretation), so
-    a chunk leaves the device in one transfer."""
-    def halves(x):
-        return x.contiguous().view(torch.int16).reshape(x.shape + (2,))
-
-    return torch.cat([data, halves(scl), halves(offs)], dim=-1)
 
 
 def _fetch(t):
@@ -151,16 +140,17 @@ class FoldEnsemble:
             return fold_pipeline_quantized(
                 keys, dms, norms, self._profiles, self.cfg, freqs=self._freqs,
                 chan_ids=self._chan_ids, byte_order=byte_order)
-        blocks = self._blocks(keys, dms, norms)
-        finite = torch.isfinite(blocks).all(dim=-1)
-        data, scl, offs = subint_quantize(blocks, self.cfg.nsub, self.cfg.nph)
-        del blocks
-        if byte_order == "big":
-            data = swap16(data)
-        return _pack_triple(data, scl, offs), finite
+        return self._unfused_packed(keys, dms, norms, byte_order)
+
+    def _unfused_packed(self, keys, dms, norms, byte_order):
+        """The unfused body: float blocks, then the finite guard, the
+        quantizer and the packing (:func:`.quantize.quantize_packed`)."""
+        return quantize_packed(self._blocks(keys, dms, norms), self.cfg.nsub,
+                               self.cfg.nph, byte_order)
 
     def _split_packed_device(self, packed):
-        """Device-side inverse of :func:`_pack_triple` (slice + bitcast)."""
+        """Device-side inverse of :func:`.quantize.pack_triple` (slice +
+        bitcast)."""
         nbin = self.cfg.nph
         data = packed[..., :nbin]
         scl = packed[..., nbin:nbin + 2].contiguous().view(torch.float32)[..., 0]

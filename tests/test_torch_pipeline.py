@@ -266,13 +266,13 @@ def test_packing_matches_reference_half_order(ref, order):
     """The reference's packed buffer, split on the host and packed again by
     the port, is bit-identical: the float32 columns ride as native-order
     int16 halves in both."""
-    from psrsigsim_torch.parallel.ensemble import (_pack_triple,
-                                                   _split_packed_chunk)
+    from psrsigsim_torch.ops.quantize import pack_triple
+    from psrsigsim_torch.parallel.ensemble import _split_packed_chunk
 
     packed = ref[f"packed_{order}"]
     nbin = packed.shape[-1] - 4
     d, s, o = _split_packed_chunk(packed, nbin)
-    again = _pack_triple(torch.from_numpy(np.ascontiguousarray(d)),
+    again = pack_triple(torch.from_numpy(np.ascontiguousarray(d)),
                          torch.from_numpy(s), torch.from_numpy(o))
     np.testing.assert_array_equal(again.numpy(), packed)
     # the low half of each float32 comes first
