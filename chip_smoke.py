@@ -12,16 +12,21 @@ fused fold -> quantize -> pack kernel (csrc/fold_quantize.cu), which draws
 the same samples inside and writes the packed codes of run_quantized and
 iter_chunks.  Phases:
 
-1. the card, its power limit, and the torch/CUDA versions;
-2. the build of both kernels (one nvcc each, started together);
+1. the card, its power limit, the torch/CUDA versions and the host CPU;
+2. the build of both kernels (one nvcc each, started together), with each
+   kernel entry's registers, stack frame and spills as ptxas reports them;
 3. the sampler against its plain PyTorch version, on the card, in every
    mode: edge shapes (three keys, first channel 8, 13 channels, a ragged
    span, an unaligned span) and the main path's own shape;
-3b. the fused kernel against its plain version and against the unfused
-   path (sampler fields + the PyTorch body), bit for bit: the main path at
-   full width and edge shapes (13 channels, nph 1000, nph 935, rows too
-   long for shared memory, both byte orders, a per-observation df, a NaN
-   row, a constant row);
+3b. the exhaustive self-test of the sampler's Box-Muller sequences (all
+   2^24 words against the CUDA math library's logf/sqrtf/sincosf); the
+   fused kernel against its plain version and against the unfused path
+   (sampler fields + the PyTorch body), bit for bit, on each of its routes:
+   the main path at full width in both byte orders (the rows kernel) and
+   edge shapes on each side of every route boundary (rows crossing an RNG
+   block, rows from t0 = 3072, a mode pair off the rows kernel's, 13
+   channels, nph 1000, nph 935, rows too long for shared memory, a
+   per-observation df, draw_norm, NaN rows, constant rows);
 4. statistics of the sampler's fields and their split invariance;
 5. the main paths at full width, BASELINE config 1 (J1713+0747 template,
    64 channels, 2048 bins, 20 x 60 s subints): 128 observations through
@@ -166,6 +171,47 @@ def bound(ops, n, nbytes):
     return max(t_ops, parts["bytes"]), by, parts
 
 
+def host_cpu():
+    """The host's CPU (the CPU reference of phase 6 runs there): its
+    architecture, model where /proc/cpuinfo names one, and core count."""
+    import platform
+
+    model = ""
+    try:
+        with open("/proc/cpuinfo") as fh:
+            for line in fh:
+                if line.startswith("model name"):
+                    model = " " + line.split(":", 1)[1].strip()
+                    break
+    except OSError:
+        pass
+    return f"{platform.machine()}{model}, {os.cpu_count()} cores"
+
+
+def ptxas_summary(build_log):
+    """One line per kernel entry from nvcc's ``-Xptxas -v`` output: its
+    registers, stack frame and spills."""
+    import re
+
+    out, name, frame = [], None, ""
+    for line in build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = (f"stack {m.group(1)} B, spill stores {m.group(2)} B, "
+                     f"spill loads {m.group(3)} B")
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out.append(f"{name}: {m.group(1)} registers, {frame}")
+            name = None
+    return out
+
+
 def fmt_parts(parts):
     return ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
 
@@ -235,7 +281,7 @@ class Smoke:
         log(self.card_line)
         log(f"torch {torch.__version__} cuda {torch.version.cuda} "
             f"device {torch.cuda.get_device_name(0)} "
-            f"count {torch.cuda.device_count()}")
+            f"count {torch.cuda.device_count()}; host {host_cpu()}")
 
     # -- 2 ------------------------------------------------------------------
     def build(self):
@@ -246,9 +292,8 @@ class Smoke:
         log(f"built {', '.join(libs)} in {time.perf_counter() - t0:.1f} s "
             "(one nvcc each, in parallel)")
         for name, lib in libs.items():
-            for line in lib.build_log.splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"  {name}: {line.strip()}")
+            for line in ptxas_summary(lib.build_log):
+                log(f"  {name}: {line}")
 
     # -- 3 ------------------------------------------------------------------
     def kernel_vs_plain(self):
@@ -370,68 +415,92 @@ class Smoke:
                                          f"the {name} (max |diff| {err})")
             log(f"  {label}: bit-equal to {' and '.join(others)}")
 
+        miss = rng_hw.box_muller_selftest(dev)
+        log(f"  Box-Muller sequences vs logf/sqrtf/sincosf on all 2^24 words: "
+            f"mismatches {miss}")
+        if any(miss.values()):
+            raise AssertionError("a specialised Box-Muller sequence differs "
+                                 "from the CUDA math library")
+
         sel = ((1.0, 12000.0, 12000.0), (12000.0, 1.0, 12000.0))
         wh = (12000.0, 12000.0)
+        # (label, B, C, nph, nsub, modes, dfs, kwargs, route)
         cases = [
             ("13 ch from 8, nph 1000, chi2_sel, little", 3, 13, 1000, 5,
-             ("chi2_sel", "chi2_sel"), sel, dict(chan0=8)),
+             ("chi2_sel", "chi2_sel"), sel, dict(chan0=8), "staged"),
             ("13 ch from 8, nph 1000, chi2_sel, big, draw_norm 0.37", 3, 13,
              1000, 5, ("chi2_sel", "chi2_sel"), sel,
-             dict(chan0=8, draw_norm=0.37, byte_order="big")),
+             dict(chan0=8, draw_norm=0.37, byte_order="big"), "staged"),
             ("16 ch, nph 935 (quads straddle rows)", 2, 16, 935, 3,
-             ("chi2_wh", "chi2_wh"), wh, {}),
+             ("chi2_wh", "chi2_wh"), wh, {}, "staged"),
             ("8 ch, nph 8192 (two-pass route), big", 2, 8, 8192, 2,
-             ("chi2_wh", "chi2_wh"), wh, dict(byte_order="big")),
+             ("chi2_wh", "chi2_wh"), wh, dict(byte_order="big"), "two-pass"),
             ("5 ch from 16, nph 700, t0 1234, normal/chi2_1", 1, 5, 700, 3,
-             ("normal", "chi2_1"), (0.0, 0.0), dict(chan0=16, t0=1234)),
+             ("normal", "chi2_1"), (0.0, 0.0), dict(chan0=16, t0=1234),
+             "staged"),
+            ("16 ch, nph 3072 (whole quads, rows cross an RNG block)", 2, 16,
+             3072, 3, ("chi2_wh", "chi2_wh"), wh, {}, "staged"),
+            ("13 ch from 8, nph 512 from t0 3072 (rows in blocks 0 and 1), "
+             "draw_norm 0.37, big", 2, 13, 512, 6, ("chi2_wh", "chi2_wh"), wh,
+             dict(chan0=8, t0=3072, draw_norm=0.37, byte_order="big"), "rows"),
+            ("16 ch, nph 1024 from t0 3072, per-observation df", 3, 16, 1024,
+             3, ("chi2_wh", "chi2_wh"), ((12000.0, 437.6, 900.0), (12000.0,) * 3),
+             dict(t0=3072), "rows"),
+            ("16 ch, nph 2048, chi2_wh/chi2_1 (off the rows kernel's pair)", 2,
+             16, 2048, 2, ("chi2_wh", "chi2_1"), (12000.0, 0.0), {}, "staged"),
         ]
-        if fq.staged(8192) or not fq.staged(2048):
-            raise AssertionError("unexpected shared-memory route: nph 8192 "
-                                 f"staged={fq.staged(8192)}, 2048 "
-                                 f"staged={fq.staged(2048)}")
-        log("  route: nph 2048 rows kept in shared memory; nph 8192 rows "
-            "drawn twice (two-pass)")
-        for i, (label, B, C, nph, nsub, modes, dfs, kw) in enumerate(cases):
+        for i, (label, B, C, nph, nsub, modes, dfs, kw, want) in enumerate(cases):
+            how = fq.route(modes, nph, nsub, kw.get("t0", 0))
+            if how != want:
+                raise AssertionError(f"{label}: route {how}, expected {want}")
             a = inputs(B, C, nph, modes, dfs, seed=i)
-            compare(label, fq.fold_quantize(**a, nsub=nsub, **kw),
+            compare(f"{label} [{how}]", fq.fold_quantize(**a, nsub=nsub, **kw),
                     {"plain version": fq.fold_quantize_plain(**a, nsub=nsub, **kw),
                      "unfused path": unfused(a, nsub, **kw)})
-        # a NaN in one row: flagged, and no other row disturbed
-        a = inputs(3, 13, 1000, ("chi2_wh", "chi2_wh"), wh, seed=9)
-        a["prof"][0, 3, 17] = float("nan")
-        got = fq.fold_quantize(**a, nsub=5, chan0=8)
-        if bool(got[1][0, 3]) or int(got[1].sum()) != 3 * 13 - 1:
-            raise AssertionError("the NaN row's finite flag is wrong")
-        compare("NaN in obs 0 channel 3 (its 5 rows skipped)", got,
-                {"plain version": fq.fold_quantize_plain(**a, nsub=5, chan0=8),
-                 "unfused path": unfused(a, 5, chan0=8)},
-                skip=(0, slice(None), 3))
-        # a constant row: zero portrait and zero noise scale
-        a = inputs(2, 8, 1000, ("chi2_wh", "chi2_wh"), wh, seed=10)
-        a["prof"][1, 5] = 0.0
-        a["noise_norm"][1] = 0.0
-        got = fq.fold_quantize(**a, nsub=3)
-        row = got[0][1, :, 5].cpu()
-        tail = row[:, 1000:].contiguous().view(torch.float32)
-        if row[:, :1000].any() or not bool((tail[:, 0] == 1.0).all()) \
-                or tail[:, 1].any():
-            raise AssertionError("constant row: codes, scl or offs wrong")
-        compare("constant row (codes 0, scl 1, offs 0)", got,
-                {"plain version": fq.fold_quantize_plain(**a, nsub=3),
-                 "unfused path": unfused(a, 3)})
+        for nph in (1000, 512):
+            # a NaN in one row: flagged, and no other row disturbed
+            a = inputs(3, 13, nph, ("chi2_wh", "chi2_wh"), wh, seed=9)
+            a["prof"][0, 3, 17] = float("nan")
+            how = fq.route(a["modes"], nph, 5)
+            got = fq.fold_quantize(**a, nsub=5, chan0=8)
+            if bool(got[1][0, 3]) or int(got[1].sum()) != 3 * 13 - 1:
+                raise AssertionError(f"nph {nph}: the NaN row's finite flag is "
+                                     "wrong")
+            compare(f"nph {nph}, NaN in obs 0 channel 3 (its 5 rows skipped) "
+                    f"[{how}]", got,
+                    {"plain version": fq.fold_quantize_plain(**a, nsub=5, chan0=8),
+                     "unfused path": unfused(a, 5, chan0=8)},
+                    skip=(0, slice(None), 3))
+            # a constant row: zero portrait and zero noise scale
+            a = inputs(2, 8, nph, ("chi2_wh", "chi2_wh"), wh, seed=10)
+            a["prof"][1, 5] = 0.0
+            a["noise_norm"][1] = 0.0
+            got = fq.fold_quantize(**a, nsub=3)
+            row = got[0][1, :, 5].cpu()
+            tail = row[:, nph:].contiguous().view(torch.float32)
+            if row[:, :nph].any() or not bool((tail[:, 0] == 1.0).all()) \
+                    or tail[:, 1].any():
+                raise AssertionError(f"nph {nph}: constant row: codes, scl or "
+                                     "offs wrong")
+            compare(f"nph {nph}, constant row (codes 0, scl 1, offs 0) [{how}]",
+                    got, {"plain version": fq.fold_quantize_plain(**a, nsub=3),
+                          "unfused path": unfused(a, 3)})
 
         # the main path at full width: the fused route against the
         # ensemble's unfused body on the sampler kernel's fields
         ens = self.main_ensemble()
         cfg = ens.cfg
         a, kw, (keys, dms, norms) = self.main_fused_args()
+        how = fq.route(a["modes"], a["prof"].shape[2], kw["nsub"])
+        if how != "rows":
+            raise AssertionError(f"the main path takes the {how} route")
         for order in ("little", "big"):
             want = ens._unfused_packed(keys, dms, norms, order)
             got = fold_pipeline_quantized(keys, dms, norms, ens._profiles, cfg,
                                           freqs=ens._freqs,
                                           chan_ids=ens._chan_ids,
                                           byte_order=order)
-            compare(f"main path {tuple(got[0].shape)} {order}", got,
+            compare(f"main path {tuple(got[0].shape)} {order} [{how}]", got,
                     {"unfused path": want,
                      "plain version": fq.fold_quantize_plain(
                          **a, **kw, byte_order=order)})
@@ -680,8 +749,10 @@ class Smoke:
             bg = gpu.run(8, seed=1).cpu().numpy()
             bc = cpu.run(8, seed=1).numpy()
             rel = np.abs(bg - bc) / np.abs(bc)
-            log(f"  float blocks: max rel diff {rel.max():.3g} "
-                f"(bit-equal {np.mean(bg == bc):.4f})")
+            at = np.unravel_index(np.argmax(rel), rel.shape)
+            log(f"  float blocks: max rel diff {rel.max():.3g} at {at} "
+                f"(card {bg[at]!r}, CPU {bc[at]!r}; bit-equal "
+                f"{np.mean(bg == bc):.4f})")
             if rel.max() > 1e-5:
                 raise AssertionError("threefry float blocks differ beyond rtol 1e-5")
             qg = [a.cpu().numpy() for a in gpu.run_quantized(8, seed=1)]

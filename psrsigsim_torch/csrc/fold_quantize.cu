@@ -22,20 +22,36 @@
 // big-endian PSRFITS, then scl and offs as native-order int16 halves), plus
 // a per-row all-finite flag.
 //
-// Layout: one block per (channel group of 8, subint, observation); warp w
-// owns row (channel) w of the group, so each row is reduced with warp
-// shuffles and no state crosses warps.  A lane draws four consecutive
-// samples of its row from one Philox call per field (rows need not line
-// up with the 4096-sample RNG blocks or with 4-sample quads: a quad that
-// straddles two rows is drawn by both).  The row is kept in shared memory
-// between the reduction and the quantization (8 x nph floats, 64 KB on the
-// main path); a row too long for the 227 KB a block can hold is drawn
-// twice instead, once to reduce and once to quantize — counter-based draws
-// make the second pass free of state.
+// Bound: two draws per output sample.  Each Philox call costs ~20 wide
+// multiplies and 20 three-input XORs; Box-Muller and the chi^2 map are ~60
+// float operations per pair; the rows kernel issues 385 instructions per
+// quad of a row on the main path (its SASS), so it is bound by instruction
+// issue (one warp instruction per scheduler per clock), not by the 2 bytes
+// it writes per sample (chip_smoke.py states the per-class bound).
 //
-// Bound: two draws per output sample, ~46 32-bit integer operations at 64
-// per SM per clock, against 2 bytes written per sample: operations, not
-// bytes (chip_smoke.py states both per instruction class).
+// Two kernels, one function:
+//
+// - fold_quantize_rows_kernel, the main path's: rows that are a whole
+//   number of 4-sample quads and lie inside one 4096-sample RNG block, both
+//   fields chi2_wh (chip_smoke's BASELINE config 1: nph 2048, t0 0).  The
+//   mode pair is a template argument (no branch in the chi^2 map); each row
+//   seeds its two Philox keys once and advances a 32-bit counter, with no
+//   64-bit index arithmetic and no per-sample bounds test; the portrait is
+//   read as one float4 per quad.  One warp owns a row and reduces it with
+//   warp shuffles; a lane quantizes the quads it drew, from shared memory,
+//   so no lane waits on another.  min/max propagate NaN, so
+//   the row is finite exactly when its min and max are (no per-sample
+//   test).  The code is rint by the 1.5 * 2^23 rounding constant after the
+//   clamp (the two commute: the bounds are integers), its low 16 bits taken
+//   with the byte swap in one byte permute.
+// - fold_quantize_kernel, every other shape: one block per (channel group
+//   of 8, subint, observation), one warp per row; a lane draws four
+//   consecutive samples of its row from one Philox call per field at the
+//   quad's global index (rows need not line up with quads or RNG blocks: a
+//   quad that straddles two rows is drawn by both).  The row waits in
+//   shared memory between the reduction and the quantization; a row too
+//   long for the 227 KB a block can hold is drawn twice instead —
+//   counter-based draws make the second pass free of state.
 //
 // Built with nvcc for sm_90a, --fmad=false, no fast math: every float
 // operation rounds as its counterpart in the unfused PyTorch path does.
@@ -48,9 +64,155 @@ namespace {
 
 using namespace pss;
 
-constexpr int kRows = kChanGroup;  // one warp per row
-constexpr int kThreads = 32 * kRows;
+constexpr int kThreads = 256;
+constexpr int kRows = kChanGroup;  // general kernel: one warp per row
 constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// rows kernel: one warp per row, kRowsPerBlock rows per block
+constexpr int kRowsPerBlock = 4;
+constexpr int kRowsThreads = 32 * kRowsPerBlock;
+// its largest staging: rows of up to one RNG block
+constexpr int kRowsBytes = kRowsPerBlock * kRngBlock * sizeof(float);
+
+// min and max that return NaN when either input is NaN
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// The quantizer of a row with extremes lo, hi.
+struct Quant {
+  float scl, offs, inv;
+  __device__ __forceinline__ Quant(float lo, float hi) {
+    const float span = hi - lo;
+    const bool live = span > 0.0f;
+    scl = live ? span * 0x1.0002p-16f : 1.0f;  // f32(1/65534)
+    offs = (hi + lo) * 0.5f;
+    inv = live ? 65534.0f / span : 1.0f;
+  }
+  // The code of x in the low 16 bits: clamp, then rint by the rounding
+  // constant, whose float bits end in the integer.
+  __device__ __forceinline__ uint32_t code(float x) const {
+    float q = (x - offs) * inv;
+    q = fminf(fmaxf(q, -32767.0f), 32767.0f);
+    return __float_as_uint(q + 12582912.0f);
+  }
+  // Four codes as two words, byte-swapped when sel says so.
+  __device__ __forceinline__ uint2 code4(float4 x, uint32_t sel) const {
+    return make_uint2(__byte_perm(code(x.x), code(x.y), sel),
+                      __byte_perm(code(x.z), code(x.w), sel));
+  }
+};
+
+// byte_perm selectors: two codes' low halves, as they are or byte-swapped
+__device__ __forceinline__ uint32_t code_sel(int big) {
+  return big ? 0x4501u : 0x5410u;
+}
+
+__device__ __forceinline__ float fold(float p, float prof, float n, float nn,
+                                      float draw_norm, bool apply_dn) {
+  float x = p * prof;
+  if (apply_dn) x = x * draw_norm;
+  return x + n * nn;
+}
+
+// scl and offs as native-order int16 halves after the codes, and the flag
+__device__ __forceinline__ void write_tail(int16_t* dst, int nph,
+                                          const Quant& q, uint8_t* flag,
+                                          bool fin) {
+  const uint32_t sb = __float_as_uint(q.scl);
+  const uint32_t ob = __float_as_uint(q.offs);
+  dst[nph] = static_cast<int16_t>(sb & 0xFFFFu);
+  dst[nph + 1] = static_cast<int16_t>(sb >> 16);
+  dst[nph + 2] = static_cast<int16_t>(ob & 0xFFFFu);
+  dst[nph + 3] = static_cast<int16_t>(ob >> 16);
+  *flag = fin ? 1 : 0;
+}
+
+// -- the main path's rows --------------------------------------------------
+
+template <int kModeP, int kModeN>
+__global__ void __launch_bounds__(kRowsThreads)
+fold_quantize_rows_kernel(const int32_t* __restrict__ seeds,
+                          const float* __restrict__ dfs,
+                          const float* __restrict__ prof,
+                          const float* __restrict__ noise_norm,
+                          float draw_norm, int apply_dn,
+                          int16_t* __restrict__ out,
+                          uint8_t* __restrict__ flags, int batch, int nchan,
+                          int nsub, int nph, uint32_t cg0, long long t0,
+                          int big) {
+  extern __shared__ float4 stage[];
+  const int rb = threadIdx.x / 32;  // row within the block
+  const int lane = threadIdx.x % 32;
+  const int c = blockIdx.x * kRowsPerBlock + rb;
+  const int sub = blockIdx.y;
+  const int b = blockIdx.z;
+  if (c >= nchan) return;  // warps are independent: no block barrier
+
+  // the row's keys and its first counter, once
+  const uint32_t cg = cg0 + static_cast<uint32_t>(c / kChanGroup);
+  const long long r0 = t0 + static_cast<long long>(sub) * nph;
+  const uint32_t blk = static_cast<uint32_t>(r0 / kRngBlock);
+  const uint32_t ctr0 =
+      static_cast<uint32_t>(c % kChanGroup) * kQuadsPerRow +
+      static_cast<uint32_t>(r0 % kRngBlock) / kLanes;
+  const uint32_t h0p = seed_h0(static_cast<uint32_t>(seeds[2 * b]), cg);
+  const uint32_t h1p =
+      seed_h1(static_cast<uint32_t>(seeds[2 * b + 1]), cg, blk);
+  const uint32_t h0n =
+      seed_h0(static_cast<uint32_t>(seeds[2 * (batch + b)]), cg);
+  const uint32_t h1n =
+      seed_h1(static_cast<uint32_t>(seeds[2 * (batch + b) + 1]), cg, blk);
+  const Chi2Map mp = make_chi2_map(kModeP, dfs[b]);
+  const Chi2Map mn = make_chi2_map(kModeN, dfs[batch + b]);
+  const float nn = noise_norm[b];
+  const bool dn = apply_dn != 0;
+  const int nq = nph / kLanes;
+  const float4* __restrict__ pq = reinterpret_cast<const float4*>(
+      prof + (static_cast<size_t>(b) * nchan + c) * nph);
+  float4* row = stage + static_cast<size_t>(rb) * nq;
+
+  // pass 1: draw, fold, keep, reduce (two quads in flight per lane)
+  float lo = INFINITY, hi = -INFINITY;
+#pragma unroll 2
+  for (int i = lane; i < nq; i += 32) {
+    const float4 p = draw4<kModeP>(h0p, h1p, ctr0 + i, mp);
+    const float4 n = draw4<kModeN>(h0n, h1n, ctr0 + i, mn);
+    const float4 w = __ldg(pq + i);
+    const float4 v = make_float4(fold(p.x, w.x, n.x, nn, draw_norm, dn),
+                                 fold(p.y, w.y, n.y, nn, draw_norm, dn),
+                                 fold(p.z, w.z, n.z, nn, draw_norm, dn),
+                                 fold(p.w, w.w, n.w, nn, draw_norm, dn));
+    row[i] = v;
+    lo = min_nan(min_nan(min_nan(min_nan(lo, v.x), v.y), v.z), v.w);
+    hi = max_nan(max_nan(max_nan(max_nan(hi, v.x), v.y), v.z), v.w);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    lo = min_nan(lo, __shfl_xor_sync(kFull, lo, off));
+    hi = max_nan(hi, __shfl_xor_sync(kFull, hi, off));
+  }
+  const bool fin = isfinite(lo) && isfinite(hi);
+  const Quant q(lo, hi);
+
+  // pass 2: each lane codes the quads it drew
+  const size_t r = (static_cast<size_t>(b) * nsub + sub) * nchan + c;
+  int16_t* dst = out + r * (nph + 4);
+  uint2* d2 = reinterpret_cast<uint2*>(dst);  // rows start 8-byte aligned
+  const uint32_t sel = code_sel(big);
+  for (int i = lane; i < nq; i += 32) d2[i] = q.code4(row[i], sel);
+  if (lane == 0) write_tail(dst, nph, q, flags + r, fin);
+}
+
+// -- every other shape -------------------------------------------------------
 
 struct Row {
   uint32_t h0p, h0n, s1p, s1n, cg, w;
@@ -85,21 +247,10 @@ struct Row {
       const long long bin = tq + i - r0;
       bins[i] = (bin >= 0 && bin < nph) ? static_cast<int>(bin) : -1;
       if (bins[i] < 0) continue;
-      float x = p[i] * prof[bins[i]];
-      if (apply_dn) x = x * draw_norm;
-      v[i] = x + n[i] * nn;
+      v[i] = fold(p[i], prof[bins[i]], n[i], nn, draw_norm, apply_dn);
     }
   }
 };
-
-__device__ __forceinline__ uint16_t code16(float x, float offs, float inv,
-                                           bool big) {
-  float q = rintf((x - offs) * inv);
-  q = fminf(fmaxf(q, -32767.0f), 32767.0f);
-  const uint16_t u =
-      static_cast<uint16_t>(static_cast<int16_t>(static_cast<int>(q)));
-  return big ? static_cast<uint16_t>((u >> 8) | (u << 8)) : u;
-}
 
 template <bool kStaged>
 __global__ void __launch_bounds__(kThreads)
@@ -168,32 +319,23 @@ fold_quantize_kernel(const int32_t* __restrict__ seeds,
     hi = fmaxf(hi, __shfl_xor_sync(kFull, hi, off));
   }
   fin = __all_sync(kFull, fin);
-  const float span = hi - lo;
-  const bool live = span > 0.0f;
-  const float scl = live ? span * 0x1.0002p-16f : 1.0f;  // f32(1/65534)
-  const float offs = (hi + lo) * 0.5f;
-  const float inv = live ? 65534.0f / span : 1.0f;
-  const bool swap = big != 0;
+  const Quant qz(lo, hi);
+  const uint32_t sel = code_sel(big);
 
   // pass 2: codes into the packed row
-  int16_t* dst =
-      out + ((static_cast<size_t>(b) * nsub + sub) * nchan + c) * (nph + 4);
+  const size_t ri = (static_cast<size_t>(b) * nsub + sub) * nchan + c;
+  int16_t* dst = out + ri * (nph + 4);
   if (kStaged) {
     __syncwarp();
     if ((nph % 4) == 0) {  // rows start 8-byte aligned: 4 codes per store
       for (int j = lane; j < nph / 4; j += 32) {
-        const float4 x = *reinterpret_cast<const float4*>(row + 4 * j);
-        const uint32_t lo2 =
-            code16(x.x, offs, inv, swap) |
-            (static_cast<uint32_t>(code16(x.y, offs, inv, swap)) << 16);
-        const uint32_t hi2 =
-            code16(x.z, offs, inv, swap) |
-            (static_cast<uint32_t>(code16(x.w, offs, inv, swap)) << 16);
-        *reinterpret_cast<uint2*>(dst + 4 * j) = make_uint2(lo2, hi2);
+        reinterpret_cast<uint2*>(dst)[j] =
+            qz.code4(*reinterpret_cast<const float4*>(row + 4 * j), sel);
       }
     } else {
       for (int i = lane; i < nph; i += 32) {
-        dst[i] = static_cast<int16_t>(code16(row[i], offs, inv, swap));
+        dst[i] = static_cast<int16_t>(
+            static_cast<uint16_t>(__byte_perm(qz.code(row[i]), 0, sel)));
       }
     }
   } else {
@@ -204,20 +346,13 @@ fold_quantize_kernel(const int32_t* __restrict__ seeds,
 #pragma unroll
       for (int i = 0; i < kLanes; ++i) {
         if (bins[i] >= 0) {
-          dst[bins[i]] = static_cast<int16_t>(code16(v[i], offs, inv, swap));
+          dst[bins[i]] = static_cast<int16_t>(
+              static_cast<uint16_t>(__byte_perm(qz.code(v[i]), 0, sel)));
         }
       }
     }
   }
-  if (lane == 0) {
-    const uint32_t sb = __float_as_uint(scl);
-    const uint32_t ob = __float_as_uint(offs);
-    dst[nph] = static_cast<int16_t>(sb & 0xFFFFu);
-    dst[nph + 1] = static_cast<int16_t>(sb >> 16);
-    dst[nph + 2] = static_cast<int16_t>(ob & 0xFFFFu);
-    dst[nph + 3] = static_cast<int16_t>(ob >> 16);
-    flags[(static_cast<size_t>(b) * nsub + sub) * nchan + c] = fin ? 1 : 0;
-  }
+  if (lane == 0) write_tail(dst, nph, qz, flags + ri, fin);
 }
 
 int max_dynamic_smem() {
@@ -234,17 +369,49 @@ int max_dynamic_smem() {
   return bytes;
 }
 
-}  // namespace
+// Whether every row is a whole number of quads inside one RNG block.
+bool rows_in_blocks(int nph, int nsub, long long t0) {
+  if (nph % kLanes != 0 || t0 % kLanes != 0 || nph > kRngBlock) return false;
+  for (int s = 0; s < nsub; ++s) {
+    if ((t0 + static_cast<long long>(s) * nph) % kRngBlock + nph > kRngBlock) {
+      return false;
+    }
+  }
+  return true;
+}
 
-// 1 when rows of nph bins are kept in shared memory, 0 when they are drawn
-// twice, -1 when the device cannot be queried.
-extern "C" int fold_quantize_staged(int nph) {
+// The kernel a shape takes: 2 the rows kernel, 1 the general kernel with
+// rows kept in shared memory, 0 the general kernel drawing rows twice, -1
+// when the device cannot be queried.
+int route(int mode_p, int mode_n, int nph, int nsub, long long t0) {
   const int limit = max_dynamic_smem();
   if (limit <= 0) return -1;
+  if (mode_p == kModeChi2Wh && mode_n == kModeChi2Wh &&
+      rows_in_blocks(nph, nsub, t0)) {
+    return 2;  // kRowsBytes of shared memory at most
+  }
   return static_cast<size_t>(kRows) * nph * sizeof(float) <=
                  static_cast<size_t>(limit)
              ? 1
              : 0;
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory, once.
+template <typename K>
+cudaError_t opt_in(K kernel, int bytes, bool* done) {
+  if (*done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) *done = true;
+  return err;
+}
+
+}  // namespace
+
+// The route of a launch with these arguments (see route above).
+extern "C" int fold_quantize_route(int mode_p, int mode_n, int nph, int nsub,
+                                   long long t0) {
+  return route(mode_p, mode_n, nph, nsub, t0);
 }
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
@@ -265,9 +432,8 @@ extern "C" int fold_quantize_launch(const void* seeds, const void* dfs,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch <= 0 || nchan <= 0 || nsub <= 0 || nph <= 0) return 0;
-  const int staged = fold_quantize_staged(nph);
-  if (staged < 0) return static_cast<int>(cudaErrorInvalidDevice);
-  const dim3 grid((nchan + kChanGroup - 1) / kChanGroup, nsub, batch);
+  const int how = route(mode_p, mode_n, nph, nsub, t0);
+  if (how < 0) return static_cast<int>(cudaErrorInvalidDevice);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* sd = static_cast<const int32_t*>(seeds);
   const auto* df = static_cast<const float*>(dfs);
@@ -275,23 +441,34 @@ extern "C" int fold_quantize_launch(const void* seeds, const void* dfs,
   const auto* nn = static_cast<const float*>(noise_norm);
   auto* o = static_cast<int16_t*>(out);
   auto* f = static_cast<uint8_t*>(flags);
-  if (staged) {
+  const uint32_t g0 = static_cast<uint32_t>(cg0);
+  if (how == 2) {
+    static bool opted = false;
+    const auto kernel = fold_quantize_rows_kernel<kModeChi2Wh, kModeChi2Wh>;
+    const cudaError_t err = opt_in(kernel, kRowsBytes, &opted);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((nchan + kRowsPerBlock - 1) / kRowsPerBlock, nsub, batch);
+    const size_t smem =
+        static_cast<size_t>(kRowsPerBlock) * nph * sizeof(float);
+    kernel<<<grid, kRowsThreads, smem, s>>>(sd, df, pr, nn, draw_norm,
+                                            apply_dn, o, f, batch, nchan, nsub,
+                                            nph, g0, t0, big);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const dim3 grid((nchan + kChanGroup - 1) / kChanGroup, nsub, batch);
+  if (how == 1) {
+    static bool opted = false;
+    const cudaError_t err =
+        opt_in(fold_quantize_kernel<true>, max_dynamic_smem(), &opted);
+    if (err != cudaSuccess) return static_cast<int>(err);
     const size_t smem = static_cast<size_t>(kRows) * nph * sizeof(float);
-    static bool opted_in = false;
-    if (!opted_in) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          fold_quantize_kernel<true>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, max_dynamic_smem());
-      if (err != cudaSuccess) return static_cast<int>(err);
-      opted_in = true;
-    }
     fold_quantize_kernel<true><<<grid, kThreads, smem, s>>>(
         sd, df, mode_p, mode_n, pr, nn, draw_norm, apply_dn, o, f, batch,
-        nchan, nsub, nph, static_cast<uint32_t>(cg0), t0, big);
+        nchan, nsub, nph, g0, t0, big);
   } else {
     fold_quantize_kernel<false><<<grid, kThreads, 0, s>>>(
         sd, df, mode_p, mode_n, pr, nn, draw_norm, apply_dn, o, f, batch,
-        nchan, nsub, nph, static_cast<uint32_t>(cg0), t0, big);
+        nchan, nsub, nph, g0, t0, big);
   }
   return static_cast<int>(cudaGetLastError());
 }

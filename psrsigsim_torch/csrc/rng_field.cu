@@ -22,6 +22,9 @@
 // block) tile; each thread takes tile counters threadIdx.x, +256, ..., so a
 // warp stores 512 contiguous bytes of a row.
 //
+// box_muller_selftest proves the header's specialised Box-Muller sequences
+// bit-identical to the CUDA math library on all 2^24 inputs of each.
+//
 // Built with nvcc for sm_90a, --fmad=false, no fast math (see the header).
 
 #include <cuda_runtime.h>
@@ -69,7 +72,41 @@ rng_field_kernel(const int32_t* __restrict__ seeds,
   }
 }
 
+// Every 24-bit word m once: the header's Box-Muller sequences against the
+// CUDA math library calls they specialise, bit for bit.  miss[0] counts
+// radii that differ, miss[1] sines, miss[2] cosines.
+__global__ void __launch_bounds__(kThreads)
+box_muller_selftest_kernel(unsigned long long* __restrict__ miss) {
+  const uint32_t m = blockIdx.x * kThreads + threadIdx.x;
+  const float u1 = (static_cast<float>(m) + 1.0f) * 5.9604644775390625e-08f;
+  const float u2 = static_cast<float>(m) * 5.9604644775390625e-08f;
+  const float r_lib = sqrtf(-2.0f * logf(u1));
+  float s_lib, c_lib, s, c;
+  sincosf(static_cast<float>(6.283185307179586) * u2, &s_lib, &c_lib);
+  bm_sincos(m, &s, &c);
+  const int dr = __syncthreads_count(__float_as_uint(bm_radius(m)) !=
+                                     __float_as_uint(r_lib));
+  const int ds =
+      __syncthreads_count(__float_as_uint(s) != __float_as_uint(s_lib));
+  const int dc =
+      __syncthreads_count(__float_as_uint(c) != __float_as_uint(c_lib));
+  if (threadIdx.x == 0) {
+    if (dr) atomicAdd(miss, static_cast<unsigned long long>(dr));
+    if (ds) atomicAdd(miss + 1, static_cast<unsigned long long>(ds));
+    if (dc) atomicAdd(miss + 2, static_cast<unsigned long long>(dc));
+  }
+}
+
 }  // namespace
+
+// Launch the self-test over all 2^24 words on `stream`; `miss` is three
+// zeroed uint64 counters on the device.  Returns the cudaError_t.
+extern "C" int box_muller_selftest(void* miss, void* stream) {
+  box_muller_selftest_kernel<<<(1u << 24) / kThreads, kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned long long*>(miss));
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 // seeds (B, 2) int32 key-data words, dfs (B,) float32, pos (B, 2) int32

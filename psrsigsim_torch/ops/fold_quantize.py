@@ -21,6 +21,9 @@ never exists.
   computes it, on any device, one observation at a time: the sampler's
   plain fields, the fold, then :func:`.quantize.quantize_packed`;
   ``fields=`` feeds given pulse and noise fields in place of the draws.
+* :func:`route` — which of the source's kernels a launch takes: the rows
+  kernel of the main path's shape class, or the general kernel (rows
+  staged in shared memory, or drawn twice when too long for it).
 """
 
 from __future__ import annotations
@@ -121,18 +124,25 @@ def _lib():
                        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.fold_quantize_staged.argtypes = [ctypes.c_int]
-        lib.fold_quantize_staged.restype = ctypes.c_int
+        lib.fold_quantize_route.argtypes = [ctypes.c_int] * 4 + [ctypes.c_longlong]
+        lib.fold_quantize_route.restype = ctypes.c_int
     return lib
 
 
-def staged(nph):
-    """Whether the kernel keeps rows of ``nph`` bins in shared memory (True)
-    or draws them twice (False), on the current CUDA device."""
-    route = _lib().fold_quantize_staged(int(nph))
-    if route < 0:
+_ROUTES = {2: "rows", 1: "staged", 0: "two-pass"}
+
+
+def route(modes, nph, nsub, t0=0):
+    """The kernel a launch takes on the current CUDA device: ``"rows"``
+    (the main path's: both fields ``chi2_wh``, every row a whole number of
+    4-sample quads inside one 4096-sample RNG block), ``"staged"`` (the
+    general kernel, rows kept in shared memory) or ``"two-pass"`` (rows too
+    long for shared memory, drawn twice)."""
+    how = _lib().fold_quantize_route(MODES[modes[0]], MODES[modes[1]],
+                                     int(nph), int(nsub), int(t0))
+    if how < 0:
         raise RuntimeError("fold_quantize: cannot query the CUDA device")
-    return bool(route)
+    return _ROUTES[how]
 
 
 def fold_quantize(seeds, dfs, modes, prof, noise_norm, *, nsub,

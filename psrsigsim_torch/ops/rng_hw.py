@@ -38,7 +38,7 @@ from . import _build
 from .stats import wilson_hilferty
 
 __all__ = ["RNG_BLOCK", "CHAN_GROUP", "MODES", "rng_field", "rng_field_plain",
-           "hw_chan_field", "seed_words"]
+           "box_muller_selftest", "hw_chan_field", "seed_words"]
 
 RNG_BLOCK = 4096  # must equal ops.stats.SEQ_RNG_BLOCK
 CHAN_GROUP = 8    # channels per independent stream
@@ -230,6 +230,27 @@ def rng_field(seeds, dfs, pos, mode, nchan, length):
 
 
 rng_field.launches = 0
+
+
+def box_muller_selftest(device="cuda"):
+    """Run ``csrc/rng_field.cu``'s self-test on a CUDA device: the shared
+    header's Box-Muller radius, sine and cosine against the CUDA math
+    library's ``sqrtf(-2 logf(u1))`` and ``sincosf(2π u2)`` on every one of
+    the 2^24 words.  Returns the mismatch counts ``{"radius": n, "sin": n,
+    "cos": n}``; all three must be 0."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"the self-test runs on a CUDA device, not {dev}")
+    lib = _lib()
+    fn = lib.box_muller_selftest
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    miss = torch.zeros(3, dtype=torch.int64, device=dev)
+    err = fn(miss.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"box_muller_selftest launch failed: cudaError {err}")
+    return dict(zip(("radius", "sin", "cos"), miss.tolist()))
 
 
 def hw_chan_field(key, chan0, df, t0, *, mode, nchan, length):

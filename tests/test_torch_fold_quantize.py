@@ -56,6 +56,15 @@ CASES = {
                0, "little"),
     "t0_unaligned": (1, 5, 8, 700, 3, ("normal", "chi2_1"), (0.0, 0.0), 1.0,
                      1234, "big"),
+    # the card's rows kernel: chi2_wh x chi2_wh, whole quads, every row inside
+    # one 4096-sample RNG block (the main path's shape class)
+    "rows_main_like": (2, 8, 0, 512, 3, ("chi2_wh", "chi2_wh"),
+                       (12000.0, 12000.0), 1.0, 0, "little"),
+    "rows_t0_3072": (2, 13, 8, 512, 6, ("chi2_wh", "chi2_wh"), (437.6, 437.6),
+                     0.37, 3072, "big"),
+    # whole quads, but rows cross an RNG block: the general kernel
+    "rows_cross_block": (1, 8, 0, 3072, 3, ("chi2_wh", "chi2_wh"),
+                         (437.6, 437.6), 1.0, 0, "big"),
 }
 
 
@@ -344,7 +353,11 @@ def test_kernel_matches_plain_version_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernel, no CPU mode)")
     dev = torch.device("cuda")
-    for case in ("odd13_big", "chi2_sel", "draw_norm", "nph935", "t0_unaligned"):
+    assert fq.route(("chi2_wh", "chi2_wh"), 2048, 20) == "rows"
+    assert fq.route(("chi2_wh", "chi2_wh"), 3072, 3) == "staged"
+    assert fq.route(("chi2_wh", "chi2_1"), 2048, 20) == "staged"
+    assert fq.route(("chi2_wh", "chi2_wh"), 8192, 2) == "two-pass"
+    for case in CASES:
         B, C, chan0, nph, nsub, modes, dfs, dn, t0, order = CASES[case]
         args = [t.to(dev) for t in _inputs(B, C, nph, dfs)]
         kw = dict(nsub=nsub, draw_norm=dn, chan0=chan0, t0=t0, byte_order=order)

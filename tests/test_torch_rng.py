@@ -318,3 +318,18 @@ def test_kernel_matches_plain_version_on_card():
 
 if __name__ == "__main__":
     _child(sys.argv[1])
+
+
+@pytest.mark.cuda
+def test_box_muller_sequences_match_libm_on_card():
+    """The header's specialised Box-Muller radius, sine and cosine equal the
+    CUDA math library's logf/sqrtf/sincosf on all 2^24 words."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel, no CPU mode)")
+    assert rng_hw.box_muller_selftest("cuda") == {"radius": 0, "sin": 0,
+                                                  "cos": 0}
+
+
+def test_box_muller_selftest_needs_a_card():
+    with pytest.raises(ValueError):
+        rng_hw.box_muller_selftest("cpu")
