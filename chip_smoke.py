@@ -34,7 +34,18 @@ iter_chunks.  Phases:
    through FoldEnsemble.run (the sampler), each with every kernel's launch
    count set to 0 just before and read just after;
 6. parity: the threefry sampler on the card against the CPU;
-7. one JSON line with each kernel's launches, error, times and bound.
+7. one JSON line with each kernel's launches, error, times and bound;
+8. the PSRFITS export at the same full width (psrsigsim_torch.io.
+   export_ensemble_psrfits, 128-observation chunks through the fused
+   kernel, the copy stream and fetch thread of iter_chunks, spawn writers)
+   into a temporary directory under build/, deleted afterwards: 256
+   observations one per file (default writers, then one in-process
+   writer), the files held to run_quantized bit for bit, resume after
+   deleting files (byte-identical, the fused kernel launched once per
+   chunk holding a missing file), 16 observations per file (rows equal to
+   the per-file payloads), a serial depth-0 export equal to the pooled
+   depth-2 one; first of all iter_chunks with and without the overlap
+   (bit-identical, obs/s of each).
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of one
 steady main-path chunk after phase 5 (device time by kernel, busy share).
@@ -94,6 +105,10 @@ RNG_OPS_PER_SAMPLE_ONE_CALL = 98 + 7 + 6 + 6
 
 MAIN_NOBS = 128
 FLOAT_NOBS = 16  # FoldEnsemble.run's float blocks: 16 x 64 x 40960 x 4 bytes
+EXPORT_NOBS = 256  # phase 8: two chunks, ~1.34 GB of PSRFITS one per file
+EXPORT_SERIAL_NOBS = 32
+EXPORT_OPF = 16
+TEMPLATE = os.path.join(ROOT, "data", "B1855+09.L-wide.PUPPI.11y.x.sum.sm")
 MAIN = dict(nchan=64, period_s=0.005, samprate_mhz=0.4096, sublen_s=60.0,
             tobs_s=1200.0, fcent=1380.0, bw=400.0, smean=0.009, dm=15.9)
 PARITY = dict(nchan=16, period_s=0.005, samprate_mhz=0.0512, sublen_s=60.0,
@@ -828,6 +843,224 @@ class Smoke:
             f"bound {b_ms:.4f} ms, {b_by} ({fmt_parts(parts)}) on "
             f"{self.card_line}")
 
+    # -- 8 ------------------------------------------------------------------
+    def export(self):
+        """The PSRFITS export of the main path (see the module docstring)."""
+        import hashlib
+        import pickle
+        import shutil
+        import tempfile
+
+        import numpy as np
+
+        from psrsigsim_torch.io import FitsFile, export_ensemble_psrfits
+        from psrsigsim_torch.io import export as export_mod
+        from psrsigsim_torch.runtime import StageTimers
+
+        torch = self.torch
+        os.environ.pop("PSS_SAMPLER", None)
+        ens = self.main_ensemble()
+        cfg = ens.cfg
+
+        # iter_chunks with and without the overlap, first, on a quiet host
+        # (no writer processes, no dirty pages of the exports below): one
+        # run of each kept whole for the bit-identity check, then timed
+        # runs that drop each chunk as it comes (a consumer that keeps
+        # every chunk makes each run allocate fresh pinned memory), after
+        # one untimed run of each
+        settings = ((0, 0), (1, 2))
+
+        def chunks(opts):
+            return ens.iter_chunks(EXPORT_NOBS, chunk_size=MAIN_NOBS, seed=0,
+                                   quantized=True, byte_order="big",
+                                   prefetch=opts[0], fetch_ahead=opts[1])
+
+        first = list(chunks(settings[0]))
+        got = list(chunks(settings[1]))
+        for (s0, a), (s1, b) in zip(got, first):
+            if s0 != s1 or not all(np.array_equal(x, y)
+                                   for x, y in zip(a, b)):
+                raise AssertionError(f"iter_chunks{settings[1]} differs from "
+                                     "the serial chunks")
+        if len(got) != len(first):
+            raise AssertionError("iter_chunks yielded another chunk count")
+        del first, got
+        runs = {}
+        for k, opts in enumerate(settings * 4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in chunks(opts):
+                pass
+            if k >= len(settings):
+                runs.setdefault(opts, []).append(
+                    EXPORT_NOBS / (time.perf_counter() - t0))
+        log(f"  iter_chunks({EXPORT_NOBS}, chunk {MAIN_NOBS}, quantized, "
+            "big-endian, each chunk dropped as it comes): "
+            + "; ".join(f"prefetch {p}, fetch_ahead {f}: "
+                        + ", ".join(f"{r:.1f}" for r in rates) + " obs/s"
+                        for (p, f), rates in runs.items())
+            + f"; chunks bit-identical ({self.card_line})")
+
+        build = os.path.join(ROOT, "build")
+        os.makedirs(build, exist_ok=True)
+        work = tempfile.mkdtemp(prefix="export-", dir=build)
+        try:
+            df = subprocess.run(["df", "-T", work], capture_output=True,
+                                text=True, timeout=60).stdout.strip()
+            writers = min(8, os.cpu_count() or 1)
+            log(f"  filesystem of {work}:")
+            for line in df.splitlines():
+                log(f"    {line}")
+            log(f"  os.cpu_count() {os.cpu_count()}, default writers "
+                f"{writers} (spawn processes), chunk {MAIN_NOBS}, "
+                f"{self.card_line}")
+
+            # start-up of a pool of spawn writers, on its own: every pooled
+            # export below pays it inside its wall
+            t0 = time.perf_counter()
+            pool = export_mod._WriterPool(writers, pickle.dumps({}), {})
+            pool.finish()
+            log(f"  writer pool start-up ({writers} spawn processes, all of "
+                f"them): {time.perf_counter() - t0:.3f} s")
+
+            class Timers(StageTimers):
+                """Stage timers that also keep when the first chunk was
+                dispatched (the pipeline's start, after the pool's)."""
+                first = None
+
+                def add(self, stage, seconds, nbytes=0):
+                    if stage == "dispatch" and self.first is None:
+                        self.first = time.perf_counter() - seconds
+                    super().add(stage, seconds, nbytes)
+
+            def run_export(label, out, n, **kw):
+                timers = Timers()
+                self._zero_counts()
+                since = time.time() - 0.05  # the file clock is coarser
+                t0 = time.perf_counter()
+                paths = export_ensemble_psrfits(
+                    ens, n, out, TEMPLATE, ens.pulsar, seed=0,
+                    chunk_size=MAIN_NOBS, telemetry=timers, **kw)
+                wall = time.perf_counter() - t0
+                counts = self._counts()
+                # the bytes of the files this call wrote
+                nbytes = sum(os.path.getsize(p) for p in paths
+                             if os.path.getmtime(p) >= since)
+                rate = "no chunk computed"
+                if timers.first is not None:
+                    steady = wall - (timers.first - t0)
+                    rate = (f"{n / steady:.1f} obs/s, {nbytes / steady / 1e9:.3f}"
+                            " GB/s from the first dispatch")
+                snap = timers.snapshot()
+                stages = ", ".join(f"{k} {snap[k + '_s']:.3f} s"
+                                   for k in ("dispatch", "fetch", "encode",
+                                             "write"))
+                log(f"  {label}: {len(paths)} files, {nbytes / 1e9:.4f} GB "
+                    f"written in {wall:.3f} s = {n / wall:.1f} obs/s, "
+                    f"{nbytes / wall / 1e9:.3f} GB/s end to end; {rate}; "
+                    f"stages {stages}, bottleneck {snap['bottleneck']}; "
+                    f"launches {counts}")
+                return paths, counts
+
+            def sha(path):
+                with open(path, "rb") as fh:
+                    return hashlib.sha256(fh.read()).hexdigest()
+
+            # 1. one file per observation, depth 2, default writers, then
+            # one in-process writer: the same bytes
+            per_file = os.path.join(work, "per_file")
+            paths, counts = run_export(
+                f"export {EXPORT_NOBS} obs, one per file, depth 2, "
+                f"{writers} writers", per_file, EXPORT_NOBS, pipeline_depth=2)
+            with open(os.path.join(per_file, "export_manifest.json")) as fh:
+                pipe = json.load(fh)["pipeline"]
+            log("  manifest pipeline: " + json.dumps(pipe, sort_keys=True))
+            if counts != {"fold_quantize": 2, "rng_field": 0}:
+                raise AssertionError(f"export launches {counts}, expected 2 "
+                                     "fused-kernel launches and no sampler")
+            one = os.path.join(work, "per_file_w1")
+            opaths, _ = run_export(
+                f"export {EXPORT_NOBS} obs, one per file, depth 2, 1 writer",
+                one, EXPORT_NOBS, pipeline_depth=2, writers=1)
+            if any(sha(a) != sha(b) for a, b in zip(opaths, paths)):
+                raise AssertionError("the in-process writer's files differ "
+                                     "from the pool's")
+            log("  1-writer files equal the pool's (sha256)")
+            shutil.rmtree(one)
+
+            # 2. the files hold run_quantized's triples bit for bit
+            d, s, o = (t.cpu().numpy() for t in
+                       ens.run_quantized(EXPORT_NOBS, seed=0))
+            check = (0, 1, MAIN_NOBS // 2, MAIN_NOBS - 1, MAIN_NOBS,
+                     MAIN_NOBS + 1, EXPORT_NOBS - 2, EXPORT_NOBS - 1)
+            for i in check:
+                sub = FitsFile.read(paths[i])["SUBINT"].data
+                if not (np.array_equal(sub["DATA"][:, 0].view(">i2"), d[i])
+                        and np.array_equal(sub["DAT_SCL"], s[i])
+                        and np.array_equal(sub["DAT_OFFS"], o[i])):
+                    raise AssertionError(f"file of observation {i} differs "
+                                         "from run_quantized")
+            log(f"  files of observations {list(check)} equal "
+                f"run_quantized({EXPORT_NOBS})'s triples bit for bit")
+            del d, s, o
+
+            # 3. resume (one in-process writer): missing files come back
+            # byte-identical, and only the chunks holding one are computed
+            for victims, want in (((1, MAIN_NOBS + MAIN_NOBS // 2), 2),
+                                  ((MAIN_NOBS // 4,), 1)):
+                before = {i: sha(paths[i]) for i in victims}
+                for i in victims:
+                    os.unlink(paths[i])
+                _, counts = run_export(
+                    f"resume after deleting observations {list(victims)}",
+                    per_file, EXPORT_NOBS, pipeline_depth=2, writers=1)
+                if counts["fold_quantize"] != want:
+                    raise AssertionError(f"resume launched the fused kernel "
+                                         f"{counts['fold_quantize']} times, "
+                                         f"expected {want}")
+                if any(sha(paths[i]) != before[i] for i in victims):
+                    raise AssertionError("a resumed file differs")
+            log("  resumed files byte-identical (sha256)")
+
+            # 4. packed: 16 observations per file, rows equal the per-file
+            # payloads; default writers, then one
+            for label, kw in ((f"{writers} writers", {}),
+                              ("1 writer", dict(writers=1))):
+                packed = os.path.join(work, "packed")
+                gpaths, counts = run_export(
+                    f"export {EXPORT_NOBS} obs, {EXPORT_OPF} per file, "
+                    f"depth 2, {label}", packed, EXPORT_NOBS,
+                    pipeline_depth=2, obs_per_file=EXPORT_OPF, **kw)
+                nsub = cfg.nsub
+                for g, gp in enumerate(gpaths):
+                    rows = FitsFile.read(gp)["SUBINT"].data
+                    for k in range(EXPORT_OPF):
+                        one = FitsFile.read(
+                            paths[g * EXPORT_OPF + k])["SUBINT"].data
+                        part = rows[k * nsub:(k + 1) * nsub]
+                        for col in ("DATA", "DAT_SCL", "DAT_OFFS"):
+                            if part[col].tobytes() != one[col].tobytes():
+                                raise AssertionError(
+                                    f"packed file {g} row block {k}: {col} "
+                                    "differs")
+                shutil.rmtree(packed)
+            log(f"  packed rows equal the per-file payloads ({len(gpaths)} "
+                f"files x {EXPORT_OPF} observations, both writer counts)")
+
+            # 5. depth 0 and one in-process writer: the same bytes
+            serial = os.path.join(work, "serial")
+            spaths, _ = run_export(
+                f"export {EXPORT_SERIAL_NOBS} obs, depth 0, 1 writer",
+                serial, EXPORT_SERIAL_NOBS, pipeline_depth=0, writers=1)
+            for i, sp in enumerate(spaths):
+                if sha(sp) != sha(paths[i]):
+                    raise AssertionError(f"depth-0 serial file {i} differs "
+                                         "from the depth-2 pooled one")
+            log(f"  depth-0 serial files equal the depth-2 pooled files "
+                f"({EXPORT_SERIAL_NOBS}, sha256)")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+
     def run(self, with_profile=False):
         self.phase("1 card", self.card)
         built = self.phase("2 build", self.build)
@@ -842,6 +1075,8 @@ class Smoke:
         self.phase("6 threefry parity", self.parity)
         if built and not self.failed:
             self.phase("7 kernel timing", self.measure)
+        if built:
+            self.phase("8 export", self.export)
         if self.failed:
             log(f"FAILED phases: {', '.join(self.failed)}")
             return 1

@@ -1,0 +1,923 @@
+"""PSRFITS writer/reader with template-copy semantics.
+
+Behavioral counterpart of psrsigsim/io/psrfits.py, self-contained: the
+reference drives fitsio/cfitsio through the pdat toolbox and PINT for
+polycos (io/psrfits.py:7-18); here the template machinery runs on
+:mod:`psrsigsim_torch.io.fits` and phase connection on
+:mod:`psrsigsim_torch.io.polyco`.
+
+Workflow (mirroring pdat's draft-HDU model, io/psrfits.py:63-65,485-509):
+load the template file, copy its extension HDUs into editable "drafts",
+rebuild the SUBINT table for the simulated dimensions, fill DATA /
+DAT_FREQ / DAT_SCL / DAT_OFFS / DAT_WTS per subint, patch PRIMARY /
+HISTORY / SUBINT / POLYCO headers for phase connection, and write.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..signal import FilterBankSignal
+from ..utils.quantity import make_quant
+from ..utils.utils import make_par
+from . import native
+from .file import BaseFile
+from .fits import Card, FitsFile, Header, bintable_dtype
+from .polyco import generate_polyco, generate_polycos
+
+__all__ = ["PSRFITS"]
+
+
+class PSRFITS(BaseFile):
+    """Save simulated signals as PSRFITS standard files.
+
+    Parameters
+    ----------
+    path : str
+        name and path of the new psrfits file that will be saved
+    obs_mode : str
+        observation type: 'PSR' (fold) or 'SEARCH'
+    template : str
+        path of the template fits file to copy structure from
+    copy_template : bool
+        unused (reference parity, io/psrfits.py:34-35)
+    fits_mode : str
+        only 'copy' is supported (reference parity)
+    """
+
+    def __init__(self, path=None, obs_mode=None, template=None,
+                 copy_template=False, fits_mode="copy"):
+        self._tbin = None
+        self._nbin = None
+        self._nsblk = None
+        self._nchan = None
+        self._npol = None
+        self._nrows = None
+        self._nsubint = None
+        self._tsubint = None
+        self._chan_bw = None
+        self._obsbw = None
+        self._obsfreq = None
+        self._stt_imjd = None
+        self._stt_smjd = None
+
+        self._fits_mode = fits_mode
+        super().__init__(path=path)
+
+        if template is None:
+            raise ValueError("PSRFITS currently requires a template file "
+                             "(fits_mode='copy', matching the reference)")
+        # accept a preloaded FitsFile so bulk exporters don't re-read the
+        # template once per output file (drafts always copy, never mutate it)
+        self.fits_template = (template if isinstance(template, FitsFile)
+                              else FitsFile.read(template))
+        self.draft_hdr_keys = self.fits_template.names()
+
+        # editable copies: headers + table record arrays
+        self.draft_headers = {
+            h.name: h.header.copy() for h in self.fits_template.hdus
+        }
+        self.HDU_drafts = {name: None for name in self.draft_hdr_keys}
+
+        if obs_mode is None:
+            self.obs_mode = str(
+                self.fits_template["PRIMARY"].header.get("OBS_MODE", "PSR")
+            ).strip()
+        else:
+            self.obs_mode = obs_mode
+
+        # parameter shopping lists (reference: io/psrfits.py:72-113)
+        self.pfit_pars = {
+            "PRIMARY": ["TELESCOP", "FRONTEND", "BACKEND", "OBS_MODE",
+                        "OBSFREQ", "OBSBW", "OBSNCHAN", "FD_POLN",
+                        "STT_IMJD", "STT_SMJD", "STT_OFFS"],
+            "SUBINT": ["TBIN", "NAXIS", "NAXIS1", "NAXIS2", "NCHAN",
+                       "POL_TYPE", "NPOL", "NBIN", "NBITS", "CHAN_BW",
+                       "NSBLK", "DAT_SCL", "DAT_OFFS", "DAT_WTS", "TSUBINT"],
+            "PSRPARAM": [],
+        }
+        if self.obs_mode == "SEARCH":
+            self.pfit_pars["SUBINT"].append("TDIM17")
+        elif self.obs_mode == "PSR":
+            for k in self.fits_template["SUBINT"].header.keys():
+                if "TDIM" in k:
+                    self.pfit_pars["SUBINT"].append(k)
+            self.pfit_pars["PSRPARAM"] += ["F", "F0", "DM"]
+
+    # -- polyco + metadata --------------------------------------------------
+    def _gen_polyco(self, parfile, MJD_start, segLength=60.0, ncoeff=15,
+                    maxha=12.0, method="TEMPO", numNodes=20, usePINT=True,
+                    strict=True, obs_freq=None, duration_min=None):
+        """Polyco parameters for the POLYCO HDU.
+
+        Signature mirrors the reference (io/psrfits.py:116-143); generation
+        is a numeric least-squares fit over the native timing model
+        (spin + barycentric Roemer/parallax/Shapiro + binary + DM/DMX/FD;
+        see io/timing.py), replacing the reference's PINT TEMPO fit.
+        ``usePINT=False`` raises, as upstream.  ``strict=False`` skips the
+        unsupported-timing-model gate.  ``obs_freq`` (MHz) computes the
+        polyco at the observing frequency instead of the par's TZRFRQ.
+        With ``duration_min`` a LIST of per-segment dicts covering the
+        span is returned (one fit per segLength minutes).
+        """
+        if not usePINT:
+            raise NotImplementedError(
+                "Only the PINT-equivalent path is supported for polycos"
+            )
+        if duration_min is not None:
+            return generate_polycos(parfile, MJD_start, duration_min,
+                                    segLength=segLength, ncoeff=ncoeff,
+                                    strict=strict, obs_freq=obs_freq)
+        return generate_polyco(parfile, MJD_start, segLength=segLength,
+                               ncoeff=ncoeff, strict=strict,
+                               obs_freq=obs_freq)
+
+    def _gen_metadata(self, signal, pulsar, ref_MJD=56000.0, inc_len=0.0):
+        """PRIMARY/SUBINT phase-connection numbers: OFFS_SUB per subint and
+        STT_IMJD/SMJD/OFFS from MJD arithmetic (reference:
+        io/psrfits.py:184-246)."""
+        subint_dict = {"EPOCHS": "MIDTIME"}
+        primary_dict = {}
+
+        # row cadence: subintegration length in PSR mode, NSBLK*TBIN in
+        # SEARCH mode (where rows are raw time blocks, not folds)
+        if self.obs_mode == "SEARCH":
+            sublen = float(self.tsubint.to("s").value)
+        else:
+            sublen = float(signal.sublen.to("s").value)
+        offs_sub = sublen / 2.0 + np.arange(self.nsubint) * sublen
+        subint_dict["OFFS_SUB"] = offs_sub
+
+        # split the reference MJD into integer day / second / fractional
+        # second via decimal strings, exactly as the reference does
+        init_MJD = np.double(ref_MJD)
+        frac_day = np.double("0." + str(init_MJD).split(".")[-1])
+        frac_sec = frac_day * 86400.0
+        init_SMJD = np.double(str(frac_sec).split(".")[0])
+        init_OFFS = np.double("0." + str(frac_sec).split(".")[-1])
+
+        inc = np.double(inc_len)
+        if inc == 0.0:
+            next_MJD = init_MJD
+            next_seconds = init_SMJD
+            next_frac_sec = init_OFFS
+        else:
+            next_MJD = init_MJD + np.floor(inc)
+            leftover_s = (inc - np.floor(inc)) * 86400.0
+            next_seconds = init_SMJD + np.floor(leftover_s)
+            next_frac_sec = init_OFFS + (leftover_s - np.floor(leftover_s))
+
+        primary_dict["OBS_MODE"] = self.obs_mode
+        primary_dict["OBSFREQ"] = self.obsfreq.value
+        primary_dict["OBSBW"] = self.obsbw.value
+        primary_dict["CHAN_DM"] = (signal.dm.value if signal.dm is not None
+                                   else 0.0)
+        # provenance: which solar-system ephemeris the polycos were built
+        # on — the loaded SPK kernel's name (PSS_EPHEM / set_ephemeris,
+        # JPL-grade absolute phase) or the built-in analytic model, whose
+        # few-ms absolute offset vs a JPL DE is documented in io/ephem.py.
+        from . import ephem as _ephem
+
+        primary_dict["EPHEM"] = _ephem.ephemeris_name()
+        primary_dict["STT_IMJD"] = int(next_MJD)
+        primary_dict["STT_SMJD"] = int(next_seconds)
+        primary_dict["STT_OFFS"] = np.double(next_frac_sec)
+        primary_dict["BE_DELAY"] = 0.0
+        return primary_dict, subint_dict
+
+    def set_draft_header(self, extname, header_dict):
+        """Update draft header values for one extension (pdat-compatible
+        surface, reference usage io/psrfits.py:268,281)."""
+        for key, val in header_dict.items():
+            self.draft_headers[extname][key] = val
+
+    def _edit_psrfits_header(self, polyco_dict, subint_dict, primary_dict):
+        """Patch PRIMARY/HISTORY/SUBINT/POLYCO drafts and prune binary
+        parameters from PSRPARAM (reference: io/psrfits.py:248-302)."""
+        self.set_draft_header("PRIMARY", primary_dict)
+
+        hist = self.HDU_drafts["HISTORY"]
+        hist[0]["POL_TYPE"] = str.encode(subint_dict["POL_TYPE"])
+        hist[0]["NSUB"] = self.nsubint
+        hist[0]["NPOL"] = self.npol
+        hist[0]["NBIN"] = subint_dict["NBIN"]
+        hist[0]["NBIN_PRD"] = subint_dict["NBIN"]
+        hist[0]["TBIN"] = subint_dict["TBIN"]
+        hist[0]["CTR_FREQ"] = self.obsfreq.value
+        hist[0]["NCHAN"] = self.nchan
+        hist[0]["CHAN_BW"] = subint_dict["CHAN_BW"]
+        hist[0]["DM"] = subint_dict["DM"]
+
+        subint_hdr = {
+            "EPOCHS": subint_dict["EPOCHS"], "CHAN_BW": subint_dict["CHAN_BW"],
+            "POL_TYPE": subint_dict["POL_TYPE"], "TBIN": subint_dict["TBIN"],
+            "DM": subint_dict["DM"], "NBIN": subint_dict["NBIN"],
+        }
+        if "NSTOT" in subint_dict:
+            subint_hdr["NSTOT"] = subint_dict["NSTOT"]
+        self.set_draft_header("SUBINT", subint_hdr)
+        for ii in range(len(subint_dict["OFFS_SUB"])):
+            self.HDU_drafts["SUBINT"][ii]["OFFS_SUB"] = subint_dict["OFFS_SUB"][ii]
+            self.HDU_drafts["SUBINT"][ii]["TSUBINT"] = subint_dict["TSUBINT"][ii]
+
+        polyco_dicts = (polyco_dict if isinstance(polyco_dict, list)
+                        else [polyco_dict])
+        pol = self.HDU_drafts["POLYCO"]
+        if len(pol) != len(polyco_dicts):
+            # template POLYCO tables carry one row; tile it per segment
+            pol = np.repeat(pol[:1], len(polyco_dicts))
+            self.HDU_drafts["POLYCO"] = pol
+        for ii, pd in enumerate(polyco_dicts):
+            for ky, val in pd.items():
+                if ky in pol.dtype.names:
+                    pol[ii][ky] = val
+
+        # prune binary-system parameters from PSRPARAM
+        delete_params = ["BINARY", "A1", "E", "T0", "PB", "OM", "SINI", "M2",
+                         "F1", "PMDEC", "PMRA", "TZRMJD", "TZRFRQ", "TZRSITE"]
+        rows = self.HDU_drafts["PSRPARAM"]
+        keep = []
+        for row in rows:
+            first = row[0].split()[0] if len(row[0].split()) else b""
+            if not any(dp.encode() == first for dp in delete_params):
+                keep.append(row)
+        self.HDU_drafts["PSRPARAM"] = np.array(keep, dtype=rows.dtype)
+
+    # -- the save path ------------------------------------------------------
+    def save(self, signal, pulsar, parfile=None, MJD_start=56000.0,
+             segLength=60.0, inc_len=0.0, ref_MJD=56000.0, usePint=True,
+             eq_wts=True, quantized=None, strict_polyco=True,
+             verbose=True):
+        """Save the signal to disk as PSRFITS (reference:
+        io/psrfits.py:305-424).  See that docstring for parameter meanings.
+
+        ``quantized``: optional ``(data, scl, offs)`` triple from the
+        device-side export kernel (:func:`psrsigsim_torch.ops.subint_quantize`
+        or :meth:`~psrsigsim_torch.parallel.FoldEnsemble.run_quantized` for
+        one observation) — ``data`` is ``(nsub, Nchan, nbin)`` int16 and
+        ``scl``/``offs`` are ``(nsub, Nchan)``.  The file then carries REAL
+        per-(subint, channel) DAT_SCL/DAT_OFFS columns instead of the
+        reference's raw cast + 1/0 reset (io/psrfits.py:353,386-388);
+        ``eq_wts`` still controls DAT_WTS.
+        """
+        if inc_len == 0.0:
+            inc_len = MJD_start - ref_MJD
+
+        if self.obs_mode != "SEARCH":
+            self.nsblk = 1
+
+        search = self.obs_mode == "SEARCH"
+        row_len = self.nsblk if search else self.nbin
+        if quantized is not None:
+            q_data, q_scl, q_offs = (np.asarray(a) for a in quantized)
+            expect = (self.nsubint, self.nchan, row_len)
+            if q_data.shape != expect:
+                raise ValueError(
+                    f"quantized data shape {q_data.shape} != {expect}"
+                )
+            if search:
+                # row layout (nsblk, npol, nchan)
+                out = q_data.astype(">i2").transpose(0, 2, 1)[:, :, None, :]
+            else:
+                out = q_data.astype(">i2")[:, None, :, :]
+        elif search:
+            # (Nchan, nsamp) -> per-row (nsblk, npol, nchan) time-major;
+            # a final short row is zero-padded to NSBLK samples
+            total = row_len * self.nsubint
+            sim_sig = np.asarray(signal.data)[:, :total].astype(">i2")
+            if sim_sig.shape[1] < total:
+                sim_sig = np.pad(sim_sig,
+                                 ((0, 0), (0, total - sim_sig.shape[1])))
+            out = (
+                sim_sig.reshape(self.nchan, self.nsubint, row_len)
+                .transpose(1, 2, 0)[:, :, None, :]
+            )
+        elif (self.npol == 1
+                and np.asarray(signal.data).dtype == np.float32
+                and np.asarray(signal.data).shape[0] == self.nchan
+                # the timed speed probe goes LAST: ineligible saves must
+                # not pay a per-size-bucket measurement they cannot use
+                and native.encode_preferred(np.asarray(signal.data).size)):
+            # C++ fast path: one pass over the float payload doing the
+            # truncation cast + byteswap + per-subint relayout; gated on a
+            # measured speed probe, not just compile success (on some hosts
+            # the native path ran 0.68x numpy)
+            out = native.encode_subints(
+                np.asarray(signal.data), self.nsubint, self.nbin
+            )
+        else:
+            stop = self.nbin * self.nsubint
+            sim_sig = np.asarray(signal.data)[:, :stop].astype(">i2")
+            out = np.zeros((self.nsubint, self.npol, self.nchan, self.nbin))
+            for ii in range(self.nsubint):
+                out[ii, 0, :, :] = sim_sig[:, ii * self.nbin : (ii + 1) * self.nbin]
+
+        self.copy_psrfit_BinTables()
+
+        template_sub = self.fits_template["SUBINT"]
+        template_rows = template_sub.get_nrows()
+        dat_freq = np.asarray(signal.dat_freq.value, dtype=np.float64)
+        for ii in range(self.nsubint):
+            row = self.HDU_drafts["SUBINT"][ii]
+            # search rows are (nsblk, npol, nchan); PSR rows broadcast the
+            # single-pol (nchan, nbin) block over npol
+            row["DATA"] = out[ii] if search else out[ii, 0, :, :]
+            row["DAT_FREQ"] = dat_freq
+            qq = min(ii, template_rows - 1)
+            if quantized is not None:
+                # DAT_SCL/DAT_OFFS are pol-major: all channels of pol 0,
+                # then pol 1, ... (matching _fit_row's nchan*npol layout)
+                row["DAT_SCL"] = np.tile(q_scl[ii], self.npol)
+                row["DAT_OFFS"] = np.tile(q_offs[ii], self.npol)
+                row["DAT_WTS"] = (
+                    1.0 if eq_wts
+                    else _fit_row(template_sub.data["DAT_WTS"][qq], self.nchan)
+                )
+            elif eq_wts:
+                row["DAT_SCL"] = 1.0
+                row["DAT_OFFS"] = 0.0
+                row["DAT_WTS"] = 1.0
+            else:
+                row["DAT_SCL"] = _fit_row(
+                    template_sub.data["DAT_SCL"][qq], self.nchan * self.npol
+                )
+                row["DAT_OFFS"] = _fit_row(
+                    template_sub.data["DAT_OFFS"][qq], self.nchan * self.npol
+                )
+                row["DAT_WTS"] = _fit_row(
+                    template_sub.data["DAT_WTS"][qq], self.nchan
+                )
+
+        if parfile is None:
+            if verbose:
+                print("No parfile provided, creating par file %s_sim.par"
+                      % (pulsar.name))
+            make_par(signal, pulsar, outpar="%s_sim.par" % (pulsar.name))
+            parfile = "%s_sim.par" % (pulsar.name)
+
+        # observations longer than one span get a POLYCO TABLE: one fitted
+        # segment per segLength minutes, row-matched by the folding
+        # software (the reference relies on pint.polycos the same way)
+        tobs_s = float(signal.tobs.to("s").value) if signal.tobs is not None \
+            else 0.0
+        polyco_dict = self._gen_polyco(
+            parfile, MJD_start, segLength=segLength, ncoeff=15,
+            usePINT=usePint, strict=strict_polyco,
+            obs_freq=float(signal.fcent.value),
+            duration_min=max(tobs_s / 60.0, segLength))
+        primary_dict, subint_dict = self._gen_metadata(
+            signal, pulsar, ref_MJD=ref_MJD, inc_len=inc_len
+        )
+        subint_dict["POL_TYPE"] = "AA+BB"
+        subint_dict["CHAN_BW"] = self.chan_bw.value
+        subint_dict["TSUBINT"] = np.repeat(self.tsubint.value, self.nsubint)
+        subint_dict["TBIN"] = (float(self.tbin.to("s").value) if search
+                               else pulsar.period.value / self.nbin)
+        subint_dict["DM"] = (signal.dm.value if signal.dm is not None
+                             else 0.0)
+        subint_dict["NBIN"] = self.nbin
+        if search:
+            # true sample count: the final SEARCH row may be zero-padded
+            # to NSBLK, and load() must trim the padding back off
+            subint_dict["NSTOT"] = int(signal.nsamp)
+        self._edit_psrfits_header(polyco_dict, subint_dict, primary_dict)
+
+        self.write_psrfits(hdr_from_draft=True)
+        if verbose:
+            # reference parity chatter (io/psrfits.py:424); bulk exporters
+            # pass verbose=False and report via their progress callback
+            print("Finished writing and saving the file")
+
+    def write_psrfits(self, hdr_from_draft=True):
+        """Assemble draft headers + tables into a FITS file on disk."""
+        hdus = []
+        for name in self.draft_hdr_keys:
+            header = (self.draft_headers[name] if hdr_from_draft
+                      else self.fits_template[name].header.copy())
+            data = self.HDU_drafts.get(name)
+            if name == "PRIMARY":
+                hdus.append(_primary_hdu(header))
+                continue
+            if data is None:
+                data = self.fits_template[name].data
+            hdus.append(_table_hdu(name, header, data))
+        FitsFile(hdus).write(self.path)
+
+    def close(self):
+        """pdat-compat no-op (all state is in memory)."""
+
+    def append(self, signal):
+        raise NotImplementedError()
+
+    def load(self):
+        """Read the PSRFITS file at ``self.path`` back into a
+        :class:`FilterBankSignal` carrying the dequantized data.
+
+        Stubbed in the reference (io/psrfits.py:427-432); completed here
+        (the root DIVERGENCES.md #16).  The file's own structure acts as the
+        template, so :meth:`make_signal_from_psrfits` supplies the
+        metadata; DATA is dequantized with the stored per-(row, channel)
+        DAT_SCL/DAT_OFFS (pol 0 / total intensity) and reassembled to
+        ``(Nchan, nsamp)`` — PSR rows concatenate along phase bins,
+        SEARCH rows along time blocks.
+
+        Caveat: files written with ``eq_wts=False`` and no ``quantized``
+        triple carry the TEMPLATE's DAT_SCL/DAT_OFFS next to raw-cast
+        DATA (a reference-parity quirk of :meth:`save`); applying those
+        scales — as any standard-compliant reader must — does not recover
+        the simulated values.  ``eq_wts=True`` (scl=1/offs=0) and
+        ``quantized`` files round-trip exactly.
+        """
+        import warnings
+
+        loader = PSRFITS(path=self.path, template=self.path)
+        with warnings.catch_warnings():
+            # the SEARCH fold-shell caveat is for DIRECT callers; this IS
+            # the documented override path (fold/nsamp are set below)
+            warnings.filterwarnings(
+                "ignore", message=".*SEARCH-mode template.*",
+                category=UserWarning)
+            S = loader.make_signal_from_psrfits()
+
+        f = loader.fits_template
+        sub = f["SUBINT"]
+        hdr = sub.read_header()
+        nchan, npol = int(hdr["NCHAN"]), int(hdr["NPOL"])
+        rows = sub.get_nrows()
+        scl = np.asarray(sub.data["DAT_SCL"], np.float64)
+        offs = np.asarray(sub.data["DAT_OFFS"], np.float64)
+        # pol-major (nchan*npol,) rows: take pol 0
+        scl = scl.reshape(rows, npol, nchan)[:, 0, :]
+        offs = offs.reshape(rows, npol, nchan)[:, 0, :]
+
+        raw = np.asarray(sub.data["DATA"], np.float64)
+        if loader.obs_mode == "SEARCH":
+            # (rows, nsblk, npol, nchan) -> (nchan, rows*nsblk)
+            phys = raw[:, :, 0, :] * scl[:, None, :] + offs[:, None, :]
+            data = phys.transpose(2, 0, 1).reshape(nchan, -1)
+            # trim the zero-padding of a short final row (NSTOT records
+            # the true sample count; absent in files from older writers,
+            # whose rows always tiled exactly)
+            nstot = hdr.get("NSTOT")
+            if nstot is not None:
+                data = data[:, : int(nstot)]
+        else:
+            # (rows, npol, nchan, nbin) -> (nchan, rows*nbin)
+            phys = raw[:, 0, :, :] * scl[:, :, None] + offs[:, :, None]
+            data = phys.transpose(1, 0, 2).reshape(nchan, -1)
+
+        S.data = data.astype(np.float32)
+        S._nsamp = data.shape[1]
+        S._nsub = rows
+        S._fold = loader.obs_mode != "SEARCH"
+        # the SUBINT header carries the dispersion and cadence the data
+        # were written with; PSRPARAM (which make_signal_from_psrfits
+        # consulted for F0) is the template's copied timing block and may
+        # disagree — TBIN is authoritative for the sample rate
+        if hdr.get("DM") is not None:
+            S._dm = make_quant(float(hdr["DM"]), "pc/cm^3")
+        if hdr.get("TBIN"):
+            S._samprate = make_quant(1e-6 / float(hdr["TBIN"]), "MHz")
+        return S
+
+    # -- template -> signal -------------------------------------------------
+    def _validate_template_geometry(self):
+        """Loud malformed-template guard for the template -> signal path.
+
+        Collects every geometry defect at once (NCHAN/NBIN/TBIN/TSUBINT
+        missing, zero, or negative) and raises one ValueError naming them
+        all, so a corrupt or hand-edited template fails at load with an
+        actionable message instead of silently producing a signal shell
+        whose sample rate or fold geometry is garbage.  Unknown OBS_MODE
+        values raise NotImplementedError — there is no defined shell for
+        them (e.g. CAL files).
+        """
+        if self.obs_mode not in ("PSR", "SEARCH"):
+            raise NotImplementedError(
+                f"make_signal_from_psrfits supports OBS_MODE 'PSR' and "
+                f"'SEARCH'; template declares {self.obs_mode!r}")
+
+        def _num(v):
+            try:
+                return float(getattr(v, "value", v))
+            except (TypeError, ValueError):
+                return None
+
+        problems = []
+        nchan = _num(self.nchan)
+        if nchan is None or not nchan >= 1 or not nchan.is_integer():
+            problems.append(f"NCHAN={self.nchan!r} (need an int >= 1)")
+        if self.obs_mode == "PSR":
+            nbin = _num(self.nbin)
+            if nbin is None or not nbin >= 1 or not nbin.is_integer():
+                problems.append(f"NBIN={self.nbin!r} (need an int >= 1 — "
+                                "the fold sample rate is F0 * NBIN)")
+        else:
+            tbin = _num(self.tbin)
+            if tbin is None or not tbin > 0:
+                problems.append(f"TBIN={self.tbin!r} (need > 0 s — the "
+                                "SEARCH sample rate is 1/TBIN)")
+        tsub = _num(self.tsubint)
+        if tsub is None or not tsub > 0:
+            problems.append(f"TSUBINT={self.tsubint!r} (need > 0 s — "
+                            "becomes the shell's sublen)")
+        if problems:
+            raise ValueError(
+                f"template {getattr(self, 'file_name', self.path)!r} has "
+                "malformed geometry; refusing to build a signal shell "
+                "from it: " + "; ".join(problems))
+
+    def make_signal_from_psrfits(self):
+        """Construct a metadata-only FilterBankSignal from the template
+        (reference: io/psrfits.py:439-483).
+
+        The reference's version carries a geometry TODO and would
+        propagate whatever the header claims; here a malformed template
+        fails LOUDLY (:meth:`_validate_template_geometry`) instead of
+        returning a signal shell with nonsense geometry that only breaks
+        much later (wrong sample rate, zero-bin folds).  SEARCH-mode
+        templates additionally warn: the reconstructed shell is built
+        with fold-mode geometry (``sublen = TSUBINT``) for reference
+        parity — :meth:`load` overrides ``fold``/``nsamp`` afterwards,
+        but a direct caller must not trust those two fields.
+        """
+        self._fits_mode = "copy"
+        self.get_signal_params()
+        self._validate_template_geometry()
+
+        if self.obs_mode == "PSR":
+            f0 = self.pfit_dict.get("F0")
+            f_alt = self.pfit_dict.get("F")
+            f_use = f0 if f0 is not None else f_alt
+            if f_use is None:
+                raise ValueError("No pulsar frequency defined in input fits file.")
+            s_rate = f_use * self.nbin * 1e-6  # MHz
+        else:
+            import warnings
+
+            warnings.warn(
+                "make_signal_from_psrfits on a SEARCH-mode template: the "
+                "reconstructed signal shell carries fold-mode geometry "
+                "(fold=True, sublen=TSUBINT) for reference parity; "
+                "PSRFITS.load() overrides fold/nsamp from the data — do "
+                "not trust those fields from a direct call.",
+                stacklevel=2)
+            s_rate = (1 / self.tbin).to("MHz").value
+
+        S = FilterBankSignal(
+            fcent=self.obsfreq.value,
+            bandwidth=self.obsbw.value,
+            Nsubband=self.nchan,
+            sample_rate=s_rate,
+            dtype=np.float32,
+            fold=True,
+            sublen=float(self.tsubint.to("s").value),
+        )
+        S._dat_freq = make_quant(
+            np.atleast_1d(self._get_pfit_bin_table_entry("SUBINT", "DAT_FREQ")),
+            "MHz",
+        )
+        # PSRPARAM supplies DM in PSR mode only (pfit_pars); SEARCH-mode
+        # files carry it in the SUBINT header instead (see load())
+        if self.pfit_dict.get("DM") is not None:
+            S._dm = make_quant(self.pfit_dict["DM"], "pc/cm^3")
+        return S
+
+    def copy_psrfit_BinTables(self, ext_names="all"):
+        """Copy template BinTables into drafts (SUBINT gets a freshly-sized
+        empty record array; reference: io/psrfits.py:485-509)."""
+        if ext_names == "all":
+            ext_names = list(self.draft_hdr_keys[1:])
+        ext_names = [n for n in ext_names if n != "SUBINT"]
+        for ky in ext_names:
+            if self.HDU_drafts[ky] is None:
+                self.HDU_drafts[ky] = self.fits_template[ky].data.copy()
+        self.set_subint_dims(
+            nbin=self.nbin, nsblk=self.nsblk, nchan=self.nchan,
+            nsubint=self.nrows, npol=self.npol,
+        )
+
+    def set_subint_dims(self, nbin=1, nsblk=1, nchan=2048, nsubint=1, npol=1):
+        """Rebuild the SUBINT draft dtype + header geometry for the simulated
+        dimensions (pdat-equivalent).
+
+        PSR mode: DATA is (npol, nchan, nbin) int16, TDIM (nbin, nchan, npol).
+        SEARCH mode: each row is NSBLK time samples — DATA is
+        (nsblk, npol, nchan) int16, TDIM (nchan, npol, nsblk), NBIN=1
+        (PSRFITS standard; the reference collects the TDIM17 key for this
+        layout but never writes it, io/psrfits.py:103)."""
+        self.nsubint = nsubint
+        search = self.obs_mode == "SEARCH"
+        header = self.draft_headers["SUBINT"]
+        template_dtype, _ = bintable_dtype(self.fits_template["SUBINT"].header)
+
+        data_shape = (nsblk, npol, nchan) if search else (npol, nchan, nbin)
+        fields = []
+        for name in template_dtype.names:
+            base = template_dtype[name].base
+            if name == "DAT_FREQ":
+                fields.append((name, ">f8", (nchan,)))
+            elif name == "DAT_WTS":
+                fields.append((name, ">f4", (nchan,)))
+            elif name in ("DAT_SCL", "DAT_OFFS"):
+                fields.append((name, ">f4", (nchan * npol,)))
+            elif name == "DATA":
+                fields.append((name, ">i2", data_shape))
+            else:
+                shape = template_dtype[name].shape
+                fields.append((name, base, shape) if shape else (name, base))
+        self.subint_dtype = np.dtype(fields)
+        self.HDU_drafts["SUBINT"] = self.make_HDU_rec_array(
+            nsubint, self.subint_dtype
+        )
+
+        # sync the header's column descriptors
+        tt_index = {}
+        for key in list(header.keys()):
+            if key.startswith("TTYPE"):
+                tt_index[str(header[key]).strip()] = int(key[5:])
+        def _set_col(colname, tform, tdim=None):
+            n = tt_index.get(colname)
+            if n is None:
+                return
+            header[f"TFORM{n}"] = tform
+            if tdim is not None:
+                header[f"TDIM{n}"] = tdim
+
+        _set_col("DAT_FREQ", f"{nchan}D")
+        _set_col("DAT_WTS", f"{nchan}E")
+        _set_col("DAT_SCL", f"{nchan * npol}E")
+        _set_col("DAT_OFFS", f"{nchan * npol}E")
+        n_data = int(np.prod(data_shape))
+        tdim = (f"({nchan},{npol},{nsblk})" if search
+                else f"({nbin},{nchan},{npol})")
+        _set_col("DATA", f"{n_data}I", tdim)
+        header["NAXIS1"] = self.subint_dtype.itemsize
+        header["NAXIS2"] = nsubint
+        header["NCHAN"] = nchan
+        header["NPOL"] = npol
+        header["NBIN"] = nbin
+        if search:
+            header["NBITS"] = 16
+        header["NSBLK"] = nsblk
+
+    @staticmethod
+    def make_HDU_rec_array(nrows, dtype):
+        """Zeroed record array for a draft HDU (pdat-compatible surface)."""
+        return np.zeros(nrows, dtype=dtype)
+
+    def to_txt(self):
+        raise NotImplementedError()
+
+    def to_psrfits(self):
+        # the reference RETURNS the exception instead of raising
+        # (io/psrfits.py:520) — a silent no-op for any caller not
+        # inspecting the return value; fixed + listed in the root
+        # DIVERGENCES.md #26
+        raise NotImplementedError()
+
+    def set_sky_info(self):
+        raise NotImplementedError()
+
+    def _calc_psrfits_dims(self, signal):
+        raise NotImplementedError()
+
+    # -- parameter plumbing -------------------------------------------------
+    def get_signal_params(self, signal=None):
+        """Populate dimension attributes from the template file or from a
+        signal object (reference: io/psrfits.py:533-581)."""
+        self._make_psrfits_pars_dict()
+        if signal is None:
+            self.nchan = self.pfit_dict["NCHAN"]
+            self.tbin = self.pfit_dict["TBIN"]
+            self.nbin = self.pfit_dict["NBIN"]
+            self.npol = self.pfit_dict["NPOL"]
+            self.nrows = self.pfit_dict["NAXIS2"]
+            self.nsblk = self.pfit_dict["NSBLK"]
+            self.obsfreq = self.pfit_dict["OBSFREQ"]
+            self.obsbw = self.pfit_dict["OBSBW"]
+            self.chan_bw = self.pfit_dict["CHAN_BW"]
+            self.stt_imjd = self.pfit_dict["STT_IMJD"]
+            self.stt_smjd = self.pfit_dict["STT_SMJD"]
+            self.tsubint = self.pfit_dict["TSUBINT"]
+        elif self.obs_mode == "SEARCH":
+            # search-mode geometry: each SUBINT row holds NSBLK time
+            # samples of every (pol, chan), NBIN=1.  The reference never
+            # implemented search-mode writing (its save() reshapes PSR
+            # geometry only and make_signal_from_psrfits carries a TODO,
+            # reference: io/psrfits.py:349-361,444); this completes it.
+            self.nchan = signal.Nchan
+            self.tbin = float((1.0 / signal.samprate).to("s").value)
+            self.nbin = 1
+            self.npol = signal.Npols
+            nsamp = int(signal.nsamp)
+            # fixed row length; the final short row (if any) is written
+            # zero-padded.  The previous exact-divisor rule degenerated to
+            # NSBLK=1 for prime/awkward nsamp — one SUBINT row per sample
+            # with full DAT_* arrays each: pathological files.
+            self.nsblk = min(4096, nsamp)
+            self.nrows = -(-nsamp // self.nsblk)
+            self.obsfreq = signal.fcent
+            self.obsbw = signal.bw
+            self.chan_bw = signal.bw / signal.Nchan
+            self.tsubint = self.nsblk * float((1.0 / signal.samprate).to("s").value)
+        else:
+            self.nchan = signal.Nchan
+            self.tbin = float((1.0 / signal.samprate).to("s").value)
+            self.nbin = int(signal.nsamp / signal.nsub)
+            self.npol = signal.Npols
+            self.nrows = signal.nsub
+            self.nsblk = self.pfit_dict["NSBLK"]
+            self.obsfreq = signal.fcent
+            self.obsbw = signal.bw
+            self.chan_bw = signal.bw / signal.Nchan
+            self.tsubint = signal.sublen
+
+        self.nsubint = self.nrows
+
+    def _make_psrfits_pars_dict(self):
+        """Collect the shopping-list parameters from the template
+        (reference: io/psrfits.py:584-610).
+
+        Cached per (template object, obs_mode): bulk exporters build one
+        PSRFITS per output file against a SHARED preloaded template, and
+        re-walking its headers cost ~2 ms of every file's write."""
+        cache = self.fits_template.__dict__.setdefault("_pfit_cache", {})
+        hit = cache.get(self.obs_mode)
+        if hit is not None:
+            self.pfit_dict = dict(hit[0])
+            self.dtypes = hit[1]
+            return
+        self.pfit_dict = {}
+        for extname, keys in self.pfit_pars.items():
+            for ky in keys:
+                if "DAT" in ky:
+                    val = self._get_pfit_bin_table_entry("SUBINT", ky)
+                elif "TSUBINT" in ky:
+                    val = self._get_pfit_bin_entry("SUBINT", ky)
+                elif extname == "PSRPARAM":
+                    val = self._get_pfit_psrparam(extname, ky)
+                else:
+                    val = self._get_pfit_hdr_entry(extname, ky)
+                if isinstance(val, (str, bytes)):
+                    val = val.strip()
+                self.pfit_dict[ky] = val
+
+        dtype, colinfo = bintable_dtype(self.fits_template["SUBINT"].header)
+        self.dtypes = {
+            name: (dtype[name].base.str, dtype[name].shape)
+            if dtype[name].shape
+            else dtype[name].str
+            for name in dtype.names
+        }
+        cache[self.obs_mode] = (dict(self.pfit_dict), self.dtypes)
+
+    def _get_pfit_hdr_entry(self, extname, key):
+        return self.fits_template[extname].header.get(key)
+
+    def _get_pfit_bin_table_entry(self, extname, key, row=0):
+        val = self.fits_template[extname].data[key][row]
+        try:
+            return val[0] if np.ndim(val) > 1 else val
+        except (IndexError, TypeError):
+            return val
+
+    def _get_pfit_bin_entry(self, extname, key, row=0):
+        val = self.fits_template[extname].data[key][row]
+        return float(np.ravel(val)[0]) if np.ndim(val) else float(val)
+
+    def _get_pfit_psrparam(self, extname, param):
+        for val in self.fits_template[extname].data:
+            parts = val[0].split()
+            if parts and param == parts[0].decode("utf-8"):
+                return np.float64(parts[1].decode("utf-8").replace("D", "E"))
+        return None
+
+    # -- unit-tagged properties (reference: io/psrfits.py:643-737) ----------
+    @property
+    def tbin(self):
+        return self._tbin
+
+    @tbin.setter
+    def tbin(self, value):
+        self._tbin = make_quant(value, "s")
+
+    @property
+    def npol(self):
+        return self._npol
+
+    @npol.setter
+    def npol(self, value):
+        self._npol = value
+
+    @property
+    def nchan(self):
+        return self._nchan
+
+    @nchan.setter
+    def nchan(self, value):
+        self._nchan = value
+
+    @property
+    def nsblk(self):
+        return self._nsblk
+
+    @nsblk.setter
+    def nsblk(self, value):
+        self._nsblk = value
+
+    @property
+    def nbin(self):
+        return self._nbin
+
+    @nbin.setter
+    def nbin(self, value):
+        self._nbin = value
+
+    @property
+    def nrows(self):
+        return self._nrows
+
+    @nrows.setter
+    def nrows(self, value):
+        self._nrows = value
+
+    @property
+    def nsubint(self):
+        return self._nsubint
+
+    @nsubint.setter
+    def nsubint(self, value):
+        self._nsubint = value
+
+    @property
+    def obsfreq(self):
+        return self._obsfreq
+
+    @obsfreq.setter
+    def obsfreq(self, value):
+        self._obsfreq = make_quant(value, "MHz")
+
+    @property
+    def obsbw(self):
+        return self._obsbw
+
+    @obsbw.setter
+    def obsbw(self, value):
+        self._obsbw = make_quant(value, "MHz")
+
+    @property
+    def chan_bw(self):
+        return self._chan_bw
+
+    @chan_bw.setter
+    def chan_bw(self, value):
+        self._chan_bw = make_quant(value, "MHz")
+
+    @property
+    def stt_imjd(self):
+        return self._stt_imjd
+
+    @stt_imjd.setter
+    def stt_imjd(self, value):
+        self._stt_imjd = make_quant(value, "day")
+
+    @property
+    def stt_smjd(self):
+        return self._stt_smjd
+
+    @stt_smjd.setter
+    def stt_smjd(self, value):
+        self._stt_smjd = make_quant(value, "s")
+
+    @property
+    def tsubint(self):
+        return self._tsubint
+
+    @tsubint.setter
+    def tsubint(self, value):
+        self._tsubint = make_quant(value, "s")
+
+
+def _fit_row(template_row, n):
+    """Trim/pad a template per-subint vector to length n."""
+    flat = np.ravel(np.asarray(template_row, dtype=np.float64))
+    if flat.size >= n:
+        return flat[:n]
+    return np.pad(flat, (0, n - flat.size), mode="edge")
+
+
+def _primary_hdu(header):
+    from .fits import HDU
+
+    h = header.copy()
+    return HDU(h, data=None, name="PRIMARY")
+
+
+def _table_hdu(name, header, data):
+    from .fits import HDU
+
+    h = header.copy()
+    h["NAXIS1"] = data.dtype.itemsize
+    h["NAXIS2"] = len(data)
+    return HDU(h, data=data, name=name)

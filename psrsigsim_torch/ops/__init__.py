@@ -7,14 +7,32 @@ fold → quantize → pack kernel (:mod:`.fold_quantize`); plus the
 host helpers the portrait layer needs (:mod:`.interp`, :mod:`.window`).
 """
 
-from . import fold_quantize
 from .interp import PchipCoeffs, pchip_eval_np, pchip_fit_np
-from .quantize import clip_cast, subint_dequantize, subint_quantize, swap16
-from .rng_hw import hw_chan_field, rng_field, rng_field_plain
-from .shift import fourier_shift
-from .stats import (chan_chi2_field, chan_normal_field, chi2_draw_norm,
-                    chi2_sample, normal, sampler_backend, uniform)
 from .window import offpulse_window
+
+# the tensor modules load on first use: a host-only consumer of the numpy
+# helpers above (the PSRFITS writer processes unpickling a pulsar's
+# portrait) must not pay for importing torch
+_LAZY = {
+    "clip_cast": "quantize", "subint_quantize": "quantize",
+    "subint_dequantize": "quantize", "swap16": "quantize",
+    "rng_field": "rng_hw", "rng_field_plain": "rng_hw",
+    "hw_chan_field": "rng_hw", "fourier_shift": "shift",
+    "chan_chi2_field": "stats", "chan_normal_field": "stats",
+    "chi2_draw_norm": "stats", "chi2_sample": "stats", "normal": "stats",
+    "uniform": "stats", "sampler_backend": "stats",
+}
+
+
+def __getattr__(name):
+    import importlib
+
+    if name == "fold_quantize":
+        return importlib.import_module(".fold_quantize", __name__)
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f".{_LAZY[name]}", __name__), name)
+
 
 __all__ = [
     "PchipCoeffs",

@@ -36,17 +36,6 @@ def _split_packed_chunk(packed, nbin):
     return data, tail[..., 0], tail[..., 1]
 
 
-def _fetch(t):
-    """A device tensor as a host numpy array.  From the card the copy lands
-    in pinned memory (PyTorch caches the pinned blocks between chunks),
-    which crosses the link several times faster than a pageable copy."""
-    if t.device.type != "cuda":
-        return t.numpy()
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t)
-    return host.numpy()
-
-
 class FoldEnsemble:
     """A fold-mode Monte-Carlo ensemble on one device.
 
@@ -66,6 +55,11 @@ class FoldEnsemble:
             signal, pulsar, telescope, system, Tsys=Tsys)
         dm = float(signal.dm.value) if signal.dm is not None else 0.0
         self._stage(cfg, profiles_np, noise_norm, dm)
+        # kept for metadata-only consumers (PSRFITS export);
+        # build_fold_config above has already stamped nsub/nsamp/draw_norm
+        # onto it
+        self._signal = signal
+        self._pulsar = pulsar
 
     @classmethod
     def from_config(cls, cfg, profiles, noise_norm, dm=0.0, device=None):
@@ -78,10 +72,15 @@ class FoldEnsemble:
         if isinstance(profiles, torch.Tensor):
             profiles = profiles.detach().cpu().numpy()
         self._stage(cfg, profiles, noise_norm, dm)
+        self._signal = self._pulsar = None
         return self
 
     def _stage(self, cfg, profiles_np, noise_norm, dm):
         self.cfg = cfg
+        # SPK source the exporter barycenters with (None = the process-
+        # global switch: analytic, or PSS_EPHEM); the Simulation slice
+        # stamps it
+        self.ephemeris_source = None
         self.noise_norm = float(noise_norm)
         self.dm = float(dm)
         dev = self.device
@@ -187,8 +186,9 @@ class FoldEnsemble:
         return result
 
     def iter_chunks(self, n_obs, chunk_size=256, seed=0, dms=None,
-                    noise_norms=None, quantized=False, byte_order="little",
-                    finite_mask=False):
+                    noise_norms=None, quantized=False, progress=None,
+                    skip_chunk=None, prefetch=1, byte_order="little",
+                    finite_mask=False, fetch_ahead=0, timers=None):
         """Stream a large ensemble in fixed-size chunks.
 
         Yields ``(start, block)`` with host numpy arrays for observations
@@ -197,13 +197,52 @@ class FoldEnsemble:
         triple (plus the ``(count, Nchan)`` finite mask when
         ``finite_mask``).  Every chunk runs at the full ``chunk_size``
         width (the tail wraps indices and is trimmed) and keys derive from
-        GLOBAL observation indices, so draws equal :meth:`run`'s.
+        GLOBAL observation indices, so draws equal :meth:`run`'s.  None of
+        the options below changes a yielded byte.
 
         ``byte_order="big"`` (quantized only) byte-swaps the codes on the
         device: ``data.view('>i2')`` then reads the true values, as the
         PSRFITS writer wants them.  Quantized chunks cross to the host as
         one packed buffer and are split there.
+
+        ``progress``: optional callable ``progress(done, total)`` invoked
+        after each chunk, skipped ones included, with a monotonic ``done``
+        (e.g. :class:`psrsigsim_torch.utils.progress.ConsoleProgress`).
+
+        ``skip_chunk``: optional predicate ``skip_chunk(start, count)``;
+        when it returns True the chunk's device work is skipped entirely
+        and nothing is yielded for it.  This is how a resuming exporter
+        avoids re-simulating finished work.
+
+        ``prefetch``: how many chunks the device may run ahead of the one
+        being fetched (default 1).  Launches are asynchronous, so with
+        ``prefetch >= 1`` the card computes chunk N+1 while chunk N
+        crosses the link and while the consumer writes files.  Each chunk
+        in flight holds its output buffer on the device; ``prefetch=0``
+        with ``fetch_ahead=0`` is strictly serial.
+
+        ``fetch_ahead``: with ``fetch_ahead >= 1`` the device→host copies
+        move to a dedicated fetch thread feeding a bounded queue of at
+        most ``fetch_ahead`` fetched chunks, so the link and the card stay
+        busy while the consumer encodes and writes the previous chunk.  Host memory
+        is bounded by ``fetch_ahead + 2`` chunks; the order is unchanged
+        (one thread, FIFO).  An error in the thread is raised in the
+        consumer; abandoning the generator stops the thread.
+        ``fetch_ahead=0`` fetches inline.
+
+        ``timers``: optional
+        :class:`~psrsigsim_torch.runtime.telemetry.StageTimers` — per
+        chunk ``dispatch`` and ``fetch`` times, fetched bytes, the
+        fetch-queue depth and the live device bytes accumulate there.
+
+        On the card every copy runs on a copy stream of its own, after an
+        event recorded behind the chunk's launches on the compute stream
+        (else chunk N's copy would queue behind chunk N+1's kernel), into
+        pinned host memory; the yielded arrays are views of it and stay
+        valid while the consumer holds them.
         """
+        import time as _time
+
         if byte_order not in ("little", "big"):
             raise ValueError("byte_order must be 'little' or 'big'")
         if finite_mask and not quantized:
@@ -211,26 +250,212 @@ class FoldEnsemble:
         self._validate_per_obs(n_obs, dms, noise_norms)
         if chunk_size <= 0:
             raise ValueError("chunk_size must be positive")
+        if prefetch < 0:
+            raise ValueError("prefetch must be >= 0")
+        if fetch_ahead < 0:
+            raise ValueError("fetch_ahead must be >= 0")
         if n_obs <= 0:
             return
         chunk_size = min(chunk_size, n_obs)
         nbin = self.cfg.nph
-        for start in range(0, n_obs, chunk_size):
-            count = min(chunk_size, n_obs - start)
+        cuda = self.device.type == "cuda"
+        copy_stream = torch.cuda.Stream(self.device) if cuda else None
+
+        def _dispatch(start, count):
+            """Launch one chunk: its device tensors, trimmed to ``count``
+            observations, and the event that marks them complete.  A
+            quantized chunk also gathers its DAT_SCL/DAT_OFFS halves into
+            one small contiguous tensor on the device, so the host split is
+            a view instead of a gather over the whole buffer."""
+            t0 = _time.perf_counter()
             idx = (start + np.arange(chunk_size)) % n_obs
             keys, dms_c, norms_c = self._prep_chunk(idx, seed, dms,
                                                     noise_norms)
             if quantized:
                 packed, finite = self._quantized_packed(keys, dms_c, norms_c,
                                                         byte_order)
-                data, scl, offs = _split_packed_chunk(_fetch(packed[:count]),
-                                                      nbin)
-                block = (data, scl, offs)
+                packed = packed[:count]
+                dev = (packed, packed[..., nbin:].contiguous())
                 if finite_mask:
-                    block = block + (_fetch(finite[:count]),)
-                # the device buffer is on the host now: free it before the
-                # next chunk allocates its own
-                del packed, finite
+                    dev = dev + (finite[:count],)
             else:
-                block = _fetch(self._blocks(keys, dms_c, norms_c)[:count])
-            yield start, block
+                dev = (self._blocks(keys, dms_c, norms_c)[:count],)
+            ready = None
+            if cuda:
+                ready = torch.cuda.Event()
+                ready.record()
+            if timers is not None:
+                timers.add("dispatch", _time.perf_counter() - t0)
+                timers.track_live(dev)
+            return {"dev": dev, "ready": ready, "copy": None, "s": 0.0}
+
+        def _start_fetch(chunk):
+            """Queue the chunk's device→host copies on the copy stream,
+            behind its ready event, into pinned memory; idempotent."""
+            if not cuda or chunk["copy"] is not None:
+                return
+            t0 = _time.perf_counter()
+            # the current stream is per thread: the copy stream is entered
+            # here, whichever thread fetches
+            with torch.cuda.stream(copy_stream):
+                copy_stream.wait_event(chunk["ready"])
+                pinned = []
+                for t in chunk["dev"]:
+                    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    # the allocator must not hand this memory to a later
+                    # chunk while the copy still reads it
+                    t.record_stream(copy_stream)
+                    h.copy_(t, non_blocking=True)
+                    pinned.append(h)
+                done = torch.cuda.Event()
+                done.record(copy_stream)
+            chunk["copy"] = (pinned, done)
+            chunk["s"] += _time.perf_counter() - t0
+
+        def _fetch(chunk):
+            """The chunk as host numpy arrays (the copies started if they
+            were not)."""
+            _start_fetch(chunk)
+            t0 = _time.perf_counter()
+            if cuda:
+                pinned, done = chunk["copy"]
+                done.synchronize()
+                host = [h.numpy() for h in pinned]
+            else:
+                host = [t.numpy() for t in chunk["dev"]]
+            if quantized:
+                tail = host[1].view(np.float32)
+                block = (host[0][..., :nbin], tail[..., 0],
+                         tail[..., 1]) + tuple(host[2:])
+            else:
+                block = host[0]
+            if timers is not None:
+                timers.untrack_live(chunk["dev"])
+                timers.add("fetch", chunk["s"] + _time.perf_counter() - t0,
+                           nbytes=sum(a.nbytes for a in host))
+            return block
+
+        done_max = 0
+
+        def _report(done):
+            # skipped chunks can run ahead of in-flight ones; keep the
+            # user-visible counter monotonic
+            nonlocal done_max
+            done_max = max(done_max, min(done, n_obs))
+            if progress is not None:
+                progress(done_max, n_obs)
+
+        if fetch_ahead <= 0:
+            # inline fetch: dispatch-ahead overlap only.  The oldest
+            # chunk's copy is queued before the next chunk is launched, so
+            # it crosses the link while the host stages the next one
+            inflight = []  # [(start, dispatched chunk)]
+            for start in range(0, n_obs, chunk_size):
+                count = min(chunk_size, n_obs - start)
+                if skip_chunk is not None and skip_chunk(start, count):
+                    _report(start + count)
+                    continue
+                if inflight and len(inflight) >= prefetch:
+                    _start_fetch(inflight[0][1])
+                inflight.append((start, _dispatch(start, count)))
+                if len(inflight) > prefetch:
+                    s0, item = inflight.pop(0)
+                    block = _fetch(item)
+                    del item
+                    _report(s0 + chunk_size)
+                    yield s0, block
+            while inflight:
+                s0, item = inflight.pop(0)
+                block = _fetch(item)
+                del item
+                _report(s0 + chunk_size)
+                yield s0, block
+            return
+
+        # -- threaded fetch -------------------------------------------------
+        # main thread: dispatch + yield; fetch thread: the copies + host
+        # split.  ``slots`` bounds the chunks on the device whose copy has
+        # not finished (the one being fetched plus ``prefetch``); the main
+        # thread launches whenever one is free, before it waits for the
+        # next fetched chunk, so chunk N+1's host staging and kernel run
+        # while chunk N crosses the link.  Teardown (the end, an error, or
+        # the consumer abandoning us mid-stream) sets ``stop`` and puts a
+        # ``None`` into the unbounded ``in_q``, which wakes the thread at
+        # once; the bounded ``out_q`` is polled with a short timeout, so a
+        # thread blocked on a full queue also sees ``stop``.
+        import queue as _queue
+        import threading as _threading
+        from collections import deque as _deque
+
+        in_q = _queue.Queue()                         # dispatched
+        out_q = _queue.Queue(maxsize=fetch_ahead)     # fetched
+        slots = _threading.Semaphore(prefetch + 1)
+        stop = _threading.Event()
+
+        def _fetcher():
+            while True:
+                got = in_q.get()
+                if got is None or stop.is_set():
+                    return
+                start, item = got
+                try:
+                    res = ("ok", start, _fetch(item))
+                except BaseException as err:  # noqa: BLE001 — re-raised
+                    res = ("error", err, None)  # in the consumer thread
+                # the copy is done and the device buffer dropped: a slot
+                # frees before the chunk is handed over
+                del item
+                slots.release()
+                while not stop.is_set():
+                    try:
+                        out_q.put(res, timeout=0.05)
+                        break
+                    except _queue.Full:
+                        continue
+                if res[0] == "error":
+                    return
+
+        thread = _threading.Thread(target=_fetcher, daemon=True,
+                                   name="pss-chunk-fetch")
+        thread.start()
+        pending = _deque((start, min(chunk_size, n_obs - start))
+                         for start in range(0, n_obs, chunk_size))
+        dispatched = received = 0
+        try:
+            while pending or received < dispatched:
+                # every received chunk released its slot, so with nothing
+                # outstanding a slot is always free and this never stalls
+                while pending and slots.acquire(blocking=False):
+                    s0, count = pending.popleft()
+                    if skip_chunk is not None and skip_chunk(s0, count):
+                        slots.release()
+                        _report(s0 + count)
+                        continue
+                    in_q.put((s0, _dispatch(s0, count)))
+                    dispatched += 1
+                if received >= dispatched:
+                    continue  # everything so far was skipped
+                if timers is not None:
+                    timers.depth("fetch_queue", out_q.qsize())
+                kind, a, b = out_q.get()
+                if kind == "error":
+                    raise a
+                received += 1
+                _report(a + chunk_size)
+                yield a, b
+        finally:
+            stop.set()
+            in_q.put(None)
+            thread.join(timeout=10.0)
+
+    def signal_shell(self):
+        """The configured signal object (metadata only — no ensemble data
+        lives on it), or None for an ensemble made with
+        :meth:`from_config`.  The PSRFITS bulk exporter
+        (:func:`psrsigsim_torch.io.export_ensemble_psrfits`) takes its
+        file metadata from it."""
+        return self._signal
+
+    @property
+    def pulsar(self):
+        return self._pulsar

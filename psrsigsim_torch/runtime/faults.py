@@ -1,0 +1,132 @@
+"""Deterministic fault injection for the export stack (a copy of
+psrsigsim_tpu/runtime/faults.py, cut to the points the port has).
+
+Robustness code that is only exercised by real outages is dead code with
+a pager attached.  This module gives every failure-handling path in the
+export writer pool a *named injection point* that tests arm explicitly:
+
+========================  ====================================================
+point                     where it fires
+========================  ====================================================
+``writer.crash``          :func:`psrsigsim_torch.io.export._worker_write`,
+                          just before writing a matching file — the worker
+                          process dies with SIGKILL (what a OOM-killed or
+                          preempted writer looks like to the pool).
+``shm.attach``            :func:`psrsigsim_torch.io.export._attach_chunk` in
+                          a worker — raises ``OSError`` (a vanished/renamed
+                          segment), exercising per-job retry without killing
+                          the process.
+``file.partial``          the fast writer, mid-write — writes a truncated
+                          ``.tmp`` then SIGKILLs the writing process, leaving
+                          exactly the partial temp file a power cut would.
+========================  ====================================================
+
+The JAX package's other points (``nan.obs``, ``run.kill``, the serving,
+Monte-Carlo, dataset, integrity and pod points) belong to subsystems the
+port has not taken over yet; naming one raises, like any unknown point.
+
+Arming is explicit and local: a :class:`FaultPlan` is built by a test and
+passed down via the ``faults=`` parameter; production call sites carry
+``plan=None`` and :func:`should_fire` is a single ``is None`` check —
+there is no environment variable, global registry, or import-time hook
+that could arm injection in production.
+
+Determinism across processes: each point fires a bounded number of times
+(``times``, default 1), tracked by ``O_CREAT|O_EXCL`` marker files in the
+plan's scratch directory — atomic on POSIX, shared by parent and spawn
+workers, and persistent across the respawns/resumes a single test
+orchestrates.  A respawned worker therefore does NOT re-fire an exhausted
+point, which is what lets a self-healing test converge.
+"""
+
+from __future__ import annotations
+
+import os
+import signal
+
+__all__ = ["FaultPlan", "should_fire", "crash_process", "POINTS"]
+
+POINTS = ("writer.crash", "shm.attach", "file.partial")
+
+
+class FaultPlan:
+    """A set of armed injection points with cross-process once-semantics.
+
+    Parameters
+    ----------
+    scratch_dir : str
+        Directory for the atomic marker files (must outlive the run;
+        tests pass a tmp dir).  Created if missing.
+    spec : dict
+        ``{point: config}``.  Every config may carry ``match`` (substring
+        the call-site token must contain) and ``times`` (shot budget,
+        default 1); point-specific keys are documented in the table
+        above.  Unknown point names are rejected loudly — a typo must
+        not silently disarm a fault test.
+
+    Instances are plain picklable data (they ride to spawn workers inside
+    the export writer state).
+    """
+
+    def __init__(self, scratch_dir, spec):
+        unknown = set(spec) - set(POINTS)
+        if unknown:
+            raise ValueError(
+                f"unknown fault point(s) {sorted(unknown)}; valid points: "
+                f"{list(POINTS)}")
+        self.scratch_dir = str(scratch_dir)
+        self.spec = {k: dict(v) for k, v in spec.items()}
+        os.makedirs(self.scratch_dir, exist_ok=True)
+
+    def config(self, point):
+        """The raw config dict for ``point`` (None when unarmed)."""
+        return self.spec.get(point)
+
+    def fire(self, point, token=""):
+        """True exactly ``times`` times per matching (point, plan) —
+        atomically across all processes sharing the plan."""
+        cfg = self.spec.get(point)
+        if cfg is None:
+            return False
+        match = cfg.get("match")
+        if match is not None and match not in str(token):
+            return False
+        times = int(cfg.get("times", 1))
+        stem = point.replace(".", "_")
+        for k in range(times):
+            marker = os.path.join(self.scratch_dir, f"{stem}.{k}")
+            try:
+                fd = os.open(marker, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+            except FileExistsError:
+                continue
+            os.close(fd)
+            return True
+        return False
+
+    def shots_fired(self, point):
+        """How many times ``point`` has fired so far (marker count)."""
+        stem = point.replace(".", "_") + "."
+        try:
+            names = os.listdir(self.scratch_dir)
+        except FileNotFoundError:
+            return 0
+        return sum(1 for n in names if n.startswith(stem))
+
+    def __repr__(self):
+        return f"FaultPlan({self.scratch_dir!r}, {self.spec!r})"
+
+
+def should_fire(plan, point, token=""):
+    """None-safe arming check used at every injection point.
+
+    ``plan`` is whatever rode down the call chain (a :class:`FaultPlan`
+    or None).  Production paths pass None and pay one identity check.
+    """
+    return plan is not None and plan.fire(point, token)
+
+
+def crash_process():
+    """Die the way the fault being modeled dies: SIGKILL, no cleanup, no
+    Python teardown — ``finally`` blocks and atexit hooks must NOT run,
+    that is the point of the test."""
+    os.kill(os.getpid(), signal.SIGKILL)

@@ -12,7 +12,6 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..ops.stats import chi2_draw_norm
 from ..utils.quantity import Quantity, make_quant
 from .state import FLOAT32, INT8, SignalMeta
 
@@ -178,6 +177,10 @@ class FilterBankSignal(BaseSignal):
     def _set_draw_norm(self, df=1):
         """Dynamic-range scaling for the intensity draws
         (reference: fb_signal.py:114-121)."""
+        # imported here: unpickling a signal (the PSRFITS writer
+        # processes) must not import torch
+        from ..ops.stats import chi2_draw_norm
+
         self._draw_max, self._draw_norm = chi2_draw_norm(self.dtype, df)
 
     @property

@@ -3,9 +3,7 @@ PRNG keys, device resolution and host-side numerics (counterpart:
 psrsigsim_tpu/utils/)."""
 
 from .constants import DM_K, DM_K_MS_MHZ2, KB_JY_M2_PER_K, KOLMOGOROV_BETA
-from .device import resolve_device
 from .quantity import Quantity, Unit, UnitConversionError, make_quant
-from .rng import STAGES, as_key, fold_in, key, random_bits, stage_key
 from .utils import (
     acf2d,
     down_sample,
@@ -17,6 +15,22 @@ from .utils import (
     text_search,
     top_hat_width,
 )
+
+# device.py and rng.py import torch and load on first use: a host-only
+# consumer of the numpy utilities above (the PSRFITS writer processes)
+# must not pay for importing torch
+_LAZY = {"resolve_device": "device", "STAGES": "rng", "key": "rng",
+         "as_key": "rng", "fold_in": "rng", "stage_key": "rng",
+         "random_bits": "rng"}
+
+
+def __getattr__(name):
+    import importlib
+
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f".{_LAZY[name]}", __name__), name)
+
 
 __all__ = [
     "make_quant",

@@ -379,6 +379,100 @@ def test_iter_chunks_float_and_progress(ensemble):
         next(ensemble.iter_chunks(N_OBS, finite_mask=True))
 
 
+def _quantized_chunks(ens, **kw):
+    args = dict(chunk_size=2, seed=SEED, quantized=True, byte_order="big",
+                finite_mask=True)
+    args.update(kw)
+    return list(ens.iter_chunks(N_OBS, **args))
+
+
+@pytest.mark.parametrize("fetch_ahead", [0, 1, 2])
+@pytest.mark.parametrize("prefetch", [0, 1, 2])
+def test_iter_chunks_overlap_options_change_no_byte(ensemble, prefetch,
+                                                    fetch_ahead):
+    """Dispatch-ahead and the fetch thread change no byte, no start and no
+    order; progress reaches the total monotonically."""
+    seen = []
+    got = _quantized_chunks(ensemble, prefetch=prefetch,
+                            fetch_ahead=fetch_ahead,
+                            progress=lambda d, t: seen.append((d, t)))
+    want = _quantized_chunks(ensemble, prefetch=0, fetch_ahead=0)
+    assert [c[0] for c in got] == [0, 2, 4]
+    for (s0, a), (s1, b) in zip(got, want):
+        assert s0 == s1
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    done = [d for d, _ in seen]
+    assert done == sorted(done) and seen[-1] == (N_OBS, N_OBS)
+
+
+@pytest.mark.parametrize("fetch_ahead", [0, 2])
+def test_iter_chunks_skip_chunk_skips_the_work(ensemble, monkeypatch,
+                                               fetch_ahead):
+    """A skipped chunk is never computed, yields nothing, and still moves
+    the progress counter."""
+    calls = []
+    real = type(ensemble)._quantized_packed
+
+    def counted(self, keys, *a, **k):
+        calls.append(int(keys.shape[0]))
+        return real(self, keys, *a, **k)
+
+    monkeypatch.setattr(type(ensemble), "_quantized_packed", counted)
+    seen = []
+    got = _quantized_chunks(ensemble, fetch_ahead=fetch_ahead,
+                            skip_chunk=lambda s, c: s != 2,
+                            progress=lambda d, t: seen.append(d))
+    assert calls == [2]
+    assert [c[0] for c in got] == [2]
+    assert seen == sorted(seen) and seen[-1] == N_OBS
+    want = _quantized_chunks(ensemble)[1][1]
+    for x, y in zip(got[0][1], want):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_iter_chunks_fetch_error_reaches_the_consumer(ensemble):
+    """An error in the fetch thread is raised in the consumer, and the
+    thread is gone afterwards; abandoning the generator stops it too."""
+    import threading
+
+    from psrsigsim_torch.runtime import StageTimers
+
+    class Broken(StageTimers):
+        def add(self, stage, seconds, nbytes=0):
+            if stage == "fetch" and threading.current_thread().name \
+                    == "pss-chunk-fetch":
+                raise OSError("injected fetch failure")
+            super().add(stage, seconds, nbytes)
+
+    with pytest.raises(OSError, match="injected fetch failure"):
+        _quantized_chunks(ensemble, fetch_ahead=1, timers=Broken())
+    gen = ensemble.iter_chunks(N_OBS, chunk_size=2, seed=SEED, quantized=True,
+                               fetch_ahead=2)
+    next(gen)
+    gen.close()
+    assert not [t for t in threading.enumerate()
+                if t.name == "pss-chunk-fetch"]
+
+
+def test_iter_chunks_timers_see_dispatch_and_fetch(ensemble):
+    from psrsigsim_torch.runtime import StageTimers
+
+    timers = StageTimers()
+    chunks = _quantized_chunks(ensemble, fetch_ahead=2, timers=timers)
+    snap = timers.snapshot()
+    assert snap["dispatch_calls"] == snap["fetch_calls"] == 3
+    assert snap["dispatch_s"] > 0 and snap["fetch_s"] > 0
+    cfg = ensemble.cfg
+    # the packed buffer, its scl/offs halves gathered on the device, and
+    # the finite mask
+    rows = N_OBS * cfg.nsub * cfg.meta.nchan
+    nbytes = rows * 2 * (cfg.nph + 4) + rows * 8 + N_OBS * cfg.meta.nchan
+    assert snap["fetch_bytes"] == snap["bytes_fetched"] == nbytes
+    assert snap["live_buffer_bytes_gauge"] == 0
+    assert snap["fetch_queue_depth_max"] >= 0
+
+
 def test_entry_points_need_a_device_without_cuda(monkeypatch):
     """With no card and no explicit device the entry points raise; they
     never fall back to the CPU behind the caller's back."""
@@ -401,8 +495,8 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Every module of the port imports, and a small ensemble runs, with
-    jax and the JAX package blocked."""
+    """Every module of the port imports, and a small ensemble runs and
+    exports two PSRFITS files, with jax and the JAX package blocked."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = f"""
 import importlib, importlib.abc, pkgutil, sys
@@ -420,6 +514,11 @@ from test_torch_pipeline import _geometry
 from psrsigsim_torch.parallel import FoldEnsemble
 d, s, o = FoldEnsemble(*_geometry('psrsigsim_torch', 'readme16'), device='cpu').run_quantized(1)
 assert d.shape[0] == 1
+from test_torch_export import TEMPLATE, _geometry as _export_geometry
+from psrsigsim_torch.io import FitsFile, export_ensemble_psrfits
+ens = FoldEnsemble(*_export_geometry('psrsigsim_torch'), device='cpu')
+paths = export_ensemble_psrfits(ens, 2, 'out', TEMPLATE, ens.pulsar, writers=1)
+assert len(paths) == 2 and FitsFile.read(paths[1])['SUBINT'].data['DATA'].shape[0] == 2
 assert not any(k.split('.')[0] in ('jax', 'jaxlib', 'psrsigsim_tpu') for k in sys.modules)
 print('clean')
 """
