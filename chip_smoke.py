@@ -5,15 +5,17 @@
 
 Drives psrsigsim_torch's fold-mode ensemble main path on the card, from
 configured signal/pulsar/telescope objects to packed int16 PSRFITS
-buffers, through the port's two hand-written CUDA kernels, built here with
-nvcc into build/: the random-field sampler (psrsigsim_torch/csrc/
-rng_field.cu), which draws the float blocks of FoldEnsemble.run, and the
-fused fold -> quantize -> pack kernel (csrc/fold_quantize.cu), which draws
-the same samples inside and writes the packed codes of run_quantized and
-iter_chunks.  Phases:
+buffers and files, through the port's three hand-written CUDA kernels,
+built here with nvcc into build/: the random-field sampler
+(psrsigsim_torch/csrc/rng_field.cu), which draws the float blocks of
+FoldEnsemble.run; the fused fold -> quantize -> pack kernel
+(csrc/fold_quantize.cu), which draws the same samples inside and writes
+the packed codes of run_quantized and iter_chunks; and the packed-digest
+kernel (csrc/packed_digest.cu), the integrity lattice's per-observation
+digest of a packed chunk.  Phases:
 
 1. the card, its power limit, the torch/CUDA versions and the host CPU;
-2. the build of both kernels (one nvcc each, started together), with each
+2. the build of the kernels (one nvcc each, started together), with each
    kernel entry's registers, stack frame and spills as ptxas reports them;
 3. the sampler against its plain PyTorch version, on the card, in every
    mode: edge shapes (three keys, first channel 8, 13 channels, a ragged
@@ -27,6 +29,10 @@ iter_chunks.  Phases:
    block, rows from t0 = 3072, a mode pair off the rows kernel's, 13
    channels, nph 1000, nph 935, rows too long for shared memory, a
    per-observation df, draw_norm, NaN rows, constant rows);
+3c. the packed-digest kernel against its plain version, bit for bit: the
+   main path's full-width chunk in both byte orders, count < B, and edge
+   shapes (nbin not a multiple of 4, a buffer not 8-byte aligned, extreme
+   codes);
 4. statistics of the sampler's fields and their split invariance;
 5. the main paths at full width, BASELINE config 1 (J1713+0747 template,
    64 channels, 2048 bins, 20 x 60 s subints): 128 observations through
@@ -45,7 +51,20 @@ iter_chunks.  Phases:
    chunk holding a missing file), 16 observations per file (rows equal to
    the per-file payloads), a serial depth-0 export equal to the pooled
    depth-2 one; first of all iter_chunks with and without the overlap
-   (bit-identical, obs/s of each).
+   (bit-identical, obs/s of each);
+9. the supervised export (psrsigsim_torch.runtime.supervised_export) at the
+   same full width, 256 observations in 128-observation chunks, into
+   build/, deleted afterwards: a clean run with one writer and with the
+   default pool (files equal run_quantized's, the journal holding two chunk
+   commits; the fused kernel launched twice, the digest kernel never); NaN
+   quarantine of two observations in different chunks, recovered by one
+   salted run_quantized_at (their files equal it, every other file the
+   clean run's); the integrity lattice with a full audit, a host.corrupt on
+   chunk 0 and a device.sdc on chunk 128 (both healed, files equal the
+   clean run's; two launches of the fused kernel on the same inputs
+   bit-equal); kill and resume: a child process SIGKILLed after chunk 0's
+   commit, then resume="verify" launching the fused kernel once and ending
+   byte-identical.
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of one
 steady main-path chunk after phase 5 (device time by kernel, busy share).
@@ -99,6 +118,10 @@ DRAW_OPS = {"int32": PHILOX_INT_OPS / 4, "fp32": (2 * 7) / 4 + 6,
 FUSED_OPS = {"int32": 2 * DRAW_OPS["int32"] + 3 + 2,
              "fp32": 2 * DRAW_OPS["fp32"] + 3 + 2,
              "sfu": 2 * DRAW_OPS["sfu"] + 2}
+# the packed digest, per 32-bit word: the XOR, the term's multiply-add and
+# the add into the sum (the position multipliers depend on the position
+# only, shared by every observation of a chunk)
+DIGEST_OPS = {"int32": 3}
 # the single-rate count of the first sampler design (one Philox call per
 # sample, every operation at the float32 FMA rate), kept for continuity
 RNG_OPS_PER_SAMPLE_ONE_CALL = 98 + 7 + 6 + 6
@@ -108,6 +131,8 @@ FLOAT_NOBS = 16  # FoldEnsemble.run's float blocks: 16 x 64 x 40960 x 4 bytes
 EXPORT_NOBS = 256  # phase 8: two chunks, ~1.34 GB of PSRFITS one per file
 EXPORT_SERIAL_NOBS = 32
 EXPORT_OPF = 16
+SUP_NOBS = 256  # phase 9: two chunks of the supervised export
+KILL_CHILD = "--supervised-kill-child"
 TEMPLATE = os.path.join(ROOT, "data", "B1855+09.L-wide.PUPPI.11y.x.sum.sm")
 MAIN = dict(nchan=64, period_s=0.005, samprate_mhz=0.4096, sublen_s=60.0,
             tobs_s=1200.0, fcent=1380.0, bw=400.0, smean=0.009, dm=15.9)
@@ -238,8 +263,10 @@ class Smoke:
         self.torch = torch
         self.dev = torch.device("cuda")
         self.failed = []
-        self.kernels = {"rng_field": {}, "fold_quantize": {}}
+        self.kernels = {"rng_field": {}, "fold_quantize": {},
+                        "packed_digest": {}}
         self._main = None
+        self.export_rates = {}  # phase 8's obs/s, beside phase 9's
 
     def main_ensemble(self):
         """The main path's ensemble (staged once, on the card)."""
@@ -522,6 +549,57 @@ class Smoke:
             del want, got
         self.kernels["fold_quantize"]["max_abs_err"] = float(worst)
 
+    # -- 3c -----------------------------------------------------------------
+    def digest_vs_plain(self):
+        """The packed-digest kernel against its plain version, bit for
+        bit (uint32 digests held as int32)."""
+        torch = self.torch
+        import numpy as np
+
+        from psrsigsim_torch.ops import digest
+        from psrsigsim_torch.ops import fold_quantize as fq
+
+        dev = self.dev
+        worst = 0
+
+        def compare(label, packed, counts):
+            nonlocal worst
+            for count in counts:
+                got = digest.packed_digest(packed, count)
+                want = digest.packed_digest_plain(packed, count)
+                err = int((got.long() - want.long()).abs().max()) if count else 0
+                worst = max(worst, err)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{label}, count {count}: kernel "
+                                         "digests differ from the plain "
+                                         "version")
+            log(f"  {label} {tuple(packed.shape)}, count {list(counts)}: "
+                "bit-equal to the plain version")
+
+        r = np.random.default_rng(3)
+        for B, nsub, C, nbin in ((3, 2, 5, 64), (2, 3, 13, 1000),
+                                 (3, 2, 4, 13), (2, 5, 7, 935)):
+            codes = r.integers(-32768, 32767, (B, nsub, C, nbin + 4),
+                               endpoint=True).astype(np.int16)
+            codes[0, 0, 0, :4] = (-32768, 32767, -1, 0)
+            t = torch.from_numpy(codes).to(dev)
+            compare(f"random codes, nbin {nbin}", t, (B, B - 1))
+            # the same buffer one int16 off an 8-byte boundary: the kernel
+            # takes its 2-byte loads
+            buf = torch.empty(t.numel() + 1, dtype=torch.int16, device=dev)
+            off = buf[1:].view(t.shape)
+            off.copy_(t)
+            compare(f"random codes, nbin {nbin}, base not 8-byte aligned",
+                    off, (B,))
+        # the main path's chunk, as the fused kernel packs it
+        a, kw, _ = self.main_fused_args()
+        for order in ("little", "big"):
+            packed, _ = fq.fold_quantize(**a, **kw, byte_order=order)
+            compare(f"main path {order}-endian", packed,
+                    (packed.shape[0], packed.shape[0] - 5))
+            del packed
+        self.kernels["packed_digest"]["max_abs_err"] = float(worst)
+
     # -- 4 ------------------------------------------------------------------
     def statistics(self):
         torch = self.torch
@@ -559,18 +637,22 @@ class Smoke:
 
     # -- 5 ------------------------------------------------------------------
     def _zero_counts(self):
+        from psrsigsim_torch.ops import digest
         from psrsigsim_torch.ops import fold_quantize as fq
         from psrsigsim_torch.ops import rng_hw
 
         rng_hw.rng_field.launches = 0
         fq.fold_quantize.launches = 0
+        digest.packed_digest.launches = 0
 
     def _counts(self):
+        from psrsigsim_torch.ops import digest
         from psrsigsim_torch.ops import fold_quantize as fq
         from psrsigsim_torch.ops import rng_hw
 
         return {"rng_field": rng_hw.rng_field.launches,
-                "fold_quantize": fq.fold_quantize.launches}
+                "fold_quantize": fq.fold_quantize.launches,
+                "packed_digest": digest.packed_digest.launches}
 
     def main_path(self):
         torch = self.torch
@@ -610,6 +692,8 @@ class Smoke:
                                  "kernel")
         if counts["rng_field"] != 0:
             raise AssertionError("the quantized path ran the unfused body")
+        if counts["packed_digest"] != 0:
+            raise AssertionError("the unarmed path ran the digest kernel")
 
         d = data.cpu().numpy()
         s = scl.cpu().numpy()
@@ -843,6 +927,30 @@ class Smoke:
             f"bound {b_ms:.4f} ms, {b_by} ({fmt_parts(parts)}) on "
             f"{self.card_line}")
 
+        # the packed digest: the main path's big-endian chunk, as the
+        # integrity-armed export digests it
+        from psrsigsim_torch.ops import digest
+
+        packed, _ = fq.fold_quantize(**a, **kw, byte_order="big")
+        ms = cuda_time_ms(lambda: digest.packed_digest(packed), 20)
+        plain_ms = cuda_time_ms(lambda: digest.packed_digest_plain(packed), 1)
+        words = Bf * nsub * Cf * (nph + 2)   # codes + the scl and offs words
+        b_ms, b_by, parts = bound(DIGEST_OPS, words,
+                                  packed.numel() * 2 + 4 * Bf)
+        self.kernels["packed_digest"].update(
+            name="packed_digest", route="cuda",
+            source="psrsigsim_torch/csrc/packed_digest.cu",
+            replaces="psrsigsim_tpu/runtime/integrity.py:234 "
+                     "(device_packed_digest_rows, XLA fusion)",
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None)
+        log(f"  packed_digest ({tuple(packed.shape)} int16, "
+            f"{packed.numel() * 2 / 1e6:.1f} MB): {ms:.4f} ms = "
+            f"{packed.numel() * 2 / ms / 1e9:.3f} TB/s, {b_ms / ms:.1%} of "
+            f"the bound; plain {plain_ms:.2f} ms; bound {b_ms:.4f} ms, "
+            f"{b_by} ({fmt_parts(parts)}) on {self.card_line}")
+        del packed
+
     # -- 8 ------------------------------------------------------------------
     def export(self):
         """The PSRFITS export of the main path (see the module docstring)."""
@@ -955,6 +1063,7 @@ class Smoke:
                 stages = ", ".join(f"{k} {snap[k + '_s']:.3f} s"
                                    for k in ("dispatch", "fetch", "encode",
                                              "write"))
+                self.export_rates[label] = n / wall
                 log(f"  {label}: {len(paths)} files, {nbytes / 1e9:.4f} GB "
                     f"written in {wall:.3f} s = {n / wall:.1f} obs/s, "
                     f"{nbytes / wall / 1e9:.3f} GB/s end to end; {rate}; "
@@ -975,9 +1084,11 @@ class Smoke:
             with open(os.path.join(per_file, "export_manifest.json")) as fh:
                 pipe = json.load(fh)["pipeline"]
             log("  manifest pipeline: " + json.dumps(pipe, sort_keys=True))
-            if counts != {"fold_quantize": 2, "rng_field": 0}:
+            if counts != {"fold_quantize": 2, "rng_field": 0,
+                          "packed_digest": 0}:
                 raise AssertionError(f"export launches {counts}, expected 2 "
-                                     "fused-kernel launches and no sampler")
+                                     "fused-kernel launches, no sampler and "
+                                     "no digest")
             one = os.path.join(work, "per_file_w1")
             opaths, _ = run_export(
                 f"export {EXPORT_NOBS} obs, one per file, depth 2, 1 writer",
@@ -1061,6 +1172,237 @@ class Smoke:
         finally:
             shutil.rmtree(work, ignore_errors=True)
 
+    # -- 9 ------------------------------------------------------------------
+    def supervised(self):
+        """The supervised export of the main path (see the module
+        docstring)."""
+        import hashlib
+        import shutil
+        import tempfile
+
+        import numpy as np
+
+        from psrsigsim_torch.io import FitsFile
+        from psrsigsim_torch.runtime import (FaultPlan, IntegrityChecker,
+                                             supervised_export)
+        from psrsigsim_torch.runtime.integrity import triple_digest_rows
+        from psrsigsim_torch.runtime.supervisor import RETRY_FOLD_SALT
+
+        torch = self.torch
+        os.environ.pop("PSS_SAMPLER", None)
+        os.environ.pop("PSS_INTEGRITY", None)
+        ens = self.main_ensemble()
+        writers = min(8, os.cpu_count() or 1)
+
+        def disk_hashes(out):
+            res = {}
+            for n in sorted(os.listdir(out)):
+                if n.endswith(".fits"):
+                    with open(os.path.join(out, n), "rb") as fh:
+                        res[n] = hashlib.sha256(fh.read()).hexdigest()
+            return res
+
+        def journal(out):
+            with open(os.path.join(out, "run_journal.jsonl")) as fh:
+                return [json.loads(line) for line in fh]
+
+        def run(label, out, **kw):
+            self._zero_counts()
+            t0 = time.perf_counter()
+            res = supervised_export(ens, SUP_NOBS, out, TEMPLATE, ens.pulsar,
+                                    seed=0, chunk_size=MAIN_NOBS, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = self._counts()
+            log(f"  {label}: {len(res.paths)} files in {wall:.3f} s = "
+                f"{SUP_NOBS / wall:.1f} obs/s; quarantined {res.quarantined}, "
+                f"retried {res.retried}, recovered {res.recovered}; "
+                f"launches {counts}")
+            return res, counts, wall
+
+        def expect(counts, **want):
+            want = {"rng_field": 0, **want}
+            if counts != want:
+                raise AssertionError(f"launches {counts}, expected {want}")
+
+        build = os.path.join(ROOT, "build")
+        os.makedirs(build, exist_ok=True)
+        work = tempfile.mkdtemp(prefix="supervised-", dir=build)
+        try:
+            # 1. clean: one in-process writer, then the default pool
+            clean = os.path.join(work, "clean")
+            res, counts, wall1 = run("supervised export, 1 writer", clean,
+                                     writers=1)
+            expect(counts, fold_quantize=2, packed_digest=0)
+            commits = [r for r in journal(clean) if r["e"] == "commit"]
+            if [(r["kind"], r["ident"]) for r in commits] != \
+                    [("chunk", 0), ("chunk", MAIN_NOBS)]:
+                raise AssertionError(f"journal commits {commits}")
+            want = disk_hashes(clean)
+            with open(os.path.join(clean, "export_manifest.json")) as fh:
+                if json.load(fh)["files"] != want:
+                    raise AssertionError("manifest hashes differ from the "
+                                         "files on disk")
+            d, s, o = (t.cpu().numpy() for t in
+                       ens.run_quantized(SUP_NOBS, seed=0))
+            check = (0, 1, MAIN_NOBS - 1, MAIN_NOBS, SUP_NOBS - 1)
+            for i in check:
+                sub = FitsFile.read(res.paths[i])["SUBINT"].data
+                if not (np.array_equal(sub["DATA"][:, 0].view(">i2"), d[i])
+                        and np.array_equal(sub["DAT_SCL"], s[i])
+                        and np.array_equal(sub["DAT_OFFS"], o[i])):
+                    raise AssertionError(f"file of observation {i} differs "
+                                         "from run_quantized")
+            del d, s, o
+            log(f"  files of observations {list(check)} equal "
+                f"run_quantized({SUP_NOBS})'s triples; journal: 2 chunk "
+                "commits; manifest hashes equal the files on disk")
+            pool = os.path.join(work, "pool")
+            _, counts, wallp = run(f"supervised export, {writers} writers",
+                                   pool)
+            expect(counts, fold_quantize=2, packed_digest=0)
+            if disk_hashes(pool) != want:
+                raise AssertionError("the pool's files differ from the "
+                                     "in-process writer's")
+            shutil.rmtree(pool)
+            log(f"  supervised vs unsupervised (phase 8), one per file, "
+                f"{SUP_NOBS} obs: 1 writer {SUP_NOBS / wall1:.1f} vs "
+                + ", ".join(f"{k}: {v:.1f}" for k, v in
+                            self.export_rates.items() if "one per file" in k)
+                + f" obs/s; {writers} writers {SUP_NOBS / wallp:.1f} obs/s "
+                f"({self.card_line})")
+
+            # 2. NaN quarantine and the salted retry
+            bad = [MAIN_NOBS // 25, MAIN_NOBS + MAIN_NOBS * 9 // 16]
+            nan = os.path.join(work, "nan")
+            res, counts, _ = run(
+                f"nan.obs on {bad}, 1 writer", nan, writers=1,
+                faults=FaultPlan(os.path.join(work, "nan_plan"),
+                                 {"nan.obs": {"indices": bad}}))
+            expect(counts, fold_quantize=3, packed_digest=0)
+            if not (res.retried == bad and res.recovered == bad
+                    and res.quarantined == []):
+                raise AssertionError(f"quarantine outcome {res!r}")
+            got = disk_hashes(nan)
+            if sorted(n for n in want if got[n] != want[n]) != \
+                    [f"obs_{i:05d}.fits" for i in bad]:
+                raise AssertionError("files other than the quarantined ones "
+                                     "differ from the clean run")
+            d, s, o, f = (t.cpu().numpy() for t in ens.run_quantized_at(
+                bad, seed=0, byte_order="big", fold_salt=RETRY_FOLD_SALT))
+            if not f.all():
+                raise AssertionError("the salted re-run is not finite")
+            for k, i in enumerate(bad):
+                sub = FitsFile.read(res.paths[i])["SUBINT"].data
+                if not (sub["DATA"][:, 0].tobytes() == d[k].tobytes()
+                        and np.array_equal(sub["DAT_SCL"], s[k])
+                        and np.array_equal(sub["DAT_OFFS"], o[k])):
+                    raise AssertionError(f"quarantined observation {i}'s file "
+                                         "differs from run_quantized_at")
+            shutil.rmtree(nan)
+            log(f"  quarantined files equal run_quantized_at({bad}, "
+                f"fold_salt={RETRY_FOLD_SALT:#x}); the other "
+                f"{SUP_NOBS - len(bad)} files equal the clean run's")
+
+            # 3. the integrity lattice and a full audit
+            ck = IntegrityChecker(audit_frac=1.0)
+            integ = os.path.join(work, "integrity")
+            res, counts, wall_i = run(
+                "integrity, audit_frac 1.0, host.corrupt on chunk 0, "
+                f"device.sdc on chunk {MAIN_NOBS}, 1 writer", integ,
+                writers=1, integrity=ck,
+                faults=FaultPlan(os.path.join(work, "integ_plan"),
+                                 {"host.corrupt": {"after_start": 0},
+                                  "device.sdc": {"after_start": MAIN_NOBS}}))
+            self.kernels["packed_digest"]["launches"] = counts["packed_digest"]
+            expect(counts, fold_quantize=6, packed_digest=6)
+            st = ck.stats()
+            log(f"  integrity stats: {json.dumps(st, sort_keys=True)}")
+            if not (st["checksum_mismatches"] == 1
+                    and st["audit_mismatches"] == 1
+                    and st["healed_chunks"] == 2
+                    and st["permanent_failures"] == 0
+                    and res.integrity == st):
+                raise AssertionError("integrity stats: expected one checksum "
+                                     "heal and one audit heal")
+            if disk_hashes(integ) != want:
+                raise AssertionError("healed files differ from the clean run")
+            events = [(r["kind"], r["start"]) for r in journal(integ)
+                      if r["e"] == "integrity"]
+            if events != [("checksum", 0), ("audit", MAIN_NOBS)]:
+                raise AssertionError(f"journal integrity events {events}")
+            shutil.rmtree(integ)
+            log(f"  healed files equal the clean run's; journal events "
+                f"{events}; wall {wall_i:.3f} s against the clean 1-writer "
+                f"{wall1:.3f} s")
+            # its costs per chunk, and the audit's premise: two launches of
+            # the fused kernel on the same inputs write the same bytes
+            # (DIVERGENCES.md P7)
+            idx = np.arange(MAIN_NOBS)
+            probe = IntegrityChecker(audit_frac=0.0)
+            host_ms = []
+            for start, (cd, cs, co, dig) in ens.iter_chunks(
+                    SUP_NOBS, chunk_size=MAIN_NOBS, seed=0, quantized=True,
+                    byte_order="big", prefetch=1, fetch_ahead=2,
+                    integrity=probe):
+                t0 = time.perf_counter()
+                host = triple_digest_rows(cd, cs, co)
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+                if not np.array_equal(host, dig):
+                    raise AssertionError(f"chunk {start}: the digest fetched "
+                                         "by the overlapped copy differs from "
+                                         "the host twin")
+            a = ens.run_quantized_at(idx, seed=0, byte_order="big",
+                                     return_digest=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            b = ens.run_quantized_at(idx, seed=0, byte_order="big",
+                                     audit=True, return_digest=True)
+            torch.cuda.synchronize()
+            audit_ms = (time.perf_counter() - t0) * 1e3
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError("two launches of the fused kernel on the "
+                                     "same inputs differ")
+            del a, b
+            log(f"  integrity cost per {MAIN_NOBS}-obs chunk: K4 "
+                f"{self.kernels['packed_digest'].get('ms', float('nan')):.4f} "
+                "ms (phase 7); "
+                f"host re-digest {', '.join(f'{t:.1f}' for t in host_ms)} ms; "
+                f"audit re-launch (run_quantized_at + digest, host wall) "
+                f"{audit_ms:.2f} ms; iter_chunks(prefetch 1, fetch_ahead 2) "
+                "digests equal the host twin; two launches bit-equal "
+                f"({self.card_line})")
+
+            # 4. kill and resume
+            killed = os.path.join(work, "killed")
+            scratch = os.path.join(work, "kill_plan")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), KILL_CHILD,
+                 killed, scratch], capture_output=True, text=True,
+                timeout=600)
+            if proc.returncode != -9:
+                raise AssertionError(
+                    f"the child exited {proc.returncode}, expected SIGKILL:\n"
+                    f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+            survivors = disk_hashes(killed)
+            if sorted(survivors) != sorted(want)[:MAIN_NOBS] or \
+                    [r["e"] for r in journal(killed)] != ["commit"]:
+                raise AssertionError("the killed run left other files or "
+                                     "records than chunk 0's")
+            log(f"  child SIGKILLed after chunk 0's commit "
+                f"({time.perf_counter() - t0:.1f} s): {len(survivors)} files, "
+                "1 journal commit")
+            _, counts, _ = run('resume="verify", 1 writer', killed,
+                               writers=1, resume="verify")
+            expect(counts, fold_quantize=1, packed_digest=0)
+            if disk_hashes(killed) != want:
+                raise AssertionError("the resumed export differs from the "
+                                     "clean run")
+            log("  resumed export byte-identical to the clean run (sha256)")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+
     def run(self, with_profile=False):
         self.phase("1 card", self.card)
         built = self.phase("2 build", self.build)
@@ -1068,6 +1410,7 @@ class Smoke:
             self.phase("3 rng_field vs plain", self.kernel_vs_plain)
             self.phase("3b fold_quantize vs plain and unfused",
                        self.fused_vs_plain)
+            self.phase("3c packed_digest vs plain", self.digest_vs_plain)
             self.phase("4 statistics", self.statistics)
             self.phase("5 main paths", self.main_path)
             if with_profile:
@@ -1077,6 +1420,7 @@ class Smoke:
             self.phase("7 kernel timing", self.measure)
         if built:
             self.phase("8 export", self.export)
+            self.phase("9 supervised export", self.supervised)
         if self.failed:
             log(f"FAILED phases: {', '.join(self.failed)}")
             return 1
@@ -1089,6 +1433,19 @@ class Smoke:
             "platform": "gpu", "kind": self.torch.cuda.get_device_name(0),
             "count": self.torch.cuda.device_count()}}))
         return 0
+
+
+def kill_child(out, scratch):
+    """Phase 9's process that must die: the supervised export of the main
+    path with ``run.kill`` armed after chunk 0's journal commit."""
+    from psrsigsim_torch.runtime import FaultPlan, supervised_export
+
+    ens = geometry(MAIN, "cuda")
+    supervised_export(ens, SUP_NOBS, out, TEMPLATE, ens.pulsar, seed=0,
+                      chunk_size=MAIN_NOBS, writers=1,
+                      faults=FaultPlan(scratch, {"run.kill": {"after_start": 0}}))
+    print("the export survived run.kill", file=sys.stderr)
+    return 1
 
 
 def main():
@@ -1108,6 +1465,9 @@ def main():
         print(f"FAIL: the port is not importable from {ROOT}: {err}",
               file=sys.stderr)
         return 2
+    if KILL_CHILD in sys.argv:
+        i = sys.argv.index(KILL_CHILD)
+        return kill_child(sys.argv[i + 1], sys.argv[i + 2])
     return Smoke().run(with_profile="--profile" in sys.argv[1:])
 
 

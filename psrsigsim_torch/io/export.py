@@ -1,5 +1,5 @@
 """Bulk ensemble -> PSRFITS export: the 10k-observation exit path
-(counterpart: psrsigsim_tpu/io/export.py, its unsupervised half).
+(counterpart: psrsigsim_tpu/io/export.py).
 
 Streams a Monte-Carlo ensemble through the device-side int16 quantizer
 (:meth:`FoldEnsemble.iter_chunks` with ``quantized=True`` — on the card
@@ -33,10 +33,16 @@ manifest records the run's parameters (seed, n_obs, per-obs DM digest,
 template id); resuming against an out_dir whose manifest does not match
 raises instead of silently mixing two different ensembles' files.
 
+Under a :class:`~psrsigsim_torch.runtime.RunSupervisor` (most callers use
+:func:`~psrsigsim_torch.runtime.supervised_export`) every committed file's
+sha256 lands in an fsync'd journal, ``resume="verify"`` re-hashes existing
+files against it, non-finite observations are quarantined and re-run once
+with a salted key, and ``integrity=`` arms the checksum lattice and the
+duplicate-execution audit (:mod:`psrsigsim_torch.runtime.integrity`).
+
 Given the same quantized chunks the files are byte-identical to the JAX
-package's (tests/test_torch_export.py).  Its supervised export (journal,
-hash-verified resume, NaN quarantine), integrity lattice, pods and
-scenarios are not ported yet: their parameters raise
+package's (tests/test_torch_export.py).  Pods and scenarios are not
+ported yet: ``scenario_params=`` and :func:`pod_export_follower` raise
 :class:`NotImplementedError`.
 """
 
@@ -55,7 +61,8 @@ from ..utils.quantity import make_quant
 from .fits import FitsFile
 from .psrfits import PSRFITS
 
-__all__ = ["export_ensemble_psrfits", "ExportManifestError"]
+__all__ = ["export_ensemble_psrfits", "ExportManifestError",
+           "pod_export_follower"]
 
 _MANIFEST_NAME = "export_manifest.json"
 
@@ -1128,8 +1135,18 @@ class _GroupPacker:
 
 def _unported(name, what):
     raise NotImplementedError(
-        f"export_ensemble_psrfits({name}): {what} is not ported to "
-        "psrsigsim_torch yet (ROADMAP.md, Queue 1); the JAX package has it")
+        f"{name}: {what} is not ported to psrsigsim_torch yet (ROADMAP.md, "
+        "Queue 1); the JAX package has it")
+
+
+def pod_export_follower(ens, n_obs, out_dir, seed=0, dms=None,
+                        noise_norms=None, chunk_size=256, resume=True,
+                        verify=False, obs_per_file=1, pipeline_depth=2,
+                        scenario_params=None, progress=None):
+    """A pod follower's half of a supervised export (the JAX package's
+    ``pod_export_follower``).  Pods (multi-host meshes, ``runtime/dist.py``)
+    are not ported: this raises :class:`NotImplementedError`."""
+    _unported("pod_export_follower", "the pod runtime (multi-host exports)")
 
 
 def export_ensemble_psrfits(ens, n_obs, out_dir, template, pulsar,
@@ -1167,7 +1184,9 @@ def export_ensemble_psrfits(ens, n_obs, out_dir, template, pulsar,
             are written to a temp name and renamed, so existence means
             complete; a chunk whose files all exist is never computed); a
             manifest guards against resuming with different parameters
-            (:class:`ExportManifestError`).
+            (:class:`ExportManifestError`).  ``"verify"`` (supervised
+            exports only) re-hashes existing files against the journal
+            instead of trusting existence.
         parfile: optional par file for phase connection; auto-generated
             into ``out_dir`` otherwise.
         MJD_start / ref_MJD: polyco + header epochs, as
@@ -1176,10 +1195,10 @@ def export_ensemble_psrfits(ens, n_obs, out_dir, template, pulsar,
             values <= 1 write in-process.  Workers are spawned (never
             forked — the parent may hold a CUDA context) and receive chunk
             data through shared memory; they import neither torch nor
-            anything that touches the card.  Spawn re-imports the caller's ``__main__``: scripts
-            must use the ``if __name__ == "__main__"`` guard; otherwise the
-            startup probe detects the broken pool and falls back to
-            in-process writes with a warning.
+            anything that touches the card.  Spawn re-imports the caller's
+            ``__main__``: scripts must use the ``if __name__ == "__main__"``
+            guard; otherwise the startup probe detects the broken pool and
+            falls back to in-process writes with a warning.
         obs_per_file: observations packed per output file as consecutive
             SUBINT rows (a packed file is byte-wise one
             ``obs_per_file``-times-longer observation: OFFS_SUB continues
@@ -1188,10 +1207,17 @@ def export_ensemble_psrfits(ens, n_obs, out_dir, template, pulsar,
             export's).  With per-observation ``dms`` groups are cut at every
             DM change, so each file carries one CHAN_DM/DM header
             (:class:`_GroupPacker`).
+        supervisor: optional
+            :class:`psrsigsim_torch.runtime.RunSupervisor` — arms the
+            fault-tolerant run loop: per-file sha256 journaling,
+            hash-verified resume, the finite-mask guard with NaN
+            quarantine + salted retry, and the append-only chunk journal.
+            Most callers should use
+            :func:`psrsigsim_torch.runtime.supervised_export` instead of
+            passing one by hand.
         faults: optional :class:`psrsigsim_torch.runtime.FaultPlan` —
-            deterministic fault injection for tests (``writer.crash``,
-            ``shm.attach``, ``file.partial``); never armed unless a plan is
-            passed explicitly.
+            deterministic fault injection for tests; never armed unless a
+            plan is passed explicitly.
         pipeline_depth: depth of the streaming pipeline (default 2).  With
             depth N the device runs up to N chunks ahead of the fetch, a
             fetch thread copies chunk k while the writers write chunk k-1,
@@ -1209,31 +1235,42 @@ def export_ensemble_psrfits(ens, n_obs, out_dir, template, pulsar,
             into the export manifest (provenance stamps); they never take
             part in resume matching and may not collide with fingerprint
             fields.
-        supervisor / integrity / scenario_params: the JAX package's
-            supervised export (journal, hash-verified ``resume="verify"``,
-            NaN quarantine), integrity lattice and scenario stacks are not
-            ported yet: any value other than ``None`` (or
-            ``resume="verify"``) raises :class:`NotImplementedError`.
+        scenario_params: the JAX package's scenario stacks are not ported
+            yet: any value other than None raises
+            :class:`NotImplementedError`.
+        integrity: the silent-corruption defense
+            (:mod:`psrsigsim_torch.runtime.integrity`): ``None`` consults
+            ``PSS_INTEGRITY`` (unset = off, the default); ``True`` / a
+            float audit fraction / an
+            :class:`~psrsigsim_torch.runtime.IntegrityChecker` arm the
+            per-chunk device digests (the packed-digest kernel), the
+            deterministic duplicate-execution audit (healed by verified
+            re-execution, byte-identical to a clean run), and the
+            ``integrity`` journal/manifest record.  Requires a supervisor
+            (the events need the durable journal).  Off, the digest kernel
+            never runs and the bytes are the unarmed path's.
 
     Returns:
         list of the output file paths (length ``ceil(n_obs/obs_per_file)``).
     """
     from ..runtime.telemetry import StageTimers
 
-    if supervisor is not None:
-        _unported("supervisor=", "the run supervisor (supervised export)")
-    if resume == "verify":
-        _unported('resume="verify"',
-                  "hash-verified resume (supervised export)")
-    if integrity is not None:
-        _unported("integrity=", "the integrity lattice and audits")
     if scenario_params is not None:
-        _unported("scenario_params=", "the scenario engine")
+        _unported("export_ensemble_psrfits(scenario_params=)",
+                  "the scenario engine")
     pipeline_depth = int(pipeline_depth)
     if pipeline_depth < 0:
         raise ValueError("pipeline_depth must be >= 0")
     if telemetry is None:
         telemetry = StageTimers()
+    if resume == "verify" and supervisor is None:
+        # hash-verified resume is a supervisor capability; silently
+        # downgrading to exists-only resume would ship the very torn
+        # files the caller asked to re-check
+        raise ValueError(
+            'resume="verify" requires supervision: use '
+            "psrsigsim_torch.runtime.supervised_export (or pass "
+            "supervisor=)")
     obs_per_file = int(obs_per_file)
     if obs_per_file < 1:
         raise ValueError("obs_per_file must be >= 1")
@@ -1254,6 +1291,20 @@ def export_ensemble_psrfits(ens, n_obs, out_dir, template, pulsar,
         n_obs, seed, dms, noise_norms, tmpl, parfile, MJD_start, ref_MJD,
         obs_per_file)
     _check_manifest(out_dir, fp, resume)
+    from ..runtime.integrity import resolve_integrity
+
+    checker = resolve_integrity(
+        integrity,
+        fingerprint=hashlib.sha256(
+            json.dumps(fp, sort_keys=True).encode()).hexdigest(),
+        faults=faults)
+    if checker is not None and supervisor is None:
+        # integrity events are durable claims; without the supervisor's
+        # journal a detection would be a log line lost with the process
+        raise ValueError(
+            "integrity checking requires supervision: use "
+            "psrsigsim_torch.runtime.supervised_export(..., integrity=...) "
+            "(or pass supervisor=)")
     if manifest_extra:
         clash = set(manifest_extra) & set(fp)
         if clash:
@@ -1274,12 +1325,18 @@ def export_ensemble_psrfits(ens, n_obs, out_dir, template, pulsar,
     # a finished file is the unit of resume; files are written to a temp
     # name and renamed on success, so existence implies completeness and
     # whole chunks of finished work skip the device entirely (a chunk
-    # skips only when every file any of its observations feeds exists)
-    def file_done(path):
-        return os.path.exists(path)
-
+    # skips only when every file any of its observations feeds exists).
+    # Under a supervisor the definition of "done" sharpens: hash-verified
+    # resume re-checks each existing file's sha256 against the journal/
+    # manifest record instead of trusting existence.
     skip = None
     skip_group = None
+    if supervisor is not None:
+        def file_done(path):
+            return supervisor.file_ok(path)
+    else:
+        def file_done(path):
+            return os.path.exists(path)
     if resume:
         # skip_group is THE definition of "this group's file is done"; it
         # feeds the packer so finished straddling groups are never
@@ -1304,13 +1361,19 @@ def export_ensemble_psrfits(ens, n_obs, out_dir, template, pulsar,
              # workers must barycenter with the SAME ephemeris as the
              # parent (see _writer_init); None = analytic/PSS_EPHEM
              "ephemeris_source": _ephem._EPHEM_SOURCE,
-             # per-file sha256 is the supervised export's (not ported)
-             "hash_files": False,
-             # fault plans ride to workers inside the same pickled state
+             # supervised runs journal per-file sha256; fault plans ride
+             # to workers inside the same pickled state
+             "hash_files": supervisor is not None,
              "faults": faults,
              # parent-side stage timers: NOT shipped to spawn workers
              # (worker cost surfaces as the parent's write-stage wait)
              "timers": telemetry}
+
+    # the supervisor journals a chunk the moment its files are durably
+    # written — from the pool's FIFO drain or straight after serial writes
+    commit = None
+    if supervisor is not None:
+        commit = supervisor.chunk_committed
 
     pool = None
     if writers > 1:
@@ -1328,7 +1391,7 @@ def export_ensemble_psrfits(ens, n_obs, out_dir, template, pulsar,
         worker_state["native_probe"] = _native.probe_state()
         try:
             pool = _WriterPool(writers, pickle.dumps(worker_state), state,
-                               timers=telemetry)
+                               on_chunk_done=commit, timers=telemetry)
         except Exception as err:  # pragma: no cover - environment-dependent
             import warnings
 
@@ -1337,15 +1400,54 @@ def export_ensemble_psrfits(ens, n_obs, out_dir, template, pulsar,
                 "in-process writes", RuntimeWarning)
             pool = None
 
+    # NaN injection (tests) poisons the MAIN pass inputs only; the
+    # manifest fingerprint and the retry pass always use the clean arrays
+    norms_main = noise_norms
+    if supervisor is not None:
+        norms_main = supervisor.poisoned_noise_norms(
+            n_obs, noise_norms, default=ens.noise_norm)
+
+    bad_obs = set()   # global ids quarantined by the finite-mask guard
+
+    def serial_commit(token, results):
+        if commit is not None:
+            commit(token, results)
+
     ok = False
     try:
-        for start, (data, scl, offs) in ens.iter_chunks(
+        for start, block in ens.iter_chunks(
             n_obs, chunk_size=chunk_size, seed=seed, dms=dms,
-            noise_norms=noise_norms, quantized=True, progress=progress,
+            noise_norms=norms_main, quantized=True, progress=progress,
             skip_chunk=skip, byte_order="big",
+            finite_mask=supervisor is not None,
             prefetch=max(1, pipeline_depth), fetch_ahead=pipeline_depth,
-            timers=telemetry,
+            timers=telemetry, integrity=checker,
         ):
+            dig_dev = None
+            if checker is not None:
+                # the device-attested per-observation digest rides the
+                # chunk as its last element (iter_chunks integrity=)
+                dig_dev = block[-1]
+                block = block[:-1]
+            if supervisor is not None:
+                data, scl, offs, finite = block
+                # the finite guard computed beside the codes: one small
+                # bool host array per chunk, never a per-observation
+                # round-trip
+                bad_obs |= supervisor.observe_chunk(start, finite)
+            else:
+                data, scl, offs = block
+            if checker is not None:
+                # checksum lattice + duplicate-execution audit: verify the
+                # fetched bytes against the device's claim (and, for
+                # sampled chunks, the device against a second execution
+                # of itself), healing any disagreement with verified
+                # re-executed bytes BEFORE anything reaches the writers.
+                # Must run before the '>i2' view below — the digest is
+                # defined over the native int16 values the device produced
+                data, scl, offs = _integrity_check_chunk(
+                    ens, checker, supervisor, start, chunk_size, n_obs,
+                    seed, dms, norms_main, data, scl, offs, dig_dev)
             # the device already emitted big-endian bit patterns: a
             # reinterpretation, so every downstream record-array refill
             # and PSRFITS.save cast is a same-dtype memcpy
@@ -1354,19 +1456,30 @@ def export_ensemble_psrfits(ens, n_obs, out_dir, template, pulsar,
                 jobs = []
                 for j in range(data.shape[0]):
                     i = start + j
+                    if i in bad_obs:
+                        continue  # quarantined: retried after the loop
                     if resume and file_done(paths[i]):
                         continue
                     jobs.append((j, paths[i],
                                  None if dms_np is None else dms_np[i]))
                 if not jobs:
                     continue
+                token = ("chunk", start, [p for _, p, _ in jobs])
                 if pool is not None:
-                    pool.submit_chunk((data, scl, offs), jobs)
+                    pool.submit_chunk((data, scl, offs), jobs, token=token)
                 else:
-                    _serial_write_jobs(state, (data, scl, offs), jobs)
+                    serial_commit(token,
+                                  _serial_write_jobs(state, (data, scl, offs),
+                                                     jobs))
                 continue
-            todo = list(packer.add_chunk(start, (data, scl, offs),
-                                         skip_group=skip_group))
+            todo = [(g, packed)
+                    for g, packed in packer.add_chunk(
+                        start, (data, scl, offs), skip_group=skip_group)
+                    # a group holding ANY quarantined observation is not
+                    # written this pass; the retry phase re-runs and
+                    # writes it whole
+                    if not any(i in bad_obs
+                               for i in range(*packer.group_span(g)))]
             if not todo:
                 continue
 
@@ -1380,7 +1493,9 @@ def export_ensemble_psrfits(ens, n_obs, out_dir, template, pulsar,
 
             if pool is None:
                 for g, packed in todo:
-                    _write_obs(state, paths[g], packed, group_dm(g))
+                    sha = _write_obs(state, paths[g], packed, group_dm(g))
+                    serial_commit(("group", g, [paths[g]]),
+                                  [(paths[g], sha)])
                 continue
             # one SHM block + one job batch per (shape, chunk): all the
             # groups a device chunk completes fan out across the pool
@@ -1394,26 +1509,199 @@ def export_ensemble_psrfits(ens, n_obs, out_dir, template, pulsar,
                     for i in range(3))
                 jobs = [(k, paths[g], group_dm(g))
                         for k, (g, _) in enumerate(items)]
-                pool.submit_chunk(stacked, jobs)
+                pool.submit_chunk(
+                    stacked, jobs,
+                    token=("groups", [g for g, _ in items],
+                           [paths[g] for g, _ in items]))
         ok = True
     finally:
         if pool is not None:
             # on the failure path, clean up without masking the original
             # exception; on success, surface any worker error
             pool.finish() if ok else pool.abort()
+            if pool.degraded and supervisor is not None:
+                supervisor.note_degraded()
+
+    if supervisor is not None and bad_obs:
+        _retry_quarantined(ens, supervisor, state, packer, paths, bad_obs,
+                           seed, dms, noise_norms, dms_np)
 
     # fold the run's stage telemetry into the manifest so every export
-    # names its own bottleneck.  A fully-resumed no-op run records
-    # nothing: it must not replace the real run's record with an all-zero
-    # snapshot.  (The JAX package also stamps its program registry here;
-    # the port has none: psrsigsim_torch/DIVERGENCES.md P6.)
+    # names its own bottleneck (supervisor.finalize preserves the key).
+    # A fully-resumed no-op run records nothing: it must not replace the
+    # real run's record with an all-zero snapshot.  (The JAX package also
+    # stamps its program registry here; the port has none:
+    # psrsigsim_torch/DIVERGENCES.md P6.)
     snap = telemetry.snapshot()
-    if any(snap[f"{s}_calls"] for s in ("dispatch", "fetch", "encode",
-                                          "write")):
+    ran = any(snap[f"{s}_calls"] for s in ("dispatch", "fetch", "encode",
+                                           "write"))
+    if ran or checker is not None:
         man = _load_manifest(out_dir)
         if man is not None:
-            man["pipeline"] = {"depth": pipeline_depth,
-                               "writers": int(writers),
-                               "chunk_size": int(chunk_size), **snap}
+            if ran:
+                man["pipeline"] = {"depth": pipeline_depth,
+                                   "writers": int(writers),
+                                   "chunk_size": int(chunk_size), **snap}
+            if checker is not None:
+                # the run's integrity verdict is part of the durable
+                # record: whether the lattice/audit ever fired and whether
+                # this host's device is SDC-suspect
+                man["integrity"] = checker.stats()
             _write_manifest(out_dir, man)
     return paths
+
+
+def _host(t):
+    """A device tensor as a host numpy array."""
+    return t.detach().cpu().numpy()
+
+
+def _integrity_check_chunk(ens, checker, supervisor, start, chunk_size,
+                           n_obs, seed, dms, noise_norms, data, scl, offs,
+                           dig_dev):
+    """One chunk through the integrity lattice + audit (the export
+    producer's wiring of :mod:`psrsigsim_torch.runtime.integrity`).
+
+    Layer 1: recompute the per-observation digest from the FETCHED triple
+    and compare against the device's claim — a mismatch is corruption in
+    the fetch->encode window.  Layer 2: for the deterministic
+    ``audit_frac`` sample of chunks, re-run the SAME chunk (same width,
+    same indices — bit-identical by the chunk-invariance contract) and
+    compare claims.  Any disagreement heals through verified
+    re-execution: two independent executions must agree with each other
+    and with their own host re-digest; the agreed bytes replace the chunk
+    (byte-identical to a clean run — healing never re-draws), the event
+    lands in the run journal, and a disagreement that survives
+    re-execution raises :class:`~psrsigsim_torch.runtime.IntegrityError`
+    (permanent — fail fast with the evidence).
+
+    Returns the (possibly healed) ``(data, scl, offs)``."""
+    from ..runtime.integrity import triple_digest_rows
+
+    count = data.shape[0]
+    dig_dev = np.asarray(dig_dev, np.uint32)[:count]
+    # host.corrupt arm (tests): flip a fetched value right where the
+    # exporter would encode it
+    data = checker.corrupt_host(data, ident=start)
+    host_dig = triple_digest_rows(data, scl, offs)
+    bad_rows = checker.check_rows(dig_dev, host_dig, ident=start,
+                                  producer="export")
+    audit = checker.audit_chunk(start)
+    if not bad_rows and not audit:
+        return data, scl, offs
+
+    # re-run at the EXACT width and index content of the main pass —
+    # identical rows, so digests are comparable bit for bit
+    eff = min(int(chunk_size), int(n_obs))
+    idx = (start + np.arange(eff)) % n_obs
+
+    def _reexec(audit_run):
+        return ens.run_quantized_at(
+            idx, seed=seed, dms=dms, noise_norms=noise_norms,
+            byte_order="big", audit=audit_run, return_digest=True)
+
+    out_a = None
+    if not bad_rows:
+        # audit-only path: ONE duplicate execution; matching claims mean
+        # the device reproduced itself and the original bytes stand
+        out_a = _reexec(True)
+        dig_a = _host(out_a[-1]).view(np.uint32)[:count]
+        mism = [int(j) for j in np.nonzero(dig_a != dig_dev)[0]]
+        checker.note_audit(mism)
+        if not mism:
+            return data, scl, offs
+
+    evidence = {"producer": "export", "start": int(start),
+                "lattice_rows": [int(j) for j in bad_rows],
+                "device_digests": [int(v) for v in dig_dev]}
+
+    def reexecute():
+        a = out_a if out_a is not None else _reexec(True)
+        b = _reexec(False)
+        return (_host(a[0]), _host(a[1]), _host(a[2]),
+                _host(a[-1]).view(np.uint32), _host(b[-1]).view(np.uint32))
+
+    def verify(res):
+        da, sa, oa, dig_a, dig_b = res
+        # two independent executions must agree with each other AND with
+        # the host re-digest of the bytes we are about to adopt
+        return (np.array_equal(dig_a, dig_b)
+                and np.array_equal(triple_digest_rows(da, sa, oa), dig_a))
+
+    da, sa, oa, dig_a, _ = checker.heal_verified(
+        reexecute, verify, producer="export", ident=start,
+        evidence=evidence)
+    sdc_rows = [int(j) for j in np.nonzero(dig_a[:count] != dig_dev)[0]]
+    if sdc_rows and bad_rows:
+        checker.note_audit(sdc_rows)   # the audit-only path counted its own
+    supervisor.record_integrity(
+        "audit" if sdc_rows else "checksum", start,
+        obs=[start + j for j in (sdc_rows or bad_rows)], healed=True,
+        detail={"lattice_rows": len(bad_rows), "sdc_rows": len(sdc_rows)})
+    return da[:count], sa[:count], oa[:count]
+
+
+def _retry_quarantined(ens, supervisor, state, packer, paths, bad_obs,
+                       seed, dms, noise_norms, dms_np):
+    """Re-run every quarantined observation ONCE with a fresh fold of its
+    PRNG key (clean inputs — injection poisons the main pass only), write
+    the files whose observations all came back finite, and record the
+    rest as permanently quarantined.
+
+    Packed groups re-run their healthy members with the ORIGINAL keys, so
+    a recovered group's healthy rows stay bit-identical to an untroubled
+    export; only the re-drawn observations differ (and are journaled)."""
+    salt = supervisor.retry_fold_salt
+    groups = sorted({packer.group_of(i) for i in bad_obs})
+    if not supervisor.retry_enabled:
+        for g in groups:
+            first, end = packer.group_span(g)
+            bad = [i for i in range(first, end) if i in bad_obs]
+            supervisor.record_retry(g, [], bad)
+        return
+    # at most TWO launches however many groups are affected: one salted
+    # run over every bad observation, one original-key run over every
+    # healthy member of an affected group, regrouped on the host
+    all_bad = sorted(bad_obs)
+    all_good = sorted(
+        i for g in groups for i in range(*packer.group_span(g))
+        if i not in bad_obs)
+    parts = {}
+    if all_good:
+        dg, sg, og, _ = (_host(a) for a in ens.run_quantized_at(
+            all_good, seed=seed, dms=dms, noise_norms=noise_norms,
+            byte_order="big"))
+        for k, i in enumerate(all_good):
+            parts[i] = (dg[k], sg[k], og[k])
+    db, sb, ob, mb = (_host(a) for a in ens.run_quantized_at(
+        all_bad, seed=seed, dms=dms, noise_norms=noise_norms,
+        byte_order="big", fold_salt=salt))
+    healed = {}
+    for k, i in enumerate(all_bad):
+        if mb[k].all():
+            healed[i] = (db[k], sb[k], ob[k])
+    for g in groups:
+        first, end = packer.group_span(g)
+        members = list(range(first, end))
+        bad = [i for i in members if i in bad_obs]
+        still_bad = [i for i in bad if i not in healed]
+        supervisor.record_retry(g, bad, still_bad)
+        if still_bad:
+            # the group's file is NOT written; the manifest records the
+            # loss and a later resume gets a fresh attempt (the file reads
+            # as missing)
+            continue
+        group_parts = {**{i: parts[i] for i in members if i not in bad_obs},
+                       **{i: healed[i] for i in bad}}
+        packed = tuple(
+            np.concatenate([group_parts[i][c] for i in members], axis=0)
+            for c in range(3))
+        packed = (packed[0].view(">i2"), packed[1], packed[2])
+        dm = None
+        if dms_np is not None:
+            # one DM per group by construction (per-DM grouping; for
+            # obs_per_file == 1 this is just the observation's own DM)
+            dm = float(dms_np[members[0]])
+        sha = _write_obs(state, paths[g], packed, dm)
+        supervisor.chunk_committed(("retry", g, [paths[g]]),
+                                   [(paths[g], sha)])

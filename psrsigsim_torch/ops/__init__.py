@@ -2,8 +2,9 @@
 
 Plain functions on tensors: the random fields (:mod:`.stats`, with the
 CUDA sampler kernel in :mod:`.rng_hw`), the Fourier shift (:mod:`.shift`,
-on :mod:`.dfloat`), the PSRFITS quantizer (:mod:`.quantize`) and the fused
-fold → quantize → pack kernel (:mod:`.fold_quantize`); plus the
+on :mod:`.dfloat`), the PSRFITS quantizer (:mod:`.quantize`), the fused
+fold → quantize → pack kernel (:mod:`.fold_quantize`) and the integrity
+lattice's packed-digest kernel (:mod:`.digest`); plus the
 host helpers the portrait layer needs (:mod:`.interp`, :mod:`.window`).
 """
 
@@ -21,6 +22,7 @@ _LAZY = {
     "chan_chi2_field": "stats", "chan_normal_field": "stats",
     "chi2_draw_norm": "stats", "chi2_sample": "stats", "normal": "stats",
     "uniform": "stats", "sampler_backend": "stats",
+    "packed_digest": "digest", "packed_digest_plain": "digest",
 }
 
 
@@ -46,6 +48,8 @@ __all__ = [
     "rng_field_plain",
     "hw_chan_field",
     "fold_quantize",
+    "packed_digest",
+    "packed_digest_plain",
     "fourier_shift",
     "chan_chi2_field",
     "chan_normal_field",

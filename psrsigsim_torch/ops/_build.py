@@ -20,7 +20,7 @@ from pathlib import Path
 
 __all__ = ["KERNELS", "NVCC_FLAGS", "build_all", "library"]
 
-KERNELS = ("rng_field", "fold_quantize")
+KERNELS = ("rng_field", "fold_quantize", "packed_digest")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",

@@ -19,7 +19,7 @@ from ..ops.quantize import quantize_packed
 from ..simulate.pipeline import (build_fold_config, fold_pipeline,
                                  fold_pipeline_quantized, fused_route)
 from ..utils.device import resolve_device, to_device
-from ..utils.rng import key, stage_key
+from ..utils.rng import fold_in, key, stage_key
 
 __all__ = ["FoldEnsemble"]
 
@@ -99,16 +99,24 @@ class FoldEnsemble:
         if noise_norms is not None and np.shape(noise_norms) != (n_obs,):
             raise ValueError(f"noise_norms must have shape ({n_obs},)")
 
-    def _prep_chunk(self, idx, seed, dms_full, norms_full):
+    def _prep_chunk(self, idx, seed, dms_full, norms_full, fold_salt=None):
         """Keys, DMs and noise scales for the global observation indices
         ``idx`` (reference: ``FoldEnsemble._prep_chunk``): key ``i`` is
         ``stage_key(key(seed), "user", i)``.  The keys are derived on the
         host (see :func:`~psrsigsim_torch.simulate.fold_pipeline`); DMs and
-        noise scales go to the device."""
+        noise scales go to the device.
+
+        ``fold_salt``: optional int folded into every observation's key
+        AFTER that derivation, ``fold_in(stage_key(key(seed), "user", i),
+        salt)`` — the fresh fold the run supervisor re-draws a
+        NaN-quarantined observation with, leaving every other
+        observation's stream alone (None is the main pass)."""
         dev = self.device
         idx = np.asarray(idx)
         keys = stage_key(key(seed, "cpu"), "user",
                          torch.as_tensor(idx, dtype=torch.int64))
+        if fold_salt is not None:
+            keys = fold_in(keys, int(fold_salt))
         f32 = torch.float32
         dms = (torch.full(idx.shape, self.dm, dtype=f32, device=dev)
                if dms_full is None
@@ -185,10 +193,60 @@ class FoldEnsemble:
             result = result + (finite,)
         return result
 
+    def run_quantized_at(self, indices, seed=0, dms=None, noise_norms=None,
+                         byte_order="little", fold_salt=None, audit=False,
+                         return_digest=False):
+        """Quantize exactly the observations ``indices`` (global ids) in one
+        launch — the run supervisor's quarantine/retry primitive and the
+        integrity layer's re-execution.
+
+        ``dms`` / ``noise_norms`` are the FULL per-observation arrays of the
+        parent run (or None), indexed by the global ids, so a re-run
+        observation sees exactly the inputs the main pass gave it.
+        ``fold_salt`` (see :meth:`_prep_chunk`): None reproduces the main
+        pass bit for bit; an int folds a fresh stream for every listed
+        observation.  ``byte_order`` as :meth:`iter_chunks`.
+
+        Returns ``(data, scl, offs, finite)`` on the ensemble's device,
+        trimmed to ``len(indices)``, in the order given;
+        ``return_digest=True`` appends the ``(len(indices),)``
+        per-observation digests of the packed buffer, computed on the
+        device before any byte crosses the link (the packed-digest kernel,
+        :func:`~psrsigsim_torch.runtime.integrity.device_packed_digest_rows`;
+        int32 holding the uint32 bits).
+
+        ``audit=True`` marks the integrity layer's duplicate execution.  The
+        JAX package runs it through a freshly compiled instance of its
+        program; the port has no compiled programs, and every call is an
+        independent launch of the same deterministic kernel on the same
+        inputs, so the audit takes the same path (DIVERGENCES.md P7).
+        """
+        if byte_order not in ("little", "big"):
+            raise ValueError("byte_order must be 'little' or 'big'")
+        indices = np.asarray(indices, np.int64).reshape(-1)
+        if indices.size == 0:
+            raise ValueError("indices must be non-empty")
+        # the JAX package pads the batch to its mesh's observation shards by
+        # tiling the indices modulo their count, and trims the result; one
+        # device needs neither
+        keys, dms_c, norms_c = self._prep_chunk(indices, seed, dms,
+                                                noise_norms,
+                                                fold_salt=fold_salt)
+        packed, finite = self._quantized_packed(keys, dms_c, norms_c,
+                                                byte_order)
+        result = self._split_packed_device(packed) + (finite,)
+        if return_digest:
+            from ..runtime.integrity import device_packed_digest_rows
+
+            result = result + (device_packed_digest_rows(packed,
+                                                         self.cfg.nph),)
+        return result
+
     def iter_chunks(self, n_obs, chunk_size=256, seed=0, dms=None,
                     noise_norms=None, quantized=False, progress=None,
                     skip_chunk=None, prefetch=1, byte_order="little",
-                    finite_mask=False, fetch_ahead=0, timers=None):
+                    finite_mask=False, fetch_ahead=0, timers=None,
+                    integrity=None):
         """Stream a large ensemble in fixed-size chunks.
 
         Yields ``(start, block)`` with host numpy arrays for observations
@@ -235,6 +293,18 @@ class FoldEnsemble:
         chunk ``dispatch`` and ``fetch`` times, fetched bytes, the
         fetch-queue depth and the live device bytes accumulate there.
 
+        ``integrity`` (quantized only): an armed
+        :class:`~psrsigsim_torch.runtime.IntegrityChecker` — each chunk's
+        yielded tuple grows a LAST element, the ``(count,)`` uint32
+        per-observation digests of the packed buffer, computed on the
+        device by the packed-digest kernel before the copy
+        (:func:`~psrsigsim_torch.runtime.integrity.device_packed_digest_rows`),
+        so the consumer can re-check the fetched bytes against a
+        device-attested claim.  The checker's ``device.sdc`` arm perturbs
+        the device buffer here, BEFORE the digest — corruption the lattice
+        cannot see and only the duplicate-execution audit catches.  None
+        (the default) changes nothing: the digest kernel never runs.
+
         On the card every copy runs on a copy stream of its own, after an
         event recorded behind the chunk's launches on the compute stream
         (else chunk N's copy would queue behind chunk N+1's kernel), into
@@ -247,6 +317,9 @@ class FoldEnsemble:
             raise ValueError("byte_order must be 'little' or 'big'")
         if finite_mask and not quantized:
             raise ValueError("finite_mask requires quantized=True")
+        if integrity is not None and not quantized:
+            raise ValueError("integrity requires quantized=True (the "
+                             "checksum lattice rides the packed transport)")
         self._validate_per_obs(n_obs, dms, noise_norms)
         if chunk_size <= 0:
             raise ValueError("chunk_size must be positive")
@@ -274,10 +347,22 @@ class FoldEnsemble:
             if quantized:
                 packed, finite = self._quantized_packed(keys, dms_c, norms_c,
                                                         byte_order)
-                packed = packed[:count]
-                dev = (packed, packed[..., nbin:].contiguous())
+                if integrity is not None:
+                    # device.sdc arm: perturb the device buffer BEFORE the
+                    # digest attests it (tests only; a None plan is a
+                    # no-op) — silent device corruption carries a
+                    # self-consistent digest
+                    packed = integrity.apply_sdc(packed, ident=start)
+                dev = (packed[:count], packed[:count, ..., nbin:].contiguous())
                 if finite_mask:
                     dev = dev + (finite[:count],)
+                if integrity is not None:
+                    from ..runtime.integrity import device_packed_digest_rows
+
+                    # launched on the compute stream before the ready event
+                    # below is recorded, so the copy stream waits for it
+                    dev = dev + (device_packed_digest_rows(packed, nbin,
+                                                           count=count),)
             else:
                 dev = (self._blocks(keys, dms_c, norms_c)[:count],)
             ready = None
@@ -327,6 +412,8 @@ class FoldEnsemble:
                 tail = host[1].view(np.float32)
                 block = (host[0][..., :nbin], tail[..., 0],
                          tail[..., 1]) + tuple(host[2:])
+                if integrity is not None:
+                    block = block[:-1] + (block[-1].view(np.uint32),)
             else:
                 block = host[0]
             if timers is not None:

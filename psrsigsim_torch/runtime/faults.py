@@ -1,9 +1,10 @@
-"""Deterministic fault injection for the export stack (a copy of
-psrsigsim_tpu/runtime/faults.py, cut to the points the port has).
+"""Deterministic fault injection for the export and supervisor stack (a
+copy of psrsigsim_tpu/runtime/faults.py, cut to the points the port has).
 
 Robustness code that is only exercised by real outages is dead code with
 a pager attached.  This module gives every failure-handling path in the
-export writer pool a *named injection point* that tests arm explicitly:
+run supervisor, the integrity layer and the export writer pool a *named
+injection point* that tests arm explicitly:
 
 ========================  ====================================================
 point                     where it fires
@@ -19,11 +20,47 @@ point                     where it fires
 ``file.partial``          the fast writer, mid-write — writes a truncated
                           ``.tmp`` then SIGKILLs the writing process, leaving
                           exactly the partial temp file a power cut would.
+``nan.obs``               the run supervisor — poisons the configured
+                          observations' noise norms to NaN on the FIRST pass
+                          only, so the non-finite data flows through the real
+                          finite-mask guard and the quarantine/retry
+                          machinery.  Config: ``{"indices": [...]}``.
+``run.kill``              the run supervisor, immediately after the journal
+                          commit of the chunk starting at ``after_start``
+                          (or, for packed ``obs_per_file>1`` exports, the
+                          group with that index) — SIGKILLs the exporting
+                          process itself (the preempted-host case for
+                          kill/resume tests).  Config:
+                          ``{"after_start": int}``; omit ``after_start`` to
+                          kill after the first commit of any kind.
+``device.sdc``            the integrity-armed export producer
+                          (:meth:`psrsigsim_torch.parallel.FoldEnsemble.
+                          iter_chunks`) — ONE element of the chunk's
+                          device output buffer is perturbed before any
+                          digest is computed, so the checksum lattice
+                          attests the WRONG bytes (that is what silent
+                          device corruption looks like) and only the
+                          duplicate-execution audit can catch it.
+                          Config: ``{"after_start": int}`` (chunk start)
+                          plus ``times``.
+``host.corrupt``          the same producer, host side — one element of a
+                          FETCHED buffer is flipped before the exporter
+                          encodes it (the fetch->encode window), which the
+                          checksum lattice's host re-check must catch.
+                          Config: ``{"after_start": int}`` / ``match`` /
+                          ``times``.
+``disk.bitrot``           immediately AFTER a durable commit of export
+                          files — one byte of the committed file is
+                          XOR-flipped, after its sha256 became the
+                          journal's record: the decay the scrub layer
+                          (:mod:`psrsigsim_torch.runtime.integrity`)
+                          exists to find.  Config: ``match`` (file
+                          basename) / ``times``.
 ========================  ====================================================
 
-The JAX package's other points (``nan.obs``, ``run.kill``, the serving,
-Monte-Carlo, dataset, integrity and pod points) belong to subsystems the
-port has not taken over yet; naming one raises, like any unknown point.
+The JAX package's other points (the Monte-Carlo, dataset, serving and pod
+points) belong to subsystems the port has not taken over yet; naming one
+raises, like any unknown point.
 
 Arming is explicit and local: a :class:`FaultPlan` is built by a test and
 passed down via the ``faults=`` parameter; production call sites carry
@@ -46,7 +83,8 @@ import signal
 
 __all__ = ["FaultPlan", "should_fire", "crash_process", "POINTS"]
 
-POINTS = ("writer.crash", "shm.attach", "file.partial")
+POINTS = ("writer.crash", "shm.attach", "file.partial", "nan.obs",
+          "run.kill", "device.sdc", "host.corrupt", "disk.bitrot")
 
 
 class FaultPlan:

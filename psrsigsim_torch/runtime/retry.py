@@ -46,7 +46,7 @@ class RetryPolicy:
     classifies errors: an exception matching it is PERMANENT — retrying
     cannot help — and :func:`call_with_retry` re-raises it immediately
     instead of burning the backoff budget on it.  The canonical case is
-    the JAX package's ``IntegrityError`` (not ported yet): a
+    :class:`~psrsigsim_torch.runtime.integrity.IntegrityError`: a
     corruption that survived its one verified re-execution already has
     two independent executions disagreeing, so a retry loop treating it
     like a flaky writer would just re-prove the disagreement slowly

@@ -213,11 +213,46 @@ def test_writers_byte_identical_to_reference(ref, port_writes, name):
 _PAYLOAD = ("DATA", "DAT_SCL", "DAT_OFFS")
 
 
+def _payload_flips(got_path, want_path):
+    """One port file against the reference's: every byte outside SUBINT
+    ``DATA``/``DAT_SCL``/``DAT_OFFS`` equal, ``DATA`` within 1 LSB,
+    ``DAT_SCL``/``DAT_OFFS`` within rtol 1e-5.  Returns ``(codes that
+    differ, codes)`` for the caller's 1% bound."""
+    from psrsigsim_torch.io import FitsFile
+
+    n = os.path.basename(got_path)
+    got = FitsFile.read(got_path)
+    want = FitsFile.read(want_path)
+    assert [h.name for h in got.hdus] == [h.name for h in want.hdus]
+    flips = total = 0
+    for g, w in zip(got.hdus, want.hdus):
+        assert g.header.serialize() == w.header.serialize(), (n, g.name)
+        if g.data is None:
+            assert w.data is None
+            continue
+        assert g.data.dtype == w.data.dtype
+        if g.name != "SUBINT":
+            assert np.ascontiguousarray(g.data).tobytes() == \
+                np.ascontiguousarray(w.data).tobytes(), (n, g.name)
+            continue
+        for field in g.data.dtype.names:
+            if field not in _PAYLOAD:
+                assert g.data[field].tobytes() == w.data[field].tobytes(), \
+                    (n, field)
+        diff = (g.data["DATA"].astype(np.int32)
+                - w.data["DATA"].astype(np.int32))
+        assert np.abs(diff).max() <= 1, n
+        flips += int((diff != 0).sum())
+        total += diff.size
+        for field in ("DAT_SCL", "DAT_OFFS"):
+            np.testing.assert_allclose(g.data[field], w.data[field],
+                                       rtol=1e-5)
+    return flips, total
+
+
 @pytest.mark.parametrize("layout", list(END_TO_END))
 def test_export_matches_reference_end_to_end(ref, ens, tmp_path, layout):
     """(c): the port's export of the same seed against the reference's."""
-    from psrsigsim_torch.io import FitsFile
-
     out = str(tmp_path / layout)
     _export(ens, out, **END_TO_END[layout])
     names = _fits_names(out)
@@ -225,31 +260,10 @@ def test_export_matches_reference_end_to_end(ref, ens, tmp_path, layout):
     assert len(names) == (N_OBS if layout == "per_file" else 3)
     flips = total = 0
     for n in names:
-        got = FitsFile.read(os.path.join(out, n))
-        want = FitsFile.read(os.path.join(ref, layout, n))
-        assert [h.name for h in got.hdus] == [h.name for h in want.hdus]
-        for g, w in zip(got.hdus, want.hdus):
-            assert g.header.serialize() == w.header.serialize(), (n, g.name)
-            if g.data is None:
-                assert w.data is None
-                continue
-            assert g.data.dtype == w.data.dtype
-            if g.name != "SUBINT":
-                assert np.ascontiguousarray(g.data).tobytes() == \
-                    np.ascontiguousarray(w.data).tobytes(), (n, g.name)
-                continue
-            for field in g.data.dtype.names:
-                if field not in _PAYLOAD:
-                    assert g.data[field].tobytes() == w.data[field].tobytes(), \
-                        (n, field)
-            diff = (g.data["DATA"].astype(np.int32)
-                    - w.data["DATA"].astype(np.int32))
-            assert np.abs(diff).max() <= 1, n
-            flips += int((diff != 0).sum())
-            total += diff.size
-            for field in ("DAT_SCL", "DAT_OFFS"):
-                np.testing.assert_allclose(g.data[field], w.data[field],
-                                           rtol=1e-5)
+        f, t = _payload_flips(os.path.join(out, n),
+                              os.path.join(ref, layout, n))
+        flips += f
+        total += t
     assert flips <= 1e-2 * total
 
 
@@ -401,18 +415,19 @@ def _export_with(ens, out, template=TEMPLATE, **kw):
                                    ens.pulsar, **args)
 
 
-@pytest.mark.parametrize("option", ["supervisor", "integrity", "verify",
-                                    "scenario_params"])
+@pytest.mark.parametrize("option", ["scenario_params", "pod"])
 def test_unported_options_raise(ens, tmp_path, option):
-    """(f): the supervised export, integrity and scenarios are not ported:
-    asking for them raises instead of being ignored."""
-    kw = {"supervisor": dict(supervisor=object()),
-          "integrity": dict(integrity=True),
-          "verify": dict(resume="verify"),
-          "scenario_params": dict(scenario_params={"sp_amp": 1.0})}[option]
+    """(f): scenarios and pods are not ported: asking for them raises
+    instead of being ignored."""
+    from psrsigsim_torch.io.export import pod_export_follower
+
+    out = str(tmp_path / "u")
     with pytest.raises(NotImplementedError, match="not ported"):
-        _export(ens, str(tmp_path / "u"), **kw)
-    assert not os.path.exists(str(tmp_path / "u"))
+        if option == "pod":
+            pod_export_follower(ens, N_OBS, out, seed=SEED)
+        else:
+            _export(ens, out, scenario_params={"sp_amp": 1.0})
+    assert not os.path.exists(out)
 
 
 class _NoTorch(pickle.Unpickler):
