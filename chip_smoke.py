@@ -64,7 +64,24 @@ digest of a packed chunk.  Phases:
    clean run's; two launches of the fused kernel on the same inputs
    bit-equal); kill and resume: a child process SIGKILLed after chunk 0's
    commit, then resume="verify" launching the fused kernel once and ending
-   byte-identical.
+   byte-identical;
+10. the README's Quickstart and the Simulation facade on the card
+   (psrsigsim_torch's object-oriented flow): (a) make_pulses -> ISM().
+   disperse -> GBT().observe(noise=True) at full width (64 channels, 30 x
+   935 bins), the same flow with device="cpu" on the host, keys and stage
+   order equal, data within rtol 1e-5 (floor 1e-5 of the peak); (b) the
+   same band in SEARCH mode, a 4 s snippet (64 x 819200): make_pulses ->
+   disperse -> null(0.3) -> observe(noise=True) on both, the nulled pulses
+   (jax's permutation) equal, data within the same limit; (c)
+   Simulation(psrdict=...) at BASELINE config 1's full width: simulate(),
+   save_simulation to PSRFITS and (on tutorial 5's 16-channel geometry) to
+   pdv text under build/, to_ensemble().run_quantized(128) bit-equal to the
+   hand-built ensemble's and to_ensemble().run(16) to its run(16) (the
+   sampler launched twice), and export_ensemble(256) supervised with one
+   writer, its journal's sha256 equal to phase 9's clean run and the fused
+   kernel launched exactly twice.  Step times (CUDA events) of a first and
+   a second run on the card (bit-equal), peak device memory and obs/s are
+   logged.
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of one
 steady main-path chunk after phase 5 (device time by kernel, busy share).
@@ -132,6 +149,7 @@ EXPORT_NOBS = 256  # phase 8: two chunks, ~1.34 GB of PSRFITS one per file
 EXPORT_SERIAL_NOBS = 32
 EXPORT_OPF = 16
 SUP_NOBS = 256  # phase 9: two chunks of the supervised export
+OO_SEARCH_TOBS = 4.0  # phase 10(b): 64 x 819200 samples, 210 MB per field
 KILL_CHILD = "--supervised-kill-child"
 TEMPLATE = os.path.join(ROOT, "data", "B1855+09.L-wide.PUPPI.11y.x.sum.sm")
 MAIN = dict(nchan=64, period_s=0.005, samprate_mhz=0.4096, sublen_s=60.0,
@@ -267,6 +285,7 @@ class Smoke:
                         "packed_digest": {}}
         self._main = None
         self.export_rates = {}  # phase 8's obs/s, beside phase 9's
+        self.sup_clean = None  # phase 9's clean 1-writer sha256s and obs/s
 
     def main_ensemble(self):
         """The main path's ensemble (staged once, on the card)."""
@@ -1239,6 +1258,7 @@ class Smoke:
                     [("chunk", 0), ("chunk", MAIN_NOBS)]:
                 raise AssertionError(f"journal commits {commits}")
             want = disk_hashes(clean)
+            self.sup_clean = (want, SUP_NOBS / wall1)
             with open(os.path.join(clean, "export_manifest.json")) as fh:
                 if json.load(fh)["files"] != want:
                     raise AssertionError("manifest hashes differ from the "
@@ -1403,6 +1423,330 @@ class Smoke:
         finally:
             shutil.rmtree(work, ignore_errors=True)
 
+    # -- 10 -----------------------------------------------------------------
+    def _run_steps(self, steps, device, after=None):
+        """Run ``steps`` [(name, fn)] in order on ``device``; each step's ms
+        (CUDA events on the card, the host clock on the CPU) and what each
+        returned.  ``after(name)`` runs after each step, untimed."""
+        torch = self.torch
+        times, results = {}, {}
+        for name, fn in steps:
+            if device == "cpu":
+                t0 = time.perf_counter()
+                results[name] = fn()
+                times[name] = (time.perf_counter() - t0) * 1e3
+            else:
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                results[name] = fn()
+                stop.record()
+                torch.cuda.synchronize()
+                times[name] = start.elapsed_time(stop)
+            if after is not None:
+                after(name)
+        return times, results
+
+    def _oo_run(self, search, device):
+        """The README's Quickstart (fold) or its SEARCH-mode sibling with
+        nulling on ``device``: ``(data on the host after each step, step ms,
+        keys drawn, nulled pulses)``.  The keys are every (stage, key) the
+        key sequences handed out, in order."""
+        import numpy as np
+
+        from psrsigsim_torch.ism import ISM
+        from psrsigsim_torch.pulsar import GaussProfile, Pulsar
+        from psrsigsim_torch.signal import FilterBankSignal
+        from psrsigsim_torch.telescope import GBT
+        from psrsigsim_torch.utils import rng
+
+        drawn = []
+        plain_next = rng.KeySequence.next
+
+        def recording_next(seq, stage="user", index=0):
+            k = plain_next(seq, stage, index)
+            drawn.append((stage, index, tuple(int(w) for w in k)))
+            return k
+
+        rng.KeySequence.next = recording_next
+        try:
+            rng.set_seed(0)
+            sig = FilterBankSignal(1400.0, 400.0, Nsubband=64,
+                                   sample_rate=0.2048, fold=not search,
+                                   sublen=None if search else 2.0,
+                                   device=device)
+            psr = Pulsar(0.00457, 0.03, GaussProfile(peak=0.5, width=0.02),
+                         name="J1713+0747", seed=0)
+            steps = [("make_pulses", lambda: psr.make_pulses(
+                         sig, tobs=OO_SEARCH_TOBS if search else 60.0)),
+                     ("disperse", lambda: ISM().disperse(sig, dm=15.99))]
+            if search:
+                steps.append(("null", lambda: psr.null(sig, 0.3)))
+            steps.append(("observe", lambda: GBT().observe(
+                sig, psr, system="Lband_GUPPI", noise=True)))
+            data = {}
+
+            def keep(name):
+                data[name] = sig.data.cpu().numpy()
+
+            times, results = self._run_steps(steps, device, after=keep)
+        finally:
+            rng.KeySequence.next = plain_next
+        return data, times, drawn, results.get("null")
+
+    def _oo_leg(self, label, search):
+        """One leg of phase 10: the flow on the card, then on the host, and
+        the two held against each other."""
+        torch = self.torch
+        import numpy as np
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        card, times, keys, nulled = self._oo_run(search, self.dev)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        # the same flow again: the first run of a process pays cuFFT's
+        # plans for these lengths (the first on a machine also compiles
+        # cuFFT's kernels for them) and the first pinned buffers
+        again, warm, _, _ = self._oo_run(search, self.dev)
+        if not all(np.array_equal(card[k], again[k]) for k in card):
+            raise AssertionError(f"{label}: two runs on the card differ")
+        del again
+        t0 = time.perf_counter()
+        host, cpu_times, cpu_keys, cpu_nulled = self._oo_run(search, "cpu")
+        cpu_wall = time.perf_counter() - t0
+        got, want = card["observe"], host["observe"]
+        log(f"  {label}: data {got.shape} float32; card steps "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in times.items())
+            + f" (sum {sum(times.values()):.2f} ms; wall with the copies "
+            f"to the host after each step {wall:.3f} s; peak device memory "
+            f"{peak / 2**30:.3f} GiB); again on the card "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in warm.items())
+            + f" (sum {sum(warm.values()):.2f} ms, bit-equal to the first); "
+            "host (device='cpu') steps "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in cpu_times.items())
+            + f" (wall {cpu_wall:.3f} s) on {self.card_line}")
+        if keys != cpu_keys or not keys:
+            raise AssertionError(f"{label}: the card drew other keys or "
+                                 f"stages than the host: {keys} vs {cpu_keys}")
+        log(f"  {label}: keys and stage order equal: "
+            + ", ".join(f"{st}" for st, _, _ in keys))
+        if search:
+            if nulled is None or not np.array_equal(nulled, cpu_nulled):
+                raise AssertionError(f"{label}: nulled pulses differ: "
+                                     f"{nulled} vs {cpu_nulled}")
+            log(f"  {label}: nulled pulses equal ({len(nulled)}, first "
+                f"{nulled[:6].tolist()})")
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise AssertionError(f"{label}: shape {got.shape} vs "
+                                 f"{want.shape}, or non-finite samples")
+        if search:
+            # null replaces the samples where the delayed check field
+            # (a Fourier shift) exceeds 1; where that field lies within
+            # the FFT libraries' rounding of 1 the card and the host may
+            # decide differently.  Such a flip is allowed, counted and
+            # bounded; every other sample is held to the limit.
+            pre_c, pre_h = card["disperse"], host["disperse"]
+            tol = 1e-5 * np.abs(pre_h) + 1e-5 * float(np.abs(pre_h).max())
+            if not np.all(np.abs(pre_c - pre_h) <= tol):
+                raise AssertionError(f"{label}: dispersed data differ beyond "
+                                     "rtol 1e-5 (floor 1e-5 of the peak)")
+            flips = (card["null"] != pre_c) != (host["null"] != pre_h)
+            nflip = int(flips.sum())
+            log(f"  {label}: null masks: card {int((card['null'] != pre_c).sum())}"
+                f", host {int((host['null'] != pre_h).sum())} samples "
+                f"replaced; {nflip} differ ({nflip / flips.size:.3g} of the "
+                f"samples; the dispersed data before them within the limit)")
+            if nflip > 1e-6 * flips.size:
+                raise AssertionError(f"{label}: {nflip} null-mask flips, more "
+                                     "than 1e-6 of the samples")
+            got, want = np.where(flips, 0, got), np.where(flips, 0, want)
+        peak_abs = float(np.abs(want).max())
+        err = np.abs(got - want)
+        rel = np.divide(err, np.abs(want), out=np.zeros_like(err),
+                        where=want != 0)
+        at = np.unravel_index(np.argmax(rel), rel.shape)
+        worst = np.unravel_index(np.argmax(err - 1e-5 * np.abs(want)),
+                                 err.shape)
+        log(f"  {label}: max rel diff {rel.max():.3g} at {at} (card "
+            f"{got[at]!r}, CPU {want[at]!r}); max abs diff "
+            f"{err.max():.3g} = {err.max() / peak_abs:.3g} of the peak "
+            f"{peak_abs:.6g}, worst against rtol 1e-5 at {worst} (card "
+            f"{got[worst]!r}, CPU {want[worst]!r}); bit-equal "
+            f"{np.mean(got == want):.4f}")
+        if not np.all(err <= 1e-5 * np.abs(want) + 1e-5 * peak_abs):
+            raise AssertionError(f"{label}: card and host differ beyond "
+                                 "rtol 1e-5 (floor 1e-5 of the peak)")
+        return times, warm, peak
+
+    def oo_flow(self):
+        """The object-oriented flow and the Simulation facade (see the
+        module docstring)."""
+        import hashlib
+        import shutil
+        import tempfile
+
+        import numpy as np
+
+        from psrsigsim_torch.data import data_path
+        from psrsigsim_torch.io import FitsFile
+        from psrsigsim_torch.simulate import Simulation
+        from psrsigsim_torch.utils import set_seed
+
+        torch = self.torch
+        os.environ.pop("PSS_SAMPLER", None)
+        os.environ.pop("PSS_INTEGRITY", None)
+        self.oo_times = {}
+        self.oo_times["a"] = self._oo_leg("(a) Quickstart, fold", False)
+        self.oo_times["b"] = self._oo_leg("(b) SEARCH + null", True)
+
+        # (c) the facade at BASELINE config 1's full width
+        if self.sup_clean is None:
+            raise AssertionError("phase 9's clean run is missing: nothing to "
+                                 "hold export_ensemble against")
+        want_hashes, sup_rate = self.sup_clean
+        g = MAIN
+        pars = dict(
+            fcent=g["fcent"], bandwidth=g["bw"], sample_rate=g["samprate_mhz"],
+            Nchan=g["nchan"], fold=True, sublen=g["sublen_s"], tobs=g["tobs_s"],
+            period=g["period_s"], Smean=g["smean"], name="J1713+0747",
+            profiles=np.load(data_path("J1713+0747_profile.npy")), dm=g["dm"],
+            tscope_name="TestScope", aperture=100.0, area=5500.0, Tsys=35.0,
+            system_name="TestSys", rcvr_fcent=g["fcent"], rcvr_bw=g["bw"],
+            rcvr_name="TestRCVR", backend_samprate=12.5,
+            backend_name="TestBack", seed=0, tempfile=TEMPLATE)
+        # docs/tutorial_5_simulate.md's 16-channel geometry for the pdv text
+        tut5 = dict(fcent=1400.0, bandwidth=400.0, sample_rate=0.2048,
+                    Nchan=16, fold=True, sublen=0.5, tobs=2.0, period=0.005,
+                    Smean=0.05, profiles=[0.5, 0.05, 1.0], name="J0000+0000",
+                    dm=15.99, tscope_name="demo", aperture=100.0, area=5500.0,
+                    Tsys=35.0, system_name="demo_sys", rcvr_fcent=1400.0,
+                    rcvr_bw=400.0, rcvr_name="Lband", backend_samprate=12.5,
+                    backend_name="demo_backend", seed=11)
+        build = os.path.join(ROOT, "build")
+        os.makedirs(build, exist_ok=True)
+        work = tempfile.mkdtemp(prefix="simulation-", dir=build)
+        cwd = os.getcwd()
+        try:
+            os.chdir(work)  # save_simulation writes its par file here
+            set_seed(0)
+            sim = Simulation(psrdict=pars, device=self.dev)
+            t0 = time.perf_counter()
+            sim.simulate()
+            torch.cuda.synchronize()
+            t_sim = time.perf_counter() - t0
+            data = sim.signal.data
+            cfg_shape = (g["nchan"], int(g["tobs_s"] / g["sublen_s"])
+                         * int(round(g["period_s"] * g["samprate_mhz"] * 1e6)))
+            if data.device.type != torch.device(self.dev).type \
+                    or tuple(data.shape) != cfg_shape \
+                    or not bool(torch.isfinite(data).all()):
+                raise AssertionError(f"simulate(): {tuple(data.shape)} on "
+                                     f"{data.device}, expected {cfg_shape} "
+                                     "finite on the card")
+            t0 = time.perf_counter()
+            sim.save_simulation(outfile="sim.fits", out_format="psrfits")
+            t_fits = time.perf_counter() - t0
+            sub = FitsFile.read("sim.fits")["SUBINT"].data
+            if sub["DATA"].shape != (cfg_shape[1] // 2048, 1, g["nchan"],
+                                     2048):
+                raise AssertionError(f"PSRFITS DATA {sub['DATA'].shape}")
+            sim5 = Simulation(psrdict=tut5, device=self.dev)
+            sim5.simulate()
+            t0 = time.perf_counter()
+            sim5.save_simulation(outfile="demo.pdv", out_format="pdv")
+            t_pdv = time.perf_counter() - t0
+            lines = 0
+            for n in sorted(os.listdir(".")):
+                if n.startswith("demo.pdv_"):
+                    with open(n) as fh:
+                        lines += sum(1 for _ in fh)
+            nfiles = sum(n.startswith("demo.pdv_") for n in os.listdir("."))
+            want_lines = nfiles + 4 * 16 * (1 + 1024)
+            if lines != want_lines:
+                raise AssertionError(f"pdv text has {lines} lines, expected "
+                                     f"{want_lines}")
+            log(f"  (c) Simulation(psrdict=BASELINE config 1).simulate(): "
+                f"{tuple(data.shape)} on the card in {t_sim:.3f} s; "
+                f"save_simulation PSRFITS {t_fits:.3f} s "
+                f"({os.path.getsize('sim.fits') / 1e6:.1f} MB); tutorial 5 "
+                f"pdv {t_pdv:.3f} s ({nfiles} files, {lines} lines)")
+            del data, sim5
+
+            # the facade's ensemble against the hand-built one
+            ens, hand = sim.to_ensemble(), self.main_ensemble()
+            if ens.ephemeris_source is not None or ens.cfg != hand.cfg:
+                raise AssertionError("to_ensemble(): another config or "
+                                     "ephemeris than the hand-built ensemble")
+            self._zero_counts()
+            got = ens.run_quantized(MAIN_NOBS, seed=0)
+            torch.cuda.synchronize()
+            counts = self._counts()
+            want = hand.run_quantized(MAIN_NOBS, seed=0)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError("to_ensemble().run_quantized differs from "
+                                     "the hand-built ensemble's")
+            del got, want
+            if counts != {"rng_field": 0, "fold_quantize": 1,
+                          "packed_digest": 0}:
+                raise AssertionError(f"to_ensemble().run_quantized launches "
+                                     f"{counts}")
+            self._zero_counts()
+            got = ens.run(FLOAT_NOBS, seed=0)
+            torch.cuda.synchronize()
+            counts_run = self._counts()
+            if not torch.equal(got, hand.run(FLOAT_NOBS, seed=0)):
+                raise AssertionError("to_ensemble().run differs from the "
+                                     "hand-built ensemble's")
+            del got
+            if counts_run != {"rng_field": 2, "fold_quantize": 0,
+                              "packed_digest": 0}:
+                raise AssertionError(f"to_ensemble().run launches {counts_run}")
+            log(f"  (c) to_ensemble().run_quantized({MAIN_NOBS}, seed=0) "
+                f"bit-equal to the hand-built ensemble's (launches {counts}); "
+                f"to_ensemble().run({FLOAT_NOBS}) bit-equal (launches "
+                f"{counts_run})")
+
+            # the facade's supervised export against phase 9's clean run
+            out = os.path.join(work, "export")
+            self._zero_counts()
+            t0 = time.perf_counter()
+            res = sim.export_ensemble(SUP_NOBS, out, TEMPLATE, seed=0,
+                                      chunk_size=MAIN_NOBS, writers=1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = self._counts()
+            self.oo_export_launches = counts
+            if counts != {"rng_field": 0, "fold_quantize": 2,
+                          "packed_digest": 0}:
+                raise AssertionError(f"export_ensemble launches {counts}, "
+                                     "expected the fused kernel twice")
+            journal = {}
+            with open(os.path.join(out, "run_journal.jsonl")) as fh:
+                for line in fh:
+                    rec = json.loads(line)
+                    if rec["e"] == "commit":
+                        journal.update(rec["files"])
+            disk = {}
+            for n in sorted(os.listdir(out)):
+                if n.endswith(".fits"):
+                    with open(os.path.join(out, n), "rb") as fh:
+                        disk[n] = hashlib.sha256(fh.read()).hexdigest()
+            if journal != want_hashes or disk != want_hashes \
+                    or len(res.paths) != SUP_NOBS:
+                raise AssertionError("export_ensemble's files or journal "
+                                     "differ from phase 9's clean run")
+            log(f"  (c) Simulation.export_ensemble({SUP_NOBS}, supervised, 1 "
+                f"writer): {wall:.3f} s = {SUP_NOBS / wall:.1f} obs/s against "
+                f"phase 9's clean run {sup_rate:.1f} obs/s; journal and files' "
+                f"sha256 equal phase 9's; launches {counts} "
+                f"({self.card_line})")
+        finally:
+            os.chdir(cwd)
+            shutil.rmtree(work, ignore_errors=True)
+
     def run(self, with_profile=False):
         self.phase("1 card", self.card)
         built = self.phase("2 build", self.build)
@@ -1421,6 +1765,7 @@ class Smoke:
         if built:
             self.phase("8 export", self.export)
             self.phase("9 supervised export", self.supervised)
+            self.phase("10 object-oriented flow and Simulation", self.oo_flow)
         if self.failed:
             log(f"FAILED phases: {', '.join(self.failed)}")
             return 1

@@ -1,9 +1,11 @@
 """psrsigsim_torch — the PyTorch/CUDA port of psrsigsim_tpu.
 
 The same pulsar-signal simulator, written in PyTorch for one NVIDIA H100:
-host-side configuration objects (signal, pulsar, telescope) stage a
-fold-mode geometry, and plain tensor functions with an explicit ``device``
-run the observation pipeline.  The JAX package ``psrsigsim_tpu`` stays
+the reference's object-oriented flow (``Pulsar.make_pulses`` →
+``ISM().disperse`` → ``Telescope.observe``, with the signal's data a tensor
+on its device) and the ``Simulation`` façade; and for ensembles,
+configuration objects (signal, pulsar, telescope) stage a fold-mode
+geometry that plain tensor functions with an explicit ``device`` run.  The JAX package ``psrsigsim_tpu`` stays
 beside it as the reference; module paths mirror it so each counterpart is
 easy to find.  The port imports neither jax nor the JAX package.
 

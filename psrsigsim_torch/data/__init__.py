@@ -1,5 +1,6 @@
 """Packaged data assets (counterpart: psrsigsim_tpu/data/): the measured
-J1713+0747 L-band template profile of the upstream project.
+J1713+0747 L-band template profile of the upstream project and the
+NANOGrav 11-yr par file for the same pulsar.
 
 Use :func:`data_path` to locate an asset on disk::
 

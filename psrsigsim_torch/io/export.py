@@ -1346,8 +1346,16 @@ def export_ensemble_psrfits(ens, n_obs, out_dir, template, pulsar,
     # the writer state carries a shallow COPY of the ensemble's signal
     # shell: packed groups resize its subint geometry and per-obs DMs
     # rebind its _dm, and neither mutation may leak into the live
-    # ensemble's signal object
+    # ensemble's signal object.  Neither copy carries a tensor: not the
+    # signal's data (an object-oriented run may have left some), not the
+    # pulsar's key sequence — unpickling either would import torch in the
+    # writers
     import copy as _copy
+
+    sig_shell = _copy.copy(sig)
+    sig_shell._state = None
+    pulsar_shell = _copy.copy(pulsar)
+    pulsar_shell._keys = None
 
     from . import ephem as _ephem
 
@@ -1356,7 +1364,7 @@ def export_ensemble_psrfits(ens, n_obs, out_dir, template, pulsar,
     if getattr(ens, "ephemeris_source", None) is not None:
         _ephem.set_ephemeris(ens.ephemeris_source, warn=False)
 
-    state = {"sig": _copy.copy(sig), "pulsar": pulsar, "template": tmpl,
+    state = {"sig": sig_shell, "pulsar": pulsar_shell, "template": tmpl,
              "parfile": parfile, "MJD_start": MJD_start, "ref_MJD": ref_MJD,
              # workers must barycenter with the SAME ephemeris as the
              # parent (see _writer_init); None = analytic/PSS_EPHEM

@@ -2,7 +2,17 @@
 
 from __future__ import annotations
 
-__all__ = ["BaseFile"]
+import numpy as np
+
+__all__ = ["BaseFile", "host_array"]
+
+
+def host_array(data):
+    """``data`` as a numpy array on the host: a signal's data tensor (on
+    the card or the CPU) is copied once; an array passes through."""
+    if hasattr(data, "detach"):
+        return data.detach().cpu().numpy()
+    return np.asarray(data)
 
 
 class BaseFile:

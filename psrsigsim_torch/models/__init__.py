@@ -1,2 +1,2 @@
-"""Physical models: pulsar and telescope (counterpart:
+"""Physical models: pulsar, ISM and telescope (counterpart:
 psrsigsim_tpu/models/)."""

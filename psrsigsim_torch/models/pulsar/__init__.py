@@ -1,15 +1,17 @@
-"""Pulsar emission models (counterpart: psrsigsim_tpu/models/pulsar/; this
-slice ports the portraits ``build_fold_config`` stages)."""
+"""Pulsar emission models (counterpart: psrsigsim_tpu/models/pulsar/)."""
 
-from .portraits import DataPortrait, GaussPortrait, PulsePortrait
-from .profiles import DataProfile, GaussProfile
+from .portraits import DataPortrait, GaussPortrait, PulsePortrait, UserPortrait
+from .profiles import DataProfile, GaussProfile, PulseProfile, UserProfile
 from .pulsar import Pulsar
 
 __all__ = [
     "Pulsar",
     "PulsePortrait",
     "GaussPortrait",
+    "UserPortrait",
     "DataPortrait",
+    "PulseProfile",
     "GaussProfile",
+    "UserProfile",
     "DataProfile",
 ]

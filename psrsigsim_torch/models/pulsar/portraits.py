@@ -3,8 +3,10 @@ psrsigsim_tpu/models/pulsar/portraits.py).
 
 Behavioral counterpart of psrsigsim/pulsar/portraits.py.  Portraits are
 *config-time* objects: construction, normalization and evaluation run on
-the host in numpy float64, matching the reference numerically; the
-pipelines receive the evaluated ``(Nchan, Nphase)`` block.
+the host in numpy float64, matching the reference numerically (at an even
+phase grid for fold mode, at every sample's phase for SEARCH mode);
+``profiles_device`` puts the normalized ``(Nchan, Nphase)`` block on a
+device as float32.
 
 A portrait is an INTENSITY series even for amplitude-style signals.
 """
@@ -16,7 +18,7 @@ import numpy as np
 from ...ops.interp import pchip_eval_np, pchip_fit_np
 from ...ops.window import offpulse_window
 
-__all__ = ["PulsePortrait", "GaussPortrait", "DataPortrait"]
+__all__ = ["PulsePortrait", "GaussPortrait", "DataPortrait", "UserPortrait"]
 
 
 class PulsePortrait:
@@ -63,6 +65,18 @@ class PulsePortrait:
     @property
     def Amax(self):
         return self._Amax
+
+    def profiles_device(self, device=None):
+        """Normalized profile block ``(Nchan, Nphase)`` as a float32 tensor
+        on ``device`` (the card unless the caller names another)."""
+        import torch
+
+        from ...utils.device import resolve_device
+
+        if self._profiles is None:
+            raise ValueError("run init_profiles first")
+        return torch.as_tensor(np.asarray(self._profiles, dtype=np.float32),
+                               device=resolve_device(device))
 
 
 class GaussPortrait(PulsePortrait):
@@ -173,6 +187,64 @@ class DataPortrait(PulsePortrait):
         # init_profiles set one (reference: portraits.py:266)
         amax = self._Amax if hasattr(self, "_Amax") else np.max(profiles)
         return profiles / amax
+
+
+class UserPortrait(PulsePortrait):
+    """User-specified 2-D portrait from a callable (stub in the
+    reference, portraits.py:270-275; completed in the JAX package like the
+    1-D ``UserProfile`` the reference does implement, profiles.py:118-153).
+
+    ``portrait_func(phases, Nchan) -> (Nchan, Nphase)`` evaluates the
+    frequency-resolved intensity at the given phases (in [0, 1)); the
+    base-class normalization (global max across all channels,
+    reference portraits.py:32-45) applies on top.
+    """
+
+    def __init__(self, portrait_func):
+        if not callable(portrait_func):
+            raise TypeError("UserPortrait takes a callable "
+                            "portrait_func(phases, Nchan)")
+        self._generator = portrait_func
+
+    def init_profiles(self, Nphase, Nchan=None):
+        # like GaussPortrait's override: calc_profiles already divides by
+        # the cached Amax, so no second normalization.  The normalizer is
+        # pinned from a DENSE grid (>= 2048 bins) so a later sparse-grid
+        # call can never cache a peak-missing Amax.
+        self._ensure_amax(max(int(Nphase), 2048), Nchan)
+        ph = np.arange(Nphase) / Nphase
+        self._profiles = self.calc_profiles(ph, Nchan=Nchan)
+        self._max_profile = self._pick_max_profile(self._profiles)
+
+    def _ensure_amax(self, ndense, Nchan):
+        if hasattr(self, "_Amax"):
+            return
+        ph = np.arange(ndense) / ndense
+        n = 1 if Nchan is None else int(Nchan)
+        out = np.asarray(self._generator(ph, n), dtype=np.float64)
+        amax = float(np.amax(out))
+        if not (np.isfinite(amax) and amax > 0):
+            raise ValueError(
+                f"portrait_func's maximum over a {ndense}-bin phase grid "
+                f"is {amax}; the portrait must be positive somewhere to "
+                "define the normalization")
+        self._Amax = amax
+
+    def calc_profiles(self, phases, Nchan=None):
+        ph = np.asarray(phases, dtype=np.float64)
+        if np.any(ph > 1) or np.any(ph < 0):
+            raise ValueError("Phase values must all lie within [0,1].")
+        n = 1 if Nchan is None else int(Nchan)
+        out = np.asarray(self._generator(ph, n), dtype=np.float64)
+        if out.shape != (n, len(ph)):
+            raise ValueError(
+                f"portrait_func returned shape {out.shape}, expected "
+                f"({n}, {len(ph)})")
+        # Amax cached once, from a dense evaluation (never this call's
+        # possibly-sparse grid), and validated > 0, like GaussPortrait
+        # (reference: portraits.py:177)
+        self._ensure_amax(max(len(ph), 2048), Nchan)
+        return out / self._Amax
 
 
 def _gaussian_sing_1d(phases, peak, width, amp):

@@ -6,9 +6,35 @@ from __future__ import annotations
 
 import numpy as np
 
-from .portraits import DataPortrait, GaussPortrait
+from .portraits import DataPortrait, GaussPortrait, PulsePortrait
 
-__all__ = ["GaussProfile", "DataProfile"]
+__all__ = ["PulseProfile", "GaussProfile", "UserProfile", "DataProfile"]
+
+
+class PulseProfile(PulsePortrait):
+    """Base class for 1-D pulse profiles (reference: profiles.py:10-65)."""
+
+    _profile = None
+
+    def __call__(self, phases=None):
+        if phases is None:
+            if self._profile is None:
+                print("Warning: base profile not generated, returning `None`")
+            return self._profile
+        return self.calc_profile(phases)
+
+    def init_profile(self, Nphase):
+        ph = np.arange(Nphase) / Nphase
+        self._profile = self.calc_profile(ph)
+        self._Amax = self._profile.max()
+        self._profile = self._profile / self.Amax
+
+    def calc_profile(self, phases):
+        raise NotImplementedError()
+
+    @property
+    def profile(self):
+        return self._profile
 
 
 class GaussProfile(GaussPortrait):
@@ -20,6 +46,32 @@ class GaussProfile(GaussPortrait):
 
     def set_Nchan(self, Nchan):
         raise NotImplementedError()
+
+
+class UserProfile(PulseProfile):
+    """Profile specified by a callable ``f(phases) -> intensity``
+    (reference: profiles.py:118-153)."""
+
+    def __init__(self, profile_func):
+        self._generator = profile_func
+
+    def calc_profile(self, phases):
+        self._profile = np.asarray(self._generator(np.asarray(phases)))
+        self._Amax = self._Amax if hasattr(self, "_Amax") else np.max(self._profile)
+        return self._profile / self._Amax
+
+    def calc_profiles(self, phases, Nchan=None):
+        """Portrait-style evaluation: tile the 1-D profile across channels."""
+        prof = self.calc_profile(phases)
+        n = 1 if Nchan is None else Nchan
+        return np.tile(prof, (n, 1))
+
+    def init_profiles(self, Nphase, Nchan=None):
+        ph = np.arange(Nphase) / Nphase
+        self._profiles = self.calc_profiles(ph, Nchan=Nchan)
+        self._Amax = self._profiles.max()
+        self._profiles = self._profiles / self._Amax
+        self._max_profile = self._pick_max_profile(self._profiles)
 
 
 class DataProfile(DataPortrait):

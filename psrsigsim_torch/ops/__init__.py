@@ -3,13 +3,14 @@
 Plain functions on tensors: the random fields (:mod:`.stats`, with the
 CUDA sampler kernel in :mod:`.rng_hw`), the Fourier shift (:mod:`.shift`,
 on :mod:`.dfloat`), the PSRFITS quantizer (:mod:`.quantize`), the fused
-fold → quantize → pack kernel (:mod:`.fold_quantize`) and the integrity
-lattice's packed-digest kernel (:mod:`.digest`); plus the
-host helpers the portrait layer needs (:mod:`.interp`, :mod:`.window`).
+fold → quantize → pack kernel (:mod:`.fold_quantize`), the integrity
+lattice's packed-digest kernel (:mod:`.digest`), the profile convolution
+(:mod:`.convolve`) and the resamplers (:mod:`.resample`); plus the host
+helpers the portrait layer needs (:mod:`.interp`, :mod:`.window`).
 """
 
 from .interp import PchipCoeffs, pchip_eval_np, pchip_fit_np
-from .window import offpulse_window
+from .window import fold_periods, offpulse_window
 
 # the tensor modules load on first use: a host-only consumer of the numpy
 # helpers above (the PSRFITS writer processes unpickling a pulsar's
@@ -21,8 +22,11 @@ _LAZY = {
     "hw_chan_field": "rng_hw", "fourier_shift": "shift",
     "chan_chi2_field": "stats", "chan_normal_field": "stats",
     "chi2_draw_norm": "stats", "chi2_sample": "stats", "normal": "stats",
+    "normal_sample": "stats",
     "uniform": "stats", "sampler_backend": "stats",
     "packed_digest": "digest", "packed_digest_plain": "digest",
+    "fft_convolve_full": "convolve", "convolve_profiles": "convolve",
+    "block_downsample": "resample", "rebin": "resample",
 }
 
 
@@ -56,7 +60,13 @@ __all__ = [
     "chi2_draw_norm",
     "chi2_sample",
     "normal",
+    "normal_sample",
     "uniform",
     "sampler_backend",
     "offpulse_window",
+    "fold_periods",
+    "fft_convolve_full",
+    "convolve_profiles",
+    "block_downsample",
+    "rebin",
 ]

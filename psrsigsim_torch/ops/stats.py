@@ -18,7 +18,10 @@ Two samplers draw the per-channel χ² fields of the pipelines:
 χ² routing follows the reference's ``chi2_sample``: df = 1 draws ``z²``
 exactly, a static df ≥ 50 draws the Wilson–Hilferty cube of a normal, and a
 per-observation df tensor (the reference's traced df) selects between the
-two in the graph.  The exact gamma sampler (static df < 50, or
+two in the graph.  The object-oriented flow draws jax's flat
+``random.normal`` stream over a whole ``(Nchan, Nsamp)`` block
+(``normal_sample``, ``chi2_sample``, and ``chi2_sample_compiled``, the
+arithmetic XLA compiles for the JAX package's jitted kernels).  The exact gamma sampler (static df < 50, or
 ``PSS_EXACT_CHI2=1``) is not ported yet and raises.
 """
 
@@ -32,10 +35,10 @@ import torch
 from ..utils.device import to_device
 from ..utils.rng import fold_in, random_bits
 
-__all__ = ["SEQ_RNG_BLOCK", "CHI2_WH_MIN_DF", "erf_inv", "uniform", "normal",
-           "chi2_sample", "blocked_chan_chi2", "blocked_chan_normal",
-           "sampler_backend", "chan_chi2_field", "chan_normal_field",
-           "chi2_draw_norm"]
+__all__ = ["SEQ_RNG_BLOCK", "CHI2_WH_MIN_DF", "fma", "erf_inv", "uniform",
+           "normal", "normal_sample", "chi2_sample", "chi2_sample_compiled",
+           "blocked_chan_chi2", "blocked_chan_normal", "sampler_backend",
+           "chan_chi2_field", "chan_normal_field", "chi2_draw_norm"]
 
 # Fixed span of global time samples per RNG key: every pipeline draw is keyed
 # by (stage, channel, global block index), so a seed gives the same stream
@@ -53,10 +56,10 @@ _F32 = torch.float32
 # -- XLA's float32 arithmetic, op for op -------------------------------------
 
 
-def _fma(a, b, c):
-    """Correctly rounded float32 ``a*b + c``: the product is exact in
-    float64, the sum is rounded to odd (so the final rounding to float32
-    is not a double rounding)."""
+def fma(a, b, c):
+    """Correctly rounded float32 ``a*b + c`` (a fused multiply-add, as XLA
+    emits it): the product is exact in float64, the sum is rounded to odd
+    (so the final rounding to float32 is not a double rounding)."""
     p = a.double() * (b.double() if isinstance(b, torch.Tensor) else float(b))
     cd = c.double() if isinstance(c, torch.Tensor) else float(c)
     s = p + cd
@@ -96,15 +99,15 @@ def _log(x):
     m = (m - 1.0) + torch.where(small, m, torch.zeros_like(m))
     m2 = m * m
     m3 = m2 * m
-    y = _fma(m, _LOG_P[0], _LOG_P[1])
-    y1 = _fma(m, _LOG_P[3], _LOG_P[4])
-    y2 = _fma(m, _LOG_P[6], _LOG_P[7])
-    y = _fma(y, m, _LOG_P[2])
-    y1 = _fma(y1, m, _LOG_P[5])
-    y2 = _fma(y2, m, _LOG_P[8])
-    y = _fma(y, m3, y1)
-    y = _fma(y, m3, y2)
-    y = _fma(y, m3, e * _LOG_Q1)
+    y = fma(m, _LOG_P[0], _LOG_P[1])
+    y1 = fma(m, _LOG_P[3], _LOG_P[4])
+    y2 = fma(m, _LOG_P[6], _LOG_P[7])
+    y = fma(y, m, _LOG_P[2])
+    y1 = fma(y1, m, _LOG_P[5])
+    y2 = fma(y2, m, _LOG_P[8])
+    y = fma(y, m3, y1)
+    y = fma(y, m3, y2)
+    y = fma(y, m3, e * _LOG_Q1)
     m = m - m2 * 0.5
     m = m + y
     return m + e * _LOG_Q2
@@ -128,7 +131,7 @@ def _log1p(x):
     def poly(coeffs):
         r = torch.full_like(x, coeffs[0])
         for c in coeffs[1:]:
-            r = _fma(r, x, c)
+            r = fma(r, x, c)
         return r
 
     x2 = x * x
@@ -154,31 +157,64 @@ def erf_inv(x):
     w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
     p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0])
     for lt_c, ge_c in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
-        p = _fma(p, w, torch.where(lt, lt_c, ge_c))
+        p = fma(p, w, torch.where(lt, lt_c, ge_c))
     return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
 
 
 # -- jax.random samplers ------------------------------------------------------
 
 
-def uniform(key, n, minval=0.0, maxval=1.0):
+def uniform(key, n, minval=0.0, maxval=1.0, start=0):
     """``jax.random.uniform(key, (n,), float32, minval, maxval)`` for keys
-    of shape ``(..., 2)`` -> ``(..., n)``."""
-    bits = random_bits(key, n)
+    of shape ``(..., 2)`` -> ``(..., n)`` (elements ``start ..
+    start+n-1`` of the stream)."""
+    bits = random_bits(key, n, start)
     floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(_F32) - 1.0
     lo = torch.full((), minval, dtype=_F32, device=key.device)
     hi = torch.full((), maxval, dtype=_F32, device=key.device)
-    return torch.maximum(lo, _fma(floats, hi - lo, lo))
+    return torch.maximum(lo, fma(floats, hi - lo, lo))
 
 
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _SQRT2 = _f32(np.sqrt(2))
 
 
+def _from_uniform(key, n, transform):
+    """``transform(u)`` of the ``(..., n)`` uniform (-1, 1) draws of
+    ``jax.random.normal``.  Long draws go in spans of the flat stream;
+    every element is the same as in one pass."""
+    # on the host a span's temporaries stay in cache (four times faster
+    # than one pass at 2**22 elements and more); on the card a span bounds
+    # the int64 and float64 temporaries
+    span = (1 << 18) if key.device.type == "cpu" else (1 << 24)
+    if n <= span:
+        return transform(uniform(key, n, _NORMAL_LO, 1.0))
+    out = torch.empty(key.shape[:-1] + (n,), dtype=_F32, device=key.device)
+    for s in range(0, n, span):
+        m = min(span, n - s)
+        out[..., s:s + m] = transform(uniform(key, m, _NORMAL_LO, 1.0, start=s))
+    return out
+
+
 def normal(key, n):
     """``jax.random.normal(key, (n,), float32)``: ``sqrt(2)·erf_inv(u)``
     with ``u`` uniform on (-1, 1)."""
-    return _SQRT2 * erf_inv(uniform(key, n, _NORMAL_LO, 1.0))
+    return _from_uniform(key, n, lambda u: _SQRT2 * erf_inv(u))
+
+
+def _shape(shape):
+    if isinstance(shape, (int, np.integer)):
+        return (int(shape),)
+    return tuple(int(d) for d in shape)
+
+
+def normal_sample(key, shape):
+    """``jax.random.normal(key, shape, float32)`` (reference:
+    ``normal_sample``): jax's partitionable stream is the flat index, so a
+    ``(Nchan, W)`` draw is the flat ``Nchan·W`` draw reshaped.  Keys
+    ``(..., 2)`` -> ``(..., *shape)``."""
+    shape = _shape(shape)
+    return normal(key, int(np.prod(shape))).reshape(key.shape[:-1] + shape)
 
 
 # -- chi-squared routing -------------------------------------------------------
@@ -227,10 +263,39 @@ def _chi2_from_normal(z, df):
     return torch.where(k == 1.0, z * z, wilson_hilferty(z, k))
 
 
-def chi2_sample(key, df, n):
-    """χ²(df) draws ``(..., n)`` from one key per row (reference:
-    ``chi2_sample``)."""
-    return _chi2_from_normal(normal(key, n), df)
+def chi2_sample(key, df, shape):
+    """χ²(df) draws ``(..., *shape)`` from one key per leading index
+    (reference: ``chi2_sample``); ``shape`` an int or a tuple, drawn as
+    :func:`normal_sample` draws it."""
+    return _chi2_from_normal(normal_sample(key, shape), df)
+
+
+def chi2_sample_compiled(key, df, shape):
+    """:func:`chi2_sample` for a static df, with the arithmetic XLA
+    compiles when the caller is jitted with df static (the JAX package's
+    object-oriented kernels: ``Pulsar._fold_pulse_kernel``,
+    ``Receiver._add_pow_noise_kernel``).  XLA folds ``sqrt(2)`` of the
+    normal and ``sqrt(c)`` of Wilson–Hilferty into one float32 constant and
+    contracts the add, so ``t = fma(erf_inv(u), f32(sqrt(2)·sqrt(c)),
+    1 - c)``; df = 1 (``z²``) compiles to :func:`chi2_sample`'s
+    arithmetic."""
+    static_df = _static_df(df)
+    if (static_df is None or static_df == 1.0 or static_df < CHI2_WH_MIN_DF
+            or os.environ.get("PSS_EXACT_CHI2")):
+        return chi2_sample(key, df, shape)
+    k = torch.tensor(static_df, dtype=_F32)
+    c = 2.0 / (9.0 * k)
+    scale = float(torch.tensor(_SQRT2, dtype=_F32) * torch.sqrt(c))
+    one_c = float(1.0 - c)
+    k = float(k)
+
+    def wh(u):
+        t = fma(erf_inv(u), scale, one_c)
+        return torch.clamp_min((t * t) * t * k, 0.0)
+
+    shape = _shape(shape)
+    return _from_uniform(key, int(np.prod(shape)), wh).reshape(
+        key.shape[:-1] + shape)
 
 
 def blocked_chan_normal(key, chan_ids, t0, length, block=SEQ_RNG_BLOCK):

@@ -1,5 +1,5 @@
-"""Off-pulse window detection, host side (counterpart:
-psrsigsim_tpu/ops/window.py, ``offpulse_window``).
+"""Off-pulse window detection, host side, and period folding (counterpart:
+psrsigsim_tpu/ops/window.py).
 
 The minimum-integral sliding window over the peak profile, adapted by the
 reference from PyPulse (psrsigsim/pulsar/portraits.py:62-82).
@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["offpulse_window"]
+__all__ = ["offpulse_window", "fold_periods"]
 
 
 def offpulse_window(max_profile, nphase=None):
@@ -28,3 +28,19 @@ def offpulse_window(max_profile, nphase=None):
     integral = vals.sum(axis=-1) - 0.5 * (vals[:, 0] + vals[:, -1])
     minind = int(np.argmin(integral))
     return (np.arange(-half, half + 1) + minind) % n
+
+
+def fold_periods(data, nph):
+    """Fold a single-pulse time stream into one summed profile per channel.
+
+    Args:
+        data: ``(..., Nsamp)`` tensor (or array).
+        nph: phase bins per period.
+
+    Returns:
+        ``(..., nph)`` — the sum over all complete periods.
+    """
+    *lead, nsamp = data.shape
+    nfold = nsamp // nph
+    trimmed = data[..., : nfold * nph]
+    return trimmed.reshape(*lead, nfold, nph).sum(-2)

@@ -1,6 +1,23 @@
-"""Signal configuration (counterpart: psrsigsim_tpu/signal/)."""
+"""Signal data model: the signal state and the reference-parity signal
+classes (counterpart: psrsigsim_tpu/signal/)."""
 
-from .signals import BaseSignal, FilterBankSignal
-from .state import FLOAT32, INT8, SignalMeta
+from .signals import (
+    BasebandSignal,
+    BaseSignal,
+    FilterBankSignal,
+    RFSignal,
+    Signal,
+)
+from .state import FLOAT32, INT8, SignalMeta, SignalState
 
-__all__ = ["BaseSignal", "FilterBankSignal", "SignalMeta", "FLOAT32", "INT8"]
+__all__ = [
+    "Signal",
+    "BaseSignal",
+    "RFSignal",
+    "BasebandSignal",
+    "FilterBankSignal",
+    "SignalMeta",
+    "SignalState",
+    "FLOAT32",
+    "INT8",
+]

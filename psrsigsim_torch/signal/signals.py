@@ -1,11 +1,18 @@
-"""Signal configuration objects with reference API parity (counterpart:
-psrsigsim_tpu/signal/signals.py, ``BaseSignal`` and ``FilterBankSignal``).
+"""User-facing signal classes with reference API parity (counterpart:
+psrsigsim_tpu/signal/signals.py).
 
-In this slice a signal is a configuration object: it holds the band,
-sampling and fold settings and the bookkeeping flags the reference
-scatters across private attributes (``_nsub``, ``_Nfold``, ``_draw_norm``,
-``_Smax``...), which :func:`psrsigsim_torch.simulate.build_fold_config`
-stamps.  It carries no sample data: the pipelines return tensors.
+A signal holds a :class:`SignalMeta`-style configuration (band, sampling,
+fold settings), the bookkeeping flags the reference scatters across
+private attributes (``_nsub``, ``_Nfold``, ``_draw_norm``, ``_Smax``,
+``_delay``, ``_dispersed``...), and in the object-oriented flow a
+:class:`SignalState` whose ``data`` is the ``(Nchan, Nsamp)`` sample
+tensor.  The tensor lives on the signal's device: the CUDA card unless the
+signal was made with ``device="cpu"`` (or another device).  The pipelines
+(:func:`psrsigsim_torch.simulate.build_fold_config`, ``FoldEnsemble``) use
+the signal as a configuration object only.
+
+Importing this module does not import torch, and neither does unpickling a
+signal without data: the PSRFITS writer processes unpickle signal shells.
 """
 
 from __future__ import annotations
@@ -13,9 +20,10 @@ from __future__ import annotations
 import numpy as np
 
 from ..utils.quantity import Quantity, make_quant
-from .state import FLOAT32, INT8, SignalMeta
+from .state import FLOAT32, INT8, SignalMeta, SignalState
 
-__all__ = ["BaseSignal", "FilterBankSignal"]
+__all__ = ["BaseSignal", "Signal", "FilterBankSignal", "BasebandSignal",
+           "RFSignal"]
 
 _DTYPE_TAGS = {
     np.float32: FLOAT32,
@@ -44,12 +52,16 @@ class BaseSignal:
     Required Args:
         fcent [float]: central radio frequency (MHz)
         bandwidth [float]: radio bandwidth of signal (MHz)
+
+    Optional Args:
+        device: where the signal's data lives (``None`` = the CUDA card,
+            resolved when data is first made; ``"cpu"`` for the host)
     """
 
     _sigtype = "Signal"
 
     def __init__(self, fcent, bandwidth, sample_rate=None, dtype=np.float32,
-                 Npols=1):
+                 Npols=1, device=None):
         self._fcent = make_quant(fcent, "MHz")
         bw = make_quant(bandwidth, "MHz")
         self._bw = abs(bw) if bw.value < 0 else bw
@@ -60,7 +72,11 @@ class BaseSignal:
         if Npols != 1:
             raise ValueError("Only total intensity polarization is currently supported")
         self._Npols = 1
+        # kept as a string: a torch.device would make the pickled shell
+        # import torch
+        self._device = None if device is None else str(device)
 
+        self._state = None
         self._delay = None
         self._dm = None
         self._tobs = None
@@ -69,11 +85,79 @@ class BaseSignal:
         self._draw_max = None
         self._draw_norm = 1
 
+    # -- data management ----------------------------------------------------
+    @property
+    def device(self):
+        """The ``torch.device`` of the signal's data; raises when it is the
+        card and there is none (see :func:`~psrsigsim_torch.utils.device.
+        resolve_device`)."""
+        from ..utils.device import resolve_device
+
+        return resolve_device(self._device)
+
+    def init_data(self, Nsamp):
+        """Allocate a zeroed ``(Nchan, Nsamp)`` float32 buffer on the
+        signal's device (reference: signal/signal.py:87-94 uses np.empty;
+        zeros are safer)."""
+        import torch
+
+        self._nsamp = int(Nsamp)
+        self._state = SignalState(data=torch.zeros(
+            (self.Nchan, self._nsamp), dtype=torch.float32, device=self.device))
+
+    @property
+    def state(self):
+        """The underlying :class:`SignalState` (data tensor and delay)."""
+        return self._state
+
+    @state.setter
+    def state(self, new_state):
+        self._state = new_state
+
+    def meta(self, fold=False, sublen_s=None):
+        """Build the static :class:`SignalMeta` for functional pipelines."""
+        return SignalMeta(
+            sigtype=self.sigtype,
+            fcent_mhz=float(self._fcent.to("MHz").value),
+            bw_mhz=float(self._bw.to("MHz").value),
+            samprate_mhz=float(self._samprate.to("MHz").value),
+            nchan=int(self.Nchan),
+            npols=self._Npols,
+            dtype=self._dtype_tag,
+            fold=fold,
+            sublen_s=sublen_s,
+        )
+
+    # -- reference-parity surface ------------------------------------------
     def __repr__(self):
         return f"{self.sigtype}({self.fcent}, bw={self.bw})"
 
+    def __add__(self, b):
+        """overload ``+`` to concatenate signals"""
+        raise NotImplementedError()
+
     def _set_draw_norm(self):
         raise NotImplementedError()
+
+    def to_RF(self):
+        raise NotImplementedError()
+
+    def to_Baseband(self):
+        raise NotImplementedError()
+
+    def to_FilterBank(self, Nsubband=512):
+        raise NotImplementedError()
+
+    @property
+    def data(self):
+        return self._state.data if self._state is not None else None
+
+    @data.setter
+    def data(self, value):
+        if self._state is None:
+            self._state = SignalState(data=value)
+        else:
+            self._state = self._state.replace(data=value)
 
     @property
     def sigtype(self):
@@ -132,6 +216,12 @@ class BaseSignal:
         return self._dm
 
 
+def Signal():
+    """helper function to instantiate signals (reference stub,
+    signal/signal.py:168-171)"""
+    raise NotImplementedError()
+
+
 class FilterBankSignal(BaseSignal):
     """2-D intensity signal ``(Nchan, Nsamp)``; fold vs single-pulse modes
     (reference: signal/fb_signal.py:11-161).
@@ -142,14 +232,15 @@ class FilterBankSignal(BaseSignal):
             dedispersed XUPPI rate
         sublen [float]: subintegration length (s) in fold mode
         fold [bool]: folded subintegrations (True) or single pulses (False)
+        device: where the data lives (``None`` = the CUDA card)
     """
 
     _sigtype = "FilterBankSignal"
 
     def __init__(self, fcent, bandwidth, Nsubband=512, sample_rate=None,
-                 sublen=None, dtype=np.float32, fold=True):
+                 sublen=None, dtype=np.float32, fold=True, device=None):
         super().__init__(fcent, bandwidth, sample_rate=sample_rate,
-                         dtype=dtype, Npols=1)
+                         dtype=dtype, Npols=1, device=device)
         self._fold = bool(fold)
         self._sublen = None if sublen is None else make_quant(sublen, "s")
         self._Nfold = None
@@ -176,7 +267,10 @@ class FilterBankSignal(BaseSignal):
 
     def _set_draw_norm(self, df=1):
         """Dynamic-range scaling for the intensity draws
-        (reference: fb_signal.py:114-121)."""
+        (reference: fb_signal.py:114-121).  As in the reference, the data
+        tensor stays floating point for ``dtype=int8`` signals: the dtype
+        selects the draw-norm/clip dynamic range, and ``Telescope.observe``
+        casts what it returns."""
         # imported here: unpickling a signal (the PSRFITS writer
         # processes) must not import torch
         from ..ops.stats import chi2_draw_norm
@@ -213,3 +307,31 @@ class FilterBankSignal(BaseSignal):
                 float(self._sublen.to("s").value) if self._sublen is not None else None
             ),
         )
+
+    def to_FilterBank(self, Nsubband=512):
+        return self
+
+
+class _Unported(BaseSignal):
+    """A signal type of a later slice of the port."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"{self._sigtype} is not ported yet (the baseband slice); the "
+            "port simulates FilterBankSignal")
+
+
+class BasebandSignal(_Unported):
+    """Complex-band time-domain signal (reference: signal/bb_signal.py;
+    the JAX package's ``BasebandSignal``).  Not ported yet: constructing
+    one raises ``NotImplementedError``."""
+
+    _sigtype = "BasebandSignal"
+
+
+class RFSignal(_Unported):
+    """Radio-frequency sampled time series (reference: signal/rf_signal.py;
+    the JAX package's ``RFSignal``).  Not ported yet: constructing one
+    raises ``NotImplementedError``."""
+
+    _sigtype = "RFSignal"

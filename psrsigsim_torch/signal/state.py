@@ -1,9 +1,15 @@
-"""Static signal metadata (counterpart: psrsigsim_tpu/signal/state.py,
-``SignalMeta``).
+"""Signal state and static metadata (counterpart:
+psrsigsim_tpu/signal/state.py).
 
-A frozen, hashable record of the band geometry, sampling, fold config and
-dtype tag; the pipeline configuration carries it and shapes derive from it
-on the host.
+* :class:`SignalState` — the dynamic contents of a signal in the
+  object-oriented flow: the ``(Nchan, Nsamp)`` sample tensor and the
+  accumulated per-channel delay.
+* :class:`SignalMeta` — a frozen, hashable record of the band geometry,
+  sampling, fold config and dtype tag; the pipeline configuration carries
+  it and shapes derive from it on the host.
+
+Importing this module does not import torch: the PSRFITS writer processes
+unpickle signal shells.
 """
 
 from __future__ import annotations
@@ -13,7 +19,7 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["SignalMeta", "FLOAT32", "INT8"]
+__all__ = ["SignalMeta", "SignalState", "FLOAT32", "INT8"]
 
 # dtype tags kept as strings so SignalMeta stays hashable
 FLOAT32 = "float32"
@@ -54,3 +60,28 @@ class SignalMeta:
     @property
     def np_dtype(self):
         return np.int8 if self.dtype == INT8 else np.float32
+
+
+class SignalState:
+    """Dynamic signal contents: ``data (..., Nchan, Nsamp)`` (a tensor on
+    the signal's device) and the accumulated per-channel ``delay_ms``
+    (None before any propagation stage; the reference accumulates the same
+    way, ism/ism.py:44-47,123-126,190-193)."""
+
+    __slots__ = ("data", "delay_ms")
+
+    def __init__(self, data, delay_ms=None):
+        self.data = data
+        self.delay_ms = delay_ms
+
+    def replace(self, **kw):
+        return SignalState(
+            data=kw.get("data", self.data),
+            delay_ms=kw.get("delay_ms", self.delay_ms),
+        )
+
+    def __repr__(self):
+        shape = tuple(getattr(self.data, "shape", ()))
+        delay = "set" if self.delay_ms is not None else "None"
+        return f"SignalState(data{shape}, delay={delay})"
+

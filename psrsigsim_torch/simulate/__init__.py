@@ -1,11 +1,12 @@
-"""Simulation pipelines (counterpart: psrsigsim_tpu/simulate/; this slice
-ports the fold-mode pipeline)."""
+"""Orchestration: the Simulation façade and the fold-mode pipeline
+(counterpart: psrsigsim_tpu/simulate/)."""
 
 from .pipeline import (FoldPipelineConfig, build_fold_config,
                        default_shift_mode, fold_pipeline,
                        fold_pipeline_quantized, fused_route,
                        natural_nbin)
+from .simulate import Simulation
 
-__all__ = ["FoldPipelineConfig", "build_fold_config", "default_shift_mode",
-           "fold_pipeline", "fold_pipeline_quantized", "fused_route",
-           "natural_nbin"]
+__all__ = ["Simulation", "FoldPipelineConfig", "build_fold_config",
+           "default_shift_mode", "fold_pipeline", "fold_pipeline_quantized",
+           "fused_route", "natural_nbin"]

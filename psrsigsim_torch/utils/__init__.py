@@ -21,7 +21,9 @@ from .utils import (
 # must not pay for importing torch
 _LAZY = {"resolve_device": "device", "STAGES": "rng", "key": "rng",
          "as_key": "rng", "fold_in": "rng", "stage_key": "rng",
-         "random_bits": "rng"}
+         "random_bits": "rng", "split": "rng", "permutation": "rng",
+         "KeySequence": "rng", "default_keys": "rng", "set_seed": "rng",
+         "next_key": "rng"}
 
 
 def __getattr__(name):
@@ -48,6 +50,12 @@ __all__ = [
     "fold_in",
     "stage_key",
     "random_bits",
+    "split",
+    "permutation",
+    "KeySequence",
+    "default_keys",
+    "set_seed",
+    "next_key",
     "shift_t",
     "down_sample",
     "rebin",

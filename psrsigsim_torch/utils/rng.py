@@ -13,10 +13,19 @@ streams, so a seed draws the same realization in both packages:
   ``threefry_2x32(key, threefry_seed(data))``, and the partitionable
   ``random_bits``: counts are the flat index split into (hi, lo) words and
   the bits are the XOR of the two output words);
+* :func:`split` is jax's partitionable ``split`` (key ``i`` is the pair of
+  threefry words of counter ``i``) and :func:`permutation` jax's
+  ``random.permutation`` of ``arange(n)``: rounds of stable key-value sorts
+  on fresh 32-bit sort keys;
 * every 32-bit operation is done in int64 and masked back to 32 bits, so
   the code runs unchanged on the CPU and on the card.
 
-No global generator is used anywhere in the port.
+Two layers, as in the JAX package: :func:`stage_key` for the pipelines,
+and :class:`KeySequence`, the stateful dispenser of the object-oriented
+flow (``Pulsar.make_pulses``, ``Receiver.radiometer_noise``).  Its keys
+live on the host; a draw moves the one key it needs to the data's device.
+The only global state is :data:`default_keys`, the JAX package's
+process-global sequence of the object-oriented flow.
 """
 
 from __future__ import annotations
@@ -27,7 +36,8 @@ import torch
 from .device import resolve_device
 
 __all__ = ["STAGES", "key", "as_key", "fold_in", "stage_key", "threefry2x32",
-           "random_bits"]
+           "random_bits", "split", "permutation", "KeySequence",
+           "default_keys", "set_seed", "next_key"]
 
 MASK32 = 0xFFFFFFFF
 
@@ -115,11 +125,73 @@ def stage_key(root, stage, index=0):
     return fold_in(fold_in(root, sid), index)
 
 
-def random_bits(k, n):
+def random_bits(k, n, start=0):
     """``n`` 32-bit random words per key (``jax.random.bits`` in
     partitionable mode, flattened): ``(..., n)`` int64 for a ``(..., 2)``
-    key."""
-    idx = torch.arange(n, dtype=torch.int64, device=k.device)
+    key.  ``start`` gives words ``start .. start+n-1`` of the same stream
+    (the stream is the flat index, so a long draw can be made in spans)."""
+    idx = torch.arange(start, start + n, dtype=torch.int64, device=k.device)
     o0, o1 = threefry2x32(k[..., 0, None], k[..., 1, None],
                           idx >> 32, idx & MASK32)
     return o0 ^ o1
+
+
+def split(k, num=2):
+    """``jax.random.split(k, num)`` (partitionable threefry): ``(..., num,
+    2)`` keys, key ``i`` being both threefry words of counter ``i``."""
+    idx = torch.arange(num, dtype=torch.int64, device=k.device)
+    o0, o1 = threefry2x32(k[..., 0, None], k[..., 1, None],
+                          idx >> 32, idx & MASK32)
+    return torch.stack((o0, o1), dim=-1)
+
+
+def permutation(k, n):
+    """``jax.random.permutation(k, n)``: a random order of ``arange(n)``
+    (int64, on ``k``'s device).  jax's ``_shuffle``: ``ceil(3 ln n /
+    ln(2**32 - 1))`` rounds, each splitting the key, drawing one 32-bit
+    sort key per element and sorting stably by it."""
+    n = int(n)
+    x = torch.arange(n, dtype=torch.int64, device=k.device)
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    for _ in range(rounds):
+        k, sub = split(k)
+        order = torch.sort(random_bits(sub, n), stable=True).indices
+        x = x[order]
+    return x
+
+
+class KeySequence:
+    """Stateful key dispenser for the object-oriented flow (the JAX
+    package's ``KeySequence``): ``next`` splits the running key and derives
+    the stage key from the new half, so casual users get fresh randomness
+    per call and a seed reproduces the JAX package's draws.  Keys are
+    created lazily and live on the host."""
+
+    def __init__(self, seed=0):
+        self._seed = seed
+        self._key = None
+
+    def seed(self, seed):
+        self._seed = seed
+        self._key = None
+
+    def next(self, stage="user", index=0):
+        if self._key is None:
+            self._key = key(self._seed, device="cpu")
+        self._key, sub = split(self._key)
+        return stage_key(sub, stage, index)
+
+
+default_keys = KeySequence(0)
+
+
+def set_seed(seed):
+    """Seed the global key sequence of the object-oriented flow (the role
+    of ``numpy.random.seed`` in the reference's workflow)."""
+    default_keys.seed(seed)
+
+
+def next_key(stage="user", index=0):
+    """The next key of the global sequence."""
+    return default_keys.next(stage, index)

@@ -495,8 +495,10 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Every module of the port imports, and a small ensemble runs and
-    exports two PSRFITS files, with jax and the JAX package blocked."""
+    """Every module of the port imports, a small ensemble runs and exports
+    two PSRFITS files, and the Simulation façade runs the object-oriented
+    flow (pulses, dispersion, nulling, an FD shift, noise) and saves pdv
+    text, with jax and the JAX package blocked."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = f"""
 import importlib, importlib.abc, pkgutil, sys
@@ -519,6 +521,15 @@ from psrsigsim_torch.io import FitsFile, export_ensemble_psrfits
 ens = FoldEnsemble(*_export_geometry('psrsigsim_torch'), device='cpu')
 paths = export_ensemble_psrfits(ens, 2, 'out', TEMPLATE, ens.pulsar, writers=1)
 assert len(paths) == 2 and FitsFile.read(paths[1])['SUBINT'].data['DATA'].shape[0] == 2
+from test_torch_simulate import PARS
+from psrsigsim_torch.ism import ISM
+from psrsigsim_torch.simulate import Simulation
+sim = Simulation(psrdict=PARS, device='cpu')
+sim.simulate()
+assert len(sim.pulsar.null(sim.signal, 0.25)) == 1
+ISM().FD_shift(sim.signal, [1e-5])
+sim.save_simulation(outfile='s.pdv', out_format='pdv')
+assert sim.signal.data.shape == (16, 4096)
 assert not any(k.split('.')[0] in ('jax', 'jaxlib', 'psrsigsim_tpu') for k in sys.modules)
 print('clean')
 """
