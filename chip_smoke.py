@@ -70,7 +70,7 @@ digest of a packed chunk.  Phases:
    disperse -> GBT().observe(noise=True) at full width (64 channels, 30 x
    935 bins), the same flow with device="cpu" on the host, keys and stage
    order equal, data within rtol 1e-5 (floor 1e-5 of the peak); (b) the
-   same band in SEARCH mode, a 4 s snippet (64 x 819200): make_pulses ->
+   same band in SEARCH mode, a 2 s snippet (64 x 409600): make_pulses ->
    disperse -> null(0.3) -> observe(noise=True) on both, the nulled pulses
    (jax's permutation) equal, data within the same limit; (c)
    Simulation(psrdict=...) at BASELINE config 1's full width: simulate(),
@@ -81,7 +81,29 @@ digest of a packed chunk.  Phases:
    writer, its journal's sha256 equal to phase 9's clean run and the fused
    kernel launched exactly twice.  Step times (CUDA events) of a first and
    a second run on the card (bit-equal), peak device memory and obs/s are
-   logged.
+   logged;
+11. the Monte-Carlo study (psrsigsim_torch.mc) on the card: (a) the JAX
+   bench's MC geometry (bench.py build_mc_study: 64 channels, 512 bins,
+   8 x 2 s subints, dm ~ Uniform(10, 20), noise_scale ~ LogUniform(0.5, 2),
+   seed 1), run(512, chunk_size=256) with the sampler launched exactly 4
+   times (two fields per chunk) and nothing else; a steady second run
+   (trials/s, bit-equal), one chunk's device time (CUDA events and the
+   profiler's busy time by kernel) and peak memory; chunk sizes 32, 128,
+   256 and 512 under build/ with equal summaries, artifact fingerprints
+   and rows; `python -m psrsigsim_torch.mc` (its main, in process) on a
+   spec file of the same study, on its default device, with the same
+   fingerprint; trials 0-31 against a device="cpu" study (parameters bit for
+   bit; rows within the FFTFIT tolerance of a PSS_SAMPLER=hw host run); a
+   child `python3 chip_smoke.py --mc-kill-child OUT SCRATCH` SIGKILLed by
+   mc.kill after chunk 0's commit, then a resume byte-identical to the
+   clean run; integrity=True with a host.corrupt on the second chunk,
+   healed to the clean artifact; (b) Simulation(psrdict=...) at BASELINE
+   config 1's full width: run_mc_study(256, chunk_size=128) (the sampler
+   exactly 4 times, trials/s, peak memory), FoldEnsemble.to_mc_study's
+   trials 0-31 equal to its rows, then export_psrfits(256)
+   supervised with one writer (the fused kernel exactly twice), every
+   file's sha256 equal to supervised_export of the facade's ensemble with
+   the study's DMs and float32 noise norms.
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of one
 steady main-path chunk after phase 5 (device time by kernel, busy share).
@@ -149,8 +171,22 @@ EXPORT_NOBS = 256  # phase 8: two chunks, ~1.34 GB of PSRFITS one per file
 EXPORT_SERIAL_NOBS = 32
 EXPORT_OPF = 16
 SUP_NOBS = 256  # phase 9: two chunks of the supervised export
-OO_SEARCH_TOBS = 4.0  # phase 10(b): 64 x 819200 samples, 210 MB per field
+OO_SEARCH_TOBS = 2.0  # phase 10(b): 64 x 409600 samples, 105 MB per field
 KILL_CHILD = "--supervised-kill-child"
+MC_KILL_CHILD = "--mc-kill-child"
+MC_TRIALS, MC_CHUNK = 512, 256  # phase 11(a): two chunks
+MC_FACADE_TRIALS, MC_FACADE_CHUNK = 256, 128  # phase 11(b): two chunks
+MC_PRIORS = {"dm": {"dist": "uniform", "lo": 10.0, "hi": 20.0},
+             "noise_scale": {"dist": "loguniform", "lo": 0.5, "hi": 2.0}}
+# bench.py build_mc_study: the export-bench fold geometry (Gaussian
+# portrait, 64 channels, 512 bins, 8 x 2 s subints) under MC_PRIORS
+MC_BENCH = dict(fcent=1380.0, bandwidth=400.0, sample_rate=0.1024, Nchan=64,
+                sublen=2.0, fold=True, period=0.005, Smean=0.009,
+                profiles=[0.5, 0.05, 1.0], tobs=16.0, name="BENCH", dm=15.9,
+                aperture=100.0, area=5500.0, Tsys=35.0,
+                tscope_name="TestScope", system_name="TestSys",
+                rcvr_fcent=1380.0, rcvr_bw=400.0, rcvr_name="TestRCVR",
+                backend_samprate=12.5, backend_name="TestBack", seed=0)
 TEMPLATE = os.path.join(ROOT, "data", "B1855+09.L-wide.PUPPI.11y.x.sum.sm")
 MAIN = dict(nchan=64, period_s=0.005, samprate_mhz=0.4096, sublen_s=60.0,
             tobs_s=1200.0, fcent=1380.0, bw=400.0, smean=0.009, dm=15.9)
@@ -188,6 +224,57 @@ def geometry(g, device):
                                        name="TestRCVR"),
                    Backend(samprate=12.5, name="TestBack"))
     return FoldEnsemble(sig, psr, tel, "TestSys", device=device)
+
+
+def main_psrdict():
+    """BASELINE config 1's ``Simulation`` psrdict (phases 10(c), 11(b))."""
+    import numpy as np
+
+    from psrsigsim_torch.data import data_path
+
+    g = MAIN
+    return dict(
+        fcent=g["fcent"], bandwidth=g["bw"], sample_rate=g["samprate_mhz"],
+        Nchan=g["nchan"], fold=True, sublen=g["sublen_s"], tobs=g["tobs_s"],
+        period=g["period_s"], Smean=g["smean"], name="J1713+0747",
+        profiles=np.load(data_path("J1713+0747_profile.npy")), dm=g["dm"],
+        tscope_name="TestScope", aperture=100.0, area=5500.0, Tsys=35.0,
+        system_name="TestSys", rcvr_fcent=g["fcent"], rcvr_bw=g["bw"],
+        rcvr_name="TestRCVR", backend_samprate=12.5,
+        backend_name="TestBack", seed=0, tempfile=TEMPLATE)
+
+
+def device_profile(torch, fn):
+    """Run ``fn`` once under torch.profiler: ``(wall_s, busy_us, events,
+    by_name, prof)`` with the device's busy time (the union of its kernel
+    and copy intervals) and device time by event name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    spans = []
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = ev.time_range.elapsed_us()
+        spans.append((ev.time_range.start, ev.time_range.end))
+        tot, n = by_name.get(ev.name, (0.0, 0))
+        by_name[ev.name] = (tot + us, n + 1)
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return wall, busy, len(spans), by_name, prof
 
 
 def ulp_close(got, want, ulps=4, atol=1e-6):
@@ -812,37 +899,13 @@ class Smoke:
         under torch.profiler, device time by kernel and the device's busy
         share of the host wall time (``--profile`` only)."""
         torch = self.torch
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
         ens = self.main_ensemble()
         ens.run_quantized(MAIN_NOBS, seed=0)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            ens.run_quantized(MAIN_NOBS, seed=0)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        by_name = {}
-        spans = []
-        for ev in prof.events():
-            if ev.device_type != DeviceType.CUDA:
-                continue
-            us = ev.time_range.elapsed_us()
-            spans.append((ev.time_range.start, ev.time_range.end))
-            tot, n = by_name.get(ev.name, (0.0, 0))
-            by_name[ev.name] = (tot + us, n + 1)
-        busy, end = 0.0, None
-        for a, b in sorted(spans):
-            if end is None or a > end:
-                busy += b - a
-                end = b
-            elif b > end:
-                busy += b - end
-                end = b
+        wall, busy, nev, by_name, prof = device_profile(
+            torch, lambda: ens.run_quantized(MAIN_NOBS, seed=0))
         log(f"  wall {wall * 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
-            f"({busy / 1e6 / wall:.1%}), {len(spans)} device events "
+            f"({busy / 1e6 / wall:.1%}), {nev} device events "
             f"on {self.card_line}")
         for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]:
             log(f"  {us / 1e3:9.3f} ms {n:4d}x  {name[:110]}")
@@ -1588,9 +1651,6 @@ class Smoke:
         import shutil
         import tempfile
 
-        import numpy as np
-
-        from psrsigsim_torch.data import data_path
         from psrsigsim_torch.io import FitsFile
         from psrsigsim_torch.simulate import Simulation
         from psrsigsim_torch.utils import set_seed
@@ -1608,15 +1668,7 @@ class Smoke:
                                  "hold export_ensemble against")
         want_hashes, sup_rate = self.sup_clean
         g = MAIN
-        pars = dict(
-            fcent=g["fcent"], bandwidth=g["bw"], sample_rate=g["samprate_mhz"],
-            Nchan=g["nchan"], fold=True, sublen=g["sublen_s"], tobs=g["tobs_s"],
-            period=g["period_s"], Smean=g["smean"], name="J1713+0747",
-            profiles=np.load(data_path("J1713+0747_profile.npy")), dm=g["dm"],
-            tscope_name="TestScope", aperture=100.0, area=5500.0, Tsys=35.0,
-            system_name="TestSys", rcvr_fcent=g["fcent"], rcvr_bw=g["bw"],
-            rcvr_name="TestRCVR", backend_samprate=12.5,
-            backend_name="TestBack", seed=0, tempfile=TEMPLATE)
+        pars = main_psrdict()
         # docs/tutorial_5_simulate.md's 16-channel geometry for the pdv text
         tut5 = dict(fcent=1400.0, bandwidth=400.0, sample_rate=0.2048,
                     Nchan=16, fold=True, sublen=0.5, tobs=2.0, period=0.005,
@@ -1747,6 +1799,346 @@ class Smoke:
             os.chdir(cwd)
             shutil.rmtree(work, ignore_errors=True)
 
+    # -- 11 -----------------------------------------------------------------
+    def device_breakdown(self, label, fn):
+        """One call of ``fn`` under the profiler: the device's busy time and
+        share of the host wall, and its top kernels (a measurement aid: a
+        profiler that cannot trace the card is logged, not fatal)."""
+        try:
+            wall, busy, nev, by_name, prof = device_profile(self.torch, fn)
+        except Exception as err:  # noqa: BLE001 - a measurement aid
+            log(f"  {label} profiler: not measured ({err!r})")
+            return
+        log(f"  {label} profiled chunk: wall {wall * 1e3:.2f} ms, device busy "
+            f"{busy / 1e3:.3f} ms ({busy / 1e6 / wall:.1%}), {nev} device "
+            f"events ({self.card_line})")
+        for name, (us, n) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:12]:
+            log(f"  {us / 1e3:9.3f} ms {n:4d}x  {name[:100]}")
+        log(f"  {label} host: self CPU time by operator")
+        host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+        for ev in host[:10]:
+            log(f"  {ev.self_cpu_time_total / 1e3:9.3f} ms {ev.count:4d}x  "
+                f"{ev.key[:100]}")
+
+    def mc_study(self):
+        """The Monte-Carlo study on the card (see the module docstring)."""
+        import contextlib
+        import hashlib
+        import io
+        import shutil
+        import tempfile
+
+        import numpy as np
+
+        from psrsigsim_torch.mc import MonteCarloStudy
+        from psrsigsim_torch.mc.__main__ import main as mc_main
+        from psrsigsim_torch.runtime import FaultPlan, supervised_export
+        from psrsigsim_torch.simulate import Simulation
+
+        torch = self.torch
+        os.environ.pop("PSS_SAMPLER", None)
+        os.environ.pop("PSS_INTEGRITY", None)
+        no_kernels = {"rng_field": 0, "fold_quantize": 0, "packed_digest": 0}
+
+        def sha(path):
+            with open(path, "rb") as fh:
+                return hashlib.sha256(fh.read()).hexdigest()
+
+        def run(study, label, n, chunk, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            self._zero_counts()
+            t0 = time.perf_counter()
+            res = study.run(n, chunk_size=chunk, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = self._counts()
+            peak = torch.cuda.max_memory_allocated()
+            log(f"  {label}: {n} trials in {wall:.3f} s = {n / wall:.1f} "
+                f"trials/s; peak device memory {peak / 2**30:.3f} GiB; "
+                f"launches {counts}")
+            return res, counts, wall, peak
+
+        def check_rows(res, n, params):
+            m = res.metrics
+            if m.shape != (n, len(params) + 4) or not np.isfinite(m).all():
+                raise AssertionError(f"metric rows {m.shape}, finite "
+                                     f"{np.isfinite(m).all()}")
+            if not ((m[:, 0] >= 10.0) & (m[:, 0] < 20.0)).all() or not (
+                    (m[:, 1] >= 0.5) & (m[:, 1] <= 2.0)).all():
+                raise AssertionError("sampled parameters outside the priors")
+            err, sig = res.column("toa_err"), res.column("toa_sigma")
+            if not (sig > 0).all() or abs(err.mean()) > 4 * sig.mean() \
+                    / np.sqrt(n) + 4 * err.std() / np.sqrt(n):
+                raise AssertionError("TOA residuals are not centred on 0")
+            if (res.hist.sum(axis=1) != n).any():
+                raise AssertionError("histogram counts do not sum to n")
+
+        def artifact(out):
+            return {n: sha(os.path.join(out, n))
+                    for n in ("study_result.json", "trials.npy",
+                              "trials.f32", "mc_journal.jsonl")}
+
+        build = os.path.join(ROOT, "build")
+        os.makedirs(build, exist_ok=True)
+        work = tempfile.mkdtemp(prefix="mc-", dir=build)
+        try:
+            # (a) the JAX bench's MC geometry
+            study = MonteCarloStudy.from_simulation(
+                Simulation(psrdict=MC_BENCH, device=self.dev), MC_PRIORS,
+                seed=1)
+            cfg = study.cfg
+            log(f"  (a) bench MC geometry: nchan {cfg.meta.nchan} nph "
+                f"{cfg.nph} nsub {cfg.nsub} nfold {cfg.nfold:g} noise_df "
+                f"{cfg.noise_df:g}; priors {MC_PRIORS}; seed 1")
+            res, counts, t_first, _ = run(study, "(a) first run", MC_TRIALS,
+                                          MC_CHUNK)
+            launches_a = counts
+            if counts != dict(no_kernels, rng_field=2 * MC_TRIALS // MC_CHUNK):
+                raise AssertionError(f"run({MC_TRIALS}, chunk_size="
+                                     f"{MC_CHUNK}) launches {counts}")
+            check_rows(res, MC_TRIALS, study.param_names)
+            res2, _, t_ss, peak = run(study, "(a) steady run", MC_TRIALS,
+                                      MC_CHUNK)
+            if not np.array_equal(res.metrics, res2.metrics):
+                raise AssertionError("two runs of the study differ")
+            # device time of one chunk: CUDA events around the chunk
+            # program, and the profiler's busy time and top kernels
+            torch.cuda.synchronize()
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            spans = []
+            for _ in range(3):
+                ev0.record()
+                out = study._chunk_program(0, MC_TRIALS, MC_CHUNK, MC_CHUNK)
+                ev1.record()
+                torch.cuda.synchronize()
+                spans.append(ev0.elapsed_time(ev1))
+            del out
+            log(f"  (a) one {MC_CHUNK}-trial chunk program, CUDA events "
+                f"(launch to last kernel, host gaps included): "
+                + ", ".join(f"{t:.3f}" for t in spans) + " ms")
+            self.device_breakdown("(a)", lambda: study._chunk_program(
+                0, MC_TRIALS, MC_CHUNK, MC_CHUNK))
+            log(f"  (a) steady: {MC_TRIALS / t_ss:.1f} trials/s "
+                f"({1e3 * t_ss * MC_CHUNK / MC_TRIALS:.2f} ms per chunk, host "
+                f"wall); first run {t_first:.3f} s; peak {peak / 2**30:.3f} "
+                f"GiB ({self.card_line})")
+
+            # chunk-size invariance, with the journal and the artifact
+            outs = {}
+            for cs in (32, 128, MC_CHUNK, 512):
+                out = os.path.join(work, f"c{cs}")
+                r = study.run(MC_TRIALS, chunk_size=cs, out_dir=out)
+                outs[cs] = (json.dumps(r.summary(), sort_keys=True),
+                            r.fingerprint, r.metrics)
+            ref = outs[MC_CHUNK]
+            for cs, (summ, fp, m) in outs.items():
+                if summ != ref[0] or fp != ref[1] or not np.array_equal(
+                        m, res.metrics):
+                    raise AssertionError(f"chunk size {cs}: another summary, "
+                                         "fingerprint or metric rows")
+            log(f"  (a) chunk sizes {sorted(outs)}: summary and artifact "
+                f"fingerprint {ref[1][:16]} equal, rows equal the in-memory "
+                "run's")
+            clean = artifact(os.path.join(work, f"c{MC_CHUNK}"))
+
+            # the CLI on its default device: the same study from a spec file
+            spec = os.path.join(work, "study.toml")
+            with open(spec, "w") as fh:
+                fh.write("[simulation]\n")
+                for k, v in MC_BENCH.items():
+                    fh.write(f"{k} = {json.dumps(v)}\n")
+                fh.write(f"[study]\nn_trials = {MC_TRIALS}\nseed = 1\n"
+                         f"chunk_size = {MC_CHUNK}\n")
+                for knob, prior in MC_PRIORS.items():
+                    fh.write(f"[priors.{knob}]\n" + "".join(
+                        f"{k} = {json.dumps(v)}\n" for k, v in prior.items()))
+            cli_out = io.StringIO()
+            self._zero_counts()
+            with contextlib.redirect_stdout(cli_out):
+                rc = mc_main([spec, "--quiet", "--out",
+                              os.path.join(work, "cli")])
+            counts = self._counts()
+            line = json.loads(cli_out.getvalue().strip().splitlines()[-1])
+            if rc != 0 or line["artifact_sha256"] != ref[1] or counts != dict(
+                    no_kernels, rng_field=2 * MC_TRIALS // MC_CHUNK):
+                raise AssertionError(f"the CLI: rc {rc}, fingerprint "
+                                     f"{line['artifact_sha256'][:16]}, "
+                                     f"launches {counts}")
+            log(f"  (a) python -m psrsigsim_torch.mc on a spec of the same "
+                f"study, default device: artifact fingerprint equal, launches "
+                f"{counts}")
+
+            # the host: trials 0-31 with device="cpu"
+            host = MonteCarloStudy.from_simulation(
+                Simulation(psrdict=MC_BENCH, device="cpu"), MC_PRIORS, seed=1)
+            pc = host.sampled_params(32)
+            if not (np.array_equal(pc, study.sampled_params(32))
+                    and np.array_equal(pc, res.metrics[:32, :2])):
+                raise AssertionError("sampled parameters differ between the "
+                                     "card and the host")
+            os.environ["PSS_SAMPLER"] = "hw"
+            try:
+                t0 = time.perf_counter()
+                rh = host.run(32, chunk_size=32)
+                t_host = time.perf_counter() - t0
+            finally:
+                os.environ.pop("PSS_SAMPLER", None)
+            got, want = res.metrics[:32], rh.metrics
+            names = list(study.metric_names)
+            shift = [names.index(n) for n in ("toa_err", "toa_rms")]
+            rel = [names.index(n) for n in ("toa_sigma", "fit_amp")]
+            d_shift = np.abs(got[:, shift] - want[:, shift]).max()
+            d_rel = np.abs(got[:, rel] / want[:, rel] - 1).max()
+            log(f"  (a) trials 0-31 against device='cpu' (PSS_SAMPLER=hw, the "
+                f"kernel's plain version; {t_host:.2f} s on the host): "
+                f"parameters bit-equal; toa_err/toa_rms max abs diff "
+                f"{d_shift:.3g} turns (limit 2e-6), toa_sigma/fit_amp max rel "
+                f"diff {d_rel:.3g} (limit 1e-4)")
+            if d_shift > 2e-6 or d_rel > 1e-4:
+                raise AssertionError("card and host metric rows differ beyond "
+                                     "the FFTFIT tolerance")
+
+            # kill after the first commit, then resume
+            killed = os.path.join(work, "killed")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), MC_KILL_CHILD,
+                 killed, os.path.join(work, "kill_plan")],
+                capture_output=True, text=True, timeout=600)
+            if proc.returncode != -9:
+                raise AssertionError(
+                    f"the child exited {proc.returncode}, expected SIGKILL:\n"
+                    f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+            with open(os.path.join(killed, "mc_journal.jsonl")) as fh:
+                starts = [json.loads(line)["start"] for line in fh]
+            if starts != [0] or os.path.exists(
+                    os.path.join(killed, "study_result.json")):
+                raise AssertionError(f"the killed run left journal records "
+                                     f"{starts} or an artifact")
+            t_kill = time.perf_counter() - t0
+            _, counts, _, _ = run(study, "(a) resume after SIGKILL",
+                                  MC_TRIALS, MC_CHUNK, out_dir=killed)
+            if counts != dict(no_kernels, rng_field=2):
+                raise AssertionError(f"the resume launched {counts}")
+            if artifact(killed) != clean:
+                raise AssertionError("the resumed study differs from the "
+                                     "clean run")
+            log(f"  (a) child SIGKILLed by mc.kill after chunk 0's commit "
+                f"({t_kill:.1f} s); the resume ran one chunk; trials.f32, "
+                "the journal and the artifact byte-identical to the clean run")
+
+            # integrity: host.corrupt on the second chunk, healed
+            integ = os.path.join(work, "integ")
+            plan = FaultPlan(os.path.join(work, "integ_plan"),
+                             {"host.corrupt": {"after_start": MC_CHUNK}})
+            _, counts, _, _ = run(study, "(a) integrity=True, host.corrupt",
+                                  MC_TRIALS, MC_CHUNK, out_dir=integ,
+                                  integrity=True, faults=plan)
+            with open(os.path.join(integ, "study_manifest.json")) as fh:
+                st = json.load(fh)["integrity"]
+            with open(os.path.join(integ, "mc_journal.jsonl")) as fh:
+                events = [(r["kind"], r["start"]) for r in map(json.loads, fh)
+                          if r["e"] == "integrity"]
+            got_art = artifact(integ)
+            if not (st["checksum_mismatches"] == 1 and st["healed_chunks"] == 1
+                    and st["permanent_failures"] == 0
+                    and events == [("checksum", MC_CHUNK)]
+                    and {k: got_art[k] for k in ("study_result.json",
+                                                 "trials.npy", "trials.f32")}
+                    == {k: clean[k] for k in ("study_result.json",
+                                              "trials.npy", "trials.f32")}):
+                raise AssertionError(f"integrity: stats {st}, events {events}"
+                                     ", or the artifact differs")
+            log(f"  (a) integrity: {json.dumps(st, sort_keys=True)}; journal "
+                f"events {events}; artifact equal to the clean run's")
+
+            # (b) the facade at BASELINE config 1's full width
+            sim = Simulation(psrdict=main_psrdict(), device=self.dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            self._zero_counts()
+            t0 = time.perf_counter()
+            res_b = sim.run_mc_study(MC_PRIORS, MC_FACADE_TRIALS, seed=1,
+                                     out_dir=os.path.join(work, "facade"),
+                                     chunk_size=MC_FACADE_CHUNK)
+            torch.cuda.synchronize()
+            t_b = time.perf_counter() - t0
+            counts = self._counts()
+            peak_b = torch.cuda.max_memory_allocated()
+            launches_b = counts
+            if counts != dict(no_kernels, rng_field=2 * MC_FACADE_TRIALS
+                              // MC_FACADE_CHUNK):
+                raise AssertionError(f"run_mc_study launches {counts}")
+            check_rows(res_b, MC_FACADE_TRIALS, ("dm", "noise_scale"))
+            log(f"  (b) Simulation(BASELINE config 1).run_mc_study("
+                f"{MC_FACADE_TRIALS}, chunk_size={MC_FACADE_CHUNK}): "
+                f"{t_b:.3f} s = {MC_FACADE_TRIALS / t_b:.1f} trials/s (first "
+                f"run: cuFFT plans, the artifact's writes); peak device memory "
+                f"{peak_b / 2**30:.3f} GiB; launches {counts} "
+                f"({self.card_line})")
+            study_b = MonteCarloStudy.from_simulation(sim, MC_PRIORS, seed=1)
+            params = study_b.sampled_params(MC_FACADE_TRIALS)
+            if not np.array_equal(params, res_b.metrics[:, :2]):
+                raise AssertionError("sampled_params differ from the study's "
+                                     "parameter columns")
+            rb2, _, t_b2, peak_b2 = run(study_b, "(b) steady run, in memory",
+                                        MC_FACADE_TRIALS, MC_FACADE_CHUNK)
+            if not np.array_equal(rb2.metrics, res_b.metrics):
+                raise AssertionError("the steady run differs from "
+                                     "run_mc_study's")
+            bridge = sim.to_ensemble().to_mc_study(MC_PRIORS, seed=1)
+            rb3 = bridge.run(32, chunk_size=32)
+            if bridge.device.type != "cuda" or not np.array_equal(
+                    rb3.metrics, res_b.metrics[:32]):
+                raise AssertionError("FoldEnsemble.to_mc_study's trials "
+                                     "differ from run_mc_study's")
+            log("  (b) Simulation.to_ensemble().to_mc_study(): on the card, "
+                "trials 0-31 (one 32-trial chunk) equal run_mc_study's rows")
+            self.device_breakdown(
+                "(b)", lambda: study_b._chunk_program(
+                    0, MC_FACADE_TRIALS, MC_FACADE_CHUNK, MC_FACADE_CHUNK))
+            exp_dir = os.path.join(work, "export")
+            self._zero_counts()
+            t0 = time.perf_counter()
+            exp = study_b.export_psrfits(MC_FACADE_TRIALS, exp_dir, TEMPLATE,
+                                         writers=1, chunk_size=MC_FACADE_CHUNK)
+            torch.cuda.synchronize()
+            t_exp = time.perf_counter() - t0
+            counts = self._counts()
+            if counts != dict(no_kernels, fold_quantize=2):
+                raise AssertionError(f"export_psrfits launches {counts}")
+            ens = sim.to_ensemble()
+            direct = supervised_export(
+                ens, MC_FACADE_TRIALS, os.path.join(work, "direct"), TEMPLATE,
+                ens.pulsar, seed=1, dms=params[:, 0].astype(np.float64),
+                noise_norms=(np.float32(study_b.noise_norm)
+                             * params[:, 1]).astype(np.float64),
+                writers=1, chunk_size=MC_FACADE_CHUNK)
+            if len(exp.paths) != MC_FACADE_TRIALS or [
+                    sha(p) for p in exp.paths] != [sha(p) for p in
+                                                   direct.paths]:
+                raise AssertionError("export_psrfits' files differ from the "
+                                     "direct supervised export's")
+            with open(os.path.join(exp_dir, "export_manifest.json")) as fh:
+                if "mc_study" not in json.load(fh):
+                    raise AssertionError("no mc_study stamp in the manifest")
+            log(f"  (b) export_psrfits({MC_FACADE_TRIALS}, supervised, 1 "
+                f"writer): {t_exp:.3f} s = {MC_FACADE_TRIALS / t_exp:.1f} "
+                f"obs/s, launches {counts}; every file's sha256 equal to "
+                "supervised_export of the facade's ensemble with the study's "
+                "DMs and float32 noise norms; manifest stamped mc_study")
+            log(f"  phase 11 summary: (a) {MC_TRIALS / t_ss:.1f} trials/s, "
+                f"peak {peak / 2**30:.3f} GiB, launches {launches_a}; (b) "
+                f"{MC_FACADE_TRIALS / t_b2:.1f} trials/s, peak "
+                f"{peak_b2 / 2**30:.3f} GiB, launches {launches_b}; "
+                f"export_psrfits launches {counts} ({self.card_line})")
+        finally:
+            os.environ.pop("PSS_SAMPLER", None)
+            shutil.rmtree(work, ignore_errors=True)
+
     def run(self, with_profile=False):
         self.phase("1 card", self.card)
         built = self.phase("2 build", self.build)
@@ -1766,6 +2158,7 @@ class Smoke:
             self.phase("8 export", self.export)
             self.phase("9 supervised export", self.supervised)
             self.phase("10 object-oriented flow and Simulation", self.oo_flow)
+            self.phase("11 Monte-Carlo study", self.mc_study)
         if self.failed:
             log(f"FAILED phases: {', '.join(self.failed)}")
             return 1
@@ -1793,6 +2186,21 @@ def kill_child(out, scratch):
     return 1
 
 
+def mc_kill_child(out, scratch):
+    """Phase 11's process that must die: the bench MC study with ``mc.kill``
+    armed after chunk 0's journal commit."""
+    from psrsigsim_torch.mc import MonteCarloStudy
+    from psrsigsim_torch.runtime import FaultPlan
+    from psrsigsim_torch.simulate import Simulation
+
+    study = MonteCarloStudy.from_simulation(
+        Simulation(psrdict=MC_BENCH, device="cuda"), MC_PRIORS, seed=1)
+    study.run(MC_TRIALS, chunk_size=MC_CHUNK, out_dir=out,
+              faults=FaultPlan(scratch, {"mc.kill": {"after_start": 0}}))
+    print("the study survived mc.kill", file=sys.stderr)
+    return 1
+
+
 def main():
     try:
         import torch
@@ -1813,6 +2221,9 @@ def main():
     if KILL_CHILD in sys.argv:
         i = sys.argv.index(KILL_CHILD)
         return kill_child(sys.argv[i + 1], sys.argv[i + 2])
+    if MC_KILL_CHILD in sys.argv:
+        i = sys.argv.index(MC_KILL_CHILD)
+        return mc_kill_child(sys.argv[i + 1], sys.argv[i + 2])
     return Smoke().run(with_profile="--profile" in sys.argv[1:])
 
 

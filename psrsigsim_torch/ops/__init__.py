@@ -4,7 +4,8 @@ Plain functions on tensors: the random fields (:mod:`.stats`, with the
 CUDA sampler kernel in :mod:`.rng_hw`), the Fourier shift (:mod:`.shift`,
 on :mod:`.dfloat`), the PSRFITS quantizer (:mod:`.quantize`), the fused
 fold → quantize → pack kernel (:mod:`.fold_quantize`), the integrity
-lattice's packed-digest kernel (:mod:`.digest`), the profile convolution
+lattice's packed-digest kernel (:mod:`.digest`), FFTFIT TOA estimation
+(:mod:`.toa`), the profile convolution
 (:mod:`.convolve`) and the resamplers (:mod:`.resample`); plus the host
 helpers the portrait layer needs (:mod:`.interp`, :mod:`.window`).
 """
@@ -24,6 +25,8 @@ _LAZY = {
     "chi2_draw_norm": "stats", "chi2_sample": "stats", "normal": "stats",
     "normal_sample": "stats",
     "uniform": "stats", "sampler_backend": "stats",
+    "choice": "stats", "fixed_histogram": "stats",
+    "fftfit_shift": "toa", "fftfit_batch": "toa", "fftfit_combine": "toa",
     "packed_digest": "digest", "packed_digest_plain": "digest",
     "fft_convolve_full": "convolve", "convolve_profiles": "convolve",
     "block_downsample": "resample", "rebin": "resample",
@@ -63,6 +66,11 @@ __all__ = [
     "normal_sample",
     "uniform",
     "sampler_backend",
+    "choice",
+    "fixed_histogram",
+    "fftfit_shift",
+    "fftfit_batch",
+    "fftfit_combine",
     "offpulse_window",
     "fold_periods",
     "fft_convolve_full",

@@ -36,7 +36,7 @@ from ..runtime.integrity import (_GOLD, _MASK, _OFF, _SALT_DATA, _SALT_OFFS,
                                  _SALT_SCL)
 from . import _build
 
-__all__ = ["packed_digest", "packed_digest_plain"]
+__all__ = ["packed_digest", "packed_digest_plain", "rows_digest"]
 
 
 def _check(packed, count):
@@ -90,6 +90,26 @@ def packed_digest_plain(packed, count=None):
         out[b] = (_fold(data, m_data) + _fold(scl, m_scl)
                   + _fold(offs, m_offs)) & _MASK
     return torch.where(out >= 2**31, out - 2**32, out).to(torch.int32)
+
+
+def rows_digest(x, salt=0):
+    """Per-row digest of a tensor (leading axis = rows) in torch ops on its
+    own device: ``(rows,)`` int64 holding the uint32 digests, equal to the
+    host twin :func:`psrsigsim_torch.runtime.integrity.digest_rows` (and
+    to the JAX package's ``device_digest_rows``).  float32 words are their
+    bits, 8-byte elements word pairs (little-endian), integers sign-extend.
+    The Monte-Carlo study digests its ``(chunk, M)`` metric rows with it —
+    a few hundred words, no kernel of its own (the JAX package's is an
+    XLA fusion too)."""
+    rows = x.shape[0]
+    if x.dtype == torch.float32 or x.element_size() == 8:
+        w = x.contiguous().view(torch.int32)
+    else:
+        w = x
+    w = w.reshape(rows, -1).to(torch.int64) & _MASK
+    m = _positions(w.shape[1], salt & _MASK, x.device)
+    terms = (_mul32(w ^ m, _GOLD) + m) & _MASK
+    return terms.sum(dim=1) & _MASK
 
 
 def _lib():

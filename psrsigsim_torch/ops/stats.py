@@ -33,12 +33,13 @@ import numpy as np
 import torch
 
 from ..utils.device import to_device
-from ..utils.rng import fold_in, random_bits
+from ..utils.rng import fold_in, randint, random_bits
 
 __all__ = ["SEQ_RNG_BLOCK", "CHI2_WH_MIN_DF", "fma", "erf_inv", "uniform",
            "normal", "normal_sample", "chi2_sample", "chi2_sample_compiled",
            "blocked_chan_chi2", "blocked_chan_normal", "sampler_backend",
-           "chan_chi2_field", "chan_normal_field", "chi2_draw_norm"]
+           "chan_chi2_field", "chan_normal_field", "chi2_draw_norm",
+           "choice", "fixed_histogram"]
 
 # Fixed span of global time samples per RNG key: every pipeline draw is keyed
 # by (stage, channel, global block index), so a seed gives the same stream
@@ -405,6 +406,60 @@ def chan_normal_field(key, chan_ids, t0, length, block=SEQ_RNG_BLOCK):
     if sampler_backend(key.device) == "hw" and block == SEQ_RNG_BLOCK:
         return _hw_field_span(key, chan_ids, 0.0, t0, "normal", length)
     return blocked_chan_normal(key, chan_ids, t0, length, block)
+
+
+def choice(key, n, p=None):
+    """``jax.random.choice(key, n, p=p)`` (one draw, with replacement) for
+    keys ``(..., 2)`` -> ``(...)`` int64 indices in ``[0, n)``.  Without
+    ``p`` it is :func:`~psrsigsim_torch.utils.rng.randint`; with ``p``
+    (float32 probabilities) jax draws ``r = cumsum(p)[-1] · (1 - u)`` for
+    one uniform ``u`` and takes the first index whose running sum reaches
+    ``r``.  The running sum is sequential float32, as XLA's CPU backend
+    computes ``jnp.cumsum`` of a short vector."""
+    n = int(n)
+    if p is None:
+        return randint(key, n)
+    p = np.asarray(p, np.float32)
+    if p.shape != (n,):
+        raise ValueError(f"p must have shape ({n},), got {p.shape}")
+    cum = torch.as_tensor(np.cumsum(p, dtype=np.float32), device=key.device)
+    u = uniform(key, 1)[..., 0]
+    r = cum[-1] * (1.0 - u)
+    return torch.searchsorted(cum, r.contiguous(), side="left")
+
+
+def fixed_histogram(x, lo, hi, nbins, weights=None):
+    """Fixed-bin histograms (counterpart: ``fixed_histogram`` of the JAX
+    package): int32 counts of ``x`` ``(..., N)`` over ``nbins`` equal bins
+    spanning ``[lo, hi)``, one histogram per leading index -> ``(...,
+    nbins)``.  ``lo``/``hi`` broadcast against the leading axes;
+    ``weights`` are int 0/1 validity masks shaped like ``x`` (default all
+    ones).
+
+    Out-of-range values clamp into the edge bins and a NaN lands in bin 0,
+    as XLA's saturating float → int32 conversion puts them; the counts are
+    integers, so merging chunks is exact in any order."""
+    nbins = int(nbins)
+    if nbins <= 0:
+        raise ValueError(f"nbins={nbins} must be positive")
+    x = x.to(_F32)
+
+    def bound(v):   # numbers become fills, never host->device copies
+        if isinstance(v, torch.Tensor):
+            return v.to(device=x.device, dtype=_F32)
+        return torch.full((), float(v), dtype=_F32, device=x.device)
+
+    lo, hi = bound(lo)[..., None], bound(hi)[..., None]
+    span = torch.clamp_min(hi - lo, 1e-30)
+    v = torch.floor((x - lo) / span * nbins)
+    idx = torch.clamp(torch.nan_to_num(v, nan=0.0), 0, nbins - 1).to(
+        torch.int64)
+    w = (torch.ones_like(idx) if weights is None
+         else torch.as_tensor(weights, device=x.device).to(
+             torch.int64).expand_as(idx))
+    counts = torch.zeros(idx.shape[:-1] + (nbins,), dtype=torch.int64,
+                         device=x.device)
+    return counts.scatter_add_(-1, idx, w).to(torch.int32)
 
 
 def chi2_draw_norm(dtype, df):

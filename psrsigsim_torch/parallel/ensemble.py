@@ -17,7 +17,8 @@ import torch
 
 from ..ops.quantize import quantize_packed
 from ..simulate.pipeline import (build_fold_config, fold_pipeline,
-                                 fold_pipeline_quantized, fused_route)
+                                 fold_pipeline_quantized, fold_subints,
+                                 fused_route)
 from ..utils.device import resolve_device, to_device
 from ..utils.rng import fold_in, key, stage_key
 
@@ -534,6 +535,29 @@ class FoldEnsemble:
             stop.set()
             in_q.put(None)
             thread.join(timeout=10.0)
+
+    def to_mc_study(self, priors, seed=0, **kw):
+        """Bridge to the Monte-Carlo study engine: a
+        :class:`~psrsigsim_torch.mc.MonteCarloStudy` over THIS ensemble's
+        configuration (same cfg/portrait/noise norm, same device).
+
+        Trial keys equal this ensemble's observation keys — study trial
+        ``i`` with priors over dm/noise draws the same pulse and noise
+        streams as ``run(n_obs, seed)``'s observation ``i`` — so a study
+        and a dataset export of the same seed describe the same
+        observations (``priors``: :data:`psrsigsim_torch.mc.KNOBS`).
+        """
+        from ..mc import MonteCarloStudy
+
+        kw.setdefault("device", self.device)
+        return MonteCarloStudy(self.cfg, self._profiles_np, self.noise_norm,
+                               priors, seed=seed, dm=self.dm, **kw)
+
+    def folded_profiles(self, data):
+        """Per-observation folded pulse profiles ``(B, Nchan, Nph)`` of an
+        ensemble block ``(B, Nchan, Nsamp)`` (the sum over subints, in a
+        fixed order: the study's fold) — the standard data product."""
+        return fold_subints(data, self.cfg.nsub, self.cfg.nph)
 
     def signal_shell(self):
         """The configured signal object (metadata only — no ensemble data

@@ -33,6 +33,13 @@ point                     where it fires
                           kill/resume tests).  Config:
                           ``{"after_start": int}``; omit ``after_start`` to
                           kill after the first commit of any kind.
+``mc.kill``               the Monte-Carlo study's sweep
+                          (:meth:`psrsigsim_torch.mc.MonteCarloStudy.run`),
+                          right after the journal commit of the chunk
+                          starting at ``after_start`` (any chunk when
+                          omitted) — SIGKILLs the sweeping process, for the
+                          study's kill/resume tests.  Config:
+                          ``{"after_start": int}``.
 ``device.sdc``            the integrity-armed export producer
                           (:meth:`psrsigsim_torch.parallel.FoldEnsemble.
                           iter_chunks`) — ONE element of the chunk's
@@ -58,9 +65,9 @@ point                     where it fires
                           basename) / ``times``.
 ========================  ====================================================
 
-The JAX package's other points (the Monte-Carlo, dataset, serving and pod
-points) belong to subsystems the port has not taken over yet; naming one
-raises, like any unknown point.
+The JAX package's other points (the dataset, serving and pod points)
+belong to subsystems the port has not taken over yet; naming one raises,
+like any unknown point.
 
 Arming is explicit and local: a :class:`FaultPlan` is built by a test and
 passed down via the ``faults=`` parameter; production call sites carry
@@ -84,7 +91,7 @@ import signal
 __all__ = ["FaultPlan", "should_fire", "crash_process", "POINTS"]
 
 POINTS = ("writer.crash", "shm.attach", "file.partial", "nan.obs",
-          "run.kill", "device.sdc", "host.corrupt", "disk.bitrot")
+          "run.kill", "mc.kill", "device.sdc", "host.corrupt", "disk.bitrot")
 
 
 class FaultPlan:

@@ -46,8 +46,9 @@ exactly its unarmed path.  The module is host-only: it imports numpy, and
 torch only inside :func:`device_packed_digest_rows` (the export's spawn
 writers import this package and must never import torch).
 
-The Monte-Carlo, dataset and serving digests and scrubs of the JAX
-package wait for those subsystems.
+The Monte-Carlo study's row digest (:func:`device_digest_rows`) and its
+scrub (:func:`scrub_mc_dir`) are here too; the dataset and serving digests
+and scrubs of the JAX package wait for those subsystems.
 """
 
 from __future__ import annotations
@@ -62,10 +63,11 @@ from .retry import RetryPolicy, call_with_retry
 
 __all__ = [
     "IntegrityChecker", "IntegrityError", "resolve_integrity",
-    "digest_rows", "digest_array", "device_packed_digest_rows",
+    "digest_rows", "digest_array", "device_digest_rows",
+    "device_packed_digest_rows",
     "triple_digest_rows", "audit_selected", "DEFAULT_AUDIT_FRAC",
     "maybe_sdc", "maybe_host_corrupt", "maybe_bitrot",
-    "DirScrubber", "scrub_export_dir",
+    "DirScrubber", "scrub_export_dir", "scrub_mc_dir",
 ]
 
 #: default duplicate-execution audit fraction once integrity is enabled
@@ -194,6 +196,17 @@ def triple_digest_rows(data, scl, offs):
     o = digest_rows(np.ascontiguousarray(offs, np.float32), _SALT_OFFS)
     return ((d.astype(np.uint64) + s + o) & np.uint64(_MASK)).astype(
         np.uint32)
+
+
+def device_digest_rows(x, salt=0):
+    """Per-row digest of a tensor, computed where it lies (on the card, one
+    handful of int64 torch ops over the already-resident rows, before any
+    byte crosses the host link): ``(rows,)`` int64 holding the uint32
+    digests, bit-equal to the host :func:`digest_rows` of the same values.
+    Fetch it alongside the chunk."""
+    from ..ops.digest import rows_digest
+
+    return rows_digest(x, salt)
 
 
 def device_packed_digest_rows(packed, nbin, count=None):
@@ -576,3 +589,39 @@ def scrub_export_dir(out_dir, quarantine=True):
     man = _load_manifest(out_dir) or {}
     return DirScrubber(out_dir, man.get("files", {}),
                        quarantine=quarantine).run_all()
+
+
+def scrub_mc_dir(out_dir):
+    """Scrub a study sweep dir: re-hash every journaled trial chunk's rows
+    from ``trials.f32`` against the journal's sha256.  Returns the summary
+    with ``bad`` = the corrupt chunks' starts; healing is
+    ``study.run(resume=True)``, whose resume re-verifies the same hashes
+    and recomputes exactly the failing chunks."""
+    import json
+
+    from ..mc import study as _study
+    from .supervisor import load_chunk_journal
+
+    journal = os.path.join(out_dir, _study._JOURNAL_NAME)
+    raw = os.path.join(out_dir, _study._TRIALS_RAW)
+    done = load_chunk_journal(journal)
+    with open(os.path.join(out_dir, _study._MANIFEST_NAME)) as f:
+        n_metrics = len(json.load(f).get("metrics", ()))
+    bad, ok = [], 0
+    try:
+        fd = os.open(raw, os.O_RDONLY)
+    except FileNotFoundError:
+        return {"scanned": 0, "scrubbed": 0, "scrub_errors": 0, "bad": []}
+    try:
+        for start, rec in sorted(done.items()):
+            nbytes = int(rec["count"]) * n_metrics * 4
+            blob = os.pread(fd, nbytes, start * n_metrics * 4)
+            if (len(blob) == nbytes
+                    and hashlib.sha256(blob).hexdigest() == rec.get("sha")):
+                ok += 1
+            else:
+                bad.append(int(start))
+    finally:
+        os.close(fd)
+    return {"scanned": ok + len(bad), "scrubbed": ok,
+            "scrub_errors": len(bad), "bad": bad}

@@ -35,8 +35,8 @@ from ..utils.device import resolve_device, to_device
 from ..utils.rng import as_key, stage_key
 
 __all__ = ["default_shift_mode", "FoldPipelineConfig", "fold_pipeline",
-           "fold_pipeline_quantized", "fused_route", "build_fold_config",
-           "natural_nbin"]
+           "fold_pipeline_quantized", "fused_route", "fold_subints",
+           "build_fold_config", "natural_nbin"]
 
 
 def default_shift_mode():
@@ -148,8 +148,10 @@ def fold_pipeline(key, dm, noise_norm, profiles, cfg, freqs=None,
             to the device.
         dm: dispersion measures ``(...)`` (pc/cm^3).
         noise_norm: radiometer noise scales ``(...)``.
-        profiles: normalized portrait ``(Nchan, Nph)``; a tensor fixes the
-            device, numpy goes to ``device``.
+        profiles: normalized portrait ``(Nchan, Nph)``, or one per
+            observation ``(..., Nchan, Nph)`` (envelope mode; the
+            Monte-Carlo study's per-trial Gaussian portraits); a tensor
+            fixes the device, numpy goes to ``device``.
         cfg: static :class:`FoldPipelineConfig`.
         freqs: channel frequencies (MHz) matching ``profiles``' channels;
             defaults to the full grid from ``cfg``.
@@ -171,7 +173,7 @@ def fold_pipeline(key, dm, noise_norm, profiles, cfg, freqs=None,
     dev, lead = f.dev, f.lead
     nsub, nph = cfg.nsub, cfg.nph
     nsamp = nsub * nph
-    nchan = f.profiles.shape[0]
+    nchan = f.profiles.shape[-2]
 
     # pulse term: tiled portrait x chi2(nfold) x draw_norm, written into the
     # pulse field in place (the product commutes, so the rounding is the
@@ -200,6 +202,19 @@ def fold_pipeline(key, dm, noise_norm, profiles, cfg, freqs=None,
     noise = _chan_chi2(to_device(f.kn, dev), f.chan_ids, cfg.noise_df, nsamp)
     noise.mul_(f.noise_norm[..., None, None])
     return block.add_(noise)
+
+
+def fold_subints(block, nsub, nph):
+    """Folded profiles ``(..., Nchan, Nph)`` of blocks ``(..., Nchan,
+    nsub*Nph)``: the sum over subintegrations, added one subint after the
+    other in elementwise passes, so a profile's bits depend on its own
+    block only — never on the batch it was folded in (a reduction kernel
+    may pick another summation order for another batch size)."""
+    v = block.reshape(block.shape[:-1] + (nsub, nph))
+    folded = v[..., 0, :]
+    for s in range(1, nsub):
+        folded = folded + v[..., s, :]
+    return folded
 
 
 def fused_route(cfg, device, null_frac=None):

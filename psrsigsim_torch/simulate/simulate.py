@@ -9,9 +9,9 @@ of observations; ``Simulation.to_ensemble()`` bridges the two and
 ``Simulation.export_ensemble()`` writes an ensemble's PSRFITS files.
 
 Everything the façade builds holds its data on one device: the CUDA card
-unless ``device=`` names another (``device="cpu"``, as the CPU tests do).
-Meshes, scenarios and Monte-Carlo studies belong to later slices of the
-port and raise ``NotImplementedError``.
+unless ``device=`` names another (``device="cpu"``, as the CPU tests do);
+``run_mc_study`` runs a Monte-Carlo study there.  Meshes and scenarios
+belong to later slices of the port and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -375,12 +375,26 @@ class Simulation:
 
     def run_mc_study(self, priors, n_trials, seed=0, out_dir=None,
                      mesh=None, study_kw=None, **run_kw):
-        """Run a Monte-Carlo study over this simulation's configuration
-        (the JAX package's bridge to its ``mc`` subsystem).  Monte-Carlo
-        studies belong to a later slice of the port: this raises
-        ``NotImplementedError``."""
-        raise NotImplementedError(
-            "Monte-Carlo studies (run_mc_study) are not ported yet")
+        """Run a Monte-Carlo study over this simulation's configuration,
+        on its device — the one-call bridge to :mod:`psrsigsim_torch.mc`.
+
+        ``priors`` is ``{knob: Prior-or-spec-dict}`` (knobs:
+        :data:`psrsigsim_torch.mc.KNOBS`; e.g. ``{"dm": Uniform(10,
+        20)}``).  Builds a :class:`~psrsigsim_torch.mc.MonteCarloStudy` via
+        :meth:`MonteCarloStudy.from_simulation` (so
+        :meth:`~psrsigsim_torch.mc.MonteCarloStudy.export_psrfits` works on
+        it afterwards), runs ``n_trials`` trials, and returns the
+        :class:`~psrsigsim_torch.mc.StudyResult`.  ``out_dir`` enables the
+        crash-safe journal and the fingerprinted artifact; ``study_kw``
+        passes construction options (``nharm``, ``hist_bins``, ...) and
+        ``run_kw`` run options (``chunk_size``, ``resume``, ``telemetry``,
+        ``progress``, ...).  ``mesh`` raises ``NotImplementedError``.
+        """
+        from ..mc import MonteCarloStudy
+
+        study = MonteCarloStudy.from_simulation(
+            self, priors, seed=seed, mesh=mesh, **(study_kw or {}))
+        return study.run(n_trials, out_dir=out_dir, **run_kw)
 
     def save_simulation(self, outfile="simfits", out_format="psrfits",
                         parfile=None, ref_MJD=56000.0, MJD_start=55999.9861):

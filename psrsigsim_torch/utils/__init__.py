@@ -21,7 +21,8 @@ from .utils import (
 # must not pay for importing torch
 _LAZY = {"resolve_device": "device", "STAGES": "rng", "key": "rng",
          "as_key": "rng", "fold_in": "rng", "stage_key": "rng",
-         "random_bits": "rng", "split": "rng", "permutation": "rng",
+         "random_bits": "rng", "split": "rng", "randint": "rng",
+         "permutation": "rng",
          "KeySequence": "rng", "default_keys": "rng", "set_seed": "rng",
          "next_key": "rng"}
 
@@ -51,6 +52,7 @@ __all__ = [
     "stage_key",
     "random_bits",
     "split",
+    "randint",
     "permutation",
     "KeySequence",
     "default_keys",

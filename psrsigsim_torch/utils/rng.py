@@ -36,7 +36,7 @@ import torch
 from .device import resolve_device
 
 __all__ = ["STAGES", "key", "as_key", "fold_in", "stage_key", "threefry2x32",
-           "random_bits", "split", "permutation", "KeySequence",
+           "random_bits", "split", "randint", "permutation", "KeySequence",
            "default_keys", "set_seed", "next_key"]
 
 MASK32 = 0xFFFFFFFF
@@ -143,6 +143,22 @@ def split(k, num=2):
     o0, o1 = threefry2x32(k[..., 0, None], k[..., 1, None],
                           idx >> 32, idx & MASK32)
     return torch.stack((o0, o1), dim=-1)
+
+
+def randint(k, n):
+    """``jax.random.randint(k, (), 0, n)`` (int32, as the JAX package runs
+    with 64-bit types off) for keys ``(..., 2)`` -> ``(...)`` int64 in
+    ``[0, n)``.  jax splits the key, draws one 32-bit word from each half
+    and reduces the 64-bit pair modulo ``n`` through ``2**32 mod n``."""
+    n = int(n)
+    if not 0 < n < 2**31:
+        raise ValueError(f"randint needs 0 < n < 2**31, got {n}")
+    halves = split(k)
+    hi = random_bits(halves[..., 0, :], 1)[..., 0]
+    lo = random_bits(halves[..., 1, :], 1)[..., 0]
+    # jax's uint32 arithmetic, each product and sum wrapped to 32 bits
+    mult = ((2**16 % n) ** 2 & MASK32) % n
+    return ((((hi % n) * mult) & MASK32) + lo % n & MASK32) % n
 
 
 def permutation(k, n):

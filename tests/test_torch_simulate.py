@@ -272,7 +272,7 @@ def test_later_slices_raise(tmp_path):
     with pytest.raises(NotImplementedError):
         sim.export_ensemble(2, str(tmp_path), mesh=object())
     with pytest.raises(NotImplementedError):
-        sim.run_mc_study({}, 4)
+        sim.run_mc_study({}, 4, mesh=object())
 
 
 def test_entry_points_need_a_device_without_cuda(monkeypatch):

@@ -520,11 +520,11 @@ def test_fault_plan_names_the_export_points(tmp_path):
     from psrsigsim_torch.runtime import FaultPlan
     from psrsigsim_torch.runtime.faults import POINTS
 
-    for point in ("nan.obs", "run.kill", "device.sdc", "host.corrupt",
-                  "disk.bitrot"):
+    for point in ("nan.obs", "run.kill", "mc.kill", "device.sdc",
+                  "host.corrupt", "disk.bitrot"):
         assert point in POINTS
     with pytest.raises(ValueError, match="unknown fault point"):
-        FaultPlan(str(tmp_path), {"mc.kill": {}})
+        FaultPlan(str(tmp_path), {"dataset.kill": {}})
 
 
 def test_runtime_imports_no_torch():
