@@ -103,7 +103,27 @@ digest of a packed chunk.  Phases:
    trials 0-31 equal to its rows, then export_psrfits(256)
    supervised with one writer (the fused kernel exactly twice), every
    file's sha256 equal to supervised_export of the facade's ensemble with
-   the study's DMs and float32 noise norms.
+   the study's DMs and float32 noise norms;
+12. the scenario engine on the card (psrsigsim_torch.scenarios), BASELINE
+   config 1 at full width with the stack scintillation + rfi +
+   single_pulse:lognormal and per-observation parameter arrays: (a)
+   run_quantized(128) through the fused kernel with the scenario's per-row
+   factors (one launch), bit-equal to the unfused scenario path on the card
+   (sampler fields + the PyTorch body + quantizer) for each single-pulse
+   mode and for rfi alone, and on an edge shape that takes the general
+   kernel; observations 0-7 against device="cpu" (codes within 1 LSB on at
+   most 1%, the truth mask exact); the fused kernel's time with and without
+   the factors (in turns) against their bounds, and the host's time to draw
+   one chunk's factors; (b) supervised_export(256, chunk_size=128,
+   writers=1): the files hold run_quantized's bytes, the journal's rfi
+   records and the manifest's rfi block equal the host's truth masks, and a
+   resume="verify" after deleting two files launches the fused kernel once;
+   (c) Simulation.to_ensemble(scenario=...).run_quantized(128) launches the
+   fused kernel exactly once and equals (a); (d) a Monte-Carlo study with
+   scint_mod and sp_sigma priors on the bench MC geometry, 512 trials in
+   256-trial chunks: the sampler exactly 4 times, rows bit-identical for
+   chunk sizes 128 and 256, trials 0-31 against device="cpu" within the
+   FFTFIT tolerance.
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of one
 steady main-path chunk after phase 5 (device time by kernel, busy share).
@@ -157,6 +177,9 @@ DRAW_OPS = {"int32": PHILOX_INT_OPS / 4, "fp32": (2 * 7) / 4 + 6,
 FUSED_OPS = {"int32": 2 * DRAW_OPS["int32"] + 3 + 2,
              "fp32": 2 * DRAW_OPS["fp32"] + 3 + 2,
              "sfu": 2 * DRAW_OPS["sfu"] + 2}
+# the fused kernel with every scenario factor: the gain and energy
+# multiplies and the RFI level's add, one float32 operation each
+SCEN_OPS = dict(FUSED_OPS, fp32=FUSED_OPS["fp32"] + 3)
 # the packed digest, per 32-bit word: the XOR, the term's multiply-add and
 # the add into the sum (the position multipliers depend on the position
 # only, shared by every observation of a chunk)
@@ -176,6 +199,9 @@ KILL_CHILD = "--supervised-kill-child"
 MC_KILL_CHILD = "--mc-kill-child"
 MC_TRIALS, MC_CHUNK = 512, 256  # phase 11(a): two chunks
 MC_FACADE_TRIALS, MC_FACADE_CHUNK = 256, 128  # phase 11(b): two chunks
+SCEN_STACK = ["scintillation", "rfi", "single_pulse:lognormal"]  # phase 12
+SCEN_SUP_NOBS = 256  # phase 12(b): two chunks of the supervised export
+SCEN_HOST_NOBS = 8  # phase 12(a): observations held against the host
 MC_PRIORS = {"dm": {"dist": "uniform", "lo": 10.0, "hi": 20.0},
              "noise_scale": {"dist": "loguniform", "lo": 0.5, "hi": 2.0}}
 # bench.py build_mc_study: the export-bench fold geometry (Gaussian
@@ -198,9 +224,33 @@ def log(msg):
     print(msg, flush=True)
 
 
-def geometry(g, device):
+def scenario_params(n, stack=SCEN_STACK, seed=12):
+    """Per-observation parameters of ``stack`` for ``n`` observations, made
+    from a seed with numpy (phase 12)."""
+    import numpy as np
+
+    from psrsigsim_torch.scenarios import parse_stack
+
+    r = np.random.default_rng(seed)
+    f32 = np.float32
+    every = {"scint_dnu_d_mhz": r.uniform(5.0, 100.0, n).astype(f32),
+             "scint_dt_d_s": r.uniform(20.0, 200.0, n).astype(f32),
+             "scint_mod": r.uniform(0.3, 1.0, n).astype(f32),
+             "rfi_imp_prob": r.uniform(0.0, 0.3, n).astype(f32),
+             "rfi_imp_snr": r.uniform(1.0, 10.0, n).astype(f32),
+             "rfi_nb_prob": 0.1,
+             "rfi_nb_snr": r.uniform(1.0, 5.0, n).astype(f32),
+             "sp_sigma": r.uniform(0.1, 1.0, n).astype(f32),
+             "sp_alpha": r.uniform(1.5, 4.0, n).astype(f32),
+             "sp_amp": r.uniform(2.0, 20.0, n).astype(f32)}
+    names = parse_stack(stack).param_names()
+    return {k: v for k, v in every.items() if k in names}
+
+
+def geometry(g, device, scenario=None):
     """BASELINE config 1's objects (bench.py config1_fold64 with the J1713
-    template and the TestScope/TestSys telescope), at the widths of ``g``."""
+    template and the TestScope/TestSys telescope), at the widths of ``g``,
+    with an optional scenario stack."""
     import numpy as np
 
     from psrsigsim_torch.data import data_path
@@ -223,7 +273,8 @@ def geometry(g, device):
     tel.add_system("TestSys", Receiver(fcent=g["fcent"], bandwidth=g["bw"],
                                        name="TestRCVR"),
                    Backend(samprate=12.5, name="TestBack"))
-    return FoldEnsemble(sig, psr, tel, "TestSys", device=device)
+    return FoldEnsemble(sig, psr, tel, "TestSys", device=device,
+                        scenario=scenario)
 
 
 def main_psrdict():
@@ -2139,6 +2190,388 @@ class Smoke:
             os.environ.pop("PSS_SAMPLER", None)
             shutil.rmtree(work, ignore_errors=True)
 
+    # -- 12 -----------------------------------------------------------------
+    def scenarios(self):
+        """The scenario engine on the card (see the module docstring)."""
+        import dataclasses
+        import hashlib
+        import shutil
+        import tempfile
+
+        import numpy as np
+
+        from psrsigsim_torch.io import FitsFile
+        from psrsigsim_torch.mc import MonteCarloStudy
+        from psrsigsim_torch.ops import fold_quantize as fq
+        from psrsigsim_torch.parallel import FoldEnsemble
+        from psrsigsim_torch.runtime import supervised_export
+        from psrsigsim_torch.simulate import (Simulation,
+                                              fold_pipeline_quantized,
+                                              pipeline)
+
+        torch = self.torch
+        dev = self.dev
+        os.environ.pop("PSS_SAMPLER", None)
+        os.environ.pop("PSS_INTEGRITY", None)
+        free = self.main_ensemble()
+        cfg = free.cfg
+
+        def scen_ens(stack, cfg=cfg, prof=None, device=dev):
+            return FoldEnsemble.from_config(
+                cfg, free._profiles_np if prof is None else prof,
+                free.noise_norm, dm=free.dm, device=device, scenario=stack)
+
+        def expect(counts, label, **want):
+            want = {"rng_field": 0, "fold_quantize": 0, "packed_digest": 0,
+                    **want}
+            if counts != want:
+                raise AssertionError(f"{label}: launches {counts}, expected "
+                                     f"{want}")
+
+        worst = 0
+
+        def fused_vs_unfused(e, n, label):
+            """The fused route and the unfused scenario body (sampler
+            kernel fields + the PyTorch body) on the same rows."""
+            nonlocal worst
+            idx = np.arange(n)
+            keys, dms, norms = e._prep_chunk(idx, 0, None, None)
+            sp = scenario_params(n, e.scenario)
+            rows = e._rows(keys, norms, e._prep_scenario(idx, sp))
+            how = fq.route(("chi2_wh", "chi2_wh"), e.cfg.nph, e.cfg.nsub)
+            got = fold_pipeline_quantized(
+                keys, dms, norms, e._profiles, e.cfg, freqs=e._freqs,
+                chan_ids=e._chan_ids, rows=rows)
+            want = e._unfused_packed(keys, dms, norms, "little", rows)
+            err = int((got[0].int() - want[0].int()).abs().max())
+            worst = max(worst, err)
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                raise AssertionError(f"{label}: the fused kernel differs from "
+                                     f"the unfused scenario path (max |diff| "
+                                     f"{err})")
+            log(f"  {label} {tuple(got[0].shape)} [{how}]: bit-equal to the "
+                "unfused scenario path (max |diff| 0)")
+            return how, got
+
+        # (a) the scenario kernel on the main path
+        ens = scen_ens(SCEN_STACK)
+        sp = scenario_params(MAIN_NOBS)
+        torch.cuda.synchronize()
+        self._zero_counts()
+        t0 = time.perf_counter()
+        d, s, o, fin, rfi = ens.run_quantized(
+            MAIN_NOBS, seed=0, return_finite=True, return_rfi=True,
+            scenario_params=sp)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        counts = self._counts()
+        expect(counts, f"run_quantized({MAIN_NOBS}) with {SCEN_STACK}",
+               fold_quantize=1)
+        self.kernels["fold_quantize"]["scenario_launches"] = \
+            counts["fold_quantize"]
+        if not bool(fin.all()) or not bool(rfi.any()) or int(d.min()) < -32767:
+            raise AssertionError("scenario run_quantized: non-finite rows, no "
+                                 "RFI or codes out of range")
+        log(f"  (a) run_quantized({MAIN_NOBS}) with {SCEN_STACK}, "
+            f"per-observation parameters: {t_first:.3f} s, launches {counts}; "
+            f"RFI in {int(rfi.any(dim=(1, 2)).sum())} observations, "
+            f"{int(rfi.sum())} cells")
+        _, packed = fused_vs_unfused(ens, MAIN_NOBS, "(a) main path, "
+                                     "scintillation + rfi + lognormal")
+        if not all(torch.equal(a, b) for a, b in zip(
+                ens._split_packed_device(packed[0]), (d, s, o))):
+            raise AssertionError("run_quantized differs from the fused route")
+        del packed
+        for stack in (["scintillation", "rfi", "single_pulse:powerlaw"],
+                      ["scintillation", "rfi", "single_pulse:frb"], ["rfi"]):
+            fused_vs_unfused(scen_ens(stack), MAIN_NOBS,
+                             f"(a) main path, {'+'.join(stack)}")
+        # an edge shape: 1000 bins a row, the general kernel's route
+        r = np.random.default_rng(3)
+        edge_cfg = dataclasses.replace(cfg, nph=1000)
+        edge = scen_ens(SCEN_STACK, cfg=edge_cfg, prof=r.uniform(
+            0.05, 1.0, (cfg.meta.nchan, 1000)).astype(np.float32))
+        how, _ = fused_vs_unfused(edge, 16, "(a) edge shape nph 1000")
+        if how != "staged":
+            raise AssertionError(f"the edge shape took the {how} route")
+        self.kernels["fold_quantize"]["scenario_max_abs_err"] = float(worst)
+
+        # observations 0-7 on the host (the kernel's plain version), against
+        # the card at the same batch width: the card's Fourier shift rounds
+        # apart by an ulp for another batch size, which the scenario's
+        # large RFI levels can carry to 2 LSB (logged here, not gated)
+        host = scen_ens(SCEN_STACK, device="cpu")
+        hp = {k: (v[:SCEN_HOST_NOBS] if np.ndim(v) else v)
+              for k, v in sp.items()}
+        n8 = SCEN_HOST_NOBS
+        d8, s8, o8, f8, r8 = ens.run_quantized(
+            n8, seed=0, return_finite=True, return_rfi=True,
+            scenario_params=hp)
+        wide = (d[:n8].int() - d8.int()).abs()
+        k8, dm8, nn8 = ens._prep_chunk(np.arange(MAIN_NOBS), 0, None, None)
+        shift_w = pipeline._fold_front(k8, dm8, nn8, ens._profiles, cfg,
+                                       ens._freqs, ens._chan_ids, None,
+                                       None).prof[:n8]
+        shift_n = pipeline._fold_front(k8[:n8], dm8[:n8], nn8[:n8],
+                                       ens._profiles, cfg, ens._freqs,
+                                       ens._chan_ids, None, None).prof
+        free_w = (free.run_quantized(MAIN_NOBS, seed=0)[0][:n8].int()
+                  - free.run_quantized(n8, seed=0)[0].int()).abs()
+        log(f"  (a) the card, observations 0-{n8 - 1} in a batch of "
+            f"{MAIN_NOBS} against a batch of {n8}: codes "
+            f"{float((wide != 0).float().mean()):.3g} differ, max |diff| "
+            f"{int(wide.max())} LSB (scenario-free "
+            f"{float((free_w != 0).float().mean()):.3g}, max "
+            f"{int(free_w.max())}); the shifted portraits' max |diff| "
+            f"{float((shift_w - shift_n).abs().max()):.3g} (peak "
+            f"{float(shift_n.abs().max()):.3g})")
+        d, s, o, fin, rfi = d8, s8, o8, f8, r8
+        del wide, shift_w, shift_n, free_w
+        os.environ["PSS_SAMPLER"] = "hw"
+        try:
+            t0 = time.perf_counter()
+            hd, hs, ho, hf, hr = (t.numpy() for t in host.run_quantized(
+                SCEN_HOST_NOBS, seed=0, return_finite=True, return_rfi=True,
+                scenario_params=hp))
+            t_host = time.perf_counter() - t0
+        finally:
+            os.environ.pop("PSS_SAMPLER", None)
+        diff = d[:n8].cpu().numpy().astype(np.int32) - hd.astype(np.int32)
+        frac = float(np.mean(diff != 0))
+        log(f"  (a) observations 0-{n8 - 1}, card against host: codes "
+            f"{frac:.3g} differ, max |diff| {np.abs(diff).max()} LSB; scl "
+            f"max rel diff {np.abs(s[:n8].cpu().numpy() / hs - 1).max():.3g}")
+        if not (np.array_equal(rfi[:n8].cpu().numpy(), hr)
+                and np.array_equal(fin[:n8].cpu().numpy(), hf)):
+            raise AssertionError("the truth mask or the finite guard differs "
+                                 "between the card and the host")
+        if np.abs(diff).max() > 1 or frac > 1e-2:
+            raise AssertionError("scenario codes differ from the host beyond "
+                                 "1 LSB on 1%")
+        np.testing.assert_allclose(s[:n8].cpu().numpy(), hs, rtol=1e-5)
+        np.testing.assert_allclose(o[:n8].cpu().numpy(), ho, rtol=1e-5)
+        log(f"  (a) observations 0-{n8 - 1} against device='cpu' "
+            f"(PSS_SAMPLER=hw, {t_host:.2f} s on the host): truth mask and "
+            f"finite guard equal; codes {frac:.3g} differ, max |diff| "
+            f"{np.abs(diff).max()} LSB (limit 1 on 1%)")
+        del host, hd
+
+        # the kernel's time with and without the factors, in turns
+        a, kw, (keys, dms, norms) = self.main_fused_args()
+        rows = ens._rows(keys, norms, ens._prep_scenario(
+            np.arange(MAIN_NOBS), sp))
+        fac = dict(gain=rows.gain.contiguous(), energy=rows.energy.contiguous(),
+                   level=rows.level.contiguous())
+        times = {"free": [], "scenario": []}
+        for turn in ("free", "scenario", "scenario", "free"):
+            extra = fac if turn == "scenario" else {}
+            times[turn].append(cuda_time_ms(
+                lambda: fq.fold_quantize(**a, **kw, **extra), 20))
+        plain_ms = cuda_time_ms(lambda: fq.fold_quantize_plain(**a, **kw,
+                                                               **fac), 1)
+        B, C, nph = a["prof"].shape
+        nsub = kw["nsub"]
+        n = B * C * nsub * nph
+        nbytes = (4 * B * C * nph + 2 * B * nsub * C * (nph + 4)
+                  + B * nsub * C + B * (2 * 8 + 2 * 4 + 4))
+        b_free, _, _ = bound(FUSED_OPS, n, nbytes)
+        b_ms, b_by, parts = bound(SCEN_OPS, n, nbytes
+                                  + 4 * (2 * B * C * nsub + B * nsub))
+        ms = min(times["scenario"])
+        self.kernels["fold_quantize"].update(
+            scenario_ms=ms, scenario_plain_ms=plain_ms, scenario_bound_ms=b_ms,
+            scenario_bound_by=b_by)
+        log(f"  (a) fold_quantize with gain, energy and level: "
+            + ", ".join(f"{t:.4f}" for t in times["scenario"])
+            + f" ms ({b_ms / ms:.1%} of its bound {b_ms:.4f} ms, {b_by}: "
+            f"{fmt_parts(parts)}); without: "
+            + ", ".join(f"{t:.4f}" for t in times["free"])
+            + f" ms (bound {b_free:.4f}); plain {plain_ms:.2f} ms "
+            f"({self.card_line})")
+        del rows, fac
+
+        # the host's draws of one chunk's factors, and steady chunks
+        idx = np.arange(MAIN_NOBS)
+        host_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            ens._rows(keys, norms, ens._prep_scenario(idx, sp))
+            host_ms.append(1e3 * (time.perf_counter() - t0))
+        walls = {}
+        for label, e, kwargs in (("free", free, {}),
+                                 ("scenario", ens, {"scenario_params": sp})):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                out = e.run_quantized(MAIN_NOBS, seed=0, **kwargs)
+            torch.cuda.synchronize()
+            walls[label] = (time.perf_counter() - t0) / 5
+            del out
+        log(f"  (a) host ms to draw one {MAIN_NOBS}-observation chunk's "
+            f"factors (scenario_rows): " + ", ".join(
+                f"{t:.1f}" for t in host_ms)
+            + f"; steady run_quantized({MAIN_NOBS}): scenario "
+            f"{walls['scenario'] * 1e3:.2f} ms = "
+            f"{MAIN_NOBS / walls['scenario']:.1f} obs/s, scenario-free "
+            f"{walls['free'] * 1e3:.2f} ms = {MAIN_NOBS / walls['free']:.1f} "
+            f"obs/s ({host_cpu()})")
+        self.kernels["fold_quantize"]["scenario_host_rows_ms"] = min(host_ms)
+        del d, s, o, fin, rfi
+
+        build = os.path.join(ROOT, "build")
+        os.makedirs(build, exist_ok=True)
+        work = tempfile.mkdtemp(prefix="scenario-", dir=build)
+        try:
+            # (b) the supervised export with RFI provenance
+            exp = geometry(MAIN, dev, scenario=SCEN_STACK)
+            sp2 = scenario_params(SCEN_SUP_NOBS)
+            out = os.path.join(work, "sup")
+            self._zero_counts()
+            t0 = time.perf_counter()
+            res = supervised_export(exp, SCEN_SUP_NOBS, out, TEMPLATE,
+                                    exp.pulsar, seed=0, chunk_size=MAIN_NOBS,
+                                    writers=1, scenario_params=sp2)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            expect(self._counts(), "(b) supervised export", fold_quantize=2)
+
+            def hashes():
+                outp = {}
+                for name in sorted(os.listdir(out)):
+                    if name.endswith(".fits"):
+                        with open(os.path.join(out, name), "rb") as fh:
+                            outp[name] = hashlib.sha256(fh.read()).hexdigest()
+                return outp
+
+            clean = hashes()
+            check = (0, 1, MAIN_NOBS - 1, MAIN_NOBS, SCEN_SUP_NOBS - 1)
+            for start in range(0, SCEN_SUP_NOBS, MAIN_NOBS):
+                # the export's chunk, at the export's batch width
+                rd, rs, ro, _ = (t.cpu().numpy() for t in exp.run_quantized_at(
+                    np.arange(start, start + MAIN_NOBS), seed=0,
+                    scenario_params=sp2))
+                for i in (i for i in check if start <= i < start + MAIN_NOBS):
+                    sub = FitsFile.read(res.paths[i])["SUBINT"].data
+                    j = i - start
+                    if not (np.array_equal(sub["DATA"][:, 0].view(">i2"), rd[j])
+                            and np.array_equal(sub["DAT_SCL"], rs[j])
+                            and np.array_equal(sub["DAT_OFFS"], ro[j])):
+                        raise AssertionError(f"the file of observation {i} "
+                                             "differs from run_quantized")
+                del rd, rs, ro
+            # the RFI provenance against the host's truth masks
+            host = scen_ens(SCEN_STACK, device="cpu")
+            want = {}
+            for start in range(0, SCEN_SUP_NOBS, MAIN_NOBS):
+                ids = np.arange(start, start + MAIN_NOBS)
+                hk, _, hn = host._prep_chunk(ids, 0, None, None)
+                m = host._rows(hk, hn, host._prep_scenario(ids, sp2)).mask
+                cells = m.sum(dim=(1, 2)).numpy()
+                want.update({int(i): int(c) for i, c in zip(ids, cells) if c})
+            with open(os.path.join(out, "run_journal.jsonl")) as fh:
+                recs = [json.loads(line) for line in fh]
+            got = {}
+            for rec in recs:
+                if rec["e"] == "rfi":
+                    got.update(zip(rec["obs"], rec["cells"]))
+            with open(os.path.join(out, "export_manifest.json")) as fh:
+                man = json.load(fh)
+            block = {"obs_with_rfi": len(want),
+                     "contaminated_cells": sum(want.values())}
+            if got != want or {k: man["rfi"][k] for k in block} != block:
+                raise AssertionError(f"RFI provenance differs from the host's "
+                                     f"truth: manifest {man.get('rfi')}, "
+                                     f"host {block}")
+            log(f"  (b) supervised_export({SCEN_SUP_NOBS}, chunk_size="
+                f"{MAIN_NOBS}, writers=1): {wall:.3f} s = "
+                f"{SCEN_SUP_NOBS / wall:.1f} obs/s, fused kernel twice; files "
+                f"of observations {list(check)} hold run_quantized_at's "
+                "triples of their chunk; "
+                f"journal rfi records and manifest rfi block {block} equal the "
+                "host's truth masks")
+            for i in (MAIN_NOBS + 2, SCEN_SUP_NOBS - 3):
+                os.remove(res.paths[i])
+            self._zero_counts()
+            supervised_export(exp, SCEN_SUP_NOBS, out, TEMPLATE, exp.pulsar,
+                              seed=0, chunk_size=MAIN_NOBS, writers=1,
+                              scenario_params=sp2, resume="verify")
+            expect(self._counts(), "(b) verify resume", fold_quantize=1)
+            with open(os.path.join(out, "export_manifest.json")) as fh:
+                if hashes() != clean or json.load(fh)["rfi"] != man["rfi"]:
+                    raise AssertionError("the verify resume changed the files "
+                                         "or the rfi block")
+            log("  (b) two files of chunk 1 deleted, resume='verify': the fused "
+                "kernel launched once, files and rfi block equal the clean run")
+            del exp
+
+            # (c) the facade
+            fe = Simulation(psrdict=main_psrdict(), device=dev).to_ensemble(
+                scenario=SCEN_STACK)
+            self._zero_counts()
+            fd = fe.run_quantized(MAIN_NOBS, seed=0, scenario_params=sp)
+            torch.cuda.synchronize()
+            expect(self._counts(), "(c) Simulation.to_ensemble(scenario=)"
+                   ".run_quantized", fold_quantize=1)
+            ed = ens.run_quantized(MAIN_NOBS, seed=0, scenario_params=sp)
+            if not all(torch.equal(x, y) for x, y in zip(fd, ed)):
+                raise AssertionError("the facade's scenario ensemble differs")
+            log(f"  (c) Simulation.to_ensemble(scenario={SCEN_STACK})"
+                f".run_quantized({MAIN_NOBS}): the fused kernel once, "
+                "bit-equal to (a)")
+            del fe, fd, ed
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+
+        # (d) a study with scenario priors on the bench MC geometry
+        priors = dict(MC_PRIORS,
+                      scint_mod={"dist": "uniform", "lo": 0.2, "hi": 1.0},
+                      sp_sigma={"dist": "uniform", "lo": 0.1, "hi": 1.0})
+        study = MonteCarloStudy.from_simulation(
+            Simulation(psrdict=MC_BENCH, device=dev), priors, seed=1)
+        self._zero_counts()
+        t0 = time.perf_counter()
+        res = study.run(MC_TRIALS, chunk_size=MC_CHUNK)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        expect(self._counts(), "(d) study", rng_field=2 * MC_TRIALS // MC_CHUNK)
+        t0 = time.perf_counter()
+        res2 = study.run(MC_TRIALS, chunk_size=MC_CHUNK // 2)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        if not np.array_equal(res.metrics, res2.metrics) or not np.isfinite(
+                res.metrics).all():
+            raise AssertionError("study rows differ between chunk sizes "
+                                 f"{MC_CHUNK} and {MC_CHUNK // 2}")
+        host = MonteCarloStudy.from_simulation(
+            Simulation(psrdict=MC_BENCH, device="cpu"), priors, seed=1)
+        os.environ["PSS_SAMPLER"] = "hw"
+        try:
+            rh = host.run(32, chunk_size=32)
+        finally:
+            os.environ.pop("PSS_SAMPLER", None)
+        names = list(study.metric_names)
+        npar = len(study.param_names)
+        got, want = res.metrics[:32], rh.metrics
+        shift = [names.index(k) for k in ("toa_err", "toa_rms")]
+        rel = [names.index(k) for k in ("toa_sigma", "fit_amp")]
+        d_shift = np.abs(got[:, shift] - want[:, shift]).max()
+        d_rel = np.abs(got[:, rel] / want[:, rel] - 1).max()
+        if not np.array_equal(got[:, :npar], want[:, :npar]) or \
+                d_shift > 2e-6 or d_rel > 1e-4:
+            raise AssertionError("study rows differ from the host beyond the "
+                                 "FFTFIT tolerance")
+        log(f"  (d) study {study._scenario.labels()} from priors "
+            f"{sorted(priors)}: run({MC_TRIALS}, chunk_size={MC_CHUNK}) "
+            f"{wall:.3f} s = {MC_TRIALS / wall:.1f} trials/s (first run), "
+            f"chunk_size={MC_CHUNK // 2} {MC_TRIALS / wall2:.1f} trials/s; "
+            f"the sampler {2 * MC_TRIALS // MC_CHUNK} times; rows "
+            f"bit-identical for chunk "
+            f"sizes {MC_CHUNK} and {MC_CHUNK // 2}; trials 0-31 against "
+            f"device='cpu': parameters bit-equal, toa_err/toa_rms max abs "
+            f"diff {d_shift:.3g} turns, toa_sigma/fit_amp max rel diff "
+            f"{d_rel:.3g}")
+
     def run(self, with_profile=False):
         self.phase("1 card", self.card)
         built = self.phase("2 build", self.build)
@@ -2159,14 +2592,19 @@ class Smoke:
             self.phase("9 supervised export", self.supervised)
             self.phase("10 object-oriented flow and Simulation", self.oo_flow)
             self.phase("11 Monte-Carlo study", self.mc_study)
+            self.phase("12 scenario engine", self.scenarios)
         if self.failed:
             log(f"FAILED phases: {', '.join(self.failed)}")
             return 1
         keys = ("name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
-        print(json.dumps({"kernels": [{k: kern[k] for k in keys}
-                                      for kern in self.kernels.values()]}))
+        # the fused kernel's scenario launches and times ride beside its
+        # scenario-free ones (phase 12)
+        print(json.dumps({"kernels": [
+            {**{k: kern[k] for k in keys},
+             **{k: v for k, v in kern.items() if k.startswith("scenario_")}}
+            for kern in self.kernels.values()]}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": self.torch.cuda.get_device_name(0),
             "count": self.torch.cuda.device_count()}}))

@@ -7,7 +7,14 @@
 // computes in ~15 passes:
 //
 //   x = pulse * prof_shifted[b, c, bin]  (* draw_norm when it is not 1)
-//       + noise * noise_norm[b]
+//       (* gain[b, c, sub]) (* energy[b, sub])
+//       + noise * noise_norm[b]  (+ level[b, c, sub])
+//
+// where the bracketed scenario factors (scintillation gain, single-pulse
+// energy, RFI level; psrsigsim_tpu/simulate/pipeline.py:289-324) are row
+// constants present only when the launch passes them: a compile-time flag
+// set selects the instantiation, so a scenario-free launch runs the same
+// code as before the factors existed.
 //
 // with the pulse and noise chi^2 samples drawn from philox_field.cuh at the
 // sample's GLOBAL (channel, time) index, so they equal the fields the
@@ -116,11 +123,41 @@ __device__ __forceinline__ uint32_t code_sel(int big) {
   return big ? 0x4501u : 0x5410u;
 }
 
+// scenario factor flags (template argument kFx)
+constexpr int kGain = 1;    // x *= gain[b, c, sub]
+constexpr int kEnergy = 2;  // x *= energy[b, sub]
+constexpr int kLevel = 4;   // x += level[b, c, sub], after the noise
+
+// A row's scenario constants (identity values where a flag is unset).
+struct Factors {
+  float g, e, l;
+  template <int kFx>
+  __device__ __forceinline__ static Factors load(const float* gain,
+                                                 const float* energy,
+                                                 const float* level, int b,
+                                                 int c, int sub, int nchan,
+                                                 int nsub) {
+    const size_t rc = (static_cast<size_t>(b) * nchan + c) * nsub + sub;
+    Factors f{1.0f, 1.0f, 0.0f};
+    if (kFx & kGain) f.g = gain[rc];
+    if (kFx & kEnergy) f.e = energy[static_cast<size_t>(b) * nsub + sub];
+    if (kFx & kLevel) f.l = level[rc];
+    return f;
+  }
+};
+
+// One sample, one rounding per operation in the unfused order.
+template <int kFx>
 __device__ __forceinline__ float fold(float p, float prof, float n, float nn,
-                                      float draw_norm, bool apply_dn) {
+                                      float draw_norm, bool apply_dn,
+                                      const Factors& fx) {
   float x = p * prof;
   if (apply_dn) x = x * draw_norm;
-  return x + n * nn;
+  if (kFx & kGain) x = x * fx.g;
+  if (kFx & kEnergy) x = x * fx.e;
+  x = x + n * nn;
+  if (kFx & kLevel) x = x + fx.l;
+  return x;
 }
 
 // scl and offs as native-order int16 halves after the codes, and the flag
@@ -138,7 +175,7 @@ __device__ __forceinline__ void write_tail(int16_t* dst, int nph,
 
 // -- the main path's rows --------------------------------------------------
 
-template <int kModeP, int kModeN>
+template <int kModeP, int kModeN, int kFx>
 __global__ void __launch_bounds__(kRowsThreads)
 fold_quantize_rows_kernel(const int32_t* __restrict__ seeds,
                           const float* __restrict__ dfs,
@@ -148,7 +185,9 @@ fold_quantize_rows_kernel(const int32_t* __restrict__ seeds,
                           int16_t* __restrict__ out,
                           uint8_t* __restrict__ flags, int batch, int nchan,
                           int nsub, int nph, uint32_t cg0, long long t0,
-                          int big) {
+                          int big, const float* __restrict__ gain,
+                          const float* __restrict__ energy,
+                          const float* __restrict__ level) {
   extern __shared__ float4 stage[];
   const int rb = threadIdx.x / 32;  // row within the block
   const int lane = threadIdx.x % 32;
@@ -175,6 +214,8 @@ fold_quantize_rows_kernel(const int32_t* __restrict__ seeds,
   const Chi2Map mn = make_chi2_map(kModeN, dfs[batch + b]);
   const float nn = noise_norm[b];
   const bool dn = apply_dn != 0;
+  const Factors fx =
+      Factors::load<kFx>(gain, energy, level, b, c, sub, nchan, nsub);
   const int nq = nph / kLanes;
   const float4* __restrict__ pq = reinterpret_cast<const float4*>(
       prof + (static_cast<size_t>(b) * nchan + c) * nph);
@@ -187,10 +228,11 @@ fold_quantize_rows_kernel(const int32_t* __restrict__ seeds,
     const float4 p = draw4<kModeP>(h0p, h1p, ctr0 + i, mp);
     const float4 n = draw4<kModeN>(h0n, h1n, ctr0 + i, mn);
     const float4 w = __ldg(pq + i);
-    const float4 v = make_float4(fold(p.x, w.x, n.x, nn, draw_norm, dn),
-                                 fold(p.y, w.y, n.y, nn, draw_norm, dn),
-                                 fold(p.z, w.z, n.z, nn, draw_norm, dn),
-                                 fold(p.w, w.w, n.w, nn, draw_norm, dn));
+    const float4 v =
+        make_float4(fold<kFx>(p.x, w.x, n.x, nn, draw_norm, dn, fx),
+                    fold<kFx>(p.y, w.y, n.y, nn, draw_norm, dn, fx),
+                    fold<kFx>(p.z, w.z, n.z, nn, draw_norm, dn, fx),
+                    fold<kFx>(p.w, w.w, n.w, nn, draw_norm, dn, fx));
     row[i] = v;
     lo = min_nan(min_nan(min_nan(min_nan(lo, v.x), v.y), v.z), v.w);
     hi = max_nan(max_nan(max_nan(max_nan(hi, v.x), v.y), v.z), v.w);
@@ -214,12 +256,14 @@ fold_quantize_rows_kernel(const int32_t* __restrict__ seeds,
 
 // -- every other shape -------------------------------------------------------
 
+template <int kFx>
 struct Row {
   uint32_t h0p, h0n, s1p, s1n, cg, w;
   Chi2Map mp, mn;
   const float* prof;  // this row's shifted portrait, nph bins
   float nn, draw_norm;
   bool apply_dn;
+  Factors fx;
   long long r0;  // global first sample of the row
   int nph;
   uint32_t cur_blk;
@@ -247,12 +291,13 @@ struct Row {
       const long long bin = tq + i - r0;
       bins[i] = (bin >= 0 && bin < nph) ? static_cast<int>(bin) : -1;
       if (bins[i] < 0) continue;
-      v[i] = fold(p[i], prof[bins[i]], n[i], nn, draw_norm, apply_dn);
+      v[i] = fold<kFx>(p[i], prof[bins[i]], n[i], nn, draw_norm, apply_dn,
+                       fx);
     }
   }
 };
 
-template <bool kStaged>
+template <bool kStaged, int kFx>
 __global__ void __launch_bounds__(kThreads)
 fold_quantize_kernel(const int32_t* __restrict__ seeds,
                      const float* __restrict__ dfs, int mode_p, int mode_n,
@@ -260,7 +305,10 @@ fold_quantize_kernel(const int32_t* __restrict__ seeds,
                      const float* __restrict__ noise_norm, float draw_norm,
                      int apply_dn, int16_t* __restrict__ out,
                      uint8_t* __restrict__ flags, int batch, int nchan,
-                     int nsub, int nph, uint32_t cg0, long long t0, int big) {
+                     int nsub, int nph, uint32_t cg0, long long t0, int big,
+                     const float* __restrict__ gain,
+                     const float* __restrict__ energy,
+                     const float* __restrict__ level) {
   extern __shared__ float rows[];
   const int grp = blockIdx.x;
   const int sub = blockIdx.y;
@@ -270,7 +318,7 @@ fold_quantize_kernel(const int32_t* __restrict__ seeds,
   const int c = grp * kChanGroup + w;
   if (c >= nchan) return;  // warps are independent: no block barrier
 
-  Row r;
+  Row<kFx> r;
   r.cg = cg0 + grp;
   r.w = w;
   r.h0p = seed_h0(static_cast<uint32_t>(seeds[2 * b]), r.cg);
@@ -283,6 +331,7 @@ fold_quantize_kernel(const int32_t* __restrict__ seeds,
   r.nn = noise_norm[b];
   r.draw_norm = draw_norm;
   r.apply_dn = apply_dn != 0;
+  r.fx = Factors::load<kFx>(gain, energy, level, b, c, sub, nchan, nsub);
   r.r0 = t0 + static_cast<long long>(sub) * nph;
   r.nph = nph;
   r.cur_blk = 0xFFFFFFFFu;
@@ -414,19 +463,84 @@ extern "C" int fold_quantize_route(int mode_p, int mode_n, int nph, int nsub,
   return route(mode_p, mode_n, nph, nsub, t0);
 }
 
+namespace {
+
+// One launch's arguments, as fold_quantize_launch receives them.
+struct Launch {
+  const int32_t* seeds;
+  const float* dfs;
+  int mode_p, mode_n;
+  const float* prof;
+  const float* noise_norm;
+  float draw_norm;
+  int apply_dn;
+  int16_t* out;
+  uint8_t* flags;
+  int batch, nchan, nsub, nph;
+  uint32_t cg0;
+  long long t0;
+  int big;
+  const float *gain, *energy, *level;
+  cudaStream_t stream;
+};
+
+// The instantiation for factor set kFx on route `how` (see route above).
+template <int kFx>
+int launch(const Launch& a, int how) {
+  if (how == 2) {
+    static bool opted = false;
+    const auto kernel =
+        fold_quantize_rows_kernel<kModeChi2Wh, kModeChi2Wh, kFx>;
+    const cudaError_t err = opt_in(kernel, kRowsBytes, &opted);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((a.nchan + kRowsPerBlock - 1) / kRowsPerBlock, a.nsub,
+                    a.batch);
+    const size_t smem =
+        static_cast<size_t>(kRowsPerBlock) * a.nph * sizeof(float);
+    kernel<<<grid, kRowsThreads, smem, a.stream>>>(
+        a.seeds, a.dfs, a.prof, a.noise_norm, a.draw_norm, a.apply_dn, a.out,
+        a.flags, a.batch, a.nchan, a.nsub, a.nph, a.cg0, a.t0, a.big, a.gain,
+        a.energy, a.level);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const dim3 grid((a.nchan + kChanGroup - 1) / kChanGroup, a.nsub, a.batch);
+  if (how == 1) {
+    static bool opted = false;
+    const cudaError_t err = opt_in(fold_quantize_kernel<true, kFx>,
+                                   max_dynamic_smem(), &opted);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const size_t smem = static_cast<size_t>(kRows) * a.nph * sizeof(float);
+    fold_quantize_kernel<true, kFx><<<grid, kThreads, smem, a.stream>>>(
+        a.seeds, a.dfs, a.mode_p, a.mode_n, a.prof, a.noise_norm, a.draw_norm,
+        a.apply_dn, a.out, a.flags, a.batch, a.nchan, a.nsub, a.nph, a.cg0,
+        a.t0, a.big, a.gain, a.energy, a.level);
+  } else {
+    fold_quantize_kernel<false, kFx><<<grid, kThreads, 0, a.stream>>>(
+        a.seeds, a.dfs, a.mode_p, a.mode_n, a.prof, a.noise_norm, a.draw_norm,
+        a.apply_dn, a.out, a.flags, a.batch, a.nchan, a.nsub, a.nph, a.cg0,
+        a.t0, a.big, a.gain, a.energy, a.level);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 // seeds (2, B, 2) int32 key-data words of the pulse and noise fields, dfs
 // (2, B) float32, prof (B, nchan, nph) float32, noise_norm (B,) float32,
 // out (B, nsub, nchan, nph + 4) int16, flags (B, nsub, nchan) uint8, all
 // contiguous on the device.  cg0 is the global channel group of channel 0
-// and t0 the global sample of subint 0's first bin.
+// and t0 the global sample of subint 0's first bin.  The scenario factors
+// gain (B, nchan, nsub), energy (B, nsub) and level (B, nchan, nsub)
+// float32 are each optional (null: the factor is absent).
 extern "C" int fold_quantize_launch(const void* seeds, const void* dfs,
                                     int mode_p, int mode_n, const void* prof,
                                     const void* noise_norm, float draw_norm,
                                     int apply_dn, void* out, void* flags,
                                     int batch, int nchan, int nsub, int nph,
                                     int cg0, long long t0, int big,
-                                    void* stream) {
+                                    void* stream, const void* gain,
+                                    const void* energy, const void* level) {
   if (mode_p < kModeNormal || mode_p > kModeChi2Sel || mode_n < kModeNormal ||
       mode_n > kModeChi2Sel || t0 < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -434,41 +548,37 @@ extern "C" int fold_quantize_launch(const void* seeds, const void* dfs,
   if (batch <= 0 || nchan <= 0 || nsub <= 0 || nph <= 0) return 0;
   const int how = route(mode_p, mode_n, nph, nsub, t0);
   if (how < 0) return static_cast<int>(cudaErrorInvalidDevice);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* sd = static_cast<const int32_t*>(seeds);
-  const auto* df = static_cast<const float*>(dfs);
-  const auto* pr = static_cast<const float*>(prof);
-  const auto* nn = static_cast<const float*>(noise_norm);
-  auto* o = static_cast<int16_t*>(out);
-  auto* f = static_cast<uint8_t*>(flags);
-  const uint32_t g0 = static_cast<uint32_t>(cg0);
-  if (how == 2) {
-    static bool opted = false;
-    const auto kernel = fold_quantize_rows_kernel<kModeChi2Wh, kModeChi2Wh>;
-    const cudaError_t err = opt_in(kernel, kRowsBytes, &opted);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((nchan + kRowsPerBlock - 1) / kRowsPerBlock, nsub, batch);
-    const size_t smem =
-        static_cast<size_t>(kRowsPerBlock) * nph * sizeof(float);
-    kernel<<<grid, kRowsThreads, smem, s>>>(sd, df, pr, nn, draw_norm,
-                                            apply_dn, o, f, batch, nchan, nsub,
-                                            nph, g0, t0, big);
-    return static_cast<int>(cudaGetLastError());
+  const Launch a{static_cast<const int32_t*>(seeds),
+                 static_cast<const float*>(dfs),
+                 mode_p,
+                 mode_n,
+                 static_cast<const float*>(prof),
+                 static_cast<const float*>(noise_norm),
+                 draw_norm,
+                 apply_dn,
+                 static_cast<int16_t*>(out),
+                 static_cast<uint8_t*>(flags),
+                 batch,
+                 nchan,
+                 nsub,
+                 nph,
+                 static_cast<uint32_t>(cg0),
+                 t0,
+                 big,
+                 static_cast<const float*>(gain),
+                 static_cast<const float*>(energy),
+                 static_cast<const float*>(level),
+                 static_cast<cudaStream_t>(stream)};
+  const int fx = (gain ? kGain : 0) | (energy ? kEnergy : 0) |
+                 (level ? kLevel : 0);
+  switch (fx) {
+    case 0: return launch<0>(a, how);
+    case 1: return launch<1>(a, how);
+    case 2: return launch<2>(a, how);
+    case 3: return launch<3>(a, how);
+    case 4: return launch<4>(a, how);
+    case 5: return launch<5>(a, how);
+    case 6: return launch<6>(a, how);
+    default: return launch<7>(a, how);
   }
-  const dim3 grid((nchan + kChanGroup - 1) / kChanGroup, nsub, batch);
-  if (how == 1) {
-    static bool opted = false;
-    const cudaError_t err =
-        opt_in(fold_quantize_kernel<true>, max_dynamic_smem(), &opted);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const size_t smem = static_cast<size_t>(kRows) * nph * sizeof(float);
-    fold_quantize_kernel<true><<<grid, kThreads, smem, s>>>(
-        sd, df, mode_p, mode_n, pr, nn, draw_norm, apply_dn, o, f, batch,
-        nchan, nsub, nph, g0, t0, big);
-  } else {
-    fold_quantize_kernel<false><<<grid, kThreads, 0, s>>>(
-        sd, df, mode_p, mode_n, pr, nn, draw_norm, apply_dn, o, f, batch,
-        nchan, nsub, nph, g0, t0, big);
-  }
-  return static_cast<int>(cudaGetLastError());
 }

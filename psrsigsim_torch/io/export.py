@@ -41,8 +41,10 @@ with a salted key, and ``integrity=`` arms the checksum lattice and the
 duplicate-execution audit (:mod:`psrsigsim_torch.runtime.integrity`).
 
 Given the same quantized chunks the files are byte-identical to the JAX
-package's (tests/test_torch_export.py).  Pods and scenarios are not
-ported yet: ``scenario_params=`` and :func:`pod_export_follower` raise
+package's (tests/test_torch_export.py).  A scenario ensemble
+(``FoldEnsemble(scenario=[...])``) exports with ``scenario_params=``;
+supervised, its RFI ground truth is journaled per observation.  Pods are
+not ported yet: :func:`pod_export_follower` raises
 :class:`NotImplementedError`.
 """
 
@@ -82,6 +84,9 @@ _FINGERPRINT_HINTS = {
     "ref_MJD": "polyco reference epoch differs",
     "obs_per_file": "file packing differs — files would interleave "
                     "incompatibly",
+    "scenario": "scenario-effect stack differs — same out_dir, different "
+                "physics",
+    "scenario_params_sha256": "scenario parameter content differs",
 }
 
 
@@ -906,13 +911,13 @@ def _template_sha(tmpl):
 
 
 def _manifest_fingerprint(n_obs, seed, dms, noise_norms, tmpl, parfile,
-                          MJD_start, ref_MJD, obs_per_file=1):
+                          MJD_start, ref_MJD, obs_per_file=1,
+                          scenario=None, scenario_params=None):
     # the template is fingerprinted by CONTENT, so str-path and FitsFile
     # callers of the same file agree and a swapped template is caught on
-    # resume.  (The JAX package also stamps scenario fields, for scenario
-    # exports only: not ported, see export_ensemble_psrfits.)
+    # resume
     tmpl_sha = _template_sha(tmpl)
-    return {
+    fp = {
         "n_obs": int(n_obs),
         "seed": int(seed),
         "dms_sha256": _array_sha(dms),
@@ -923,6 +928,27 @@ def _manifest_fingerprint(n_obs, seed, dms, noise_norms, tmpl, parfile,
         "ref_MJD": float(ref_MJD),
         "obs_per_file": int(obs_per_file),
     }
+    if scenario is not None:
+        # stamped for scenario exports only, so scenario-free out_dirs keep
+        # their manifests; the fields and their bytes are the JAX
+        # package's, so the two packages' out_dirs resume alike
+        from ..scenarios.registry import _param
+
+        fp["scenario"] = "+".join(scenario.labels())
+        canon = {}
+        for name in scenario.param_names():
+            # hash the RESOLVED value: passing a knob's registry default
+            # explicitly hashes like omitting it
+            v = (scenario_params or {}).get(name)
+            if v is None:
+                canon[name] = float(_param(name).default)
+            elif np.ndim(v) == 0:
+                canon[name] = float(v)
+            else:
+                canon[name] = [float(x) for x in np.ravel(v)]
+        fp["scenario_params_sha256"] = hashlib.sha256(
+            json.dumps(canon, sort_keys=True).encode()).hexdigest()
+    return fp
 
 
 def _load_manifest(out_dir):
@@ -1235,9 +1261,11 @@ def export_ensemble_psrfits(ens, n_obs, out_dir, template, pulsar,
             into the export manifest (provenance stamps); they never take
             part in resume matching and may not collide with fingerprint
             fields.
-        scenario_params: the JAX package's scenario stacks are not ported
-            yet: any value other than None raises
-            :class:`NotImplementedError`.
+        scenario_params: ``{knob: scalar or (n_obs,) array}`` for a scenario
+            ensemble's stack (registry defaults fill unset knobs); they are
+            fingerprinted in the manifest.  Under a supervisor the RFI
+            ground truth of every delivered observation is journaled and
+            summarized in the manifest's ``"rfi"`` block.
         integrity: the silent-corruption defense
             (:mod:`psrsigsim_torch.runtime.integrity`): ``None`` consults
             ``PSS_INTEGRITY`` (unset = off, the default); ``True`` / a
@@ -1255,9 +1283,6 @@ def export_ensemble_psrfits(ens, n_obs, out_dir, template, pulsar,
     """
     from ..runtime.telemetry import StageTimers
 
-    if scenario_params is not None:
-        _unported("export_ensemble_psrfits(scenario_params=)",
-                  "the scenario engine")
     pipeline_depth = int(pipeline_depth)
     if pipeline_depth < 0:
         raise ValueError("pipeline_depth must be >= 0")
@@ -1289,7 +1314,8 @@ def export_ensemble_psrfits(ens, n_obs, out_dir, template, pulsar,
 
     fp = _manifest_fingerprint(
         n_obs, seed, dms, noise_norms, tmpl, parfile, MJD_start, ref_MJD,
-        obs_per_file)
+        obs_per_file, scenario=getattr(ens, "scenario", None),
+        scenario_params=scenario_params)
     _check_manifest(out_dir, fp, resume)
     from ..runtime.integrity import resolve_integrity
 
@@ -1421,13 +1447,19 @@ def export_ensemble_psrfits(ens, n_obs, out_dir, template, pulsar,
         if commit is not None:
             commit(token, results)
 
+    # the scenario engine's ground-truth RFI mask rides beside the finite
+    # guard; supervised scenario exports journal each observation's
+    # contamination as provenance
+    want_rfi = supervisor is not None and getattr(ens, "_has_rfi", False)
+
     ok = False
     try:
         for start, block in ens.iter_chunks(
             n_obs, chunk_size=chunk_size, seed=seed, dms=dms,
             noise_norms=norms_main, quantized=True, progress=progress,
             skip_chunk=skip, byte_order="big",
-            finite_mask=supervisor is not None,
+            finite_mask=supervisor is not None, rfi_mask=want_rfi,
+            scenario_params=scenario_params,
             prefetch=max(1, pipeline_depth), fetch_ahead=pipeline_depth,
             timers=telemetry, integrity=checker,
         ):
@@ -1438,7 +1470,11 @@ def export_ensemble_psrfits(ens, n_obs, out_dir, template, pulsar,
                 dig_dev = block[-1]
                 block = block[:-1]
             if supervisor is not None:
-                data, scl, offs, finite = block
+                if want_rfi:
+                    data, scl, offs, finite, rfi = block
+                    supervisor.observe_rfi(start, rfi)
+                else:
+                    data, scl, offs, finite = block
                 # the finite guard computed beside the codes: one small
                 # bool host array per chunk, never a per-observation
                 # round-trip
@@ -1455,7 +1491,8 @@ def export_ensemble_psrfits(ens, n_obs, out_dir, template, pulsar,
                 # defined over the native int16 values the device produced
                 data, scl, offs = _integrity_check_chunk(
                     ens, checker, supervisor, start, chunk_size, n_obs,
-                    seed, dms, norms_main, data, scl, offs, dig_dev)
+                    seed, dms, norms_main, scenario_params, data, scl, offs,
+                    dig_dev)
             # the device already emitted big-endian bit patterns: a
             # reinterpretation, so every downstream record-array refill
             # and PSRFITS.save cast is a same-dtype memcpy
@@ -1532,7 +1569,7 @@ def export_ensemble_psrfits(ens, n_obs, out_dir, template, pulsar,
 
     if supervisor is not None and bad_obs:
         _retry_quarantined(ens, supervisor, state, packer, paths, bad_obs,
-                           seed, dms, noise_norms, dms_np)
+                           seed, dms, noise_norms, dms_np, scenario_params)
 
     # fold the run's stage telemetry into the manifest so every export
     # names its own bottleneck (supervisor.finalize preserves the key).
@@ -1565,8 +1602,8 @@ def _host(t):
 
 
 def _integrity_check_chunk(ens, checker, supervisor, start, chunk_size,
-                           n_obs, seed, dms, noise_norms, data, scl, offs,
-                           dig_dev):
+                           n_obs, seed, dms, noise_norms, scenario_params,
+                           data, scl, offs, dig_dev):
     """One chunk through the integrity lattice + audit (the export
     producer's wiring of :mod:`psrsigsim_torch.runtime.integrity`).
 
@@ -1606,7 +1643,8 @@ def _integrity_check_chunk(ens, checker, supervisor, start, chunk_size,
     def _reexec(audit_run):
         return ens.run_quantized_at(
             idx, seed=seed, dms=dms, noise_norms=noise_norms,
-            byte_order="big", audit=audit_run, return_digest=True)
+            byte_order="big", scenario_params=scenario_params,
+            audit=audit_run, return_digest=True)
 
     out_a = None
     if not bad_rows:
@@ -1650,7 +1688,7 @@ def _integrity_check_chunk(ens, checker, supervisor, start, chunk_size,
 
 
 def _retry_quarantined(ens, supervisor, state, packer, paths, bad_obs,
-                       seed, dms, noise_norms, dms_np):
+                       seed, dms, noise_norms, dms_np, scenario_params=None):
     """Re-run every quarantined observation ONCE with a fresh fold of its
     PRNG key (clean inputs — injection poisons the main pass only), write
     the files whose observations all came back finite, and record the
@@ -1658,14 +1696,21 @@ def _retry_quarantined(ens, supervisor, state, packer, paths, bad_obs,
 
     Packed groups re-run their healthy members with the ORIGINAL keys, so
     a recovered group's healthy rows stay bit-identical to an untroubled
-    export; only the re-drawn observations differ (and are journaled)."""
+    export; only the re-drawn observations differ (and are journaled).
+
+    On an RFI scenario build the journaled ground truth follows the bytes
+    delivered: a healed observation's is the salted re-fold's mask, and a
+    group that writes no file drops every member's."""
     salt = supervisor.retry_fold_salt
     groups = sorted({packer.group_of(i) for i in bad_obs})
+    want_rfi = getattr(ens, "_has_rfi", False)
     if not supervisor.retry_enabled:
         for g in groups:
             first, end = packer.group_span(g)
             bad = [i for i in range(first, end) if i in bad_obs]
             supervisor.record_retry(g, [], bad)
+            if want_rfi:
+                supervisor.observe_rfi_retry(list(range(first, end)), None)
         return
     # at most TWO launches however many groups are affected: one salted
     # run over every bad observation, one original-key run over every
@@ -1678,12 +1723,16 @@ def _retry_quarantined(ens, supervisor, state, packer, paths, bad_obs,
     if all_good:
         dg, sg, og, _ = (_host(a) for a in ens.run_quantized_at(
             all_good, seed=seed, dms=dms, noise_norms=noise_norms,
-            byte_order="big"))
+            byte_order="big", scenario_params=scenario_params))
         for k, i in enumerate(all_good):
             parts[i] = (dg[k], sg[k], og[k])
-    db, sb, ob, mb = (_host(a) for a in ens.run_quantized_at(
+    out_bad = [_host(a) for a in ens.run_quantized_at(
         all_bad, seed=seed, dms=dms, noise_norms=noise_norms,
-        byte_order="big", fold_salt=salt))
+        byte_order="big", fold_salt=salt, scenario_params=scenario_params,
+        return_rfi=want_rfi)]
+    db, sb, ob, mb = out_bad[:4]
+    rfi_bad = out_bad[4] if want_rfi else None
+    pos = {i: k for k, i in enumerate(all_bad)}
     healed = {}
     for k, i in enumerate(all_bad):
         if mb[k].all():
@@ -1693,6 +1742,12 @@ def _retry_quarantined(ens, supervisor, state, packer, paths, bad_obs,
         members = list(range(first, end))
         bad = [i for i in members if i in bad_obs]
         still_bad = [i for i in bad if i not in healed]
+        if want_rfi:
+            if still_bad:
+                supervisor.observe_rfi_retry(members, None)
+            elif bad:
+                supervisor.observe_rfi_retry(
+                    bad, np.stack([rfi_bad[pos[i]] for i in bad]))
         supervisor.record_retry(g, bad, still_bad)
         if still_bad:
             # the group's file is NOT written; the manifest records the

@@ -10,8 +10,9 @@ reduces every chunk there into streaming accumulators.  Sweeps journal
 per chunk, so a SIGKILLed 100k-trial run resumes bit-identically, and
 :class:`~psrsigsim_torch.mc.StudyResult` owns the merged statistics and
 the fingerprinted artifact.  ``python -m psrsigsim_torch.mc study.toml``
-runs a study from a declarative spec file.  Meshes, pods and scenario
-knobs are not ported yet and raise ``NotImplementedError``.
+runs a study from a declarative spec file.  The scenario engine's
+parameters are knobs too (scintillation, RFI, single-pulse energies).
+Meshes and pods are not ported yet and raise ``NotImplementedError``.
 """
 
 from .priors import (Choice, Fixed, Grid, LogUniform, Normal, Prior,

@@ -1,6 +1,5 @@
 """Monte-Carlo study engine: parameter space -> trials -> results
-(counterpart: psrsigsim_tpu/mc/study.py, without meshes, pods and
-scenarios).
+(counterpart: psrsigsim_tpu/mc/study.py, without meshes and pods).
 
 One trial is a complete program on the device — pulse synthesis, ISM
 delays, radiometer noise (the two χ² fields drawn by the sampler kernel
@@ -49,6 +48,8 @@ import torch
 
 from ..ops.stats import fixed_histogram
 from ..ops.toa import fftfit_combine, fftfit_shift, scalar, tree_sum
+from ..scenarios.registry import scenario_knobs as _scenario_knobs
+from ..scenarios.registry import stack_from_knobs
 from ..simulate.pipeline import (_dispersion_delays, fold_pipeline,
                                  fold_subints)
 from ..utils.device import resolve_device, to_device
@@ -77,14 +78,18 @@ _TRIALS_RAW = "trials.f32"
 #: ``null_frac``    per-subint nulling probability: nulled subints carry
 #:                  only radiometer noise.
 #:
-#: The rest are the JAX package's scenario knobs, in its registry order
-#: (the tuple's order fixes every prior's key-fold slot).  Scenarios are
-#: not ported yet: a prior on one of them raises ``NotImplementedError``.
-KNOBS = ("dm", "tau_d_ms", "width", "amp", "noise_scale", "null_frac",
-         "scint_dnu_d_mhz", "scint_dt_d_s", "scint_mod", "rfi_imp_prob",
-         "rfi_imp_snr", "rfi_nb_prob", "rfi_nb_snr", "sp_sigma", "sp_alpha",
-         "sp_amp")
-_BASE_KNOBS = KNOBS[:6]
+#: Every parameter registered with the scenario engine
+#: (:mod:`psrsigsim_torch.scenarios`) is also a knob, appended after the
+#: base six in registry order (the tuple's order fixes every prior's
+#: key-fold slot): ``scint_*`` knobs enable the scintillation gain screen,
+#: ``rfi_*`` knobs RFI injection, and exactly one of
+#: ``sp_sigma``/``sp_alpha``/``sp_amp`` single-pulse emission in
+#: log-normal / power-law / FRB one-off mode.  The stack is inferred from
+#: the knobs that carry priors (:func:`~psrsigsim_torch.scenarios.
+#: stack_from_knobs`); unsampled parameters of an enabled effect take
+#: registry defaults.
+KNOBS = (("dm", "tau_d_ms", "width", "amp", "noise_scale", "null_frac")
+         + _scenario_knobs())
 
 #: derived per-trial metrics appended after the sampled parameters:
 #: inverse-variance-combined TOA residual (turns, after subtracting the
@@ -191,15 +196,13 @@ class MonteCarloStudy:
         for k, v in priors.items():
             if not isinstance(v, Prior):
                 raise TypeError(f"prior for {k!r} is not a Prior: {v!r}")
-        scenario = sorted(set(priors) - set(_BASE_KNOBS))
-        if scenario:
-            raise NotImplementedError(
-                f"scenario knob(s) {scenario}: scenarios are not ported yet")
         # stable slot order = KNOBS order, so a prior's key fold never
         # depends on dict insertion order
         self.param_names = tuple(k for k in KNOBS if k in priors)
         self.priors = {k: priors[k] for k in self.param_names}
         self.metric_names = self.param_names + DERIVED_METRICS
+        # the scenario stack the declared priors imply (None: scenario-free)
+        self._scenario = stack_from_knobs(self.param_names)
 
         if getattr(cfg, "shift_mode", "envelope") != "envelope":
             # the trial is fold_pipeline's envelope branch; an exact-FFT
@@ -291,6 +294,11 @@ class MonteCarloStudy:
             return torch.full((B,), _f32(default), dtype=_F32, device=dev)
 
         dm = param("dm", self.dm)
+        scen = None
+        if self._scenario is not None:
+            # the trial's sampled scenario knobs (host tensors, as the
+            # ensemble's); unsampled ones take registry defaults
+            scen = {n: p[n] for n in self._scenario.param_names() if n in p}
         extra = None
         if "tau_d_ms" in p:
             ratio = self._freqs / scalar(self._tau_ref_mhz, dev)
@@ -310,9 +318,12 @@ class MonteCarloStudy:
         # f32 base norm times the f32 scale, as the JAX package's trial
         nn = param("noise_scale", 1.0) * _f32(self.noise_norm)
         null = param("null_frac", 0.0) if "null_frac" in p else None
+        # scenario effects on the trial's own noise level: the pipeline's
+        # order and draws, so a trial equals the ensemble's observation
         block = fold_pipeline(keys, dm, nn, portrait, cfg, freqs=self._freqs,
                               chan_ids=self._chan_ids, extra_delays_ms=extra,
-                              null_frac=null)
+                              null_frac=null, scenario=self._scenario,
+                              scenario_params=scen)
         return block, _dispersion_delays(dm, self._freqs, extra), prof
 
     def _trial_rows(self, keys, idx):
@@ -369,7 +380,7 @@ class MonteCarloStudy:
         sweep's OUTPUT (chunk size, device and writer knobs are absent:
         they cannot change the bytes) — the JAX package's dict."""
         cfg = self.cfg
-        return {
+        fp = {
             "kind": "mc_study",
             "n_trials": int(n_trials),
             "seed": int(self.seed),
@@ -398,6 +409,19 @@ class MonteCarloStudy:
                     self._profiles_np.tobytes()).hexdigest(),
             },
         }
+        if self._scenario is not None:
+            # stamped only when a scenario is active, so scenario-free
+            # sweep directories keep their manifests; the registry defaults
+            # of prior-less knobs are stamped too, so a changed default
+            # refuses to resume an old sweep
+            from ..scenarios.registry import _param
+
+            fp["scenarios"] = self._scenario.describe()
+            fp["scenario_defaults"] = {
+                n: float(_param(n).default)
+                for n in self._scenario.param_names()
+                if n not in self.priors}
+        return fp
 
     def _fingerprint_digest(self, n_trials):
         return hashlib.sha256(json.dumps(self.fingerprint(n_trials),

@@ -4,9 +4,13 @@ For every (observation, subint, channel) row it draws the pulse and noise
 χ² samples of :mod:`.rng_hw`'s stream at their GLOBAL (channel, time)
 index, folds them with the shifted portrait and the noise scale,
 
-    x = pulse · prof[b, c, bin] (· draw_norm when it is not 1) + noise · noise_norm[b]
+    x = pulse · prof[b, c, bin] (· draw_norm when it is not 1)
+        (· gain[b, c, sub]) (· energy[b, sub]) + noise · noise_norm[b]
+        (+ level[b, c, sub])
 
-(reference: psrsigsim_tpu/simulate/pipeline.py:272-314), quantizes the row
+with the scenario engine's optional per-row factors (scintillation gain,
+single-pulse energy, RFI level; reference:
+psrsigsim_tpu/simulate/pipeline.py:272-324), quantizes the row
 to PSRFITS int16 as :func:`.quantize.subint_quantize` does, and writes the
 packed ``(B, nsub, C, nph+4)`` buffer of the ensemble (codes, optionally
 byte-swapped, then DAT_SCL and DAT_OFFS as native-order int16 halves;
@@ -39,6 +43,22 @@ from .rng_hw import CHAN_GROUP, MODES, RNG_BLOCK, rng_field_plain
 __all__ = ["fold_quantize", "fold_quantize_plain"]
 
 _BYTE_ORDERS = ("little", "big")
+
+
+def _check_factors(prof, nsub, gain, energy, level):
+    """The optional scenario factors: ``gain`` and ``level`` ``(B, C,
+    nsub)``, ``energy`` ``(B, nsub)``, float32 on the portrait's device."""
+    B, C, _ = prof.shape
+    for name, t, shape in (("gain", gain, (B, C, nsub)),
+                           ("energy", energy, (B, nsub)),
+                           ("level", level, (B, C, nsub))):
+        if t is None:
+            continue
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be {shape} float32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if t.device != prof.device:
+            raise ValueError(f"{name} must be on the portrait's device")
 
 
 def _check_args(seeds, dfs, modes, prof, noise_norm, nsub, chan0, t0,
@@ -83,7 +103,7 @@ def _span(seeds, dfs, mode, b, chan0, t0, nchan, nsamp):
 
 def fold_quantize_plain(seeds, dfs, modes, prof, noise_norm, *, nsub,
                         draw_norm=1.0, chan0=0, t0=0, byte_order="little",
-                        fields=None):
+                        gain=None, energy=None, level=None, fields=None):
     """The kernel's function in torch ops, on any device: the unfused
     path, one observation at a time.
 
@@ -94,6 +114,7 @@ def fold_quantize_plain(seeds, dfs, modes, prof, noise_norm, *, nsub,
     """
     _check_args(seeds, dfs, modes, prof, noise_norm, nsub, chan0, t0,
                 byte_order)
+    _check_factors(prof, nsub, gain, energy, level)
     B, C, nph = prof.shape
     dev = prof.device
     packed = torch.empty((B, nsub, C, nph + 4), dtype=torch.int16, device=dev)
@@ -110,8 +131,15 @@ def fold_quantize_plain(seeds, dfs, modes, prof, noise_norm, *, nsub,
         x = pulse.reshape(C, nsub, nph) * prof[b][:, None, :]
         if draw_norm != 1.0:
             x = x * draw_norm
-        x = x.reshape(C, nsub * nph) + noise * noise_norm[b]
-        packed[b], finite[b] = quantize_packed(x, nsub, nph, byte_order)
+        if gain is not None:
+            x = x * gain[b][:, :, None]
+        if energy is not None:
+            x = x * energy[b][None, :, None]
+        x = x + (noise * noise_norm[b]).reshape(C, nsub, nph)
+        if level is not None:
+            x = x + level[b][:, :, None]
+        packed[b], finite[b] = quantize_packed(x.reshape(C, nsub * nph), nsub,
+                                               nph, byte_order)
     return packed, finite
 
 
@@ -122,7 +150,8 @@ def _lib():
         fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
                        + [ctypes.c_void_p] * 2 + [ctypes.c_float, ctypes.c_int]
                        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
-                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_longlong, ctypes.c_int]
+                       + [ctypes.c_void_p] * 4)
         fn.restype = ctypes.c_int
         lib.fold_quantize_route.argtypes = [ctypes.c_int] * 4 + [ctypes.c_longlong]
         lib.fold_quantize_route.restype = ctypes.c_int
@@ -146,7 +175,8 @@ def route(modes, nph, nsub, t0=0):
 
 
 def fold_quantize(seeds, dfs, modes, prof, noise_norm, *, nsub,
-                  draw_norm=1.0, chan0=0, t0=0, byte_order="little"):
+                  draw_norm=1.0, chan0=0, t0=0, byte_order="little",
+                  gain=None, energy=None, level=None):
     """Fold, quantize and pack a batch: ``(packed, finite)``.
 
     Args:
@@ -162,6 +192,15 @@ def fold_quantize(seeds, dfs, modes, prof, noise_norm, *, nsub,
             draws, as in :func:`.rng_hw.hw_chan_field`).
         t0: GLOBAL sample of subint 0's first bin (any value ≥ 0).
         byte_order: ``"big"`` byte-swaps the codes (not scl/offs).
+        gain: optional ``(B, C, nsub)`` float32 scintillation gains, a
+            factor of the pulse term after ``draw_norm``.
+        energy: optional ``(B, nsub)`` float32 single-pulse energies, a
+            factor of the pulse term after the gain.
+        level: optional ``(B, C, nsub)`` float32 RFI levels, added after
+            the noise term.  Each factor present selects a kernel
+            instantiation that carries it (one multiply or add per sample,
+            rounded as the unfused path rounds it); none present, the
+            scenario-free instantiation runs.
 
     Returns:
         ``packed`` ``(B, nsub, C, nph+4)`` int16 and ``finite`` ``(B, C)``
@@ -171,18 +210,23 @@ def fold_quantize(seeds, dfs, modes, prof, noise_norm, *, nsub,
     """
     _check_args(seeds, dfs, modes, prof, noise_norm, nsub, chan0, t0,
                 byte_order)
+    _check_factors(prof, nsub, gain, energy, level)
     dev = prof.device
     if dev.type == "cpu":
         return fold_quantize_plain(seeds, dfs, modes, prof, noise_norm,
                                    nsub=nsub, draw_norm=draw_norm,
-                                   chan0=chan0, t0=t0, byte_order=byte_order)
+                                   chan0=chan0, t0=t0, byte_order=byte_order,
+                                   gain=gain, energy=energy, level=level)
     if dev.type != "cuda":
         raise ValueError(f"fold_quantize runs on cuda or cpu tensors, not {dev}")
     B, C, nph = prof.shape
     if B > 65535 or nsub > 65535:
         raise ValueError(f"batch {B} or nsub {nsub} exceeds the grid limit")
-    if not all(t.is_contiguous() for t in (seeds, dfs, prof, noise_norm)):
-        raise ValueError("seeds, dfs, prof and noise_norm must be contiguous")
+    factors = (gain, energy, level)
+    if not all(t.is_contiguous() for t in (seeds, dfs, prof, noise_norm)
+               + tuple(f for f in factors if f is not None)):
+        raise ValueError("seeds, dfs, prof, noise_norm and the factors must "
+                         "be contiguous")
     lib = _lib()
     packed = torch.empty((B, nsub, C, nph + 4), dtype=torch.int16, device=dev)
     flags = torch.empty((B, nsub, C), dtype=torch.bool, device=dev)
@@ -192,7 +236,8 @@ def fold_quantize(seeds, dfs, modes, prof, noise_norm, *, nsub,
         prof.data_ptr(), noise_norm.data_ptr(), float(draw_norm),
         int(draw_norm != 1.0), packed.data_ptr(), flags.data_ptr(), B, C,
         nsub, nph, int(chan0) // CHAN_GROUP, int(t0),
-        int(byte_order == "big"), stream)
+        int(byte_order == "big"), stream,
+        *(None if f is None else f.data_ptr() for f in factors))
     if err != 0:
         raise RuntimeError(f"fold_quantize kernel launch failed: cudaError {err}")
     fold_quantize.launches += 1

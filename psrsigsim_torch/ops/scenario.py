@@ -1,0 +1,216 @@
+"""Scenario physics: scintillation screens, RFI, pulse energies
+(counterpart: psrsigsim_tpu/ops/scenario.py).
+
+The draws behind :mod:`psrsigsim_torch.scenarios`, written out over a
+batch of observations: each function takes the observations' stage keys
+``(..., 2)`` (the effect's own RNG stage, staged by the caller) and one
+parameter per observation, and draws every cell of the whole batch in one
+vectorized threefry pass per key level — no loop over observations,
+channels or subints.
+
+Reproducibility contract (the JAX package's DIVERGENCES #18): every draw is
+keyed by integers GLOBAL to the observation — scintle cell ids, global
+channel ids, subint ids — so the same observation gets the same factors in
+any batch.  The keys are jax's, bit for bit (:mod:`..utils.rng`); the
+float arithmetic is the JAX package's as XLA's CPU backend compiles it
+(``pow`` rounded from float64, ``log1p`` by XLA's polynomial, its fused
+multiply-adds, divisions by constants as multiplications by the float32
+reciprocal),
+evaluated on the host where the keys live.  Where torch's ``exp`` and
+XLA's round apart the log-normal energies differ by an ulp
+(psrsigsim_torch/DIVERGENCES.md P13).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..utils.rng import fold_in, randint
+from .stats import _SQRT2, _from_uniform, _log1p, erf_inv, fma, uniform
+
+__all__ = ["scint_cells", "scint_gain", "rfi_levels", "pulse_energies",
+           "SCINT_DNU_EXPONENT", "SCINT_DT_EXPONENT", "SP_MODES"]
+
+# Thin-screen Kolmogorov scaling exponents (beta = 11/3): dnu_d ∝ nu^4.4,
+# dt_d ∝ nu^1.2 (the JAX package's ops/scenario.py)
+SCINT_DNU_EXPONENT = 4.4
+SCINT_DT_EXPONENT = 1.2
+
+#: single-pulse energy-distribution modes
+SP_MODES = ("lognormal", "powerlaw", "frb")
+
+# scintle cell ids are clipped into this range before the key fold
+_MAX_CELL = 1 << 24
+
+_F32 = torch.float32
+
+
+def _cell_clip(x):
+    """``clip(floor(x), 0, 2**24)`` as int64 cell ids."""
+    return torch.clamp(torch.floor(x), 0, _MAX_CELL).to(torch.int64)
+
+
+def _host(v, shape=()):
+    """A float32 host tensor of ``v`` (a number or a tensor of shape
+    ``shape``), a number expanded to ``shape``."""
+    t = torch.as_tensor(v, dtype=_F32).to("cpu")
+    return t.expand(shape) if t.dim() == 0 else t
+
+
+def _powf(x, y):
+    """float32 ``x ** y`` rounded from the float64 power, as XLA's CPU
+    backend evaluates it (torch's and numpy's float32 ``pow`` round apart
+    by an ulp now and then, enough to move a scintle cell boundary)."""
+    return torch.pow(x.double(), y.double()).to(_F32)
+
+
+def _recip(v):
+    """float32 ``1 / v`` of a constant: XLA turns a division by a constant
+    into a multiplication by it."""
+    return float(np.float32(1.0) / np.float32(v))
+
+
+def scint_cells(freqs_mhz, nsub, dnu_d_mhz, dt_d_s, fcent_mhz, sublen_s,
+                f_lo_mhz):
+    """The scintle cell ids: ``cell_f`` ``(..., C)`` (the integrated
+    scintle count from the band floor, ``N(f) = (fcent/dnu) (x_lo^-3.4 -
+    x^-3.4) / 3.4`` with ``x = f/fcent``) and ``cell_t`` ``(..., C, nsub)``
+    (subint midpoints over the channel's timescale ``dt · x^1.2``), for one
+    ``dnu_d_mhz`` and ``dt_d_s`` per leading index.  Int64 on the host.
+
+    ``f_lo_mhz`` is the GLOBAL band floor (the fold path anchors it at
+    ``fcent - bw/2``, not at the lowest channel), so the cell origin never
+    depends on which channels are passed."""
+    f = _host(freqs_mhz)
+    inv = _recip(fcent_mhz)
+    x = f * inv                                        # (C,)
+    dnu = torch.clamp_min(_host(dnu_d_mhz), 1e-6)
+    dt = torch.clamp_min(_host(dt_d_s), 1e-6)
+    a = float(np.float32(SCINT_DNU_EXPONENT - 1.0))    # 3.4
+    # x_lo and its power are compile-time constants in the JAX package
+    x_lo = np.float32(np.float32(f_lo_mhz) / np.float32(fcent_mhz))
+    c_lo = float(np.float32(np.float64(x_lo) ** -np.float64(np.float32(a))))
+    x_pow = _powf(x, torch.tensor(-a, dtype=_F32))
+    scale = torch.full((), float(np.float32(fcent_mhz)), dtype=_F32) / dnu
+    n_f = (scale[..., None] * (c_lo - x_pow)) * _recip(a)
+    cell_f = _cell_clip(n_f)                           # (..., C)
+    t_mid = ((torch.arange(int(nsub), dtype=_F32) + 0.5)
+             * float(np.float32(sublen_s)))
+    dt_c = dt[..., None] * _powf(
+        x, torch.tensor(float(np.float32(SCINT_DT_EXPONENT)), dtype=_F32))
+    cell_t = _cell_clip(t_mid / dt_c[..., None])       # (..., C, nsub)
+    return cell_f, cell_t
+
+
+def scint_gain(keys, freqs_mhz, nsub, dnu_d_mhz, dt_d_s, mod_index,
+               fcent_mhz, sublen_s, f_lo_mhz):
+    """Dynamic-spectrum scintillation gains ``(..., C, nsub)`` float32 for
+    the observations' scintillation stage keys ``(..., 2)``.
+
+    Every scintle carries one unit-mean exponential gain drawn from the key
+    folded by its frequency cell, then by its time cell (so two channels in
+    one scintle draw the same gain); ``mod_index`` in [0, 1] interpolates
+    from no modulation to saturated: ``g = 1 + m (e - 1)``.  Parameters
+    are one per leading index of ``keys`` (or scalars)."""
+    keys = keys.to("cpu")
+    lead = keys.shape[:-1]
+    cell_f, cell_t = scint_cells(freqs_mhz, nsub, _host(dnu_d_mhz, lead),
+                                 _host(dt_d_s, lead), fcent_mhz, sublen_s,
+                                 f_lo_mhz)
+    ukeys, inv = _cell_keys(keys.reshape(-1, 2), cell_f, cell_t)
+    g = _exponential1(ukeys)[inv].reshape(cell_t.shape)
+    m = torch.clamp(_host(mod_index, lead), 0.0, 1.0)
+    # 1 + m (g - 1) with XLA's fused multiply-add
+    return fma(m[..., None, None].expand_as(g), g - 1.0, 1.0)
+
+
+def _cell_keys(keys, cell_f, cell_t):
+    """The distinct keys ``fold_in(fold_in(keys[i], cell_f[i, c]),
+    cell_t[i, c, s])`` for keys ``(N, 2)``, and the index of each (i, c, s)
+    into them.  Channels of one scintle share their frequency cell and
+    subints their time cell, so each distinct (observation, cell_f) and
+    (observation, cell_f, cell_t) is folded and drawn once: the same
+    draws, several times fewer threefry evaluations."""
+    cell_f = cell_f.reshape(keys.shape[0], -1).numpy()         # (N, C)
+    cell_t = cell_t.reshape(cell_f.shape + (-1,)).numpy()      # (N, C, nsub)
+    obs = np.arange(keys.shape[0])[:, None]
+    low = (1 << 25) - 1  # cell ids are at most 2**24
+    # numpy's unique: torch's (sort-based, with inverse) is ten times slower
+    # on the host and pays a second's warm-up on its first call
+    u1, inv1 = np.unique(obs * (low + 1) + cell_f, return_inverse=True)
+    kc = fold_in(keys[torch.from_numpy(u1 >> 25)],
+                 torch.from_numpy(u1 & low))
+    u2, inv2 = np.unique(inv1.reshape(cell_f.shape)[..., None] * (low + 1)
+                         + cell_t, return_inverse=True)
+    return (fold_in(kc[torch.from_numpy(u2 >> 25)], torch.from_numpy(u2 & low)),
+            torch.from_numpy(inv2.reshape(cell_t.shape)))
+
+
+def _exponential1(keys):
+    """One ``jax.random.exponential(key, ())`` draw per key ``(..., 2)``."""
+    return -_log1p(-uniform(keys, 1)[..., 0])
+
+
+def rfi_levels(keys, chan_ids, nsub, imp_prob, imp_snr, nb_prob, nb_snr):
+    """RFI injection plan for the observations' RFI stage keys ``(...,
+    2)``: ``(levels, mask)``, both ``(..., C, nsub)`` — float32 additive
+    levels in units of the caller's mean noise level, and the bool ground
+    truth (True = RFI present).
+
+    Impulsive bursts: each subint hosts a broadband burst with probability
+    ``imp_prob``, at ``imp_snr`` × one exponential energy, across every
+    channel.  Narrowband tones: each GLOBAL channel id carries a persistent
+    tone with probability ``nb_prob`` at ``nb_snr`` × its own exponential
+    energy.  Parameters are one per leading index (or scalars)."""
+    keys = keys.to("cpu")
+    lead = keys.shape[:-1]
+    chan_ids = torch.as_tensor(chan_ids, dtype=torch.int64).to("cpu")
+    pair = torch.arange(2, dtype=torch.int64)
+    k2 = fold_in(keys[..., None, :], pair)                    # imp, nb
+    # the burst selection and energy keys, one uniform stream each: the
+    # exponential is -log1p(-u) of the same uniform draws
+    u_imp = uniform(fold_in(k2[..., 0, None, :], pair), int(nsub))
+    burst = u_imp[..., 0, :] < _host(imp_prob, lead)[..., None]
+    e_s = -_log1p(-u_imp[..., 1, :])                          # (..., nsub)
+    kc = fold_in(k2[..., 1, None, :], chan_ids)               # (..., C, 2)
+    u_nb = uniform(fold_in(kc[..., None, :], pair), 1)[..., 0]  # (..., C, 2)
+    tone = u_nb[..., 0] < _host(nb_prob, lead)[..., None]
+    e_c = -_log1p(-u_nb[..., 1])
+    imp_lvl = _host(imp_snr, lead)[..., None] * e_s * burst
+    nb_lvl = _host(nb_snr, lead)[..., None] * e_c * tone
+    levels = imp_lvl[..., None, :] + nb_lvl[..., :, None]
+    mask = burst[..., None, :] | tone[..., :, None]
+    return levels, mask
+
+
+def pulse_energies(keys, nsub, mode, param):
+    """Per-subint energy factors ``(..., nsub)`` float32 for the
+    observations' transient stage keys ``(..., 2)``; ``param`` is the
+    mode's parameter, one per leading index (or a scalar):
+
+    * ``"lognormal"``: ``exp(sigma z - sigma²/2)``, unit mean;
+    * ``"powerlaw"``: unit-mean Pareto ``u^(-1/alpha) (alpha-1)/alpha``
+      (alpha clipped to 1.05);
+    * ``"frb"``: one uniformly drawn subint carries ``amp``, every other
+      subint emits nothing."""
+    keys = keys.to("cpu")
+    lead = keys.shape[:-1]
+    n = int(nsub)
+    p = _host(param, lead)[..., None]
+    if mode == "lognormal":
+        # sigma z - sigma²/2 as XLA compiles it: sqrt(2) of the normal
+        # folded into sigma, the subtraction fused
+        r = _from_uniform(keys, n, erf_inv)
+        s = (p * _SQRT2).expand_as(r)
+        return torch.exp(fma(s, r, -((0.5 * p) * p).expand_as(r)))
+    if mode == "powerlaw":
+        a = torch.clamp_min(p, 1.05)
+        u = uniform(keys, n, minval=1e-7, maxval=1.0)
+        return _powf(u, -1.0 / a) * (a - 1.0) / a
+    if mode == "frb":
+        j = randint(keys, n)
+        onehot = (torch.arange(n) == j[..., None]).to(_F32)
+        return p * onehot
+    raise ValueError(
+        f"unknown single-pulse mode {mode!r}; valid modes: {SP_MODES}")

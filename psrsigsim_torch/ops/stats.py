@@ -39,7 +39,7 @@ __all__ = ["SEQ_RNG_BLOCK", "CHI2_WH_MIN_DF", "fma", "erf_inv", "uniform",
            "normal", "normal_sample", "chi2_sample", "chi2_sample_compiled",
            "blocked_chan_chi2", "blocked_chan_normal", "sampler_backend",
            "chan_chi2_field", "chan_normal_field", "chi2_draw_norm",
-           "choice", "fixed_histogram"]
+           "choice", "fixed_histogram", "exponential"]
 
 # Fixed span of global time samples per RNG key: every pipeline draw is keyed
 # by (stage, channel, global block index), so a seed gives the same stream
@@ -174,6 +174,14 @@ def uniform(key, n, minval=0.0, maxval=1.0, start=0):
     lo = torch.full((), minval, dtype=_F32, device=key.device)
     hi = torch.full((), maxval, dtype=_F32, device=key.device)
     return torch.maximum(lo, fma(floats, hi - lo, lo))
+
+
+def exponential(key, n):
+    """``jax.random.exponential(key, (n,), float32)`` for keys ``(..., 2)``
+    -> ``(..., n)``: ``-log1p(-u)`` of the uniform draws, with XLA's
+    ``log1p``.  Many keys with ``n = 1`` are the batched form of jax's
+    one-draw call ``exponential(key, ())``."""
+    return -_log1p(-uniform(key, n))
 
 
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))

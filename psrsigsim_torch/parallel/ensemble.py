@@ -7,7 +7,10 @@ DAT_OFFS columns and packed into one buffer per chunk.  Where the reference
 shards a vmapped program over an (obs, chan) mesh, the port runs a written-
 out batch on one device.  Every random draw is keyed by (seed, global
 observation index, stage, global channel), so results do not depend on the
-chunking.
+chunking.  A scenario stack (``scenario=``, :mod:`psrsigsim_torch.scenarios`)
+adds scintillation, RFI with its ground-truth mask and single-pulse
+energies, drawn once per chunk on the host and carried into the fused
+kernel as per-row factors.
 """
 
 from __future__ import annotations
@@ -16,9 +19,10 @@ import numpy as np
 import torch
 
 from ..ops.quantize import quantize_packed
+from ..scenarios.registry import _param, parse_stack, scenario_rows
 from ..simulate.pipeline import (build_fold_config, fold_pipeline,
                                  fold_pipeline_quantized, fold_subints,
-                                 fused_route)
+                                 fused_route, noise_level)
 from ..utils.device import resolve_device, to_device
 from ..utils.rng import fold_in, key, stage_key
 
@@ -43,6 +47,13 @@ class FoldEnsemble:
     Build from configured signal/pulsar/telescope objects, then ``run``
     batches of observations with per-observation DMs and noise scales.
 
+    ``scenario``: optional list of scenario-effect labels (or a
+    :class:`~psrsigsim_torch.scenarios.ScenarioStack`), e.g.
+    ``["scintillation", "rfi", "single_pulse:frb"]``; every run then takes
+    ``scenario_params={knob: scalar or (n_obs,) array}`` (registry
+    defaults fill unset knobs).  ``None`` runs the scenario-free body,
+    byte for byte as without the engine.
+
     Example
     -------
     >>> ens = FoldEnsemble(signal, pulsar, telescope, "Lband_GUPPI")
@@ -50,12 +61,12 @@ class FoldEnsemble:
     """
 
     def __init__(self, signal, pulsar, telescope, system, Tsys=None,
-                 device=None):
+                 device=None, scenario=None):
         self.device = resolve_device(device)
         cfg, profiles_np, noise_norm = build_fold_config(
             signal, pulsar, telescope, system, Tsys=Tsys)
         dm = float(signal.dm.value) if signal.dm is not None else 0.0
-        self._stage(cfg, profiles_np, noise_norm, dm)
+        self._stage(cfg, profiles_np, noise_norm, dm, scenario)
         # kept for metadata-only consumers (PSRFITS export);
         # build_fold_config above has already stamped nsub/nsamp/draw_norm
         # onto it
@@ -63,7 +74,8 @@ class FoldEnsemble:
         self._pulsar = pulsar
 
     @classmethod
-    def from_config(cls, cfg, profiles, noise_norm, dm=0.0, device=None):
+    def from_config(cls, cfg, profiles, noise_norm, dm=0.0, device=None,
+                    scenario=None):
         """An ensemble over an already staged geometry (``cfg``, the
         ``(Nchan, Nph)`` portrait and the noise scale), e.g. one carried
         across from the JAX package by
@@ -72,12 +84,15 @@ class FoldEnsemble:
         self.device = resolve_device(device)
         if isinstance(profiles, torch.Tensor):
             profiles = profiles.detach().cpu().numpy()
-        self._stage(cfg, profiles, noise_norm, dm)
+        self._stage(cfg, profiles, noise_norm, dm, scenario)
         self._signal = self._pulsar = None
         return self
 
-    def _stage(self, cfg, profiles_np, noise_norm, dm):
+    def _stage(self, cfg, profiles_np, noise_norm, dm, scenario):
         self.cfg = cfg
+        self.scenario = parse_stack(scenario)
+        self._has_rfi = (self.scenario is not None
+                         and "rfi" in self.scenario.names())
         # SPK source the exporter barycenters with (None = the process-
         # global switch: analytic, or PSS_EPHEM); the Simulation slice
         # stamps it
@@ -87,8 +102,8 @@ class FoldEnsemble:
         dev = self.device
         self._profiles_np = np.ascontiguousarray(profiles_np, np.float32)
         self._profiles = torch.as_tensor(self._profiles_np, device=dev)
-        self._freqs = torch.as_tensor(
-            np.asarray(cfg.meta.dat_freq_mhz(), np.float32), device=dev)
+        self._freqs_np = np.asarray(cfg.meta.dat_freq_mhz(), np.float32)
+        self._freqs = torch.as_tensor(self._freqs_np, device=dev)
         # global channel ids stay on the host: the sampler reads the first
         # one, and the threefry path copies them where its keys are
         self._chan_ids = torch.arange(cfg.meta.nchan)
@@ -99,6 +114,66 @@ class FoldEnsemble:
             raise ValueError(f"dms must have shape ({n_obs},)")
         if noise_norms is not None and np.shape(noise_norms) != (n_obs,):
             raise ValueError(f"noise_norms must have shape ({n_obs},)")
+
+    def _validate_scenario_params(self, n_obs, scenario_params):
+        """Every key must belong to the staged stack; per-observation
+        arrays must be ``(n_obs,)`` (scalars broadcast)."""
+        if self.scenario is None:
+            if scenario_params:
+                raise ValueError(
+                    "scenario_params given but this ensemble was built "
+                    "without a scenario stack; pass scenario=[...] to "
+                    "FoldEnsemble")
+            return
+        self._check_scenario_names(scenario_params)
+        for k, v in (scenario_params or {}).items():
+            if np.ndim(v) not in (0, 1):
+                raise ValueError(f"scenario parameter {k} must be a "
+                                 "scalar or a (n_obs,) array")
+            if np.ndim(v) == 1 and np.shape(v) != (n_obs,):
+                raise ValueError(
+                    f"scenario parameter {k} must have shape ({n_obs},), "
+                    f"got {np.shape(v)}")
+
+    def _check_scenario_names(self, scenario_params):
+        names = self.scenario.param_names()
+        unknown = sorted(set(scenario_params or {}) - set(names))
+        if unknown:
+            raise ValueError(
+                f"unknown scenario parameter(s) {unknown}; stack "
+                f"{self.scenario.labels()} takes {list(names)}")
+
+    def _require_rfi(self, wanted, name):
+        if wanted and not self._has_rfi:
+            raise ValueError(
+                f"{name} requires an ensemble built with an RFI scenario "
+                "(FoldEnsemble(scenario=['rfi', ...]))")
+
+    def _prep_scenario(self, idx, scenario_params):
+        """The stack's parameters for the global observation indices
+        ``idx``: ``{name: (len(idx),) float32 host tensor}``, registry
+        defaults filling unset knobs; None for scenario-free builds."""
+        if self.scenario is None:
+            return None
+        sp = dict(scenario_params or {})
+        out = {}
+        for name in self.scenario.param_names():
+            v = sp.get(name, _param(name).default)
+            if np.ndim(v) == 0:
+                col = np.full(len(idx), float(v), np.float32)
+            else:
+                col = np.asarray(v, np.float32)[idx]
+            out[name] = torch.from_numpy(col)
+        return out
+
+    def _rows(self, keys, norms, scp):
+        """The batch's scenario factors (drawn once, on the host, from its
+        keys), on the ensemble's device; None without a scenario."""
+        if self.scenario is None:
+            return None
+        return scenario_rows(keys, self.scenario, scp, self.cfg,
+                             noise_level(self.cfg, norms),
+                             freqs=self._freqs_np, chan_ids=self._chan_ids)
 
     def _prep_chunk(self, idx, seed, dms_full, norms_full, fold_salt=None):
         """Keys, DMs and noise scales for the global observation indices
@@ -129,11 +204,12 @@ class FoldEnsemble:
                      np.asarray(norms_full, np.float32)[idx]), dev))
         return keys, dms, norms
 
-    def _blocks(self, keys, dms, norms):
+    def _blocks(self, keys, dms, norms, rows=None):
         return fold_pipeline(keys, dms, norms, self._profiles, self.cfg,
-                             freqs=self._freqs, chan_ids=self._chan_ids)
+                             freqs=self._freqs, chan_ids=self._chan_ids,
+                             rows=rows)
 
-    def _quantized_packed(self, keys, dms, norms, byte_order):
+    def _quantized_packed(self, keys, dms, norms, byte_order, rows=None):
         """One batch through the pipeline, the finite guard and the
         quantizer: ``(packed, finite)`` with ``packed`` ``(B, nsub, C,
         nbin+4)`` int16 and ``finite`` ``(B, C)`` bool (True where every
@@ -143,18 +219,19 @@ class FoldEnsemble:
         fused kernel (:func:`~psrsigsim_torch.simulate.fold_pipeline_quantized`);
         the threefry parity sampler, ``PSS_EXACT_SHIFT=1`` and the CPU run
         the unfused float body, quantizer and packing.  The route follows
-        the configuration (:func:`~psrsigsim_torch.simulate.pipeline.fused_route`)."""
+        the configuration (:func:`~psrsigsim_torch.simulate.pipeline.fused_route`);
+        ``rows`` (:meth:`_rows`) carries a scenario's factors to either."""
         if fused_route(self.cfg, self.device):
             return fold_pipeline_quantized(
                 keys, dms, norms, self._profiles, self.cfg, freqs=self._freqs,
-                chan_ids=self._chan_ids, byte_order=byte_order)
-        return self._unfused_packed(keys, dms, norms, byte_order)
+                chan_ids=self._chan_ids, byte_order=byte_order, rows=rows)
+        return self._unfused_packed(keys, dms, norms, byte_order, rows)
 
-    def _unfused_packed(self, keys, dms, norms, byte_order):
+    def _unfused_packed(self, keys, dms, norms, byte_order, rows=None):
         """The unfused body: float blocks, then the finite guard, the
         quantizer and the packing (:func:`.quantize.quantize_packed`)."""
-        return quantize_packed(self._blocks(keys, dms, norms), self.cfg.nsub,
-                               self.cfg.nph, byte_order)
+        return quantize_packed(self._blocks(keys, dms, norms, rows),
+                               self.cfg.nsub, self.cfg.nph, byte_order)
 
     def _split_packed_device(self, packed):
         """Device-side inverse of :func:`.quantize.pack_triple` (slice +
@@ -165,16 +242,30 @@ class FoldEnsemble:
         offs = packed[..., nbin + 2:nbin + 4].contiguous().view(torch.float32)[..., 0]
         return data, scl, offs
 
-    def run(self, n_obs, seed=0, dms=None, noise_norms=None):
-        """Simulate ``n_obs`` observations: ``(n_obs, Nchan, Nsamp)``
-        float32 on the ensemble's device."""
+    def _prep_inputs(self, n_obs, seed, dms, noise_norms, scenario_params):
+        """Keys, DMs, noise scales and scenario rows of observations
+        ``0..n_obs-1``."""
         self._validate_per_obs(n_obs, dms, noise_norms)
-        keys, dms_t, norms_t = self._prep_chunk(np.arange(n_obs), seed, dms,
-                                                noise_norms)
-        return self._blocks(keys, dms_t, norms_t)
+        self._validate_scenario_params(n_obs, scenario_params)
+        idx = np.arange(n_obs)
+        keys, dms_t, norms_t = self._prep_chunk(idx, seed, dms, noise_norms)
+        rows = self._rows(keys, norms_t,
+                          self._prep_scenario(idx, scenario_params))
+        return keys, dms_t, norms_t, rows
+
+    def run(self, n_obs, seed=0, dms=None, noise_norms=None,
+            scenario_params=None):
+        """Simulate ``n_obs`` observations: ``(n_obs, Nchan, Nsamp)``
+        float32 on the ensemble's device.  ``scenario_params`` (scenario
+        builds only): ``{knob: scalar or (n_obs,) array}`` for the stack's
+        parameters; unset knobs take registry defaults."""
+        keys, dms_t, norms_t, rows = self._prep_inputs(
+            n_obs, seed, dms, noise_norms, scenario_params)
+        return self._blocks(keys, dms_t, norms_t, rows)
 
     def run_quantized(self, n_obs, seed=0, dms=None, noise_norms=None,
-                      return_finite=False):
+                      return_finite=False, return_rfi=False,
+                      scenario_params=None):
         """Simulate ``n_obs`` observations and quantize on the device to
         PSRFITS int16 subints.
 
@@ -182,35 +273,48 @@ class FoldEnsemble:
         (native byte order) plus ``(n_obs, nsub, Nchan)`` float32 scale and
         offset, with ``physical ≈ data * scl + offs``; with
         ``return_finite=True`` also the ``(n_obs, Nchan)`` finite guard.
-        The triple is split from the same packed buffer :meth:`iter_chunks`
-        transports, so both entry points give the same bytes.
+        ``return_rfi=True`` (RFI scenario builds only) appends the
+        ``(n_obs, Nchan, nsub)`` bool ground-truth contamination mask, from
+        the same draws as the injection.  ``scenario_params`` as
+        :meth:`run`.  The triple is split from the same packed buffer
+        :meth:`iter_chunks` transports, so both entry points give the same
+        bytes.
         """
-        self._validate_per_obs(n_obs, dms, noise_norms)
-        keys, dms_t, norms_t = self._prep_chunk(np.arange(n_obs), seed, dms,
-                                                noise_norms)
-        packed, finite = self._quantized_packed(keys, dms_t, norms_t, "little")
+        self._require_rfi(return_rfi, "return_rfi")
+        keys, dms_t, norms_t, rows = self._prep_inputs(
+            n_obs, seed, dms, noise_norms, scenario_params)
+        packed, finite = self._quantized_packed(keys, dms_t, norms_t, "little",
+                                                rows)
         result = self._split_packed_device(packed)
         if return_finite:
             result = result + (finite,)
+        if return_rfi:
+            result = result + (rows.mask,)
         return result
 
     def run_quantized_at(self, indices, seed=0, dms=None, noise_norms=None,
-                         byte_order="little", fold_salt=None, audit=False,
+                         byte_order="little", fold_salt=None,
+                         scenario_params=None, return_rfi=False, audit=False,
                          return_digest=False):
         """Quantize exactly the observations ``indices`` (global ids) in one
         launch — the run supervisor's quarantine/retry primitive and the
         integrity layer's re-execution.
 
-        ``dms`` / ``noise_norms`` are the FULL per-observation arrays of the
-        parent run (or None), indexed by the global ids, so a re-run
-        observation sees exactly the inputs the main pass gave it.
-        ``fold_salt`` (see :meth:`_prep_chunk`): None reproduces the main
-        pass bit for bit; an int folds a fresh stream for every listed
-        observation.  ``byte_order`` as :meth:`iter_chunks`.
+        ``dms`` / ``noise_norms`` (and, on scenario builds, any
+        per-observation ``scenario_params`` arrays) are the FULL
+        per-observation arrays of the parent run (or None), indexed by the
+        global ids, so a re-run observation sees exactly the inputs the main
+        pass gave it.  ``fold_salt`` (see :meth:`_prep_chunk`): None
+        reproduces the main pass bit for bit; an int folds a fresh stream
+        for every listed observation — its scenario draws too, which key off
+        the salted observation key as the JAX package's do.  ``byte_order``
+        as :meth:`iter_chunks`.
 
         Returns ``(data, scl, offs, finite)`` on the ensemble's device,
         trimmed to ``len(indices)``, in the order given;
-        ``return_digest=True`` appends the ``(len(indices),)``
+        ``return_rfi=True`` (RFI scenario builds only) appends the
+        ground-truth mask of THIS run's realization (under ``fold_salt`` the
+        fresh fold's); ``return_digest=True`` appends the ``(len(indices),)``
         per-observation digests of the packed buffer, computed on the
         device before any byte crosses the link (the packed-digest kernel,
         :func:`~psrsigsim_torch.runtime.integrity.device_packed_digest_rows`;
@@ -224,6 +328,16 @@ class FoldEnsemble:
         """
         if byte_order not in ("little", "big"):
             raise ValueError("byte_order must be 'little' or 'big'")
+        self._require_rfi(return_rfi, "return_rfi")
+        # names only: per-observation arrays here are the PARENT run's
+        # full arrays (indexed by global ids), so their length is not
+        # ours to check
+        if scenario_params:
+            if self.scenario is None:
+                raise ValueError(
+                    "scenario_params passed without a scenario stack "
+                    "(build the ensemble with FoldEnsemble(scenario=[...]))")
+            self._check_scenario_names(scenario_params)
         indices = np.asarray(indices, np.int64).reshape(-1)
         if indices.size == 0:
             raise ValueError("indices must be non-empty")
@@ -233,9 +347,13 @@ class FoldEnsemble:
         keys, dms_c, norms_c = self._prep_chunk(indices, seed, dms,
                                                 noise_norms,
                                                 fold_salt=fold_salt)
+        rows = self._rows(keys, norms_c,
+                          self._prep_scenario(indices, scenario_params))
         packed, finite = self._quantized_packed(keys, dms_c, norms_c,
-                                                byte_order)
+                                                byte_order, rows)
         result = self._split_packed_device(packed) + (finite,)
+        if return_rfi:
+            result = result + (rows.mask,)
         if return_digest:
             from ..runtime.integrity import device_packed_digest_rows
 
@@ -247,7 +365,7 @@ class FoldEnsemble:
                     noise_norms=None, quantized=False, progress=None,
                     skip_chunk=None, prefetch=1, byte_order="little",
                     finite_mask=False, fetch_ahead=0, timers=None,
-                    integrity=None):
+                    rfi_mask=False, scenario_params=None, integrity=None):
         """Stream a large ensemble in fixed-size chunks.
 
         Yields ``(start, block)`` with host numpy arrays for observations
@@ -294,6 +412,13 @@ class FoldEnsemble:
         chunk ``dispatch`` and ``fetch`` times, fetched bytes, the
         fetch-queue depth and the live device bytes accumulate there.
 
+        ``rfi_mask`` (RFI scenario builds only): append the ``(count,
+        Nchan, nsub)`` ground-truth RFI mask to each yielded tuple (after
+        the finite mask when both are requested; a float chunk is then
+        ``(block, mask)``), from the same draws as the injection — what
+        the supervised exporter journals as scenario provenance.
+        ``scenario_params`` as :meth:`run`.
+
         ``integrity`` (quantized only): an armed
         :class:`~psrsigsim_torch.runtime.IntegrityChecker` — each chunk's
         yielded tuple grows a LAST element, the ``(count,)`` uint32
@@ -321,7 +446,9 @@ class FoldEnsemble:
         if integrity is not None and not quantized:
             raise ValueError("integrity requires quantized=True (the "
                              "checksum lattice rides the packed transport)")
+        self._require_rfi(rfi_mask, "rfi_mask")
         self._validate_per_obs(n_obs, dms, noise_norms)
+        self._validate_scenario_params(n_obs, scenario_params)
         if chunk_size <= 0:
             raise ValueError("chunk_size must be positive")
         if prefetch < 0:
@@ -345,9 +472,11 @@ class FoldEnsemble:
             idx = (start + np.arange(chunk_size)) % n_obs
             keys, dms_c, norms_c = self._prep_chunk(idx, seed, dms,
                                                     noise_norms)
+            rows = self._rows(keys, norms_c,
+                              self._prep_scenario(idx, scenario_params))
             if quantized:
                 packed, finite = self._quantized_packed(keys, dms_c, norms_c,
-                                                        byte_order)
+                                                        byte_order, rows)
                 if integrity is not None:
                     # device.sdc arm: perturb the device buffer BEFORE the
                     # digest attests it (tests only; a None plan is a
@@ -357,6 +486,8 @@ class FoldEnsemble:
                 dev = (packed[:count], packed[:count, ..., nbin:].contiguous())
                 if finite_mask:
                     dev = dev + (finite[:count],)
+                if rfi_mask:
+                    dev = dev + (rows.mask[:count],)
                 if integrity is not None:
                     from ..runtime.integrity import device_packed_digest_rows
 
@@ -365,7 +496,9 @@ class FoldEnsemble:
                     dev = dev + (device_packed_digest_rows(packed, nbin,
                                                            count=count),)
             else:
-                dev = (self._blocks(keys, dms_c, norms_c)[:count],)
+                dev = (self._blocks(keys, dms_c, norms_c, rows)[:count],)
+                if rfi_mask:
+                    dev = dev + (rows.mask[:count],)
             ready = None
             if cuda:
                 ready = torch.cuda.Event()
@@ -416,7 +549,7 @@ class FoldEnsemble:
                 if integrity is not None:
                     block = block[:-1] + (block[-1].view(np.uint32),)
             else:
-                block = host[0]
+                block = host[0] if len(host) == 1 else tuple(host)
             if timers is not None:
                 timers.untrack_live(chunk["dev"])
                 timers.add("fetch", chunk["s"] + _time.perf_counter() - t0,

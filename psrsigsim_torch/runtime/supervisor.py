@@ -37,9 +37,9 @@ an explicit :class:`~psrsigsim_torch.runtime.faults.FaultPlan`.
 
 Host-only: nothing here imports torch.  The JAX package's
 ``ProcessSupervisor`` (the serving fleet's keep-one-subprocess-alive
-loop) waits for the serving slice; ``observe_rfi``/``observe_rfi_retry``
-are here as the JAX package has them, and nothing calls them until the
-scenarios land.
+loop) waits for the serving slice.  ``observe_rfi``/``observe_rfi_retry``
+journal a scenario export's RFI ground truth (the exporter calls them for
+ensembles built with an RFI scenario).
 """
 
 from __future__ import annotations

@@ -29,6 +29,8 @@ from ..ops.rng_hw import seed_words
 from ..ops.shift import fourier_shift
 from ..ops.stats import (_exact_chi2_unported, _hw_chi2_mode,
                          chan_chi2_field, sampler_backend, uniform)
+from ..scenarios.registry import (apply_scenario_additive,
+                                  apply_scenario_pulse, scenario_rows)
 from ..signal.state import SignalMeta
 from ..utils.constants import DM_K_MS_MHZ2
 from ..utils.device import resolve_device, to_device
@@ -36,6 +38,7 @@ from ..utils.rng import as_key, stage_key
 
 __all__ = ["default_shift_mode", "FoldPipelineConfig", "fold_pipeline",
            "fold_pipeline_quantized", "fused_route", "fold_subints",
+           "noise_level",
            "build_fold_config", "natural_nbin"]
 
 
@@ -136,7 +139,8 @@ def _fold_front(key, dm, noise_norm, profiles, cfg, freqs, chan_ids,
 
 def fold_pipeline(key, dm, noise_norm, profiles, cfg, freqs=None,
                   chan_ids=None, extra_delays_ms=None, null_frac=None,
-                  device=None):
+                  device=None, scenario=None, scenario_params=None,
+                  rows=None):
     """Fold-mode observations: synthesis + dispersion + radiometer noise.
 
     Args:
@@ -164,6 +168,19 @@ def fold_pipeline(key, dm, noise_norm, profiles, cfg, freqs=None,
             each subintegration's pulse term is zeroed with this
             probability, drawn on the ``"null_select"`` stage.
         device: where numpy ``profiles`` go (default: the CUDA card).
+        scenario: optional scenario stack
+            (:class:`~psrsigsim_torch.scenarios.ScenarioStack` or effect
+            labels): scintillation gains and single-pulse energies multiply
+            the pulse term before nulling, and RFI levels are added after
+            the radiometer noise, in units of the mean noise level
+            ``noise_df · noise_norm`` — the JAX package's order.  ``None``
+            runs the scenario-free body unchanged.
+        scenario_params: ``{name: scalar or (...) tensor}`` for the stack's
+            parameters (registry defaults fill unset ones).
+        rows: the batch's :class:`~psrsigsim_torch.scenarios.ScenarioRows`
+            when the caller has already drawn them
+            (:func:`~psrsigsim_torch.scenarios.scenario_rows`, e.g. for the
+            truth mask); drawn here otherwise.
 
     Returns:
         ``(..., Nchan, nsub*Nph)`` float32 blocks (unclipped).
@@ -190,6 +207,12 @@ def fold_pipeline(key, dm, noise_norm, profiles, cfg, freqs=None,
     if cfg.shift_mode != "envelope":
         block = fourier_shift(block, f.delays_ms, dt=cfg.dt_ms)
 
+    if rows is None and scenario is not None:
+        rows = _scenario_rows(f, cfg, scenario, scenario_params)
+    if rows is not None:
+        # multiplicative effects modulate the pulse term only
+        apply_scenario_pulse(block, rows, nsub, nph)
+
     if null_frac is not None:
         # per-subint nulling between synthesis and noise, on its own stage
         u = to_device(uniform(stage_key(f.key, "null_select"), nsub), dev)
@@ -201,7 +224,31 @@ def fold_pipeline(key, dm, noise_norm, profiles, cfg, freqs=None,
     # radiometer noise, added after dispersion (never shifted)
     noise = _chan_chi2(to_device(f.kn, dev), f.chan_ids, cfg.noise_df, nsamp)
     noise.mul_(f.noise_norm[..., None, None])
-    return block.add_(noise)
+    block.add_(noise)
+    if rows is not None:
+        # additive effects (RFI) ride on top of the radiometer noise
+        apply_scenario_additive(block, rows, nsub, nph)
+    return block
+
+
+def noise_level(cfg, noise_norm):
+    """The mean radiometer level ``noise_df · noise_norm`` in float32, the
+    unit of the scenario engine's RFI levels (the JAX package's
+    ``cfg.noise_df * noise_norm``)."""
+    df = torch.full((), float(np.float32(cfg.noise_df)), dtype=torch.float32,
+                    device=noise_norm.device)
+    return df * noise_norm
+
+
+def _scenario_rows(f, cfg, scenario, scenario_params):
+    """The batch's scenario factors, drawn from its observation keys on the
+    host, for the channels ``f`` holds (the configuration's frequencies at
+    those GLOBAL channel ids)."""
+    chan_ids = f.chan_ids.cpu()
+    freqs = np.asarray(cfg.meta.dat_freq_mhz(), np.float32)[chan_ids.numpy()]
+    return scenario_rows(f.key, scenario, scenario_params, cfg,
+                         noise_level(cfg, f.noise_norm), freqs=freqs,
+                         chan_ids=chan_ids)
 
 
 def fold_subints(block, nsub, nph):
@@ -223,7 +270,8 @@ def fused_route(cfg, device, null_frac=None):
     sampler, in envelope mode and without nulling.  Decided from the
     configuration alone, before anything is launched; the threefry parity
     sampler (``PSS_SAMPLER=threefry``), ``PSS_EXACT_SHIFT=1`` and the CPU
-    keep the unfused path."""
+    keep the unfused path.  A scenario stack does not change the route: the
+    kernel takes its factors."""
     return (torch.device(device).type == "cuda"
             and sampler_backend(device) == "hw"
             and cfg.shift_mode == "envelope" and null_frac is None)
@@ -231,14 +279,16 @@ def fused_route(cfg, device, null_frac=None):
 
 def fold_pipeline_quantized(key, dm, noise_norm, profiles, cfg, freqs=None,
                             chan_ids=None, extra_delays_ms=None,
-                            byte_order="little", device=None):
+                            byte_order="little", device=None, scenario=None,
+                            scenario_params=None, rows=None):
     """:func:`fold_pipeline` in envelope mode on the ``hw`` sampler's
     stream, quantized per (subint, channel) and packed, in one kernel
     (:func:`~psrsigsim_torch.ops.fold_quantize.fold_quantize`): the float
     block never exists.
 
     Arguments as for :func:`fold_pipeline`; ``byte_order="big"``
-    byte-swaps the codes.  Returns ``(packed, finite)``: ``(..., nsub,
+    byte-swaps the codes.  A scenario's gains, energies and RFI levels
+    enter the kernel as per-row factors, in the unfused order.  Returns ``(packed, finite)``: ``(..., nsub,
     Nchan, Nph+4)`` int16 (codes, then DAT_SCL and DAT_OFFS as int16
     halves, the layout ``FoldEnsemble.iter_chunks`` transports) and the
     ``(..., Nchan)`` finite guard.  The codes equal the unfused path's
@@ -262,12 +312,21 @@ def fold_pipeline_quantized(key, dm, noise_norm, profiles, cfg, freqs=None,
     dfs = torch.tensor([[0.0 if m == "chi2_1" else df] * B
                         for df, m in zip((cfg.nfold, cfg.noise_df), modes)],
                        dtype=torch.float32)
+    if rows is None and scenario is not None:
+        rows = _scenario_rows(f, cfg, scenario, scenario_params)
+    factors = {}
+    if rows is not None:
+        for name, t, shape in (("gain", rows.gain, (B, nchan, cfg.nsub)),
+                               ("energy", rows.energy, (B, cfg.nsub)),
+                               ("level", rows.level, (B, nchan, cfg.nsub))):
+            if t is not None:
+                factors[name] = t.reshape(shape).contiguous()
     packed, finite = fold_quantize(
         seeds, to_device(dfs, f.dev), modes,
         f.prof.reshape(B, nchan, cfg.nph).contiguous(),
         f.noise_norm.reshape(B).contiguous(), nsub=cfg.nsub,
         draw_norm=cfg.draw_norm, chan0=int(f.chan_ids[0]), t0=0,
-        byte_order=byte_order)
+        byte_order=byte_order, **factors)
     return (packed.reshape(f.lead + packed.shape[1:]),
             finite.reshape(f.lead + (nchan,)))
 

@@ -10,8 +10,9 @@ of observations; ``Simulation.to_ensemble()`` bridges the two and
 
 Everything the façade builds holds its data on one device: the CUDA card
 unless ``device=`` names another (``device="cpu"``, as the CPU tests do);
-``run_mc_study`` runs a Monte-Carlo study there.  Meshes and scenarios
-belong to later slices of the port and raise ``NotImplementedError``.
+``run_mc_study`` runs a Monte-Carlo study there; ``to_ensemble(scenario=
+[...])`` adds the scenario engine's effects.  Meshes belong to a later
+slice of the port and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,13 +34,11 @@ from ..utils.utils import make_par
 __all__ = ["Simulation"]
 
 
-def _unported_ensemble_options(mesh, scenario):
+def _unported_mesh(mesh):
     if mesh is not None:
         raise NotImplementedError(
             "mesh=: meshes and multi-device ensembles are not ported yet; "
             "the port runs one device")
-    if scenario is not None:
-        raise NotImplementedError("scenario=: scenarios are not ported yet")
 
 
 class Simulation:
@@ -320,11 +319,14 @@ class Simulation:
         :class:`~psrsigsim_torch.parallel.FoldEnsemble` on this simulation's
         device, with its ``ephemeris_source`` stamped.
 
-        ``mesh`` (a device mesh) and ``scenario`` (scenario effects) belong
-        to later slices of the port and raise ``NotImplementedError``."""
+        ``scenario``: optional list of scenario-effect labels (or a
+        :class:`~psrsigsim_torch.scenarios.ScenarioStack`) enabling the
+        scenario engine's effects on every run of the ensemble — see
+        :mod:`psrsigsim_torch.scenarios`.  ``mesh`` (a device mesh) belongs
+        to a later slice of the port and raises ``NotImplementedError``."""
         from ..parallel.ensemble import FoldEnsemble
 
-        _unported_ensemble_options(mesh, scenario)
+        _unported_mesh(mesh)
         # the ensemble's PSRFITS exit path fits polycos: make sure they
         # barycenter on THIS instance's kernel, not whichever Simulation
         # touched the global switch last — applied now, and stamped on
@@ -333,12 +335,13 @@ class Simulation:
         self._activate_ephemeris()
         self.init_all()
         ens = FoldEnsemble(self.signal, self.pulsar, self.tscope,
-                           self.system_name, device=self._device)
+                           self.system_name, device=self._device,
+                           scenario=scenario)
         ens.ephemeris_source = self._ephemeris
         return ens
 
     def export_ensemble(self, n_obs, out_dir, template=None, mesh=None,
-                        supervised=True, **export_kw):
+                        supervised=True, scenario=None, **export_kw):
         """Export ``n_obs`` Monte-Carlo observations of this simulation as
         PSRFITS files — the bulk counterpart of :meth:`save_simulation`.
 
@@ -356,13 +359,17 @@ class Simulation:
         ``template`` defaults to this simulation's ``tempfile``;
         ``export_kw`` is forwarded (seed, dms, noise_norms, chunk_size,
         writers, obs_per_file, resume — including ``resume="verify"``
-        under supervision).  ``mesh`` raises ``NotImplementedError``.
+        under supervision — and ``scenario_params``).  ``scenario`` builds
+        the ensemble with that scenario stack (:meth:`to_ensemble`); the
+        JAX package's façade has no such keyword, its callers export a
+        scenario ensemble through the exporter directly.  ``mesh`` raises
+        ``NotImplementedError``.
         """
         if template is None:
             template = self.tempfile
         if template is None:
             raise RuntimeError("No template PSRFITS file provided.")
-        ens = self.to_ensemble(mesh=mesh)
+        ens = self.to_ensemble(mesh=mesh, scenario=scenario)
         if supervised:
             from ..runtime import supervised_export
 

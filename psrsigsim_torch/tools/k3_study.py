@@ -370,11 +370,15 @@ def main():
     L = nsub * nph
 
     def fq_launcher(lib, packed, flags):
+        # the scenario factors (gain, energy, level) trail the argument
+        # list as null pointers: the scenario-free launch, which a kernel
+        # from before the factors existed takes too (it ignores them)
         fn = lib.fold_quantize_launch
         fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
                        + [ctypes.c_void_p] * 2 + [ctypes.c_float, ctypes.c_int]
                        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
-                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_longlong, ctypes.c_int]
+                       + [ctypes.c_void_p] * 4)
         fn.restype = ctypes.c_int
 
         def go():
@@ -382,7 +386,8 @@ def main():
                      MODES[args["modes"][0]], MODES[args["modes"][1]],
                      args["prof"].data_ptr(), args["noise_norm"].data_ptr(), dn,
                      int(dn != 1.0), packed.data_ptr(), flags.data_ptr(), B, C,
-                     nsub, nph, 0, 0, 0, torch.cuda.current_stream().cuda_stream)
+                     nsub, nph, 0, 0, 0, torch.cuda.current_stream().cuda_stream,
+                     None, None, None)
             if err:
                 raise RuntimeError(f"launch failed {err}")
         return go

@@ -14,6 +14,10 @@ B1855+09 template).  Tolerances and why:
   tests/test_torch_pipeline.py (the two FFT libraries differ by ulps).
 * the port against itself across pipeline depths, chunk sizes, writer
   counts and resume: byte-identical.
+* a scenario export (scintillation, RFI and FRB energies with
+  per-observation parameters) against the reference's: the files within the
+  end-to-end bound above, the manifest's ``scenario`` and
+  ``scenario_params_sha256`` fingerprint fields equal.
 
 Reference files come from a child process (this file run as a script)
 that applies the JAX-version shim the reference's traced-DM path needs;
@@ -122,16 +126,26 @@ def _write_cases(pkg, out):
             export._write_obs(state, path, triple, dm)
 
 
-def _ref_ensemble(pkg, device=None):
+def _ref_ensemble(pkg, device=None, scenario=None):
     sig, psr, tel, system = _geometry(pkg)
     par = importlib.import_module(pkg + ".parallel")
+    kw = {} if scenario is None else {"scenario": scenario}
     if device is None:
-        return par.FoldEnsemble(sig, psr, tel, system)
-    return par.FoldEnsemble(sig, psr, tel, system, device=device)
+        return par.FoldEnsemble(sig, psr, tel, system, **kw)
+    return par.FoldEnsemble(sig, psr, tel, system, device=device, **kw)
 
 
 END_TO_END = {"per_file": dict(obs_per_file=1),
               "packed": dict(obs_per_file=2)}
+# the scenario export both packages run: its stack and per-observation
+# parameters (registry defaults fill the rest)
+SCENARIO = ["scintillation", "rfi", "single_pulse:frb"]
+SCENARIO_PARAMS = {
+    "scint_dnu_d_mhz": np.array([20.0, 60.0, 150.0, 35.0, 90.0], np.float32),
+    "scint_dt_d_s": 0.3,
+    "rfi_imp_prob": np.array([0.5, 0.0, 0.9, 0.3, 0.6], np.float32),
+    "rfi_nb_prob": 0.3, "sp_amp": np.array([4.0, 8.0, 1.0, 2.0, 16.0],
+                                           np.float32)}
 
 
 def _child(out):
@@ -148,6 +162,11 @@ def _child(out):
         export_ensemble_psrfits(ens, N_OBS, os.path.join(out, name), TEMPLATE,
                                 ens.pulsar, seed=SEED, chunk_size=2, writers=1,
                                 pipeline_depth=0, **kw)
+    ens = _ref_ensemble("psrsigsim_tpu", scenario=SCENARIO)
+    export_ensemble_psrfits(ens, N_OBS, os.path.join(out, "scenario"),
+                            TEMPLATE, ens.pulsar, seed=SEED, chunk_size=2,
+                            writers=1, pipeline_depth=0,
+                            scenario_params=SCENARIO_PARAMS)
 
 
 @pytest.fixture(scope="module")
@@ -415,19 +434,64 @@ def _export_with(ens, out, template=TEMPLATE, **kw):
                                    ens.pulsar, **args)
 
 
-@pytest.mark.parametrize("option", ["scenario_params", "pod"])
+@pytest.mark.parametrize("option", ["pod"])
 def test_unported_options_raise(ens, tmp_path, option):
-    """(f): scenarios and pods are not ported: asking for them raises
-    instead of being ignored."""
+    """(f): pods are not ported: asking for them raises instead of being
+    ignored."""
     from psrsigsim_torch.io.export import pod_export_follower
 
     out = str(tmp_path / "u")
     with pytest.raises(NotImplementedError, match="not ported"):
-        if option == "pod":
-            pod_export_follower(ens, N_OBS, out, seed=SEED)
-        else:
-            _export(ens, out, scenario_params={"sp_amp": 1.0})
+        pod_export_follower(ens, N_OBS, out, seed=SEED)
     assert not os.path.exists(out)
+
+
+def _manifest(out):
+    import json
+
+    with open(os.path.join(out, "export_manifest.json")) as fh:
+        return json.load(fh)
+
+
+def test_scenario_export_matches_reference(ref, tmp_path):
+    """A scenario export of the same seed and parameters: the files within
+    the end-to-end bound, the manifest's scenario fingerprint equal."""
+    scen = _ref_ensemble("psrsigsim_torch", device="cpu", scenario=SCENARIO)
+    out = str(tmp_path / "scenario")
+    _export(scen, out, scenario_params=SCENARIO_PARAMS)
+    want = os.path.join(ref, "scenario")
+    assert _fits_names(out) == _fits_names(want)
+    flips = total = 0
+    for n in _fits_names(out):
+        f, t = _payload_flips(os.path.join(out, n), os.path.join(want, n))
+        flips += f
+        total += t
+    assert flips <= 1e-2 * total
+    mg, mw = _manifest(out), _manifest(want)
+    assert mg["scenario"] == mw["scenario"] == \
+        "scintillation+rfi+single_pulse:frb"
+    for field in ("scenario_params_sha256", "n_obs", "seed", "dms_sha256",
+                  "template_sha256"):
+        assert mg[field] == mw[field], field
+
+
+def test_scenario_export_fingerprint_guards_resume(ens, tmp_path):
+    """Resuming a scenario export with other parameters is refused; the
+    registry default passed explicitly hashes like omitting it; a
+    scenario-free ensemble refuses scenario parameters."""
+    from psrsigsim_torch.io import ExportManifestError
+
+    scen = _ref_ensemble("psrsigsim_torch", device="cpu", scenario=["rfi"])
+    out = str(tmp_path / "s")
+    _export(scen, out, n_obs=2, scenario_params={"rfi_imp_prob": 0.5})
+    _export(scen, out, n_obs=2, scenario_params={"rfi_imp_prob": 0.5,
+                                                 "rfi_nb_snr": 3.0})
+    with pytest.raises(ExportManifestError, match="scenario_params_sha256"):
+        _export(scen, out, n_obs=2, scenario_params={"rfi_imp_prob": 0.4})
+    with pytest.raises(ValueError, match="without a scenario"):
+        _export(ens, str(tmp_path / "free"), n_obs=2,
+                scenario_params={"rfi_imp_prob": 0.5})
+    assert _manifest(out)["scenario"] == "rfi"
 
 
 class _NoTorch(pickle.Unpickler):

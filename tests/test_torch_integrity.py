@@ -325,6 +325,30 @@ def test_device_sdc_caught_by_audit_and_healed(ens, clean, tmp_path):
         assert json.load(f)["integrity"] == st
 
 
+def test_scenario_audit_reexecution_draws_the_same_factors(tmp_path):
+    """A scenario export under a full audit with a device.sdc: the audit's
+    re-executions redraw the same scenario factors, so they agree with
+    each other, the heal restores the clean bytes and the RFI provenance
+    is the clean run's."""
+    from psrsigsim_torch.runtime import FaultPlan, IntegrityChecker
+    from test_torch_export import SCENARIO, SCENARIO_PARAMS, _ref_ensemble
+
+    scen = _ref_ensemble("psrsigsim_torch", device="cpu", scenario=SCENARIO)
+    base = _supervised(scen, str(tmp_path / "clean"),
+                       scenario_params=SCENARIO_PARAMS)
+    out = str(tmp_path / "out")
+    plan = FaultPlan(str(tmp_path / "p"), {"device.sdc": {"after_start": 2}})
+    ck = IntegrityChecker(audit_frac=1.0)
+    res = _supervised(scen, out, integrity=ck, faults=plan,
+                      scenario_params=SCENARIO_PARAMS)
+    st = ck.stats()
+    assert st["audit_mismatches"] == 1 and st["healed_chunks"] == 1
+    assert _bytes(res.paths) == _bytes(base.paths)
+    rfi = [e for e in _journal(out) if e["e"] == "rfi"]
+    assert rfi == [e for e in _journal(str(tmp_path / "clean"))
+                   if e["e"] == "rfi"] and rfi
+
+
 def test_disk_bitrot_scrubbed_and_resume_heals(ens, clean, tmp_path):
     from psrsigsim_torch.runtime import FaultPlan, scrub_export_dir
 

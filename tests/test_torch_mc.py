@@ -15,6 +15,10 @@ Tolerances and why:
     two FFT libraries of the Fourier shift differ by ulps; the noise
     fields are bit-equal), and the port's own trial block bit-equal to
     its ``fold_pipeline``;
+  - a study with scenario priors (scintillation, RFI, log-normal pulse
+    energies): parameters bit for bit, fingerprint equal (its
+    ``scenarios`` and ``scenario_defaults`` stamps included), rows within
+    FFTFIT's tolerance;
   - whole-study metric rows within FFTFIT's tolerance (tests/
     test_torch_toa.py): residual metrics within 2e-6 turns, sigma and
     fitted amplitude within rtol 1e-4; histogram counts equal except
@@ -72,6 +76,12 @@ KNOBS = {"dm": {"dist": "normal", "mean": 12.0, "sigma": 2.0},
                  "probs": [0.2, 0.3, 0.5]},
          "noise_scale": {"dist": "choice", "values": [0.5, 1.0, 2.0]},
          "null_frac": {"dist": "uniform", "lo": 0.0, "hi": 0.5}}
+SCEN = {"scint_mod": {"dist": "uniform", "lo": 0.2, "hi": 1.0},
+        "scint_dt_d_s": {"dist": "uniform", "lo": 0.2, "hi": 2.0},
+        "rfi_imp_prob": {"dist": "uniform", "lo": 0.0, "hi": 0.6},
+        "sp_sigma": {"dist": "uniform", "lo": 0.1, "hi": 1.0},
+        "dm": {"dist": "uniform", "lo": 5.0, "hi": 20.0}}
+N_SCEN = 8
 N_REF, CHUNK_REF = 24, 8
 N_KNOBS = 8
 SEED = 3
@@ -105,6 +115,10 @@ def _child(out):
     res["knob_metrics"] = k.run(N_KNOBS, chunk_size=N_KNOBS).metrics
     res["knob_params"] = k.sampled_params(N_KNOBS)
     meta["knob_names"] = list(k.metric_names)
+    sc = study(SCEN)
+    res["scen_metrics"] = sc.run(N_SCEN, chunk_size=N_SCEN).metrics
+    res["scen_params"] = sc.sampled_params(N_SCEN)
+    meta["scen_fingerprint"] = sc.fingerprint(N_SCEN)
     # one dm-only trial block, jitted as the chunk program runs it
     b = study({"dm": Fixed(12.5)}, seed=7)
     cfg = b.cfg
@@ -276,6 +290,25 @@ def test_study_rows_match_reference(ref, study_dm_ns):
     np.testing.assert_array_equal(res.minmax[1][:1], ref["mx"][:1])
 
 
+def test_scenario_priors_match_reference(ref):
+    """Scenario knobs are priors: the stack they imply, the sampled
+    parameters bit for bit, the fingerprint and the trial rows."""
+    study = _study(SCEN)
+    assert study._scenario.labels() == ["scintillation", "rfi",
+                                        "single_pulse"]
+    assert study.fingerprint(N_SCEN) == ref["scen_fingerprint"]
+    got = study.sampled_params(N_SCEN)
+    np.testing.assert_array_equal(got, ref["scen_params"])
+    res = study.run(N_SCEN, chunk_size=N_SCEN)
+    names = list(study.metric_names)
+    np.testing.assert_array_equal(res.metrics[:, :5],
+                                  ref["scen_metrics"][:, :5])
+    _rows_close(res.metrics, ref["scen_metrics"], names)
+    # the rows are chunk-size invariant with scenario effects too
+    again = study.run(N_SCEN, chunk_size=3)
+    np.testing.assert_array_equal(again.metrics, res.metrics)
+
+
 def test_knob_study_rows_match_reference(ref):
     """tau_d_ms scattering delays, the per-trial Gaussian portrait of
     width/amp, null_frac's live mask and a Choice noise scale."""
@@ -299,8 +332,10 @@ def test_unknown_knob_and_unported_options_raise(study_dm):
 
     with pytest.raises(ValueError, match="unknown study knob"):
         _study({"bogus_knob": {"dist": "fixed", "value": 1.0}})
-    with pytest.raises(NotImplementedError, match="scenario"):
-        _study({"rfi_imp_prob": {"dist": "uniform", "lo": 0.0, "hi": 0.1}})
+    # two single-pulse mode selectors name no one mode
+    with pytest.raises(ValueError, match="ambiguous"):
+        _study({"sp_sigma": {"dist": "fixed", "value": 0.5},
+                "sp_amp": {"dist": "fixed", "value": 2.0}})
     with pytest.raises(NotImplementedError, match="mesh"):
         MonteCarloStudy(study_dm.cfg, study_dm._profiles_np,
                         study_dm.noise_norm, {}, mesh=object(), device="cpu")

@@ -12,7 +12,8 @@ goes through both packages' ``Simulation``; the port runs on
 * ``to_ensemble`` and ``export_ensemble``: the port against itself — the
   façade's ensemble equals a hand-built ``FoldEnsemble`` bit for bit, and
   its exports equal a direct ``supervised_export`` /
-  ``export_ensemble_psrfits`` of that ensemble byte for byte.
+  ``export_ensemble_psrfits`` of that ensemble byte for byte, with and
+  without a scenario stack.
 * the constructors and builders mirror tests/test_simulate.py's.
 
 Reference values come from a child process (this file run as a script)
@@ -200,6 +201,34 @@ def _hand_built():
     return FoldEnsemble(sig, psr, tel, "demo_sys", device="cpu")
 
 
+def test_to_ensemble_scenario_equals_hand_built(tmp_path):
+    """to_ensemble(scenario=) builds the hand-built scenario ensemble, and
+    export_ensemble(scenario=, scenario_params=) exports it."""
+    from psrsigsim_torch.parallel import FoldEnsemble
+    from psrsigsim_torch.runtime import supervised_export
+
+    stack = ["rfi", "single_pulse:powerlaw"]
+    sp = {"rfi_imp_prob": np.array([0.9, 0.1, 0.5], np.float32),
+          "sp_alpha": 3.0}
+    ens = _sim().to_ensemble(scenario=stack)
+    hand = _hand_built()
+    hand = FoldEnsemble.from_config(hand.cfg, hand._profiles_np,
+                                    hand.noise_norm, dm=hand.dm, device="cpu",
+                                    scenario=stack)
+    assert ens.scenario.labels() == ["rfi", "single_pulse:powerlaw"]
+    got = ens.run_quantized(3, seed=0, return_rfi=True, scenario_params=sp)
+    want = hand.run_quantized(3, seed=0, return_rfi=True, scenario_params=sp)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert got[3].any()
+    kw = dict(seed=0, chunk_size=2, writers=1, scenario_params=sp)
+    res = _sim().export_ensemble(3, str(tmp_path / "a"), scenario=stack, **kw)
+    direct = supervised_export(ens, 3, str(tmp_path / "b"), TEMPLATE,
+                               ens.pulsar, **kw)
+    for p, q in zip(res.paths, direct.paths):
+        assert _read(p) == _read(q)
+
+
 def test_to_ensemble_equals_hand_built():
     sim = _sim()
     ens = sim.to_ensemble()
@@ -267,8 +296,6 @@ def test_later_slices_raise(tmp_path):
     sim = _sim()
     with pytest.raises(NotImplementedError):
         sim.to_ensemble(mesh=object())
-    with pytest.raises(NotImplementedError):
-        sim.to_ensemble(scenario=["rfi"])
     with pytest.raises(NotImplementedError):
         sim.export_ensemble(2, str(tmp_path), mesh=object())
     with pytest.raises(NotImplementedError):

@@ -19,9 +19,15 @@ one in-process writer, the threefry sampler.  Tolerances and why:
   the journal's records (event kinds, observation ids, groups, order)
   equal apart from sha256 values; the manifest's ``quarantined`` and the
   run result's retried/recovered lists equal.
+* the supervised export of a scenario ensemble (scintillation, RFI and FRB
+  energies; tests/test_torch_export.py's stack and parameters), clean, with
+  ``nan.obs`` and with ``retry=False``: files within that bound; the
+  journal's ``rfi`` / ``rfi_retry`` records (observations and contaminated
+  cell counts) and the manifest's ``"rfi"`` block equal, exactly.
 * the port against itself (supervised vs unsupervised, SIGKILL then
-  ``resume=True`` / ``resume="verify"``, ``file.partial`` then verify,
-  verify of a corrupted file, the writer pool): byte for byte.
+  ``resume=True`` / ``resume="verify"`` — with a scenario too, whose RFI
+  records survive the kill — ``file.partial`` then verify, verify of a
+  corrupted file, the writer pool): byte for byte.
 
 Reference results come from a child process (this file run as a script)
 that applies the JAX-version shim (R1) the reference ensemble needs, with
@@ -58,6 +64,12 @@ EXPORTS = {
     "nan": ({}, {"nan.obs": {"indices": [1, 3]}}, True),
     "packed": (dict(obs_per_file=3), {"nan.obs": {"indices": [1]}}, True),
     "noretry": ({}, {"nan.obs": {"indices": [1]}}, False),
+}
+# supervised exports of the scenario ensemble run by both packages
+SCEN_EXPORTS = {
+    "scen_clean": (None, True),
+    "scen_nan": ({"nan.obs": {"indices": [1, 3]}}, True),
+    "scen_noretry": ({"nan.obs": {"indices": [2]}}, False),
 }
 SALTS = (None, 5, 0x7E7247)
 RETRY_IDX = [1, 3]
@@ -114,6 +126,18 @@ def _child(out):
                               ens.pulsar, seed=SEED, chunk_size=CHUNK,
                               writers=1, faults=plan, retry=retry, **kw)
         results[name] = _result(r)
+    from test_torch_export import SCENARIO, SCENARIO_PARAMS
+
+    scen = _ref_ensemble("psrsigsim_tpu", scenario=SCENARIO)
+    for name, (spec, retry) in SCEN_EXPORTS.items():
+        plan = None
+        if spec is not None:
+            plan = FaultPlan(os.path.join(out, name + "_plan"), spec)
+        r = supervised_export(scen, N_OBS, os.path.join(out, name), TEMPLATE,
+                              scen.pulsar, seed=SEED, chunk_size=CHUNK,
+                              writers=1, faults=plan, retry=retry,
+                              scenario_params=SCENARIO_PARAMS)
+        results[name] = _result(r)
     with open(os.path.join(out, "results.json"), "w") as fh:
         json.dump(results, fh)
 
@@ -121,13 +145,19 @@ def _child(out):
 def _port_child(out, plan_json, resume):
     """A port export that is meant to die (run in a child process)."""
     from psrsigsim_torch.runtime import FaultPlan
-    from test_torch_export import _ref_ensemble
+    from test_torch_export import SCENARIO, SCENARIO_PARAMS, _ref_ensemble
 
     with open(plan_json) as fh:
         spec = json.load(fh)
-    ens = _ref_ensemble("psrsigsim_torch", device="cpu")
+    kw = {}
+    if spec.get("scenario"):
+        ens = _ref_ensemble("psrsigsim_torch", device="cpu",
+                            scenario=SCENARIO)
+        kw["scenario_params"] = SCENARIO_PARAMS
+    else:
+        ens = _ref_ensemble("psrsigsim_torch", device="cpu")
     _supervised(ens, out, faults=FaultPlan(spec["scratch_dir"], spec["spec"]),
-                resume=resume)
+                resume=resume, **kw)
 
 
 @pytest.fixture(scope="module")
@@ -296,6 +326,82 @@ def test_supervised_export_matches_reference(ref, port_exports, name):
     assert sorted(mg["files"]) == sorted(mw["files"])
 
 
+@pytest.fixture(scope="module")
+def scen():
+    from test_torch_export import SCENARIO, _ref_ensemble
+
+    return _ref_ensemble("psrsigsim_torch", device="cpu", scenario=SCENARIO)
+
+
+@pytest.fixture(scope="module")
+def scen_exports(scen, tmp_path_factory):
+    from psrsigsim_torch.runtime import FaultPlan
+    from test_torch_export import SCENARIO_PARAMS
+
+    base = tmp_path_factory.mktemp("port_scenario_supervised")
+    results = {}
+    for name, (spec, retry) in SCEN_EXPORTS.items():
+        plan = None
+        if spec is not None:
+            plan = FaultPlan(str(base / (name + "_plan")), spec)
+        r = _supervised(scen, str(base / name), faults=plan, retry=retry,
+                        scenario_params=SCENARIO_PARAMS)
+        results[name] = _result(r)
+    return str(base), results
+
+
+def _rfi_records(out):
+    return [r for r in _journal(out) if r["e"] in ("rfi", "rfi_retry")]
+
+
+@pytest.mark.parametrize("name", list(SCEN_EXPORTS))
+def test_scenario_export_matches_reference(ref, scen_exports, name):
+    """The RFI provenance of a supervised scenario export — journal records
+    and the manifest's ``"rfi"`` block — equals the JAX package's exactly;
+    the files within the end-to-end bound."""
+    from test_torch_export import _payload_flips
+
+    ref_dir, _, ref_results = ref
+    base, results = scen_exports
+    got, want = os.path.join(base, name), os.path.join(ref_dir, name)
+    assert results[name] == ref_results[name]
+    assert _fits(got) == _fits(want)
+    flips = total = 0
+    for n in _fits(got):
+        f, t = _payload_flips(os.path.join(got, n), os.path.join(want, n))
+        flips += f
+        total += t
+    assert flips <= 1e-2 * total
+    assert _without_hashes(_journal(got)) == _without_hashes(_journal(want))
+    assert _rfi_records(got)
+    mg, mw = _manifest(got), _manifest(want)
+    assert mg["rfi"] == mw["rfi"]
+    assert mg["quarantined"] == mw["quarantined"]
+    for field in ("scenario", "scenario_params_sha256"):
+        assert mg[field] == mw[field]
+
+
+def test_scenario_sigkill_then_resume_keeps_rfi_records(scen, scen_exports,
+                                                        tmp_path,
+                                                        monkeypatch):
+    """A scenario export SIGKILLed after chunk 0's commit: the resumed run
+    computes only the missing chunks, writes the clean run's bytes, and its
+    journal and manifest carry the clean run's RFI provenance (chunk 0's
+    records replayed from the journal)."""
+    from test_torch_export import SCENARIO_PARAMS, _count_chunks
+
+    clean = os.path.join(scen_exports[0], "scen_clean")
+    out = str(tmp_path / "out")
+    _die(tmp_path, out, {"run.kill": {"after_start": 0}}, scenario=True)
+    assert [r["e"] for r in _journal(out)] == ["rfi", "commit"]
+    calls = _count_chunks(monkeypatch, scen)
+    _supervised(scen, out, resume="verify", scenario_params=SCENARIO_PARAMS)
+    assert calls == [CHUNK, CHUNK]
+    assert _bytes(out) == _bytes(clean)
+    assert _rfi_records(out) == _rfi_records(clean)
+    assert _manifest(out)["rfi"] == _manifest(clean)["rfi"]
+
+
 def test_quarantine_outcomes(port_exports):
     """nan.obs: the observations are quarantined, retried with a salted
     key and recovered; untouched files equal the clean run's; a packed
@@ -378,10 +484,11 @@ def test_writer_pool_commits_in_order_and_writes_the_same_bytes(ens, clean,
     assert sorted(f for r in commits for f in r["files"]) == sorted(clean)
 
 
-def _die(tmp_path, out, spec, resume="true"):
+def _die(tmp_path, out, spec, resume="true", scenario=False):
     plan = str(tmp_path / "plan.json")
     with open(plan, "w") as fh:
-        json.dump({"scratch_dir": str(tmp_path / "scratch"), "spec": spec}, fh)
+        json.dump({"scratch_dir": str(tmp_path / "scratch"), "spec": spec,
+                   "scenario": scenario}, fh)
     proc = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--port", out, plan,
          resume], env=_env(), capture_output=True, text=True, timeout=300)
