@@ -5,14 +5,15 @@
 
 Drives psrsigsim_torch's fold-mode ensemble main path on the card, from
 configured signal/pulsar/telescope objects to packed int16 PSRFITS
-buffers and files, through the port's three hand-written CUDA kernels,
-built here with nvcc into build/: the random-field sampler
-(psrsigsim_torch/csrc/rng_field.cu), which draws the float blocks of
-FoldEnsemble.run; the fused fold -> quantize -> pack kernel
-(csrc/fold_quantize.cu), which draws the same samples inside and writes
-the packed codes of run_quantized and iter_chunks; and the packed-digest
-kernel (csrc/packed_digest.cu), the integrity lattice's per-observation
-digest of a packed chunk.  Phases:
+buffers and files, and its SEARCH mode and dataset factory, through the
+port's hand-written CUDA kernels, built here with nvcc into build/: the
+random-field sampler (psrsigsim_torch/csrc/rng_field.cu), which draws the
+float blocks of FoldEnsemble.run in its rows layout and the SEARCH-mode
+fields in its flat layout (rng_flat_field); the fused fold -> quantize
+-> pack kernel (csrc/fold_quantize.cu), which draws the same samples
+inside and writes the packed codes of run_quantized and iter_chunks; and
+the packed-digest kernel (csrc/packed_digest.cu), the integrity lattice's
+per-observation digest of a packed chunk.  Phases:
 
 1. the card, its power limit, the torch/CUDA versions and the host CPU;
 2. the build of the kernels (one nvcc each, started together), with each
@@ -38,9 +39,14 @@ digest of a packed chunk.  Phases:
    64 channels, 2048 bins, 20 x 60 s subints): 128 observations through
    FoldEnsemble.run_quantized and iter_chunks (the fused kernel), then 16
    through FoldEnsemble.run (the sampler), each with every kernel's launch
-   count set to 0 just before and read just after;
+   count set to 0 just before and read just after; then which of cuFFT's
+   real transforms rounds the same rows apart in a batch of 8 x 64 and of
+   128 x 64 rows (logged) and the shift's grouped transforms, which must
+   not; and observations 0-7's codes, scales and offsets at batch widths
+   1, 8, 37 and 128, which must be bit-identical;
 6. parity: the threefry sampler on the card against the CPU;
-7. one JSON line with each kernel's launches, error, times and bound;
+7. each kernel's time against its bound, and the main path's front half
+   (DM delays, the double-float ramp and the grouped FFTs) by device time;
 8. the PSRFITS export at the same full width (psrsigsim_torch.io.
    export_ensemble_psrfits, 128-observation chunks through the fused
    kernel, the copy stream and fetch thread of iter_chunks, spawn writers)
@@ -111,8 +117,10 @@ digest of a packed chunk.  Phases:
    factors (one launch), bit-equal to the unfused scenario path on the card
    (sampler fields + the PyTorch body + quantizer) for each single-pulse
    mode and for rfi alone, and on an edge shape that takes the general
-   kernel; observations 0-7 against device="cpu" (codes within 1 LSB on at
-   most 1%, the truth mask exact); the fused kernel's time with and without
+   kernel; observations 0-7's codes bit-identical at batch widths 1, 8, 37
+   and 128; observations 0-7 against device="cpu" (codes within 1 LSB on
+   at most 1%, the truth mask exact); the fused kernel's time with and
+   without
    the factors (in turns) against their bounds, and the host's time to draw
    one chunk's factors; (b) supervised_export(256, chunk_size=128,
    writers=1): the files hold run_quantized's bytes, the journal's rfi
@@ -123,7 +131,37 @@ digest of a packed chunk.  Phases:
    scint_mod and sp_sigma priors on the bench MC geometry, 512 trials in
    256-trial chunks: the sampler exactly 4 times, rows bit-identical for
    chunk sizes 128 and 256, trials 0-31 against device="cpu" within the
-   FFTFIT tolerance.
+   FFTFIT tolerance;
+13. SEARCH mode at BASELINE config 4's full width (bench.py
+   build_single_workload: 64 channels x 819,200 samples, 2048 a pulse, 400
+   pulses of which 80 nulled, DM 15.9), 16 observations a batch: (a) the
+   sampler's flat layout against its plain version, bit for bit, on a full
+   config-4 field, an unaligned start and a length that is not a whole
+   tile, in every mode; (b) single_pipeline(16) launching the flat layout
+   exactly twice and the rows layout once (the nulled pulses' replacement
+   row), channel means, obs/s, Gsamples/s, peak memory, device time by
+   kernel; (c) observations 0-1 against device="cpu" (PSS_SAMPLER=hw),
+   scenario-free and with scintillation + rfi + lognormal, within rtol
+   1e-5 plus 1e-5 of the peak; (d) the same
+   observations in a batch of 2, bit-equal; (e) the exact full-stream
+   shift on 2 observations; (f) the flat layout's time against its bound;
+14. the dataset factory (psrsigsim_torch.datasets) on the card at bench.py's
+   _DATASET_BENCH_SPEC (512 records of 4 x 20,480, rfi + single_pulse, dm
+   and rfi_imp_snr priors, 4 shards) under build/, deleted afterwards: (a)
+   64-record chunks twice and 37-record chunks, shards byte-identical, the
+   flat layout launched exactly twice a chunk, records/s and the stage
+   timers; (b) a child `python3 chip_smoke.py --dataset-kill-child OUT
+   SCRATCH` SIGKILLed by dataset.kill after chunk 128's commit, resumed
+   with 37-record chunks, byte-identical; (c) integrity=1.0 healing a
+   host.corrupt and a device.sdc, and a disk.bitrot found by
+   scrub_dataset_dir and healed by a resume, byte-identical; (d) records
+   0-3 against device="cpu" (labels byte-equal, tiles within rtol 1e-5
+   plus 1e-5 of the peak) and a reader's epoch; (e) 8 records at config
+   4's geometry with every effect.
+
+The line before the last is one JSON object with each kernel's launches
+(counted in the main path's run: phases 5 and 13), error against its
+plain version, times and bound.
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of one
 steady main-path chunk after phase 5 (device time by kernel, busy share).
@@ -180,6 +218,10 @@ FUSED_OPS = {"int32": 2 * DRAW_OPS["int32"] + 3 + 2,
 # the fused kernel with every scenario factor: the gain and energy
 # multiplies and the RFI level's add, one float32 operation each
 SCEN_OPS = dict(FUSED_OPS, fp32=FUSED_OPS["fp32"] + 3)
+# the sampler's flat layout in chi2_1 mode (SEARCH mode): the draw and one
+# multiply for z^2 instead of the Wilson-Hilferty map
+FLAT_OPS = {"int32": PHILOX_INT_OPS / 4, "fp32": (2 * 7) / 4 + 1,
+            "sfu": (2 * 6) / 4}
 # the packed digest, per 32-bit word: the XOR, the term's multiply-add and
 # the add into the sum (the position multipliers depend on the position
 # only, shared by every observation of a chunk)
@@ -202,6 +244,36 @@ MC_FACADE_TRIALS, MC_FACADE_CHUNK = 256, 128  # phase 11(b): two chunks
 SCEN_STACK = ["scintillation", "rfi", "single_pulse:lognormal"]  # phase 12
 SCEN_SUP_NOBS = 256  # phase 12(b): two chunks of the supervised export
 SCEN_HOST_NOBS = 8  # phase 12(a): observations held against the host
+BATCH_WIDTHS = (1, 8, 37, MAIN_NOBS)  # phases 5, 12: widths of obs 0-7
+DATASET_KILL_CHILD = "--dataset-kill-child"
+# phase 13: BASELINE config 4 (bench.py build_single_workload: 64 channels
+# at 0.4096 MHz, P = 5 ms, Gaussian profile of width 0.05, 2 s, 20% of the
+# pulses nulled, DM 15.9), 16 observations a batch
+CONFIG4 = dict(nchan=64, samprate_mhz=0.4096, period_s=0.005, smean=0.05,
+               tobs_s=2.0, fcent=1380.0, bw=400.0, null_frac=0.2, dm=15.9)
+SEARCH_NOBS = 16
+SEARCH_HOST_NOBS = 2  # phase 13(c): observations 0-1 on the host too
+# phase 14: bench.py _DATASET_BENCH_SPEC (config 12: 4 channels, 20 pulses
+# of 1024 samples, rfi + single_pulse, dm and rfi_imp_snr priors)
+DATASET_SPEC = {
+    "nchan": 4, "fcent_mhz": 1380.0, "bw_mhz": 400.0,
+    "sample_rate_mhz": 0.2048, "tobs_s": 0.1, "period_s": 0.005,
+    "smean_jy": 0.05, "seed": 3, "n_records": 512, "shards": 4,
+    "dm": 10.0, "scenarios": ["rfi", "single_pulse"],
+    "rfi_imp_prob": 0.25, "rfi_nb_prob": 0.25,
+    "priors": {"dm": {"dist": "uniform", "lo": 5.0, "hi": 20.0},
+               "rfi_imp_snr": {"dist": "loguniform", "lo": 1.0,
+                               "hi": 50.0}},
+}
+DATASET_CHUNKS = (64, 37)
+# phase 14(e): a few records at config 4's geometry with every effect
+DATASET_CONFIG4 = {
+    "nchan": 64, "fcent_mhz": 1380.0, "bw_mhz": 400.0,
+    "sample_rate_mhz": 0.4096, "tobs_s": 2.0, "period_s": 0.005,
+    "smean_jy": 0.05, "seed": 4, "n_records": 8, "shards": 2, "dm": 15.9,
+    "scenarios": ["scintillation", "rfi", "single_pulse"],
+    "priors": {"dm": {"dist": "uniform", "lo": 5.0, "hi": 30.0}},
+}
 MC_PRIORS = {"dm": {"dist": "uniform", "lo": 10.0, "hi": 20.0},
              "noise_scale": {"dist": "loguniform", "lo": 0.5, "hi": 2.0}}
 # bench.py build_mc_study: the export-bench fold geometry (Gaussian
@@ -419,8 +491,8 @@ class Smoke:
         self.torch = torch
         self.dev = torch.device("cuda")
         self.failed = []
-        self.kernels = {"rng_field": {}, "fold_quantize": {},
-                        "packed_digest": {}}
+        self.kernels = {"rng_field": {}, "rng_flat_field": {},
+                        "fold_quantize": {}, "packed_digest": {}}
         self._main = None
         self.export_rates = {}  # phase 8's obs/s, beside phase 9's
         self.sup_clean = None  # phase 9's clean 1-writer sha256s and obs/s
@@ -799,17 +871,24 @@ class Smoke:
         from psrsigsim_torch.ops import rng_hw
 
         rng_hw.rng_field.launches = 0
+        rng_hw.rng_flat_field.launches = 0
         fq.fold_quantize.launches = 0
         digest.packed_digest.launches = 0
 
     def _counts(self):
+        """Launches since :meth:`_zero_counts`.  The sampler's flat layout
+        (SEARCH mode) joins the dict only when it launched, so the fold
+        phases' exact comparisons fail on a stray flat launch too."""
         from psrsigsim_torch.ops import digest
         from psrsigsim_torch.ops import fold_quantize as fq
         from psrsigsim_torch.ops import rng_hw
 
-        return {"rng_field": rng_hw.rng_field.launches,
-                "fold_quantize": fq.fold_quantize.launches,
-                "packed_digest": digest.packed_digest.launches}
+        counts = {"rng_field": rng_hw.rng_field.launches,
+                  "fold_quantize": fq.fold_quantize.launches,
+                  "packed_digest": digest.packed_digest.launches}
+        if rng_hw.rng_flat_field.launches:
+            counts["rng_flat_field"] = rng_hw.rng_flat_field.launches
+        return counts
 
     def main_path(self):
         torch = self.torch
@@ -944,6 +1023,74 @@ class Smoke:
         log(f"  steady run({FLOAT_NOBS}): {t_run * 1e3:.3f} ms = "
             f"{FLOAT_NOBS / t_run:.1f} obs/s ({self.card_line})")
 
+        # (c) the Fourier shift's rounding against the batch width
+        self.fft_rounding()
+        self.batch_widths(ens, None, "scenario-free")
+
+    def fft_rounding(self):
+        """Which of cuFFT's real transforms rounds a row apart when the
+        same rows come in a batch of 8 x 64 or of 128 x 64 (logged), and
+        the shift's grouped transforms, which must not (a failure)."""
+        torch = self.torch
+        from psrsigsim_torch.ops import shift
+
+        g = torch.Generator(device=self.dev).manual_seed(7)
+        nph = self.main_ensemble().cfg.nph
+        rows = torch.rand((MAIN_NOBS * MAIN["nchan"], nph), generator=g,
+                          device=self.dev)
+        few = 8 * MAIN["nchan"]
+
+        def apart(a, b):
+            return int((a != b).any(dim=-1).sum())
+
+        spec = torch.fft.rfft(rows, dim=-1)
+        r_raw = apart(spec[:few], torch.fft.rfft(rows[:few], dim=-1))
+        i_raw = apart(torch.fft.irfft(spec, n=nph, dim=-1)[:few],
+                      torch.fft.irfft(spec[:few], n=nph, dim=-1))
+        gspec = shift._rfft_rows(rows)
+        r_grp = apart(gspec[:few], shift._rfft_rows(rows[:few]))
+        i_grp = apart(shift._irfft_rows(gspec, nph)[:few],
+                      shift._irfft_rows(gspec[:few], nph))
+        log(f"  rows 0-{few - 1} of {rows.shape[0]} x {nph} in a batch of "
+            f"{rows.shape[0]} against one of {few}: torch.fft.rfft rounds "
+            f"{r_raw} rows apart, irfft {i_raw}; the shift's transforms "
+            f"({shift.fft_group_rows(nph, self.dev)} rows a call) {r_grp} "
+            f"and {i_grp}")
+        if r_grp or i_grp:
+            raise AssertionError("the shift's grouped FFTs round a row apart "
+                                 "for another batch width")
+
+    def batch_widths(self, ens, sp, label):
+        """Observations 0-7's packed codes, scales and offsets in batches of
+        every width of BATCH_WIDTHS (one launch each, width 1 one call per
+        observation): bit-identical, or the phase fails."""
+        torch = self.torch
+        import numpy as np
+
+        kw = {} if sp is None else {"scenario_params": sp}
+        n = SCEN_HOST_NOBS
+        base = [t[:n] for t in ens.run_quantized_at(
+            np.arange(BATCH_WIDTHS[-1]), seed=0, **kw)[:3]]
+        worst = {}
+        for w in BATCH_WIDTHS[:-1]:
+            if w == 1:
+                parts = [ens.run_quantized_at(np.array([i]), seed=0, **kw)[:3]
+                         for i in range(n)]
+                got = [torch.cat([p[j] for p in parts]) for j in range(3)]
+            else:
+                got = [t[:n] for t in ens.run_quantized_at(
+                    np.arange(w), seed=0, **kw)[:3]]
+            worst[w] = (int((got[0] != base[0]).sum()),
+                        int((got[1] != base[1]).sum()
+                            + (got[2] != base[2]).sum()))
+        log(f"  {label}: observations 0-{n - 1} at batch widths "
+            f"{list(BATCH_WIDTHS[:-1])} against {BATCH_WIDTHS[-1]}: codes "
+            "and scl/offs that differ "
+            + ", ".join(f"{w}: {c}/{so}" for w, (c, so) in worst.items())
+            + " (limit 0)")
+        if any(c or so for c, so in worst.values()):
+            raise AssertionError(f"{label}: codes depend on the batch width")
+
     # -- optional -----------------------------------------------------------
     def profile(self):
         """Where the main path's time goes: one steady run_quantized(128)
@@ -1034,6 +1181,8 @@ class Smoke:
             f"{b_ms:.4f} ms, {b_by} ({fmt_parts(parts)}; one-call-per-sample "
             f"single-rate count {one_call:.4f}) on {self.card_line}")
 
+        self.front_half()
+
         # the fused kernel: the main path's chunk
         a, kw, _ = self.main_fused_args()
         Bf, Cf, nph = a["prof"].shape
@@ -1083,6 +1232,49 @@ class Smoke:
             f"the bound; plain {plain_ms:.2f} ms; bound {b_ms:.4f} ms, "
             f"{b_by} ({fmt_parts(parts)}) on {self.card_line}")
         del packed
+
+    def front_half(self):
+        """The device time of a main-path chunk's front half (DM delays,
+        the double-float ramp and the Fourier shift's FFTs), and of its
+        FFTs alone: one call each, as before the shift was grouped, and
+        grouped as now."""
+        torch = self.torch
+        import numpy as np
+
+        from psrsigsim_torch.ops import shift
+        from psrsigsim_torch.simulate import pipeline
+
+        ens = self.main_ensemble()
+        cfg = ens.cfg
+        chunk = ens._prep_chunk(np.arange(MAIN_NOBS), 0, None, None)
+
+        def front():
+            return pipeline._fold_front(*chunk, ens._profiles, cfg,
+                                        ens._freqs, ens._chan_ids, None, None)
+
+        front()
+        torch.cuda.synchronize()
+        busy, by_name = [], {}
+        for _ in range(3):
+            _, b, _, by_name, _ = device_profile(torch, front)
+            busy.append(b / 1e3)
+        prof = ens._profiles
+        nph = cfg.nph
+        phase = torch.ones((MAIN_NOBS,) + prof.shape[:-1] + (nph // 2 + 1,),
+                           dtype=torch.complex64, device=self.dev)
+        one_call = cuda_time_ms(lambda: torch.fft.irfft(
+            torch.fft.rfft(prof, dim=-1) * phase, n=nph, dim=-1), 20)
+        grouped = cuda_time_ms(lambda: shift._irfft_rows(
+            shift._rfft_rows(prof) * phase, nph), 20)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+        self.front_ms = min(busy)
+        log(f"  front half of a {MAIN_NOBS}-observation chunk: device busy "
+            + ", ".join(f"{b:.4f}" for b in busy) + " ms; its transforms "
+            f"with the spectrum product {grouped:.4f} ms grouped "
+            f"({shift.fft_group_rows(nph, self.dev)} rows a call) against "
+            f"{one_call:.4f} ms in one call each; top device events: "
+            + "; ".join(f"{name[:60]} {us / 1e3:.4f} ms x{n}"
+                        for name, (us, n) in top) + f" ({self.card_line})")
 
     # -- 8 ------------------------------------------------------------------
     def export(self):
@@ -2297,37 +2489,17 @@ class Smoke:
             raise AssertionError(f"the edge shape took the {how} route")
         self.kernels["fold_quantize"]["scenario_max_abs_err"] = float(worst)
 
+        # the codes of observations 0-7 do not depend on the batch width,
+        # with the scenario's factors as without (phase 5)
+        self.batch_widths(ens, sp, "scenario")
+
         # observations 0-7 on the host (the kernel's plain version), against
-        # the card at the same batch width: the card's Fourier shift rounds
-        # apart by an ulp for another batch size, which the scenario's
-        # large RFI levels can carry to 2 LSB (logged here, not gated)
+        # the card
         host = scen_ens(SCEN_STACK, device="cpu")
         hp = {k: (v[:SCEN_HOST_NOBS] if np.ndim(v) else v)
               for k, v in sp.items()}
         n8 = SCEN_HOST_NOBS
-        d8, s8, o8, f8, r8 = ens.run_quantized(
-            n8, seed=0, return_finite=True, return_rfi=True,
-            scenario_params=hp)
-        wide = (d[:n8].int() - d8.int()).abs()
-        k8, dm8, nn8 = ens._prep_chunk(np.arange(MAIN_NOBS), 0, None, None)
-        shift_w = pipeline._fold_front(k8, dm8, nn8, ens._profiles, cfg,
-                                       ens._freqs, ens._chan_ids, None,
-                                       None).prof[:n8]
-        shift_n = pipeline._fold_front(k8[:n8], dm8[:n8], nn8[:n8],
-                                       ens._profiles, cfg, ens._freqs,
-                                       ens._chan_ids, None, None).prof
-        free_w = (free.run_quantized(MAIN_NOBS, seed=0)[0][:n8].int()
-                  - free.run_quantized(n8, seed=0)[0].int()).abs()
-        log(f"  (a) the card, observations 0-{n8 - 1} in a batch of "
-            f"{MAIN_NOBS} against a batch of {n8}: codes "
-            f"{float((wide != 0).float().mean()):.3g} differ, max |diff| "
-            f"{int(wide.max())} LSB (scenario-free "
-            f"{float((free_w != 0).float().mean()):.3g}, max "
-            f"{int(free_w.max())}); the shifted portraits' max |diff| "
-            f"{float((shift_w - shift_n).abs().max()):.3g} (peak "
-            f"{float(shift_n.abs().max()):.3g})")
-        d, s, o, fin, rfi = d8, s8, o8, f8, r8
-        del wide, shift_w, shift_n, free_w
+        d, s, o, fin, rfi = (t[:n8] for t in (d, s, o, fin, rfi))
         os.environ["PSS_SAMPLER"] = "hw"
         try:
             t0 = time.perf_counter()
@@ -2572,6 +2744,409 @@ class Smoke:
             f"diff {d_shift:.3g} turns, toa_sigma/fit_amp max rel diff "
             f"{d_rel:.3g}")
 
+    # -- 13 -----------------------------------------------------------------
+    def search(self):
+        """SEARCH mode at BASELINE config 4's full width (see the module
+        docstring)."""
+        torch = self.torch
+        import dataclasses
+
+        import numpy as np
+
+        from psrsigsim_torch.ops import rng_hw
+        from psrsigsim_torch.simulate import single_pipeline
+        from psrsigsim_torch.utils import key, stage_key
+
+        os.environ.pop("PSS_SAMPLER", None)
+        os.environ.pop("PSS_EXACT_SHIFT", None)
+        dev = self.dev
+        cfg, prof, nn = config4()
+        C, L = cfg.meta.nchan, cfg.nsamp
+        n = C * L
+        log(f"  config4_search_null: nchan {C} nph {cfg.nph} nsub {cfg.nsub} "
+            f"nsamp {L} n_null {cfg.n_null} noise_norm {nn:.6g} "
+            f"off_pulse_mean {cfg.off_pulse_mean:.3g}")
+
+        # (a) the flat layout against its plain version, bit for bit
+        tile = rng_hw.FLAT_TILE
+        keys = stage_key(stage_key(key(0, dev), "user",
+                                   torch.arange(2, device=dev)), "pulse")
+        seeds = rng_hw.seed_words(keys).contiguous()
+        worst = 0.0
+        cases = [("chi2_1", 0.0, 0, 0, n, "a full config-4 field")]
+        for mode, df in (("normal", 0.0), ("chi2_1", 0.0), ("chi2_wh", 99.0),
+                         ("chi2_sel", (1.0, 99.0))):
+            cases += [(mode, df, 5, 12345, 1_000_000, "unaligned f0"),
+                      (mode, df, 0, 0, 3 * tile + 4097, "not a whole tile")]
+        for mode, df, b0, skip, length, what in cases:
+            dfs = torch.tensor(df if isinstance(df, tuple) else (df, df),
+                               dtype=torch.float32, device=dev)
+            pos = torch.tensor([[0, b0], [0, b0 + 7]], dtype=torch.int32,
+                               device=dev)
+            got = rng_hw.rng_flat_field(seeds, dfs, pos, mode, skip, length)
+            want = rng_hw.rng_flat_field_plain(seeds, dfs, pos, mode, skip,
+                                               length)
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            log(f"  flat {mode:8s} df={df} f0={b0 * tile + skip} length "
+                f"{length} ({what}): max|kernel-plain| {err:.3g}")
+            if not torch.equal(got, want):
+                raise AssertionError(f"the flat layout differs from its plain "
+                                     f"version ({mode}, {what})")
+            del got, want
+        self.kernels["rng_flat_field"]["max_abs_err"] = worst
+
+        # (b) the main path: single_pipeline over a batch at full width
+        hk = stage_key(key(0, "cpu"), "user", torch.arange(SEARCH_NOBS))
+        dms = torch.full((SEARCH_NOBS,), CONFIG4["dm"])
+        nns = torch.full((SEARCH_NOBS,), nn, dtype=torch.float32)
+        pdev = torch.as_tensor(prof, device=dev)
+        freqs = torch.as_tensor(np.asarray(cfg.meta.dat_freq_mhz(),
+                                           np.float32), device=dev)
+
+        def run(k=hk, c=cfg, **kw):
+            return single_pipeline(k, dms[:k.shape[0]], nns[:k.shape[0]],
+                                   pdev, c, freqs=freqs,
+                                   chan_ids=torch.arange(C), **kw)
+
+        run(hk[:1])
+        torch.cuda.synchronize()
+        self._zero_counts()
+        t0 = time.perf_counter()
+        block = run()
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        counts = self._counts()
+        want = {"rng_field": 1, "fold_quantize": 0, "packed_digest": 0,
+                "rng_flat_field": 2}
+        if counts != want:
+            raise AssertionError(f"single_pipeline({SEARCH_NOBS}): launches "
+                                 f"{counts}, expected {want}")
+        self.kernels["rng_flat_field"]["launches"] = counts["rng_flat_field"]
+        if tuple(block.shape) != (SEARCH_NOBS, C, L) or not bool(
+                torch.isfinite(block).all()):
+            raise AssertionError("single_pipeline: wrong shape or non-finite")
+        # channel means: draw_norm * <profile> over the live pulses + the
+        # noise level; the nulled fraction holds off-pulse noise instead
+        live = 1.0 - cfg.n_null / cfg.nsub
+        expect = (cfg.draw_norm * prof.astype(np.float64).mean(axis=1) * live
+                  * (cfg.nsub * cfg.nph / L) + cfg.noise_df * nn)
+        rel = np.abs(block.double().mean(dim=(0, 2)).cpu().numpy() / expect
+                     - 1)
+        log(f"  single_pipeline({SEARCH_NOBS}) at {C} x {L}: first "
+            f"{t_first:.3f} s, launches {counts}; channel means vs "
+            f"expectation: max rel dev {rel.max():.3g}")
+        if rel.max() > 0.02:
+            raise AssertionError("SEARCH channel means off by > 2%")
+        del block
+        reps = 3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = run()
+        torch.cuda.synchronize()
+        t_ss = (time.perf_counter() - t0) / reps
+        del out
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del out
+        wall, busy, nev, by_name, _ = device_profile(torch, run)
+        log(f"  steady single_pipeline({SEARCH_NOBS}): {t_ss * 1e3:.2f} ms = "
+            f"{SEARCH_NOBS / t_ss:.1f} obs/s = "
+            f"{SEARCH_NOBS * n / t_ss / 1e9:.2f} Gsamples/s; peak memory "
+            f"{peak / 2**30:.3f} GiB; profiled wall {wall * 1e3:.2f} ms, "
+            f"device busy {busy / 1e3:.2f} ms ({busy / 1e6 / wall:.1%}), "
+            f"{nev} device events ({self.card_line})")
+        for name, (us, k) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:10]:
+            log(f"  {us / 1e3:9.3f} ms {k:4d}x  {name[:100]}")
+        self.search_rate = (SEARCH_NOBS / t_ss, peak)
+
+        # (c) the card against the host: observations 0-1 at full width,
+        # scenario-free and with every effect
+        nh = SEARCH_HOST_NOBS
+        stack = ["scintillation", "rfi", "single_pulse:lognormal"]
+        sp = {"rfi_imp_prob": 0.3, "rfi_nb_prob": 0.3, "scint_mod": 0.8}
+        for label, kw in (("scenario-free", {}),
+                          ("scintillation + rfi + lognormal",
+                           {"scenario": stack, "scenario_params": sp})):
+            self._zero_counts()
+            card = run(hk[:nh], **kw).cpu().numpy()
+            counts = self._counts()
+            if counts != want:
+                raise AssertionError(f"{label}: launches {counts}")
+            os.environ["PSS_SAMPLER"] = "hw"
+            try:
+                t0 = time.perf_counter()
+                host = single_pipeline(hk[:nh], dms[:nh], nns[:nh], prof,
+                                       cfg, device="cpu", **kw).numpy()
+                t_host = time.perf_counter() - t0
+            finally:
+                os.environ.pop("PSS_SAMPLER", None)
+            peak_v = np.abs(host).max()
+            err = np.abs(card - host)
+            bad = err > 1e-5 * np.abs(host) + 1e-5 * peak_v
+            log(f"  (c) {label}: observations 0-{nh - 1} against "
+                f"device='cpu' (PSS_SAMPLER=hw, {t_host:.1f} s on "
+                f"the host): max|diff| {err.max():.3g} (peak {peak_v:.3g}), "
+                f"{int(bad.sum())} beyond rtol 1e-5 + 1e-5 of the peak; "
+                f"bit-equal {np.mean(card == host):.4f}")
+            if bad.any():
+                raise AssertionError(f"{label}: the card differs from the host")
+
+        # (d) the same observations at another batch width: bit-equal
+        two = run(hk[:nh])
+        again = run()[:nh]
+        if not torch.equal(two, again):
+            raise AssertionError("SEARCH blocks depend on the batch width")
+        log(f"  (d) observations 0-{nh - 1} in a batch of {nh} and of "
+            f"{SEARCH_NOBS}: bit-equal")
+        del two, again
+
+        # (e) the exact (full-stream) shift on two observations; cuFFT plans
+        # the length-L transform on its first use, outside the timing
+        fcfg = dataclasses.replace(cfg, shift_mode="fft")
+        run(hk[:1], c=fcfg)
+        torch.cuda.synchronize()
+        self._zero_counts()
+        t0 = time.perf_counter()
+        fb = run(hk[:nh], c=fcfg)
+        torch.cuda.synchronize()
+        t_fft = time.perf_counter() - t0
+        counts = self._counts()
+        if counts != want or not bool(torch.isfinite(fb).all()):
+            raise AssertionError(f"exact shift: launches {counts} or "
+                                 "non-finite samples")
+        log(f"  (e) PSS_EXACT_SHIFT mode, {nh} observations: "
+            f"{t_fft * 1e3:.1f} ms, launches {counts}")
+        del fb
+
+        # (f) the flat layout's time at the main path's shape
+        fk = stage_key(stage_key(key(0, dev), "user",
+                                 torch.arange(SEARCH_NOBS, device=dev)),
+                       "pulse")
+        fseeds = rng_hw.seed_words(fk).contiguous()
+        fdfs = torch.zeros(SEARCH_NOBS, device=dev)
+        fpos = torch.zeros((SEARCH_NOBS, 2), dtype=torch.int32, device=dev)
+        ms = cuda_time_ms(lambda: rng_hw.rng_flat_field(
+            fseeds, fdfs, fpos, "chi2_1", 0, n), 10)
+
+        def plain_fields():   # one field at a time bounds the temporaries
+            for b in range(SEARCH_NOBS):
+                rng_hw.rng_flat_field_plain(fseeds[b:b + 1], fdfs[b:b + 1],
+                                            fpos[b:b + 1], "chi2_1", 0, n)
+
+        plain_ms = cuda_time_ms(plain_fields, 1)
+        library_ms = cuda_time_ms(lambda: torch.randn(
+            (SEARCH_NOBS, n), device=dev), 10)
+        total = SEARCH_NOBS * n
+        b_ms, b_by, parts = bound(FLAT_OPS, total,
+                                  4 * total + SEARCH_NOBS * (8 + 4 + 8))
+        self.kernels["rng_flat_field"].update(
+            name="rng_flat_field", route="cuda",
+            source="psrsigsim_torch/csrc/rng_field.cu",
+            replaces="psrsigsim_tpu/ops/rng_pallas.py:115 (flat order: "
+                     "psrsigsim_tpu/ops/stats.py:266-354)",
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=library_ms)
+        log(f"  rng_flat_field ({SEARCH_NOBS} x {n}, chi2_1): {ms:.4f} ms = "
+            f"{ms / SEARCH_NOBS:.4f} ms per field, {b_ms / ms:.1%} of its "
+            f"bound {b_ms:.4f} ms, {b_by} ({fmt_parts(parts)}); plain "
+            f"{plain_ms:.1f} ms ({SEARCH_NOBS} fields, one call each); "
+            f"torch.randn {library_ms:.4f} ms ({self.card_line})")
+
+    # -- 14 -----------------------------------------------------------------
+    def datasets(self):
+        """The dataset factory on the card (see the module docstring)."""
+        torch = self.torch
+        import hashlib
+        import shutil
+        import tempfile
+
+        import numpy as np
+
+        from psrsigsim_torch.datasets import DatasetFactory, DatasetReader
+        from psrsigsim_torch.runtime import FaultPlan, StageTimers
+        from psrsigsim_torch.runtime.integrity import scrub_dataset_dir
+
+        os.environ.pop("PSS_SAMPLER", None)
+        os.environ.pop("PSS_INTEGRITY", None)
+        dev = self.dev
+        spec = DATASET_SPEC
+        nrec = spec["n_records"]
+        build = os.path.join(ROOT, "build")
+        os.makedirs(build, exist_ok=True)
+        work = tempfile.mkdtemp(prefix="dataset-", dir=build)
+
+        def corpus_sha(out):
+            h = hashlib.sha256()
+            for name in sorted(os.listdir(out)):
+                if name.startswith("shard-"):
+                    with open(os.path.join(out, name), "rb") as fh:
+                        h.update(name.encode() + fh.read())
+            return h.hexdigest()
+
+        def flat_only(chunks):
+            return {"rng_field": 0, "fold_quantize": 0, "packed_digest": 0,
+                    "rng_flat_field": 2 * chunks}
+
+        try:
+            # (a) a clean corpus in 64-record chunks, twice (the second
+            # steady), then in 37-record chunks: byte-identical
+            runs = {}
+            for label, chunk in (("first", 64), ("steady", 64),
+                                 ("chunk 37", 37)):
+                out = os.path.join(work, label.replace(" ", ""))
+                tel = StageTimers()
+                fac = DatasetFactory(spec, device=dev)
+                self._zero_counts()
+                t0 = time.perf_counter()
+                res = fac.run(out, chunk_size=chunk, telemetry=tel)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = self._counts()
+                nchunks = -(-nrec // chunk)
+                if counts != flat_only(nchunks):
+                    raise AssertionError(f"{label}: launches {counts}, "
+                                         f"expected {flat_only(nchunks)}")
+                runs[label] = (out, corpus_sha(out), wall, res)
+                snap = res["telemetry"]
+                stages = ", ".join(
+                    f"{st} {snap[f'{st}_s']:.3f} s"
+                    for st in ("dispatch", "fetch", "encode", "write")
+                    if f"{st}_s" in snap) + f" (bottleneck {snap['bottleneck']})"
+                log(f"  (a) DatasetFactory.run({nrec} records, chunk_size="
+                    f"{chunk}) [{label}]: {wall:.3f} s = {nrec / wall:.1f} "
+                    f"records/s, {res['commits']} commits, stride "
+                    f"{res['stride']} B, launches {counts}; stages: "
+                    f"{stages}; sha256 {runs[label][1][:16]}")
+            if len({v[1] for v in runs.values()}) != 1:
+                raise AssertionError("corpora differ between chunk sizes 64 "
+                                     "and 37")
+            clean, clean_sha = runs["first"][0], runs["first"][1]
+            self.dataset_rate = nrec / runs["steady"][2]
+            log("  (a) chunk sizes 64 and 37: shards and indexes "
+                "byte-identical")
+
+            # (b) SIGKILL after chunk 128's commit, resume with chunk 37
+            killed = os.path.join(work, "killed")
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), DATASET_KILL_CHILD,
+                 killed, os.path.join(work, "kill_plan")],
+                capture_output=True, text=True, timeout=600)
+            if proc.returncode != -9:
+                raise AssertionError(
+                    f"the child exited {proc.returncode}, expected SIGKILL:\n"
+                    f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+            with open(os.path.join(killed, "dataset_journal.jsonl")) as fh:
+                starts = [json.loads(line)["start"] for line in fh]
+            if starts != [0, 64, 128]:
+                raise AssertionError(f"the killed run journaled {starts}")
+            self._zero_counts()
+            res = DatasetFactory(spec, device=dev).run(killed, chunk_size=37)
+            counts = self._counts()
+            if corpus_sha(killed) != clean_sha:
+                raise AssertionError("the resumed corpus differs from the "
+                                     "clean one")
+            log(f"  (b) a child SIGKILLed after chunk 128's commit (journal "
+                f"{starts}), resumed with chunk_size=37: byte-identical, "
+                f"{res['commits']} commits, launches {counts}")
+
+            # (c) integrity: host.corrupt and device.sdc healed in one run,
+            # disk.bitrot found by the scrub and healed by a resume
+            armed = os.path.join(work, "armed")
+            self._zero_counts()
+            res = DatasetFactory(spec, device=dev).run(
+                armed, chunk_size=64, integrity=1.0, faults=FaultPlan(
+                    os.path.join(work, "plan_c"),
+                    {"host.corrupt": {"after_start": 64},
+                     "device.sdc": {"after_start": 192}}))
+            counts = self._counts()
+            st = res["integrity"]
+            if (corpus_sha(armed) != clean_sha or st["healed_chunks"] != 2
+                    or st["checksum_mismatches"] != 1
+                    or st["audit_mismatches"] != 1):
+                raise AssertionError(f"integrity leg: {st}")
+            rot = os.path.join(work, "rot")
+            DatasetFactory(spec, device=dev).run(
+                rot, chunk_size=64, faults=FaultPlan(
+                    os.path.join(work, "plan_r"),
+                    {"disk.bitrot": {"match": "start=256"}}))
+            bad = scrub_dataset_dir(rot)["bad"]
+            res2 = DatasetFactory(spec, device=dev).run(rot, chunk_size=64)
+            if (bad != [256] or res2["commits"] != 1
+                    or corpus_sha(rot) != clean_sha
+                    or scrub_dataset_dir(rot)["bad"]):
+                raise AssertionError(f"bitrot leg: scrub found {bad}, the "
+                                     f"resume made {res2['commits']} commits")
+            log(f"  (c) integrity=1.0 with host.corrupt on chunk 64 and "
+                f"device.sdc on chunk 192: healed, byte-identical (checks "
+                f"{st['checks']}, audits {st['audits']}, checksum mismatches "
+                f"{st['checksum_mismatches']}, audit mismatches "
+                f"{st['audit_mismatches']}, healed {st['healed_chunks']}; "
+                f"launches {counts}); disk.bitrot on chunk 256: the scrub "
+                f"found {bad}, a resume recomputed 1 chunk, byte-identical")
+
+            # (d) the card against the host: records 0-3 (PSS_SAMPLER=hw)
+            reader = DatasetReader(clean)
+            os.environ["PSS_SAMPLER"] = "hw"
+            try:
+                host = DatasetFactory(spec, device="cpu").sampler
+                hrec = [host.record_host(i) for i in range(4)]
+            finally:
+                os.environ.pop("PSS_SAMPLER", None)
+            worst = 0.0
+            for i, h in enumerate(hrec):
+                r = reader.read_index(i)
+                for name in ("params", "scenario_params", "energies",
+                             "rfi_mask"):
+                    if r[name].tobytes() != h[name].tobytes():
+                        raise AssertionError(f"record {i}: {name} differs "
+                                             "from the host")
+                err = np.abs(r["tile"] - h["tile"])
+                worst = max(worst, float(err.max()))
+                if (err > 1e-5 * np.abs(h["tile"])
+                        + 1e-5 * np.abs(h["tile"]).max()).any():
+                    raise AssertionError(f"record {i}: the tile differs "
+                                         "from the host")
+            epoch = sum(1 for _ in reader.iter_epoch(0))
+            reader.close()
+            log(f"  (d) records 0-3 against device='cpu': labels byte-equal, "
+                f"tiles max|diff| {worst:.3g} (rtol 1e-5 + 1e-5 of the "
+                f"peak); a reader epoch visits {epoch} records")
+            if epoch != nrec:
+                raise AssertionError("the reader's epoch misses records")
+            for d in (clean, killed, armed, rot):
+                shutil.rmtree(d, ignore_errors=True)
+
+            # (e) a few records at config 4's geometry, every effect on
+            spec4 = DATASET_CONFIG4
+            out4 = os.path.join(work, "config4")
+            self._zero_counts()
+            t0 = time.perf_counter()
+            res = DatasetFactory(spec4, device=dev).run(out4, chunk_size=4)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = self._counts()
+            nbytes = res["stride"] * spec4["n_records"]
+            if counts != flat_only(2):
+                raise AssertionError(f"config-4 corpus: launches {counts}")
+            r4 = DatasetReader(out4).read_index(spec4["n_records"] - 1)
+            if not np.isfinite(r4["tile"]).all():
+                raise AssertionError("config-4 record not finite")
+            log(f"  (e) config-4 geometry ({spec4['nchan']} x "
+                f"{r4['tile'].shape[1]}, every effect), {spec4['n_records']} "
+                f"records in chunks of 4: {wall:.2f} s = "
+                f"{spec4['n_records'] / wall:.2f} records/s, "
+                f"{nbytes / 1e9:.2f} GB written ({nbytes / wall / 1e9:.2f} "
+                f"GB/s), launches {counts}")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+
     def run(self, with_profile=False):
         self.phase("1 card", self.card)
         built = self.phase("2 build", self.build)
@@ -2593,6 +3168,8 @@ class Smoke:
             self.phase("10 object-oriented flow and Simulation", self.oo_flow)
             self.phase("11 Monte-Carlo study", self.mc_study)
             self.phase("12 scenario engine", self.scenarios)
+            self.phase("13 SEARCH mode", self.search)
+            self.phase("14 dataset factory", self.datasets)
         if self.failed:
             log(f"FAILED phases: {', '.join(self.failed)}")
             return 1
@@ -2622,6 +3199,42 @@ def kill_child(out, scratch):
                       faults=FaultPlan(scratch, {"run.kill": {"after_start": 0}}))
     print("the export survived run.kill", file=sys.stderr)
     return 1
+
+
+def dataset_kill_child(out, scratch):
+    """Phase 14's process that must die: the dataset factory with
+    ``dataset.kill`` armed after chunk 128's journal commit."""
+    from psrsigsim_torch.datasets import DatasetFactory
+    from psrsigsim_torch.runtime import FaultPlan
+
+    DatasetFactory(DATASET_SPEC, device="cuda").run(
+        out, chunk_size=DATASET_CHUNKS[0],
+        faults=FaultPlan(scratch, {"dataset.kill": {"after_start": 128}}))
+    print("the factory survived dataset.kill", file=sys.stderr)
+    return 1
+
+
+def config4():
+    """BASELINE config 4's SEARCH geometry through the port's objects
+    (bench.py build_single_workload): ``(cfg, profiles, noise_norm)``."""
+    from psrsigsim_torch.models.pulsar import GaussProfile, Pulsar
+    from psrsigsim_torch.models.telescope import Backend, Receiver, Telescope
+    from psrsigsim_torch.signal import FilterBankSignal
+    from psrsigsim_torch.simulate import build_single_config
+    from psrsigsim_torch.utils import make_quant
+
+    g = CONFIG4
+    sig = FilterBankSignal(g["fcent"], g["bw"], Nsubband=g["nchan"],
+                           sample_rate=g["samprate_mhz"], fold=False)
+    psr = Pulsar(g["period_s"], g["smean"], GaussProfile(width=0.05),
+                 name="BENCH", seed=0)
+    sig._tobs = make_quant(g["tobs_s"], "s")
+    tel = Telescope(100.0, area=5500.0, Tsys=35.0, name="BenchScope")
+    tel.add_system("BenchSys", Receiver(fcent=g["fcent"], bandwidth=g["bw"],
+                                        name="R"),
+                   Backend(samprate=12.5, name="B"))
+    return build_single_config(sig, psr, tel, "BenchSys",
+                               null_frac=g["null_frac"])
 
 
 def mc_kill_child(out, scratch):
@@ -2662,6 +3275,9 @@ def main():
     if MC_KILL_CHILD in sys.argv:
         i = sys.argv.index(MC_KILL_CHILD)
         return mc_kill_child(sys.argv[i + 1], sys.argv[i + 2])
+    if DATASET_KILL_CHILD in sys.argv:
+        i = sys.argv.index(DATASET_KILL_CHILD)
+        return dataset_kill_child(sys.argv[i + 1], sys.argv[i + 2])
     return Smoke().run(with_profile="--profile" in sys.argv[1:])
 
 

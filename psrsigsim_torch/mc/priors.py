@@ -13,9 +13,9 @@ its ``uniform``/``normal``/``randint``/``choice`` in
 :mod:`psrsigsim_torch.utils.rng` and :mod:`psrsigsim_torch.ops.stats`),
 with the float32 arithmetic XLA compiles for them: the affine maps are
 fused multiply-adds, and :class:`Normal` folds ``sqrt(2)·sigma`` into one
-constant.  :class:`LogUniform`'s ``exp`` is torch's, within a
-few ulp of XLA's.  A batch of keys ``(B, 2)`` draws a ``(B,)`` float32
-tensor on the keys' device.
+constant, and :class:`LogUniform`'s ``exp`` is XLA's polynomial
+(:func:`psrsigsim_torch.ops.stats.exp`).  A batch of keys ``(B, 2)`` draws
+a ``(B,)`` float32 tensor on the keys' device.
 
 Priors are frozen dataclasses with hashable fields; ``describe()`` gives
 the canonical dict of study fingerprints and the CLI's TOML/JSON specs
@@ -30,7 +30,8 @@ import math
 import numpy as np
 import torch
 
-from ..ops.stats import _NORMAL_LO, _SQRT2, choice, erf_inv, fma, uniform
+from ..ops.stats import (_NORMAL_LO, _SQRT2, choice, erf_inv, exp, fma,
+                         uniform)
 from ..utils.rng import fold_in, stage_key
 
 __all__ = ["Prior", "Fixed", "Uniform", "LogUniform", "Normal", "Grid",
@@ -125,7 +126,7 @@ class LogUniform(Prior):
     def sample(self, key, idx):
         llo = _f32(math.log(float(self.lo)))
         lhi = _f32(math.log(float(self.hi)))
-        return torch.exp(fma(_uniform01(key), _f32(lhi - llo), llo))
+        return exp(fma(_uniform01(key), _f32(lhi - llo), llo))
 
     def support(self):
         return float(self.lo), float(self.hi)

@@ -20,7 +20,9 @@ _LAZY = {
     "clip_cast": "quantize", "subint_quantize": "quantize",
     "subint_dequantize": "quantize", "swap16": "quantize",
     "rng_field": "rng_hw", "rng_field_plain": "rng_hw",
+    "rng_flat_field": "rng_hw", "rng_flat_field_plain": "rng_hw",
     "hw_chan_field": "rng_hw", "fourier_shift": "shift",
+    "flat_normal_field": "stats", "flat_chi2_field": "stats",
     "chan_chi2_field": "stats", "chan_normal_field": "stats",
     "chi2_draw_norm": "stats", "chi2_sample": "stats", "normal": "stats",
     "normal_sample": "stats",
@@ -53,6 +55,8 @@ __all__ = [
     "swap16",
     "rng_field",
     "rng_field_plain",
+    "rng_flat_field",
+    "rng_flat_field_plain",
     "hw_chan_field",
     "fold_quantize",
     "packed_digest",
@@ -60,6 +64,8 @@ __all__ = [
     "fourier_shift",
     "chan_chi2_field",
     "chan_normal_field",
+    "flat_normal_field",
+    "flat_chi2_field",
     "chi2_draw_norm",
     "chi2_sample",
     "normal",

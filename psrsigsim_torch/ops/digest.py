@@ -106,7 +106,8 @@ def rows_digest(x, salt=0):
         w = x.contiguous().view(torch.int32)
     else:
         w = x
-    w = w.reshape(rows, -1).to(torch.int64) & _MASK
+    # a field with no columns (a corpus without priors) digests to 0
+    w = w.reshape(rows, -1 if w.numel() else 0).to(torch.int64) & _MASK
     m = _positions(w.shape[1], salt & _MASK, x.device)
     terms = (_mul32(w ^ m, _GOLD) + m) & _MASK
     return terms.sum(dim=1) & _MASK

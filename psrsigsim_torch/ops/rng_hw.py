@@ -22,6 +22,12 @@ of :mod:`.fold_quantize` draws the same samples.
   launch is counted in ``rng_field.launches``); a CPU tensor runs
   :func:`rng_field_plain`, the same Philox, transform and layout in torch
   ops.  There is no fallback from one to the other.
+* :func:`rng_flat_field` — the same kernel storing the SEARCH-mode flat
+  stream: whole 8 × 4096 tiles in (block, channel, sample) order, a span
+  of it per batch element (the reference's ``flat_normal_field`` draws the
+  rows and transposes them); its plain version is
+  :func:`rng_flat_field_plain`, :func:`rng_field_plain` and the same
+  reorder.  Counted in ``rng_flat_field.launches``.
 * :func:`hw_chan_field` — the key-data → seed-words glue the pipelines
   call (reference: ``hw_chan_field``).
 
@@ -37,12 +43,14 @@ import torch
 from . import _build
 from .stats import wilson_hilferty
 
-__all__ = ["RNG_BLOCK", "CHAN_GROUP", "MODES", "rng_field", "rng_field_plain",
+__all__ = ["RNG_BLOCK", "CHAN_GROUP", "FLAT_TILE", "MODES", "rng_field",
+           "rng_field_plain", "rng_flat_field", "rng_flat_field_plain",
            "box_muller_selftest", "hw_chan_field", "seed_words"]
 
 RNG_BLOCK = 4096  # must equal ops.stats.SEQ_RNG_BLOCK
 CHAN_GROUP = 8    # channels per independent stream
 _TILE = CHAN_GROUP * RNG_BLOCK
+FLAT_TILE = _TILE  # samples per tile of the flat stream
 LANES = 4         # samples per Philox call
 
 MODES = {"normal": 0, "chi2_1": 1, "chi2_wh": 2, "chi2_sel": 3}
@@ -169,12 +177,32 @@ def rng_field_plain(seeds, dfs, pos, mode, nchan, length, bits=philox_bits):
 
 def _lib():
     lib = _build.library("rng_field")
-    fn = lib.rng_field_launch
+    fn = lib.rng_field_layout_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
+
+
+_LAYOUTS = {"rows": 0, "flat": 1}
+
+
+def _launch(seeds, dfs, pos, out, nchan, length, mode, layout, skip):
+    """One launch of the kernel on the current stream (checks done)."""
+    dev = seeds.device
+    B = seeds.shape[0]
+    if B > 65535 or -(-nchan // CHAN_GROUP) > 65535:
+        raise ValueError(f"batch {B} or channel groups exceed the grid limit")
+    if not (seeds.is_contiguous() and dfs.is_contiguous()
+            and pos.is_contiguous()):
+        raise ValueError("seeds, dfs and pos must be contiguous")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib().rng_field_layout_launch(
+        seeds.data_ptr(), dfs.data_ptr(), pos.data_ptr(), out.data_ptr(), B,
+        nchan, length, MODES[mode], _LAYOUTS[layout], skip, stream)
+    if err != 0:
+        raise RuntimeError(f"rng_field kernel launch failed: cudaError {err}")
 
 
 def _check_args(seeds, dfs, pos, mode, nchan, length):
@@ -211,25 +239,63 @@ def rng_field(seeds, dfs, pos, mode, nchan, length):
         return rng_field_plain(seeds, dfs, pos, mode, nchan, length)
     if dev.type != "cuda":
         raise ValueError(f"rng_field runs on cuda or cpu tensors, not {dev}")
-    B = seeds.shape[0]
-    if B > 65535 or -(-nchan // CHAN_GROUP) > 65535:
-        raise ValueError(f"batch {B} or channel groups exceed the grid limit")
-    if not (seeds.is_contiguous() and dfs.is_contiguous()
-            and pos.is_contiguous()):
-        raise ValueError("seeds, dfs and pos must be contiguous")
-    lib = _lib()
-    out = torch.empty((B, nchan, length), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.rng_field_launch(seeds.data_ptr(), dfs.data_ptr(),
-                               pos.data_ptr(), out.data_ptr(), B, nchan,
-                               length, MODES[mode], stream)
-    if err != 0:
-        raise RuntimeError(f"rng_field kernel launch failed: cudaError {err}")
+    out = torch.empty((seeds.shape[0], nchan, length), dtype=torch.float32,
+                      device=dev)
+    _launch(seeds, dfs, pos, out, nchan, length, mode, "rows", 0)
     rng_field.launches += 1
     return out
 
 
 rng_field.launches = 0
+
+
+def _check_flat(skip, length):
+    if not 0 <= skip < FLAT_TILE:
+        raise ValueError(f"skip={skip} must lie in [0, {FLAT_TILE})")
+    if (skip + length + FLAT_TILE - 1) // FLAT_TILE * FLAT_TILE >= 2**31:
+        raise ValueError(f"a flat span of {skip + length} samples overflows "
+                         "the kernel's int32 offsets")
+
+
+def rng_flat_field_plain(seeds, dfs, pos, mode, skip, length):
+    """:func:`rng_flat_field` in torch ops: the channel group's rows from
+    :func:`rng_field_plain` over the whole tiles, reordered to (block,
+    channel, sample) and sliced."""
+    _check_flat(skip, length)
+    nt = -(-(skip + length) // FLAT_TILE)
+    rows = rng_field_plain(seeds, dfs, pos, mode, CHAN_GROUP,
+                           nt * RNG_BLOCK)
+    flat = rows.reshape(-1, CHAN_GROUP, nt, RNG_BLOCK).transpose(1, 2)
+    return flat.reshape(rows.shape[0], -1)[:, skip:skip + length].contiguous()
+
+
+def rng_flat_field(seeds, dfs, pos, mode, skip, length):
+    """``(B, length)`` float32: flat indices ``[skip, skip + length)`` of
+    the flat stream of channel group ``pos[:, 0]`` from RNG block
+    ``pos[:, 1]`` on — whole 8 × 4096 tiles in (block, channel, sample)
+    order, sample ``s`` of channel ``c`` in block ``pos[:, 1] + t`` at flat
+    index ``(t·8 + c)·4096 + s`` (reference: ``flat_normal_field``).
+
+    Arguments as :func:`rng_field`; ``skip`` in ``[0, 8·4096)``.  CUDA
+    tensors launch the kernel in its flat layout (one store pass, no
+    transpose); CPU tensors run :func:`rng_flat_field_plain`.
+    """
+    _check_args(seeds, dfs, pos, mode, CHAN_GROUP, length)
+    _check_flat(skip, length)
+    dev = seeds.device
+    if dev.type == "cpu":
+        return rng_flat_field_plain(seeds, dfs, pos, mode, skip, length)
+    if dev.type != "cuda":
+        raise ValueError(f"rng_flat_field runs on cuda or cpu tensors, "
+                         f"not {dev}")
+    out = torch.empty((seeds.shape[0], length), dtype=torch.float32,
+                      device=dev)
+    _launch(seeds, dfs, pos, out, CHAN_GROUP, length, mode, "flat", skip)
+    rng_flat_field.launches += 1
+    return out
+
+
+rng_flat_field.launches = 0
 
 
 def box_muller_selftest(device="cuda"):

@@ -13,12 +13,10 @@ keyed by integers GLOBAL to the observation — scintle cell ids, global
 channel ids, subint ids — so the same observation gets the same factors in
 any batch.  The keys are jax's, bit for bit (:mod:`..utils.rng`); the
 float arithmetic is the JAX package's as XLA's CPU backend compiles it
-(``pow`` rounded from float64, ``log1p`` by XLA's polynomial, its fused
-multiply-adds, divisions by constants as multiplications by the float32
-reciprocal),
-evaluated on the host where the keys live.  Where torch's ``exp`` and
-XLA's round apart the log-normal energies differ by an ulp
-(psrsigsim_torch/DIVERGENCES.md P13).
+(``pow`` rounded from float64, ``log1p`` and ``exp`` by XLA's
+polynomials, its fused multiply-adds, divisions by constants as
+multiplications by the float32 reciprocal), evaluated on the host where
+the keys live (psrsigsim_torch/DIVERGENCES.md P13).
 """
 
 from __future__ import annotations
@@ -27,7 +25,7 @@ import numpy as np
 import torch
 
 from ..utils.rng import fold_in, randint
-from .stats import _SQRT2, _from_uniform, _log1p, erf_inv, fma, uniform
+from .stats import _SQRT2, _from_uniform, _log1p, erf_inv, exp, fma, uniform
 
 __all__ = ["scint_cells", "scint_gain", "rfi_levels", "pulse_energies",
            "SCINT_DNU_EXPONENT", "SCINT_DT_EXPONENT", "SP_MODES"]
@@ -203,7 +201,7 @@ def pulse_energies(keys, nsub, mode, param):
         # folded into sigma, the subtraction fused
         r = _from_uniform(keys, n, erf_inv)
         s = (p * _SQRT2).expand_as(r)
-        return torch.exp(fma(s, r, -((0.5 * p) * p).expand_as(r)))
+        return exp(fma(s, r, -((0.5 * p) * p).expand_as(r)))
     if mode == "powerlaw":
         a = torch.clamp_min(p, 1.05)
         u = uniform(keys, n, minval=1e-7, maxval=1.0)

@@ -18,7 +18,10 @@ Two samplers draw the per-channel χ² fields of the pipelines:
 χ² routing follows the reference's ``chi2_sample``: df = 1 draws ``z²``
 exactly, a static df ≥ 50 draws the Wilson–Hilferty cube of a normal, and a
 per-observation df tensor (the reference's traced df) selects between the
-two in the graph.  The object-oriented flow draws jax's flat
+two in the graph.  SEARCH mode draws its fields from the flat whole-tile
+stream (``flat_normal_field``, ``flat_chi2_field``): the kernel's flat
+layout on the card, the blocked draws reordered elsewhere.  The
+object-oriented flow draws jax's flat
 ``random.normal`` stream over a whole ``(Nchan, Nsamp)`` block
 (``normal_sample``, ``chi2_sample``, and ``chi2_sample_compiled``, the
 arithmetic XLA compiles for the JAX package's jitted kernels).  The exact gamma sampler (static df < 50, or
@@ -35,11 +38,14 @@ import torch
 from ..utils.device import to_device
 from ..utils.rng import fold_in, randint, random_bits
 
-__all__ = ["SEQ_RNG_BLOCK", "CHI2_WH_MIN_DF", "fma", "erf_inv", "uniform",
-           "normal", "normal_sample", "chi2_sample", "chi2_sample_compiled",
-           "blocked_chan_chi2", "blocked_chan_normal", "sampler_backend",
-           "chan_chi2_field", "chan_normal_field", "chi2_draw_norm",
-           "choice", "fixed_histogram", "exponential"]
+__all__ = ["SEQ_RNG_BLOCK", "CHI2_WH_MIN_DF", "fma", "exp", "erf_inv",
+           "uniform", "normal", "normal_sample", "chi2_sample",
+           "chi2_sample_compiled", "blocked_chan_chi2",
+           "blocked_chan_normal", "sampler_backend",
+           "chan_chi2_field", "chan_normal_field", "FLAT_TILE",
+           "FLAT_MAX_OFFSET", "flat_normal_field", "flat_chi2_field",
+           "flat_chi2_ok", "chi2_draw_norm", "choice", "fixed_histogram",
+           "exponential"]
 
 # Fixed span of global time samples per RNG key: every pipeline draw is keyed
 # by (stage, channel, global block index), so a seed gives the same stream
@@ -142,6 +148,42 @@ def _log1p(x):
                        _log(x + 1.0))
 
 
+def _sqrt(x):
+    """Correctly rounded float32 square root, as XLA's CPU backend emits it
+    (``vsqrtps``); torch's vectorized float32 ``sqrt`` on the host is an ulp
+    off now and then.  The float64 root rounds to the float32 one."""
+    return torch.sqrt(x.double()).to(_F32)
+
+
+# Cephes/Eigen expf, as XLA's CPU backend evaluates it
+_EXP_LO = _f32(-87.8)
+_EXP_HI = _f32(88.8)
+_LOG2E = _f32(1.44269504088896341)
+_EXP_C1 = 0.693359375
+_EXP_C2 = _f32(-2.12194440e-4)
+_EXP_P = [_f32(v) for v in (
+    1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
+    1.6666665459e-1, 5.0000001201e-1)]
+
+
+def exp(x):
+    """float32 ``exp`` with XLA CPU's polynomial: ``x = n·ln2 + r`` with
+    ``n = floor(x·log2(e) + 1/2)`` clamped to [-127, 127] and ``r`` reduced
+    in two fused steps, a degree-5 polynomial in ``r``, then ``n`` put into
+    the exponent bits; a subnormal result flushes to zero, as XLA's CPU
+    code runs with flush-to-zero."""
+    x = torch.clamp(x, _EXP_LO, _EXP_HI)
+    n = torch.clamp(torch.floor(fma(x, _LOG2E, 0.5)), -127.0, 127.0)
+    r = fma(n, -_EXP_C1, x)
+    r = fma(n, -_EXP_C2, r)
+    y = fma(r, _EXP_P[0], _EXP_P[1])
+    for c in _EXP_P[2:]:
+        y = fma(y, r, c)
+    y = fma(y, r * r, r) + 1.0
+    y = y * ((n.to(torch.int32) + 127) << 23).view(_F32)
+    return torch.where(y < _FLT_MIN, torch.zeros_like(y), y)
+
+
 _ERFINV_LT5 = [_f32(v) for v in (
     2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
     0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)]
@@ -155,7 +197,7 @@ def erf_inv(x):
     ``w = -log1p(-x²)``), the function ``jax.random.normal`` is built on."""
     w = -_log1p(-(x * x))
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    w = torch.where(lt, w - 2.5, _sqrt(w) - 3.0)
     p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0])
     for lt_c, ge_c in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
         p = fma(p, w, torch.where(lt, lt_c, ge_c))
@@ -244,13 +286,18 @@ def _static_df(df):
     return float(df)
 
 
-def wilson_hilferty(z, df):
+def wilson_hilferty(z, df, fused=False):
     """``max(k·(1 - c + z·sqrt(c))³, 0)`` with ``c = 2/(9k)`` in float32,
-    the reference's order of operations (``**3`` is ``t·(t·t)``)."""
+    the reference's order of operations (``**3`` is ``t·(t·t)``); with
+    ``fused`` the add is contracted into a multiply-add, as XLA compiles
+    the JAX package's jitted flat fields."""
     k = df if isinstance(df, torch.Tensor) else torch.full(
         (), df, dtype=_F32, device=z.device)
     c = 2.0 / (9.0 * k)
-    t = (1.0 - c) + z * torch.sqrt(c)
+    if fused:
+        t = fma(z, _sqrt(c), 1.0 - c)
+    else:
+        t = (1.0 - c) + z * _sqrt(c)
     return torch.clamp_min(k * (t * (t * t)), 0.0)
 
 
@@ -294,7 +341,7 @@ def chi2_sample_compiled(key, df, shape):
         return chi2_sample(key, df, shape)
     k = torch.tensor(static_df, dtype=_F32)
     c = 2.0 / (9.0 * k)
-    scale = float(torch.tensor(_SQRT2, dtype=_F32) * torch.sqrt(c))
+    scale = float(torch.tensor(_SQRT2, dtype=_F32) * _sqrt(c))
     one_c = float(1.0 - c)
     k = float(k)
 
@@ -414,6 +461,106 @@ def chan_normal_field(key, chan_ids, t0, length, block=SEQ_RNG_BLOCK):
     if sampler_backend(key.device) == "hw" and block == SEQ_RNG_BLOCK:
         return _hw_field_span(key, chan_ids, 0.0, t0, "normal", length)
     return blocked_chan_normal(key, chan_ids, t0, length, block)
+
+
+# one sampler tile: 8 channel rows x one RNG block
+FLAT_TILE = 8 * SEQ_RNG_BLOCK
+
+# the largest global flat offset a flat stream may reach: the JAX package
+# carries flat offsets as int32, so a consumer past it keeps the
+# per-channel-keyed path (and the kernel's offsets are int32 too)
+FLAT_MAX_OFFSET = 2**31 - 1
+
+
+def _flat_draw(key, f0, length, mode, df):
+    """The flat stream's span ``[f0, f0 + length)`` for keys ``(..., 2)``
+    in the kernel's ``mode``: ``(..., length)``.  Whole tiles from tile
+    ``f0 // FLAT_TILE`` on, one tile of overdraw when ``f0`` is not a tile
+    boundary, as the reference does."""
+    f0, length = int(f0), int(length)
+    b0, skip = divmod(f0, FLAT_TILE)
+    lead = key.shape[:-1]
+    if sampler_backend(key.device) == "hw":
+        from .rng_hw import rng_flat_field, seed_words
+
+        seeds = seed_words(key.reshape(-1, 2)).contiguous()
+        B = seeds.shape[0]
+        if isinstance(df, torch.Tensor):
+            dfs = df.to(device=key.device, dtype=_F32).expand(lead)
+            dfs = dfs.reshape(B).contiguous()
+        else:
+            dfs = torch.full((B,), float(df), dtype=_F32, device=key.device)
+        pos = torch.zeros((B, 2), dtype=torch.int32, device=key.device)
+        pos[:, 1] = b0
+        out = rng_flat_field(seeds, dfs, pos, mode, skip, length)
+        return out.reshape(lead + (length,))
+    if mode != "normal":
+        raise ValueError("the threefry flat stream draws normals only")
+    nt = -(-(skip + length) // FLAT_TILE)
+    z = blocked_chan_normal(key, torch.arange(8), b0 * SEQ_RNG_BLOCK,
+                            nt * SEQ_RNG_BLOCK)
+    flat = z.reshape(lead + (8, nt, SEQ_RNG_BLOCK)).transpose(-3, -2)
+    return flat.reshape(lead + (nt * FLAT_TILE,))[..., skip:skip + length]
+
+
+def flat_normal_field(key, f0, length):
+    """A standard-normal stream at GLOBAL flat offset ``f0`` (reference:
+    ``flat_normal_field``): ``(..., length)`` for keys ``(..., 2)``.
+
+    The stream is whole ``(8, SEQ_RNG_BLOCK)`` tiles of channel group 0,
+    keyed by (channel 0-7, global block), flattened in (block, channel,
+    sample) order, so every drawn sample is used whatever the consumer's
+    channel count, and any span is the same for any split.  On the card
+    the sampler kernel stores that order directly (``rng_flat_field``);
+    elsewhere the blocked threefry rows are reordered, as the JAX package
+    does off a TPU.
+    """
+    return _flat_draw(key, f0, length, "normal", 0.0)
+
+
+def flat_chi2_field(key, f0, length, df):
+    """χ² draws from the flat normal stream (reference:
+    ``flat_chi2_field``): df = 1 is ``z²``, a static df ≥ 50 the
+    Wilson–Hilferty cube of ``z``, a per-observation df tensor selects
+    between the two.  On the card the transform runs in the kernel's
+    registers.  A static df below 50 (other than 1) raises: the gamma
+    sampler has no flat-normal form (:func:`flat_chi2_ok` guards it)."""
+    static_df = _static_df(df)
+    if (static_df is not None and static_df != 1.0
+            and static_df < CHI2_WH_MIN_DF):
+        raise ValueError(
+            f"flat_chi2_field needs df=1 or df >= {CHI2_WH_MIN_DF:.0f} "
+            f"(got {static_df}): small-df chi2 uses the gamma rejection "
+            "sampler, which has no flat-normal form — use chan_chi2_field")
+    if sampler_backend(key.device) == "hw":
+        mode = _hw_chi2_mode(df)
+        return _flat_draw(key, f0, length, mode,
+                          0.0 if mode == "chi2_1" else df)
+    z = flat_normal_field(key, f0, length)
+    if static_df == 1.0:
+        return z * z
+    if static_df is not None:
+        return wilson_hilferty(z, static_df, fused=True)
+    k = df.to(device=z.device, dtype=_F32).reshape(
+        df.shape + (1,) * (z.dim() - df.dim()))
+    return torch.where(k == 1.0, z * z, wilson_hilferty(z, k, fused=True))
+
+
+def flat_chi2_ok(df, span_end=None):
+    """Whether :func:`flat_chi2_field` may draw ``df`` (reference:
+    ``flat_chi2_ok``): not under ``PSS_EXACT_CHI2=1``, not for a span whose
+    largest GLOBAL flat offset ``span_end`` passes
+    :data:`FLAT_MAX_OFFSET` (callers pass the global bound, so every split
+    picks the same realization), and only for df = 1, df ≥ 50 or a
+    per-observation df tensor."""
+    if os.environ.get("PSS_EXACT_CHI2"):
+        return False
+    if span_end is not None and int(span_end) > FLAT_MAX_OFFSET:
+        return False
+    static_df = _static_df(df)
+    if static_df is None:
+        return True
+    return static_df == 1.0 or static_df >= CHI2_WH_MIN_DF
 
 
 def choice(key, n, p=None):

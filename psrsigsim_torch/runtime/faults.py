@@ -33,6 +33,14 @@ point                     where it fires
                           kill/resume tests).  Config:
                           ``{"after_start": int}``; omit ``after_start`` to
                           kill after the first commit of any kind.
+``dataset.kill``          the dataset factory
+                          (:meth:`psrsigsim_torch.datasets.DatasetFactory.
+                          run`), immediately after the journal commit of
+                          the record chunk starting at ``after_start`` —
+                          SIGKILLs the corpus-writing process, for the
+                          factory's kill/resume byte-identity tests.
+                          Config: ``{"after_start": int}``; omit to kill
+                          after the first chunk commit.
 ``mc.kill``               the Monte-Carlo study's sweep
                           (:meth:`psrsigsim_torch.mc.MonteCarloStudy.run`),
                           right after the journal commit of the chunk
@@ -40,9 +48,11 @@ point                     where it fires
                           omitted) — SIGKILLs the sweeping process, for the
                           study's kill/resume tests.  Config:
                           ``{"after_start": int}``.
-``device.sdc``            the integrity-armed export producer
-                          (:meth:`psrsigsim_torch.parallel.FoldEnsemble.
-                          iter_chunks`) — ONE element of the chunk's
+``device.sdc``            the integrity-armed producers (the export's
+                          :meth:`psrsigsim_torch.parallel.FoldEnsemble.
+                          iter_chunks`, the study's chunk, the dataset
+                          factory's chunk, whose ident is the chunk's
+                          first record) — ONE element of the chunk's
                           device output buffer is perturbed before any
                           digest is computed, so the checksum lattice
                           attests the WRONG bytes (that is what silent
@@ -50,14 +60,16 @@ point                     where it fires
                           duplicate-execution audit can catch it.
                           Config: ``{"after_start": int}`` (chunk start)
                           plus ``times``.
-``host.corrupt``          the same producer, host side — one element of a
-                          FETCHED buffer is flipped before the exporter
-                          encodes it (the fetch->encode window), which the
+``host.corrupt``          the same producers, host side — one element of
+                          a FETCHED buffer is flipped before the exporter
+                          (or the factory) encodes it (the fetch->encode window), which the
                           checksum lattice's host re-check must catch.
                           Config: ``{"after_start": int}`` / ``match`` /
                           ``times``.
 ``disk.bitrot``           immediately AFTER a durable commit of export
-                          files — one byte of the committed file is
+                          files or of a dataset chunk (token
+                          ``start=<first record>``, the byte at that
+                          record's slot) — one byte of the committed file is
                           XOR-flipped, after its sha256 became the
                           journal's record: the decay the scrub layer
                           (:mod:`psrsigsim_torch.runtime.integrity`)
@@ -65,9 +77,9 @@ point                     where it fires
                           basename) / ``times``.
 ========================  ====================================================
 
-The JAX package's other points (the dataset, serving and pod points)
-belong to subsystems the port has not taken over yet; naming one raises,
-like any unknown point.
+The JAX package's other points (the serving and pod points) belong to
+subsystems the port has not taken over yet; naming one raises, like any
+unknown point.
 
 Arming is explicit and local: a :class:`FaultPlan` is built by a test and
 passed down via the ``faults=`` parameter; production call sites carry
@@ -91,7 +103,8 @@ import signal
 __all__ = ["FaultPlan", "should_fire", "crash_process", "POINTS"]
 
 POINTS = ("writer.crash", "shm.attach", "file.partial", "nan.obs",
-          "run.kill", "mc.kill", "device.sdc", "host.corrupt", "disk.bitrot")
+          "run.kill", "dataset.kill", "mc.kill", "device.sdc", "host.corrupt",
+          "disk.bitrot")
 
 
 class FaultPlan:

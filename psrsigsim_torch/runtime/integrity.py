@@ -47,8 +47,12 @@ torch only inside :func:`device_packed_digest_rows` (the export's spawn
 writers import this package and must never import torch).
 
 The Monte-Carlo study's row digest (:func:`device_digest_rows`) and its
-scrub (:func:`scrub_mc_dir`) are here too; the dataset and serving digests
-and scrubs of the JAX package wait for those subsystems.
+scrub (:func:`scrub_mc_dir`) are here too, and the dataset factory's
+per-record digest of a chunk's field buffers
+(:func:`device_fields_digest_rows`, its host twin
+:func:`fields_digest_rows_host`) and corpus scrub
+(:func:`scrub_dataset_dir`); the serving digests and scrubs of the JAX
+package wait for that subsystem.
 """
 
 from __future__ import annotations
@@ -64,10 +68,11 @@ from .retry import RetryPolicy, call_with_retry
 __all__ = [
     "IntegrityChecker", "IntegrityError", "resolve_integrity",
     "digest_rows", "digest_array", "device_digest_rows",
-    "device_packed_digest_rows",
+    "device_packed_digest_rows", "fields_digest_rows_host",
+    "device_fields_digest_rows",
     "triple_digest_rows", "audit_selected", "DEFAULT_AUDIT_FRAC",
     "maybe_sdc", "maybe_host_corrupt", "maybe_bitrot",
-    "DirScrubber", "scrub_export_dir", "scrub_mc_dir",
+    "DirScrubber", "scrub_export_dir", "scrub_mc_dir", "scrub_dataset_dir",
 ]
 
 #: default duplicate-execution audit fraction once integrity is enabled
@@ -228,6 +233,31 @@ def device_packed_digest_rows(packed, nbin, count=None):
 # ---------------------------------------------------------------------------
 # audit sampling
 # ---------------------------------------------------------------------------
+
+
+def fields_digest_rows_host(arrays):
+    """Combined per-record host digest of a chunk's per-field arrays (the
+    dataset chunk layout, each ``(rows, ...)``): field ``f`` folds with
+    salt ``(f + 1) << 16``, the folds summed mod 2^32 — ``(rows,)``
+    uint32, the JAX package's ``fields_digest_rows_host``."""
+    total = np.zeros(np.asarray(arrays[0]).shape[0], np.uint64)
+    for f, a in enumerate(arrays):
+        total = (total + digest_rows(a, salt=(f + 1) << 16)) \
+            & np.uint64(_MASK)
+    return total.astype(np.uint32)
+
+
+def device_fields_digest_rows(arrays):
+    """:func:`fields_digest_rows_host` of tensors, computed where they lie
+    (int64 torch ops, as :func:`device_digest_rows`; the JAX package's is
+    an XLA fusion too): ``(rows,)`` int64 holding the uint32 digests."""
+    from ..ops.digest import rows_digest
+
+    total = None
+    for f, a in enumerate(arrays):
+        d = rows_digest(a, (f + 1) << 16)
+        total = d if total is None else (total + d) & _MASK
+    return total
 
 
 def audit_selected(fingerprint, ident, frac):
@@ -623,5 +653,37 @@ def scrub_mc_dir(out_dir):
                 bad.append(int(start))
     finally:
         os.close(fd)
+    return {"scanned": ok + len(bad), "scrubbed": ok,
+            "scrub_errors": len(bad), "bad": bad}
+
+
+def scrub_dataset_dir(out_dir):
+    """Scrub a dataset corpus dir: re-hash every journaled record chunk's
+    bytes out of the shards against the journal's sha256.  Returns the
+    summary with ``bad`` = the corrupt chunks' starts; healing is
+    ``DatasetFactory.run(resume=True)``, whose resume re-hashes the
+    journaled chunks from the shard bytes and recomputes any that fail."""
+    from ..datasets import factory as _factory
+    from ..datasets.writer import DatasetReader
+    from .supervisor import load_chunk_journal
+
+    done = load_chunk_journal(os.path.join(out_dir, _factory._JOURNAL_NAME))
+    if not os.path.exists(os.path.join(out_dir, _factory._MANIFEST_NAME)):
+        raise FileNotFoundError(f"{out_dir} holds no dataset manifest")
+    bad, ok = [], 0
+    with DatasetReader(out_dir) as reader:
+        for start, rec in sorted(done.items()):
+            h = hashlib.sha256()
+            complete = True
+            for i in range(start, start + int(rec["count"])):
+                buf = reader.record_bytes(i)
+                if len(buf) != reader.stride:
+                    complete = False
+                    break
+                h.update(buf)
+            if complete and h.hexdigest() == rec.get("sha"):
+                ok += 1
+            else:
+                bad.append(int(start))
     return {"scanned": ok + len(bad), "scrubbed": ok,
             "scrub_errors": len(bad), "bad": bad}

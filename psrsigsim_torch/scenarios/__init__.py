@@ -17,8 +17,9 @@ Disabled effects cost nothing (a scenario-free build writes the bytes it
 wrote before the engine existed); enabled effects are bit-identical
 across chunk sizes because every draw keys off the observation key via
 the effect's own RNG stage.  On the card the factors ride into the fused
-fold → quantize → pack kernel as per-row constants.  The SEARCH-mode
-hooks wait for the SEARCH pipeline and raise ``NotImplementedError``.
+fold → quantize → pack kernel as per-row constants.  In SEARCH mode
+(``single_pipeline``, the dataset factory) one pulse is the time cell
+(``apply_*_effects_search``).
 """
 
 from .registry import (
@@ -29,7 +30,9 @@ from .registry import (
     ScenarioRows,
     ScenarioStack,
     apply_additive_effects,
+    apply_additive_effects_search,
     apply_pulse_effects,
+    apply_pulse_effects_search,
     default_params,
     energy_truth,
     parse_stack,
@@ -53,6 +56,8 @@ __all__ = [
     "scenario_rows",
     "apply_pulse_effects",
     "apply_additive_effects",
+    "apply_pulse_effects_search",
+    "apply_additive_effects_search",
     "rfi_truth_mask",
     "energy_truth",
 ]

@@ -41,7 +41,8 @@ __all__ = ["EffectParam", "Effect", "EFFECTS", "EFFECT_ORDER",
            "SP_MODE_KNOBS", "ScenarioStack", "ScenarioRows", "parse_stack",
            "stack_label", "scenario_knobs", "stack_from_knobs", "param_dict",
            "default_params", "scenario_rows", "apply_scenario_pulse",
-           "apply_scenario_additive", "apply_pulse_effects",
+           "apply_scenario_additive", "apply_scenario_pulse_search",
+           "apply_scenario_additive_search", "apply_pulse_effects",
            "apply_additive_effects", "apply_pulse_effects_search",
            "apply_additive_effects_search", "rfi_truth_mask", "energy_truth"]
 
@@ -365,7 +366,10 @@ def scenario_rows(keys, stack, params, cfg, noise_level, freqs=None,
         stack: a :class:`ScenarioStack` (or labels for :func:`parse_stack`).
         params: ``{name: scalar or (...) tensor}`` (registry defaults fill
             unset names), or a sequence in ``stack.param_names()`` order.
-        cfg: the :class:`~psrsigsim_torch.simulate.FoldPipelineConfig`.
+        cfg: the :class:`~psrsigsim_torch.simulate.FoldPipelineConfig`
+            (the subintegration is the effect's time cell) or
+            :class:`~psrsigsim_torch.simulate.SinglePipelineConfig` (one
+            pulse is: the scintillation cell lasts a period).
         noise_level: the mean radiometer level ``noise_df · noise_norm``,
             ``(...)`` float32; RFI levels are in its units and are
             multiplied by it on its device.
@@ -386,7 +390,9 @@ def scenario_rows(keys, stack, params, cfg, noise_level, freqs=None,
     dev = noise_level.device
     gain, energy, levels, mask = _draw(
         keys, stack, param_dict(stack, params), nsub=cfg.nsub, freqs=freqs,
-        fcent_mhz=meta.fcent_mhz, sublen_s=cfg.nfold * cfg.period_s,
+        fcent_mhz=meta.fcent_mhz, sublen_s=(
+            cfg.nfold * cfg.period_s if hasattr(cfg, "nfold")
+            else cfg.period_s),
         f_lo_mhz=meta.fcent_mhz - meta.bw_mhz / 2, chan_ids=chan_ids)
     if levels is not None:
         levels = to_device(levels, dev) * noise_level[..., None, None]
@@ -452,15 +458,84 @@ def apply_additive_effects(key, block, stack, params, *, nsub, nph,
     return apply_scenario_additive(block, rows, nsub, nph)
 
 
-def _search_unported(*_args, **_kw):
-    raise NotImplementedError(
-        "the SEARCH-mode scenario hooks wait for the SEARCH pipeline "
-        "(single_pipeline), which is not ported to psrsigsim_torch yet "
-        "(ROADMAP.md, Queue 1)")
+def _per_pulse(block, factor, nph, nsub, op):
+    """Apply ``op`` in place with one factor per pulse of a SEARCH stream:
+    sample ``t`` of ``block`` ``(..., C, nsamp)`` takes ``factor[...,
+    min(t // nph, nsub - 1)]`` of ``factor`` ``(..., C or 1, nsub)`` — a
+    ragged tail clamps into the last pulse (reference:
+    ``_subint_of_sample``) — through views, never a per-sample index."""
+    nsamp = block.shape[-1]
+    k = min(nsamp // nph, nsub)
+    if k:
+        op(block[..., :k * nph].unflatten(-1, (k, nph)),
+           factor[..., :k, None])
+    if k * nph < nsamp:
+        j = min(k, nsub - 1)
+        op(block[..., k * nph:], factor[..., j:j + 1])
+    return block
 
 
-apply_pulse_effects_search = _search_unported
-apply_additive_effects_search = _search_unported
+def apply_scenario_pulse_search(block, rows, nsub, nph):
+    """:func:`apply_scenario_pulse` for SEARCH streams ``(..., C, nsamp)``:
+    one pulse is the time cell."""
+    if rows.gain is not None:
+        _per_pulse(block, rows.gain, nph, nsub, torch.Tensor.mul_)
+    if rows.energy is not None:
+        _per_pulse(block, rows.energy[..., None, :], nph, nsub,
+                   torch.Tensor.mul_)
+    return block
+
+
+def apply_scenario_additive_search(block, rows, nsub, nph):
+    """:func:`apply_scenario_additive` for SEARCH streams ``(..., C,
+    nsamp)``: each contaminated (channel, pulse) cell lifted by its level
+    across the pulse's samples."""
+    if rows.level is not None:
+        _per_pulse(block, rows.level, nph, nsub, torch.Tensor.add_)
+    return block
+
+
+def apply_pulse_effects_search(key, block, stack, params, *, nsub, nph,
+                               nsamp, freqs, fcent_mhz, period_s, f_lo_mhz):
+    """SEARCH-mode twin of :func:`apply_pulse_effects` on single-pulse
+    streams ``(..., C, nsamp)``: one pulse is the effect's time cell (the
+    scintillation cell lasts ``period_s``); the same draws on the same
+    stages, so :func:`rfi_truth_mask` and :func:`energy_truth` recompute
+    them from the key."""
+    if block.shape[-1] != nsamp:
+        raise ValueError(f"block has {block.shape[-1]} samples, not {nsamp}")
+    stack = parse_stack(stack)
+    freqs = torch.as_tensor(freqs, dtype=torch.float32).to("cpu")
+    gain, energy, _, _ = _draw(
+        key, ScenarioStack(tuple(e for e in stack.entries if e[0] != "rfi")),
+        param_dict(stack, params), nsub=nsub, freqs=freqs,
+        fcent_mhz=fcent_mhz, sublen_s=period_s, f_lo_mhz=f_lo_mhz,
+        chan_ids=None)
+    rows = ScenarioRows(
+        None if gain is None else to_device(gain, block.device),
+        None if energy is None else to_device(energy, block.device),
+        None, None)
+    return apply_scenario_pulse_search(block, rows, nsub, nph)
+
+
+def apply_additive_effects_search(key, block, stack, params, *, nsub, nph,
+                                  nsamp, chan_ids, noise_level):
+    """SEARCH-mode twin of :func:`apply_additive_effects`: RFI rides on top
+    of the radiometer noise, in units of ``noise_level``."""
+    if block.shape[-1] != nsamp:
+        raise ValueError(f"block has {block.shape[-1]} samples, not {nsamp}")
+    stack = parse_stack(stack)
+    if stack is None or "rfi" not in stack.names():
+        return block
+    _, _, levels, _ = _draw(
+        key, ScenarioStack((("rfi", ""),)), param_dict(stack, params),
+        nsub=nsub, freqs=None, fcent_mhz=None, sublen_s=None, f_lo_mhz=None,
+        chan_ids=chan_ids)
+    level = torch.as_tensor(noise_level, dtype=torch.float32,
+                            device=block.device)
+    rows = ScenarioRows(None, None, to_device(levels, block.device)
+                        * level[..., None, None], None)
+    return apply_scenario_additive_search(block, rows, nsub, nph)
 
 
 def energy_truth(key, stack, params, *, nsub):

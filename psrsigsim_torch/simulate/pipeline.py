@@ -1,10 +1,11 @@
-"""The fold-mode observation pipeline (counterpart:
-psrsigsim_tpu/simulate/pipeline.py, its fold half).
+"""The fold-mode and SEARCH-mode observation pipelines (counterpart:
+psrsigsim_tpu/simulate/pipeline.py, without baseband).
 
 The reference's call chain ``make_pulses -> disperse -> observe(noise)``
 (psrsigsim/simulate/simulate.py:292-326) as one function on tensors,
 
     fold_pipeline(keys, dms, noise_norms, profiles, cfg) -> (..., Nchan, Nsamp)
+    single_pipeline(keys, dms, noise_norms, profiles, cfg) -> (..., Nchan, Nsamp)
 
 with every shape fixed by a static config.  Where the JAX package vmaps a
 one-observation function, the port writes the batch dimension out: keys
@@ -28,18 +29,21 @@ from ..ops.fold_quantize import fold_quantize
 from ..ops.rng_hw import seed_words
 from ..ops.shift import fourier_shift
 from ..ops.stats import (_exact_chi2_unported, _hw_chi2_mode,
-                         chan_chi2_field, sampler_backend, uniform)
+                         chan_chi2_field, flat_chi2_field, flat_chi2_ok,
+                         sampler_backend, uniform)
 from ..scenarios.registry import (apply_scenario_additive,
-                                  apply_scenario_pulse, scenario_rows)
+                                  apply_scenario_additive_search,
+                                  apply_scenario_pulse,
+                                  apply_scenario_pulse_search, scenario_rows)
 from ..signal.state import SignalMeta
 from ..utils.constants import DM_K_MS_MHZ2
 from ..utils.device import resolve_device, to_device
-from ..utils.rng import as_key, stage_key
+from ..utils.rng import as_key, permutation, stage_key
 
 __all__ = ["default_shift_mode", "FoldPipelineConfig", "fold_pipeline",
            "fold_pipeline_quantized", "fused_route", "fold_subints",
-           "noise_level",
-           "build_fold_config", "natural_nbin"]
+           "noise_level", "build_fold_config", "natural_nbin",
+           "SinglePipelineConfig", "single_pipeline", "build_single_config"]
 
 
 def default_shift_mode():
@@ -408,6 +412,253 @@ def build_fold_config(signal, pulsar, telescope, system, Tsys=None,
         noise_df=float(noise_df),
         dt_ms=dt_ms,
         clip_max=float(signal._draw_max),
+        shift_mode=default_shift_mode() if shift_mode is None else shift_mode,
+    )
+    return cfg, profiles_np, float(noise_norm)
+
+
+# ---------------------------------------------------------------------------
+# Single-pulse / SEARCH-mode pipeline (BASELINE config 4)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SinglePipelineConfig:
+    """Static configuration of a single-pulse (SEARCH-mode) observation
+    (reference: ``SinglePipelineConfig``).  An integer number of samples
+    per period, so the portrait at every sample is its tiling."""
+
+    meta: SignalMeta
+    period_s: float
+    nph: int          # samples per period
+    nsub: int         # number of pulses in the stream
+    nsamp: int        # total samples (= int(tobs * samprate))
+    draw_norm: float  # int8 dynamic-range scaling (fb_signal.py:114-121)
+    noise_df: float   # chi2 df of the radiometer noise draws (1 for search)
+    dt_ms: float
+    clip_max: float
+    n_null: int = 0          # pulses to null (round(nsub * null_frac))
+    null_df: float = 1.0     # chi2 df of replacement noise (pulsar.py:297)
+    off_pulse_mean: float = 0.0  # mean off-pulse level (pulsar.py:301)
+    peak_bin: int = 0        # argmax of channel-0 profile (pulse alignment)
+    shift_mode: str = "envelope"  # see default_shift_mode
+
+
+def _search_chi2(key, chan_ids, df, nsamp, nchan_global=None):
+    """SEARCH-mode χ² fields ``(..., C, nsamp)`` from the FLAT whole-tile
+    stream at channel-major flat offsets ``c * nsamp + t`` (reference:
+    ``_search_chi2``).  Under ``PSS_EXACT_CHI2=1``, a small static df or a
+    GLOBAL extent ``nchan_global * nsamp`` past the int32 offsets, the
+    per-channel-keyed fields instead — the guard reads the global extent,
+    so a channel slab and the whole band pick the same realization."""
+    nc = int(chan_ids.shape[0])
+    span_end = int(nchan_global if nchan_global is not None else nc) \
+        * int(nsamp)
+    if not flat_chi2_ok(df, span_end=span_end):
+        return _chan_chi2(key, chan_ids, df, nsamp)
+    f0 = int(chan_ids[0]) * int(nsamp)
+    field = flat_chi2_field(key, f0, nc * int(nsamp), df)
+    return field.reshape(key.shape[:-1] + (nc, int(nsamp)))
+
+
+def _null_mask_at(key, cfg, gidx):
+    """Nulled-pulse membership at global sample indices ``gidx`` for
+    observation keys ``(..., 2)``: ``(..., *gidx.shape)`` bool (reference:
+    ``_null_mask_at``).  The pulses come from jax's permutation on the
+    ``"null_select"`` stage, drawn where the keys lie; the window of pulse
+    ``p`` starts at ``p * nph + nph // 2 - peak_bin``."""
+    lead = key.shape[:-1]
+    sel = permutation(stage_key(key, "null_select"), cfg.nsub)
+    sel = sel[..., :cfg.n_null].to(gidx.device)
+    nulled = torch.zeros(lead + (cfg.nsub + 1,), dtype=torch.bool,
+                         device=gidx.device)              # +1: guard row
+    nulled.scatter_(-1, sel, True)
+    shift_val = cfg.nph // 2 - cfg.peak_bin
+    pulse_id = torch.div(gidx - shift_val, cfg.nph, rounding_mode="floor")
+    in_range = (pulse_id >= 0) & (pulse_id < cfg.nsub)
+    idx = pulse_id.clamp(0, cfg.nsub).reshape(-1)
+    hit = nulled[..., idx].reshape(lead + tuple(gidx.shape))
+    return hit & in_range
+
+
+def _null_mask_row(key, cfg, t0, length, device):
+    """One mask row per observation over global samples ``[t0,
+    t0+length)``: ``(..., length)`` bool on ``device``."""
+    gidx = torch.arange(t0, t0 + length, dtype=torch.int64, device=device)
+    return _null_mask_at(key, cfg, gidx)
+
+
+def _roll_rows(row, shifts):
+    """``jnp.roll(row[b], shifts[b, c])`` for every channel: rows ``(B,
+    n)`` and integer shifts ``(B, C)`` -> ``(B, C, n)``, each output sample
+    ``row[b, (t - shift) mod n]``.  One gather pass: each (b, c) row is the
+    window of the doubled row starting at ``(-shift) mod n``."""
+    n = row.shape[-1]
+    doubled = torch.cat([row, row], dim=-1)
+    windows = doubled.unfold(-1, n, 1)                  # (B, n + 1, n) view
+    start = torch.remainder(-shifts.to(torch.int64), n)
+    b = torch.arange(row.shape[0], device=row.device)[:, None]
+    return windows[b, start]
+
+
+def _tile_periodic(block, prof, nph):
+    """Multiply ``block`` ``(..., C, nsamp)`` in place by the portrait
+    ``prof`` ``(..., C, nph)`` tiled over time, ``prof[..., n % nph]``
+    (reference: ``_tile_periodic``, whose product commutes with this
+    one): whole periods through a view, the ragged tail by a slice."""
+    nsamp = block.shape[-1]
+    k = nsamp // nph
+    if k:
+        block[..., :k * nph].unflatten(-1, (k, nph)).mul_(prof[..., None, :])
+    if k * nph < nsamp:
+        block[..., k * nph:].mul_(prof[..., :nsamp - k * nph])
+    return block
+
+
+def single_pipeline(key, dm, noise_norm, profiles, cfg, freqs=None,
+                    chan_ids=None, extra_delays_ms=None, device=None,
+                    scenario=None, scenario_params=None, rows=None):
+    """SEARCH-mode observations: single-pulse synthesis (χ² df = 1),
+    pulse nulling, dispersion and radiometer noise — the reference's
+    ``make_pulses(fold=False) -> null -> disperse -> observe`` chain
+    (reference: ``single_pipeline``).
+
+    Arguments as :func:`fold_pipeline` (keys ``(..., 2)`` with one DM and
+    one noise scale per key; ``profiles`` the ``(Nchan, Nph)`` portrait).
+    Both χ² fields come from the flat whole-tile stream (on the card the
+    sampler kernel's flat layout).  Nulling (``cfg.n_null`` pulses, drawn
+    on the ``"null_select"`` stage) replaces each nulled pulse window by
+    one off-pulse noise row per observation, keyed by the pseudo-channel
+    id ``Nchan``; in envelope mode the windows ride the dispersion as
+    circular integer rolls.  ``scenario``/``scenario_params``/``rows``:
+    as :func:`fold_pipeline`, with one pulse as the time cell —
+    scintillation gains and pulse energies multiply the pulse term before
+    nulling, RFI levels ride on top of the radiometer noise.
+
+    Returns:
+        ``(..., Nchan, nsamp)`` float32 blocks (unclipped).
+    """
+    f = _fold_front(key, dm, noise_norm, profiles, cfg, freqs, chan_ids,
+                    extra_delays_ms, device)
+    dev, lead = f.dev, f.lead
+    nsamp, nph, nsub = cfg.nsamp, cfg.nph, cfg.nsub
+    nchan = cfg.meta.nchan
+
+    # pulse term: the tiled portrait x chi2(1) x draw_norm
+    block = _search_chi2(to_device(f.kp, dev), f.chan_ids, 1.0, nsamp, nchan)
+    _tile_periodic(block, f.prof if cfg.shift_mode == "envelope"
+                   else f.profiles, nph)
+    if cfg.draw_norm != 1.0:
+        block.mul_(cfg.draw_norm)
+
+    if rows is None and scenario is not None:
+        rows = _scenario_rows(f, cfg, scenario, scenario_params)
+    if rows is not None:
+        # multiplicative effects modulate the pulse term only
+        apply_scenario_pulse_search(block, rows, nsub, nph)
+
+    if cfg.n_null > 0:
+        # one replacement-noise row per observation, broadcast to every
+        # channel (pulsar.py:304), keyed by the pseudo-channel id Nchan
+        knz = to_device(stage_key(f.key, "null_noise"), dev)
+        repl = _chan_chi2(knz, torch.tensor([nchan]), cfg.null_df,
+                          nsamp)[..., 0, :]
+        if cfg.draw_norm != 1.0:
+            repl.mul_(cfg.draw_norm)
+        repl.mul_(cfg.off_pulse_mean)
+        mask_row = _null_mask_row(f.key, cfg, 0, nsamp, dev)
+        if cfg.shift_mode == "envelope":
+            # the windows ride the dispersion: integer delays (XLA divides
+            # by the constant dt as a multiply by its float32 reciprocal,
+            # rounds half to even), circular rolls of the shared row
+            inv_dt = float(np.float32(1.0) / np.float32(cfg.dt_ms))
+            dint = torch.round(f.delays_ms * inv_dt).to(torch.int64)
+            mask = _roll_rows(mask_row.reshape(-1, nsamp),
+                              dint.reshape(-1, dint.shape[-1]))
+            mask = mask.reshape(block.shape)
+        else:
+            mask = mask_row[..., None, :]
+        torch.where(mask, repl[..., None, :], block, out=block)
+
+    if cfg.shift_mode != "envelope":
+        # dispersion (+ FD/scatter) as one batched full-stream shift
+        block = fourier_shift(block, f.delays_ms, dt=cfg.dt_ms)
+
+    # radiometer noise, chi2 df=1 in search mode (receiver.py:160-164)
+    noise = _search_chi2(to_device(f.kn, dev), f.chan_ids, cfg.noise_df,
+                         nsamp, nchan)
+    noise.mul_(f.noise_norm[..., None, None])
+    block.add_(noise)
+    del noise
+    if rows is not None:
+        # additive effects (RFI) ride on top of the radiometer noise
+        apply_scenario_additive_search(block, rows, nsub, nph)
+    return block
+
+
+def build_single_config(signal, pulsar, telescope, system, Tsys=None,
+                        null_frac=0.0, shift_mode=None):
+    """Derive the static config + host inputs for :func:`single_pipeline`
+    from configured objects (reference: ``build_single_config``; semantics
+    pulsar.py:222-244).  Returns ``(cfg, profiles_np, noise_norm)``."""
+    if signal.fold:
+        raise ValueError("build_single_config requires fold=False (SEARCH mode)")
+
+    period_s = float(pulsar.period.to("s").value)
+    spp = float((signal.samprate * pulsar.period).decompose())
+    nph = int(round(spp))
+    if abs(spp - nph) > 1e-6 * max(1.0, nph):
+        raise ValueError(
+            f"samples per period must be integral for the in-graph SEARCH "
+            f"pipeline (got {spp}); use the OO path for fractional sampling"
+        )
+    tobs = signal.tobs
+    if tobs is None:
+        raise ValueError("set signal._tobs (or pass tobs through Simulation) first")
+    tobs_s = float(tobs.to("s").value)
+    nsub = int(np.round(tobs_s / period_s))
+    nsamp = int(tobs_s * float(signal.samprate.to("MHz").value) * 1e6)
+
+    if pulsar.ref_freq is None:
+        pulsar._ref_freq = signal.fcent
+    if signal.sigtype == "FilterBankSignal" and pulsar.specidx != 0.0:
+        pulsar._add_spec_idx(signal)
+    pulsar.Profiles.init_profiles(nph, signal.Nchan)
+    profiles_np = np.asarray(pulsar.Profiles.profiles, dtype=np.float32)
+    pr = pulsar.Profiles._max_profile
+    signal._Smax = pulsar.Smean * len(pr) / float(np.sum(pr))
+
+    # signal bookkeeping as make_pulses(fold=False) would do (pulsar.py:222-236)
+    signal._sublen = pulsar.period
+    signal._nsub = nsub
+    signal._nsamp = nsamp
+    signal._Nfold = None
+    signal._set_draw_norm(df=1)
+
+    # nulling statics (reference: pulsar.py:246-333)
+    n_null = int(np.round(nsub * null_frac))
+    opw = pulsar.Profiles._calcOffpulseWindow(Nphase=nph)
+    off_pulse_mean = float(np.mean(pr[np.asarray(opw, int)]))
+    peak_bin = int(np.argmax(profiles_np[0]))
+
+    rcvr, _ = telescope.systems[system]
+    tsys = rcvr._resolve_tsys(Tsys if Tsys is not None else telescope.Tsys, None)
+    noise_norm, noise_df = rcvr._pow_noise_norm(signal, tsys, telescope.gain, pulsar)
+
+    cfg = SinglePipelineConfig(
+        meta=signal.meta(),
+        period_s=period_s,
+        nph=nph,
+        nsub=nsub,
+        nsamp=nsamp,
+        draw_norm=float(signal._draw_norm),
+        noise_df=float(noise_df),
+        dt_ms=float((1 / signal.samprate).to("ms").value),
+        clip_max=float(signal._draw_max),
+        n_null=n_null,
+        null_df=1.0,
+        off_pulse_mean=off_pulse_mean,
+        peak_bin=peak_bin,
         shift_mode=default_shift_mode() if shift_mode is None else shift_mode,
     )
     return cfg, profiles_np, float(noise_norm)

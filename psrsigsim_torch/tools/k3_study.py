@@ -397,13 +397,21 @@ def main():
     pos = torch.zeros((B, 2), dtype=torch.int32, device=dev)
 
     def rng_launcher(lib, field):
-        fn = lib.rng_field_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        # the rows layout; sources older than the flat layout name the same
+        # launch rng_field_launch, without the layout and skip arguments
+        extra = ()
+        fn = getattr(lib, "rng_field_layout_launch", None)
+        if fn is not None:
+            extra = (0, 0)
+        else:
+            fn = lib.rng_field_launch
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * (4 + len(extra))
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
 
         def go():
             err = fn(rseeds.data_ptr(), rdfs.data_ptr(), pos.data_ptr(),
-                     field.data_ptr(), B, C, L, MODES["chi2_wh"],
+                     field.data_ptr(), B, C, L, MODES["chi2_wh"], *extra,
                      torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"launch failed {err}")

@@ -163,17 +163,19 @@ def randint(k, n):
 
 def permutation(k, n):
     """``jax.random.permutation(k, n)``: a random order of ``arange(n)``
-    (int64, on ``k``'s device).  jax's ``_shuffle``: ``ceil(3 ln n /
-    ln(2**32 - 1))`` rounds, each splitting the key, drawing one 32-bit
-    sort key per element and sorting stably by it."""
+    (int64, on ``k``'s device), ``(..., n)`` for keys ``(..., 2)``.  jax's
+    ``_shuffle``: ``ceil(3 ln n / ln(2**32 - 1))`` rounds, each splitting
+    the key, drawing one 32-bit sort key per element and sorting stably by
+    it."""
     n = int(n)
-    x = torch.arange(n, dtype=torch.int64, device=k.device)
+    x = torch.arange(n, dtype=torch.int64, device=k.device).expand(
+        k.shape[:-1] + (n,))
     rounds = int(np.ceil(3 * np.log(max(1, n))
                          / np.log(np.iinfo(np.uint32).max)))
     for _ in range(rounds):
-        k, sub = split(k)
-        order = torch.sort(random_bits(sub, n), stable=True).indices
-        x = x[order]
+        k, sub = split(k).unbind(-2)
+        order = torch.sort(random_bits(sub, n), dim=-1, stable=True).indices
+        x = torch.gather(x, -1, order)
     return x
 
 

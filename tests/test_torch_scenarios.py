@@ -272,10 +272,17 @@ def test_registry_param_dict_and_errors():
                                                    range(7)))
     with pytest.raises(ValueError, match="expects 7"):
         reg.param_dict(st, [1.0])
-    with pytest.raises(NotImplementedError, match="SEARCH"):
-        reg.apply_pulse_effects_search(None, None, st, None)
-    with pytest.raises(NotImplementedError, match="SEARCH"):
-        reg.apply_additive_effects_search(None, None, st, None)
+    # the SEARCH hooks (ported with single_pipeline) refuse a stream whose
+    # length is not the configuration's
+    block = torch.ones(2, 10)
+    with pytest.raises(ValueError, match="samples"):
+        reg.apply_pulse_effects_search(
+            None, block, st, None, nsub=2, nph=4, nsamp=12, freqs=[1.0, 2.0],
+            fcent_mhz=1.5, period_s=0.005, f_lo_mhz=1.0)
+    with pytest.raises(ValueError, match="samples"):
+        reg.apply_additive_effects_search(
+            None, block, st, None, nsub=2, nph=4, nsamp=12,
+            chan_ids=torch.arange(2), noise_level=1.0)
 
 
 # -- the draws ---------------------------------------------------------------------------

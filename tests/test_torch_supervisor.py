@@ -627,11 +627,12 @@ def test_fault_plan_names_the_export_points(tmp_path):
     from psrsigsim_torch.runtime import FaultPlan
     from psrsigsim_torch.runtime.faults import POINTS
 
-    for point in ("nan.obs", "run.kill", "mc.kill", "device.sdc",
-                  "host.corrupt", "disk.bitrot"):
+    for point in ("nan.obs", "run.kill", "mc.kill", "dataset.kill",
+                  "device.sdc", "host.corrupt", "disk.bitrot"):
         assert point in POINTS
+    # the serving tier's points wait for the serving slice
     with pytest.raises(ValueError, match="unknown fault point"):
-        FaultPlan(str(tmp_path), {"dataset.kill": {}})
+        FaultPlan(str(tmp_path), {"serve.kill": {}})
 
 
 def test_runtime_imports_no_torch():
