@@ -5,7 +5,8 @@
 
 Drives psrsigsim_torch's fold-mode ensemble main path on the card, from
 configured signal/pulsar/telescope objects to packed int16 PSRFITS
-buffers and files, and its SEARCH mode and dataset factory, through the
+buffers and files, its SEARCH mode and dataset factory, its baseband
+pipeline and its multi-pulsar ensemble, through the
 port's hand-written CUDA kernels, built here with nvcc into build/: the
 random-field sampler (psrsigsim_torch/csrc/rng_field.cu), which draws the
 float blocks of FoldEnsemble.run in its rows layout and the SEARCH-mode
@@ -159,9 +160,38 @@ per-observation digest of a packed chunk.  Phases:
    plus 1e-5 of the peak) and a reader's epoch; (e) 8 records at config
    4's geometry with every effect.
 
+15. baseband at BASELINE config 3's full width (bench.py
+   build_baseband_workload: BasebandSignal(1400, 100, sample_rate=200), 2
+   polarizations x 4,000,000 samples, DM 13.3, the overlap-save plan of one
+   2^23-point block; the bench telescope's amplitude noise), 8 observations
+   a batch: (a) the sampler's flat layout in normal mode against its plain
+   version, bit for bit, at 8 x 8,000,000, and its time; (b)
+   baseband_pipeline(8) launching the flat layout exactly twice and the
+   rows layout never, mean power, obs/s, Msamples/s, peak memory, device
+   time by kernel class (draws, FFTs, the rest); (c) observations 0-1
+   against device="cpu" (PSS_SAMPLER=hw) within rtol 1e-5 plus 1e-5 of the
+   peak; (d) the same observations in a batch of 2, bit-equal; (e)
+   exact_fft=True (the monolithic 4,000,000-point transforms) on 2
+   observations, timed beside the plan and against the host; (f) the
+   object-oriented flow BasebandSignal -> make_pulses -> disperse(13.3)
+   -> radiometer_noise -> to_FilterBank(512), card against host (the
+   pulses bit-equal, every later step within the same bound), step times;
+16. the multi-pulsar ensemble at BASELINE config 5 (bench.py
+   time_tpu_multipulsar: 128 distinct periods from numpy seed 0, 64
+   channels, 2 x 0.5 s subints, padded to 1024/2048/4096 bins): (a) the
+   sampler's rows layout in chi2_sel mode with per-row dfs against its
+   plain version, bit for bit, at the biggest bucket's shape, and its
+   time; (b) MultiPulsarFoldEnsemble.run(8) with epoch_chunk=2 launching
+   the sampler exactly 2 x buckets x 4 times, channel means,
+   pulsar-epochs/s, peak memory; (c) run(4) + run(4, epoch_start=4) and
+   epoch_chunk=4 bit-equal to run(8); (d) 4 pulsars x 2 epochs against
+   device="cpu" within the fold bound; (e) one pulsar alone bit-equal to
+   its rows in the full run.
+
 The line before the last is one JSON object with each kernel's launches
-(counted in the main path's run: phases 5 and 13), error against its
-plain version, times and bound.
+(counted in the main path's run: phases 5 and 13; every path's count
+under ``launches_by_path``: phases 5, 9, 13, 15 and 16), error against
+its plain version, times and bound.
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of one
 steady main-path chunk after phase 5 (device time by kernel, busy share).
@@ -171,6 +201,8 @@ port is missing, or if any phase fails.  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -222,6 +254,9 @@ SCEN_OPS = dict(FUSED_OPS, fp32=FUSED_OPS["fp32"] + 3)
 # multiply for z^2 instead of the Wilson-Hilferty map
 FLAT_OPS = {"int32": PHILOX_INT_OPS / 4, "fp32": (2 * 7) / 4 + 1,
             "sfu": (2 * 6) / 4}
+# the sampler's flat layout in normal mode (baseband): the draw alone
+NORMAL_OPS = {"int32": PHILOX_INT_OPS / 4, "fp32": (2 * 7) / 4,
+              "sfu": (2 * 6) / 4}
 # the packed digest, per 32-bit word: the XOR, the term's multiply-add and
 # the add into the sum (the position multipliers depend on the position
 # only, shared by every observation of a chunk)
@@ -253,6 +288,19 @@ CONFIG4 = dict(nchan=64, samprate_mhz=0.4096, period_s=0.005, smean=0.05,
                tobs_s=2.0, fcent=1380.0, bw=400.0, null_frac=0.2, dm=15.9)
 SEARCH_NOBS = 16
 SEARCH_HOST_NOBS = 2  # phase 13(c): observations 0-1 on the host too
+# phase 15: BASELINE config 3 (bench.py build_baseband_workload:
+# BasebandSignal(1400, 100, sample_rate=200), P = 5 ms, 20 ms, DM 13.3),
+# with the bench telescope's amplitude noise, 8 observations a batch
+CONFIG3 = dict(fcent=1400.0, bw=100.0, samprate_mhz=200.0, period_s=0.005,
+               smean=0.05, tobs_s=0.02, dm=13.3)
+BASEBAND_NOBS = 8
+BASEBAND_HOST_NOBS = 2  # phase 15(c), (e): observations 0-1 on the host too
+OO_BASEBAND_NSUB = 512  # phase 15(f): to_FilterBank(512)
+# phase 16: BASELINE config 5 for real (bench.py time_tpu_multipulsar: 128
+# pulsars, seed 0, pad grid [1024, 2048, 4096]), 8 epochs in chunks of 2
+MULTI_PULSARS, MULTI_EPOCHS, MULTI_EPOCH_CHUNK = 128, 8, 2
+MULTI_PAD = [1024, 2048, 4096]
+MULTI_HOST = 4  # phase 16(d): pulsars held against the host, 2 epochs
 # phase 14: bench.py _DATASET_BENCH_SPEC (config 12: 4 channels, 20 pulses
 # of 1024 samples, rfi + single_pulse, dm and rfi_imp_snr priors)
 DATASET_SPEC = {
@@ -875,6 +923,13 @@ class Smoke:
         fq.fold_quantize.launches = 0
         digest.packed_digest.launches = 0
 
+    def _path(self, label, counts):
+        """Record one main path's launch counts under each kernel it
+        launched (the kernels line's ``launches_by_path``)."""
+        for name, n in counts.items():
+            if n:
+                self.kernels[name].setdefault("launches_by_path", {})[label] = n
+
     def _counts(self):
         """Launches since :meth:`_zero_counts`.  The sampler's flat layout
         (SEARCH mode) joins the dict only when it launched, so the fold
@@ -921,6 +976,8 @@ class Smoke:
         counts = self._counts()
         peak = torch.cuda.max_memory_allocated()
         self.kernels["fold_quantize"]["launches"] = counts["fold_quantize"]
+        self._path(f"5 run_quantized({MAIN_NOBS}) + iter_chunks"
+                   f"({2 * MAIN_NOBS})", counts)
         log(f"  launches in run_quantized({MAIN_NOBS}) + iter_chunks"
             f"({2 * MAIN_NOBS}, quantized): {counts}")
         if counts["fold_quantize"] <= 0:
@@ -999,6 +1056,7 @@ class Smoke:
         torch.cuda.synchronize()
         counts = self._counts()
         self.kernels["rng_field"]["launches"] = counts["rng_field"]
+        self._path(f"5 run({FLOAT_NOBS})", counts)
         log(f"  launches in run({FLOAT_NOBS}): {counts}")
         if counts["rng_field"] <= 0:
             raise AssertionError("the float path never launched the sampler")
@@ -1641,6 +1699,7 @@ class Smoke:
                                  {"host.corrupt": {"after_start": 0},
                                   "device.sdc": {"after_start": MAIN_NOBS}}))
             self.kernels["packed_digest"]["launches"] = counts["packed_digest"]
+            self._path("9 supervised export, integrity leg", counts)
             expect(counts, fold_quantize=6, packed_digest=6)
             st = ck.stats()
             log(f"  integrity stats: {json.dumps(st, sort_keys=True)}")
@@ -2823,6 +2882,7 @@ class Smoke:
             raise AssertionError(f"single_pipeline({SEARCH_NOBS}): launches "
                                  f"{counts}, expected {want}")
         self.kernels["rng_flat_field"]["launches"] = counts["rng_flat_field"]
+        self._path(f"13 single_pipeline({SEARCH_NOBS})", counts)
         if tuple(block.shape) != (SEARCH_NOBS, C, L) or not bool(
                 torch.isfinite(block).all()):
             raise AssertionError("single_pipeline: wrong shape or non-finite")
@@ -3147,6 +3207,461 @@ class Smoke:
         finally:
             shutil.rmtree(work, ignore_errors=True)
 
+    # -- 15 -----------------------------------------------------------------
+    def baseband(self):
+        """Baseband at BASELINE config 3's full width (see the module
+        docstring)."""
+        torch = self.torch
+        import dataclasses
+
+        import numpy as np
+
+        from psrsigsim_torch.ops import rng_hw, shift
+        from psrsigsim_torch.simulate import baseband_pipeline
+        from psrsigsim_torch.utils import key, stage_key
+
+        os.environ.pop("PSS_SAMPLER", None)
+        os.environ.pop("PSS_EXACT_SHIFT", None)
+        dev = self.dev
+        cfg, sp, nn = config3()
+        B, npol, L = BASEBAND_NOBS, sp.shape[0], cfg.nsamp
+        n = npol * L
+        log(f"  config3_baseband: npol {npol} nph {cfg.nph} nsamp {L} "
+            f"os_plan {tuple(cfg.os_plan) if cfg.os_plan else None} "
+            f"noise_norm {nn:.6g}")
+
+        # (a) the flat layout in normal mode at the config-3 span
+        hk = stage_key(key(0, "cpu"), "user", torch.arange(B))
+        seeds = rng_hw.seed_words(stage_key(hk, "pulse")).to(dev).contiguous()
+        dfs = torch.zeros(B, device=dev)
+        pos = torch.zeros((B, 2), dtype=torch.int32, device=dev)
+        got = rng_hw.rng_flat_field(seeds, dfs, pos, "normal", 0, n)
+        want = rng_hw.rng_flat_field_plain(seeds, dfs, pos, "normal", 0, n)
+        err = float((got - want).abs().max())
+        log(f"  (a) flat normal {B} x {n}: max|kernel-plain| {err:.3g}")
+        if not torch.equal(got, want):
+            raise AssertionError("the flat layout's normal mode differs from "
+                                 "its plain version at the config-3 span")
+        self.kernels["rng_flat_field"]["baseband_max_abs_err"] = err
+        del got, want
+        ms = cuda_time_ms(lambda: rng_hw.rng_flat_field(
+            seeds, dfs, pos, "normal", 0, n), 10)
+        plain_ms = cuda_time_ms(lambda: rng_hw.rng_flat_field_plain(
+            seeds, dfs, pos, "normal", 0, n), 1)
+        library_ms = cuda_time_ms(lambda: torch.randn((B, n), device=dev), 10)
+        b_ms, b_by, parts = bound(NORMAL_OPS, B * n, 4 * B * n + B * 20)
+        self.kernels["rng_flat_field"].update(
+            baseband_ms=ms, baseband_plain_ms=plain_ms,
+            baseband_bound_ms=b_ms, baseband_bound_by=b_by,
+            baseband_library_ms=library_ms)
+        log(f"  rng_flat_field ({B} x {n}, normal): {ms:.4f} ms, "
+            f"{b_ms / ms:.1%} of its bound {b_ms:.4f} ms, {b_by} "
+            f"({fmt_parts(parts)}); plain {plain_ms:.1f} ms; torch.randn "
+            f"{library_ms:.4f} ms ({self.card_line})")
+
+        # (b) the main path: baseband_pipeline(8) at full width
+        dms = torch.full((B,), CONFIG3["dm"])
+        nns = torch.full((B,), nn, dtype=torch.float32)
+        sdev = torch.as_tensor(sp, device=dev)
+
+        def run(k=hk, c=cfg):
+            return baseband_pipeline(k, dms[:k.shape[0]], nns[:k.shape[0]],
+                                     sdev, c)
+
+        run(hk[:1])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        self._zero_counts()
+        t0 = time.perf_counter()
+        block = run()
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        counts = self._counts()
+        want = {"rng_field": 0, "fold_quantize": 0, "packed_digest": 0,
+                "rng_flat_field": 2}
+        if counts != want:
+            raise AssertionError(f"baseband_pipeline({B}): launches {counts}, "
+                                 f"expected {want}")
+        self.kernels["rng_flat_field"]["baseband_launches"] = \
+            counts["rng_flat_field"]
+        self._path(f"15 baseband_pipeline({B})", counts)
+        if tuple(block.shape) != (B, npol, L) or not bool(
+                torch.isfinite(block).all()):
+            raise AssertionError("baseband_pipeline: wrong shape or non-finite")
+        # power: dispersion is unitary (up to the plan's halo truncation),
+        # so <x^2> = <tiled sqrt_profile^2> + noise_norm^2 per observation
+        amp2 = sp.astype(np.float64) ** 2
+        expect = float(np.tile(amp2, (1, -(-L // cfg.nph)))[:, :L].mean()
+                       + nn * nn)
+        rel = np.abs((block.double() ** 2).mean(dim=(1, 2)).cpu().numpy()
+                     / expect - 1)
+        log(f"  (b) baseband_pipeline({B}) at {npol} x {L}: first "
+            f"{t_first:.3f} s, launches {counts}; mean power vs expectation "
+            f"{expect:.6g}: max rel dev {rel.max():.3g}")
+        if rel.max() > 0.02:
+            raise AssertionError("baseband power off by > 2%")
+        del block
+        reps = 5
+
+        def steady(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / reps
+
+        def cold():
+            # the transfer function's host cycle planes rebuilt each batch
+            # (the first design; the reference folds them in at compile time)
+            shift._cycle_planes.cache_clear()
+            return run()
+
+        t_cached = [steady(run)]
+        t_cold = [steady(cold), steady(cold)]
+        t_cached.append(steady(run))
+        t_ss = min(t_cached)
+        log(f"  steady baseband_pipeline({B}) in turns: host planes cached "
+            f"{t_cached[0] * 1e3:.2f}, {t_cached[1] * 1e3:.2f} ms; rebuilt "
+            f"each batch {t_cold[0] * 1e3:.2f}, {t_cold[1] * 1e3:.2f} ms")
+        wall, busy, nev, by_name, _ = device_profile(torch, run)
+        groups = {"draws": 0.0, "ffts": 0.0, "rest": 0.0}
+        for name, (us, _) in by_name.items():
+            low = name.lower()
+            g = ("draws" if "rng_field" in low
+                 else "ffts" if "fft" in low else "rest")
+            groups[g] += us / 1e3
+        log(f"  steady baseband_pipeline({B}): {t_ss * 1e3:.2f} ms = "
+            f"{B / t_ss:.1f} obs/s = {B * n / t_ss / 1e6:.1f} Msamples/s; "
+            f"peak memory {peak / 2**30:.3f} GiB; profiled wall "
+            f"{wall * 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
+            f"({busy / 1e6 / wall:.1%}), {nev} device events; by kernel "
+            f"class: " + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                                   groups.items()) + f" ({self.card_line})")
+        for name, (us, k) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:10]:
+            log(f"  {us / 1e3:9.3f} ms {k:4d}x  {name[:100]}")
+
+        # (c) the card against the host: observations 0-1 at full width
+        nh = BASEBAND_HOST_NOBS
+
+        def against_host(label, c):
+            card = run(hk[:nh], c).cpu().numpy()
+            os.environ["PSS_SAMPLER"] = "hw"
+            try:
+                t0 = time.perf_counter()
+                host = baseband_pipeline(hk[:nh], dms[:nh], nns[:nh], sp, c,
+                                         device="cpu").numpy()
+                t_host = time.perf_counter() - t0
+            finally:
+                os.environ.pop("PSS_SAMPLER", None)
+            peak_v = np.abs(host).max()
+            err = np.abs(card - host)
+            bad = err > 1e-5 * np.abs(host) + 1e-5 * peak_v
+            log(f"  {label}: observations 0-{nh - 1} against device='cpu' "
+                f"(PSS_SAMPLER=hw, {t_host:.1f} s on the host): max|diff| "
+                f"{err.max():.3g} (peak {peak_v:.3g}), {int(bad.sum())} beyond "
+                f"rtol 1e-5 + 1e-5 of the peak; bit-equal "
+                f"{np.mean(card == host):.4f}")
+            if bad.any():
+                raise AssertionError(f"{label}: the card differs from the host")
+
+        against_host("(c) overlap-save plan", cfg)
+
+        # (d) the same observations in a batch of 2: bit-equal
+        two = run(hk[:nh])
+        again = run()[:nh]
+        if not torch.equal(two, again):
+            raise AssertionError("baseband blocks depend on the batch width")
+        log(f"  (d) observations 0-{nh - 1} in a batch of {nh} and of {B}: "
+            "bit-equal")
+        del two, again
+
+        # (e) exact_fft=True: the monolithic 4,000,000-point transforms
+        ecfg = dataclasses.replace(cfg, os_plan=None)
+        run(hk[:1], ecfg)
+        torch.cuda.synchronize()
+        self._zero_counts()
+        t0 = time.perf_counter()
+        eb = run(hk[:nh], ecfg)
+        torch.cuda.synchronize()
+        t_exact = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pb = run(hk[:nh])
+        torch.cuda.synchronize()
+        t_plan = time.perf_counter() - t0
+        counts = self._counts()
+        if counts != {**want, "rng_flat_field": 4}:
+            raise AssertionError(f"exact_fft: launches {counts}")
+        d = (eb - pb).abs().max() / pb.abs().max()
+        log(f"  (e) exact_fft=True, {nh} observations: {t_exact * 1e3:.1f} ms "
+            f"against {t_plan * 1e3:.1f} ms with the plan; the plan's halo "
+            f"truncation: max|exact - plan| {float(d):.3g} of the peak")
+        del eb, pb
+        against_host("(e) exact_fft=True", ecfg)
+
+        # (f) the object-oriented flow, card against host
+        self.baseband_oo()
+
+    def baseband_oo(self):
+        """Phase 15 (f): BasebandSignal -> make_pulses -> disperse ->
+        radiometer_noise -> to_FilterBank(512), on the card and the host."""
+        torch = self.torch
+        import numpy as np
+
+        from psrsigsim_torch.models.ism import ISM
+        from psrsigsim_torch.models.pulsar import GaussProfile, Pulsar
+        from psrsigsim_torch.models.telescope import Receiver
+        from psrsigsim_torch.signal import BasebandSignal
+
+        g = CONFIG3
+
+        def flow(device):
+            sig = BasebandSignal(g["fcent"], g["bw"],
+                                 sample_rate=g["samprate_mhz"], device=device)
+            psr = Pulsar(g["period_s"], g["smean"], GaussProfile(width=0.05),
+                         name="BENCH", seed=0)
+            rcvr = Receiver(fcent=g["fcent"], bandwidth=g["bw"], name="R",
+                            seed=1)
+            out, times = {}, {}
+            steps = (("make_pulses", lambda: psr.make_pulses(
+                          sig, tobs=g["tobs_s"])),
+                     ("disperse", lambda: ISM().disperse(sig, g["dm"])),
+                     ("radiometer_noise", lambda: rcvr.radiometer_noise(
+                         sig, psr, gain=1.0, Tsys=35.0)))
+            for name, fn in steps:
+                t0 = time.perf_counter()
+                fn()
+                if torch.device(device).type == "cuda":
+                    torch.cuda.synchronize()
+                times[name] = time.perf_counter() - t0
+                out[name] = sig.data.cpu().numpy()
+            t0 = time.perf_counter()
+            fb = sig.to_FilterBank(OO_BASEBAND_NSUB)
+            out["to_FilterBank"] = fb.data.cpu().numpy()
+            times["to_FilterBank"] = time.perf_counter() - t0
+            meta = (fb.Nchan, int(fb.nsamp), float(fb.samprate.value),
+                    float(fb.tobs.value), str(fb.data.device.type))
+            return out, times, meta
+
+        card, t_first, m_card = flow(self.dev)
+        again, t_card, _ = flow(self.dev)
+        if any(not np.array_equal(card[k], again[k]) for k in card):
+            raise AssertionError("(f) a second run on the card differs")
+        host, t_host, m_host = flow("cpu")
+        if m_card[:4] != m_host[:4] or m_card[4] != "cuda":
+            raise AssertionError(f"to_FilterBank metadata {m_card} vs {m_host}")
+        if not np.array_equal(card["make_pulses"], host["make_pulses"]):
+            raise AssertionError("make_pulses: the card's draws differ from "
+                                 "the host's")
+        for name in ("disperse", "radiometer_noise", "to_FilterBank"):
+            a, b = card[name], host[name]
+            peak_v = np.abs(b).max()
+            err = np.abs(a - b)
+            bad = err > 1e-5 * np.abs(b) + 1e-5 * peak_v
+            log(f"  (f) {name}: card against host max|diff| {err.max():.3g} "
+                f"(peak {peak_v:.3g}), {int(bad.sum())} beyond the bound")
+            if bad.any():
+                raise AssertionError(f"(f) {name}: the card differs from the "
+                                     "host")
+        log(f"  (f) the object-oriented flow ({m_card[0]} x {m_card[1]} "
+            f"filterbank): make_pulses bit-equal, a second card run "
+            f"bit-equal; step times on the card, first run (cuFFT plans) "
+            + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in t_first.items())
+            + "; second run " + ", ".join(f"{k} {v * 1e3:.1f} ms"
+                                          for k, v in t_card.items())
+            + "; on the host " + ", ".join(f"{k} {v:.2f} s"
+                                          for k, v in t_host.items()))
+
+    # -- 16 -----------------------------------------------------------------
+    def multipulsar(self):
+        """The multi-pulsar ensemble at BASELINE config 5 (see the module
+        docstring)."""
+        torch = self.torch
+        import numpy as np
+
+        from psrsigsim_torch.ops import rng_hw
+        from psrsigsim_torch.parallel import MultiPulsarFoldEnsemble
+        from psrsigsim_torch.simulate import fold_pipeline_hetero
+        from psrsigsim_torch.utils import fold_in, key, stage_key
+
+        os.environ.pop("PSS_SAMPLER", None)
+        os.environ.pop("PSS_EXACT_SHIFT", None)
+        dev = self.dev
+        work = config5()
+        E, chunk = MULTI_EPOCHS, MULTI_EPOCH_CHUNK
+        ens = MultiPulsarFoldEnsemble(work, epoch_chunk=chunk, device=dev)
+        sizes = {bk: len(m) for bk, m in ens._buckets.items()}
+        log(f"  config5_multipulsar: {len(work)} pulsars, "
+            f"{len({c.period_s for c, _, _, _ in work})} distinct periods, "
+            f"buckets (nchan, nph, nsub): {sizes}")
+
+        # (a) the rows layout in chi2_sel mode with per-row dfs, at the
+        # biggest bucket's shape
+        bkey = max(sizes, key=lambda b: (sizes[b], b[1]))
+        nch, nph, nsub = bkey
+        members = ens._buckets[bkey]
+        L = nph * nsub
+        rows = len(members) * chunk
+        keys = stage_key(key(0, "cpu"), "user", torch.arange(rows))
+        seeds = rng_hw.seed_words(stage_key(keys, "pulse")).to(dev).contiguous()
+        nf = np.asarray([work[i][0].nfold for i in members], np.float32)
+        dfs = torch.as_tensor(np.repeat(nf, chunk), device=dev)
+        dfs[0] = 1.0
+        pos = torch.zeros((rows, 2), dtype=torch.int32, device=dev)
+        got = rng_hw.rng_field(seeds, dfs, pos, "chi2_sel", nch, L)
+        want = rng_hw.rng_field_plain(seeds, dfs, pos, "chi2_sel", nch, L)
+        err = float((got - want).abs().max())
+        log(f"  (a) rows chi2_sel {rows} x {nch} x {L} (dfs "
+            f"{float(nf.min()):.1f}-{float(nf.max()):.1f} and one 1.0): "
+            f"max|kernel-plain| {err:.3g}")
+        if not torch.equal(got, want):
+            raise AssertionError("chi2_sel rows differ from the plain version")
+        self.kernels["rng_field"]["multipulsar_max_abs_err"] = err
+        del got, want
+        ms = cuda_time_ms(lambda: rng_hw.rng_field(
+            seeds, dfs, pos, "chi2_sel", nch, L), 20)
+        plain_ms = cuda_time_ms(lambda: rng_hw.rng_field_plain(
+            seeds, dfs, pos, "chi2_sel", nch, L), 1)
+        library_ms = cuda_time_ms(lambda: torch.randn((rows, nch, L),
+                                                      device=dev), 20)
+        total = rows * nch * L
+        b_ms, b_by, parts = bound(DRAW_OPS, total, 4 * total + rows * 20)
+        self.kernels["rng_field"].update(
+            multipulsar_ms=ms, multipulsar_plain_ms=plain_ms,
+            multipulsar_bound_ms=b_ms, multipulsar_bound_by=b_by,
+            multipulsar_library_ms=library_ms)
+        log(f"  rng_field ({rows} x {nch} x {L}, chi2_sel): {ms:.4f} ms, "
+            f"{b_ms / ms:.1%} of its bound {b_ms:.4f} ms, {b_by} "
+            f"({fmt_parts(parts)}); plain {plain_ms:.1f} ms; torch.randn "
+            f"{library_ms:.4f} ms ({self.card_line})")
+
+        # (b) run(8) with epoch_chunk=2
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        self._zero_counts()
+        t0 = time.perf_counter()
+        out = ens.run(E, seed=0)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        counts = self._counts()
+        n_launch = 2 * ens.n_buckets * -(-E // chunk)
+        want = {"rng_field": n_launch, "fold_quantize": 0, "packed_digest": 0}
+        if counts != want:
+            raise AssertionError(f"run({E}): launches {counts}, expected "
+                                 f"{want}")
+        self.kernels["rng_field"]["multipulsar_launches"] = \
+            counts["rng_field"]
+        self._path(f"16 MultiPulsarFoldEnsemble.run({E})", counts)
+        worst = 0.0
+        for (cfg, prof, nn, _), a in zip(work, out):
+            if tuple(a.shape) != (E, cfg.meta.nchan, cfg.nsamp) or not bool(
+                    torch.isfinite(a).all()):
+                raise AssertionError("run: wrong shape or non-finite")
+            exp_c = (cfg.draw_norm * cfg.nfold
+                     * prof.astype(np.float64).mean(axis=1) + cfg.nfold * nn)
+            got_c = a.double().mean(dim=(0, 2)).cpu().numpy()
+            worst = max(worst, float(np.abs(got_c / exp_c - 1).max()))
+        nbytes = sum(a.numel() * 4 for a in out)
+        log(f"  (b) run({E}), epoch_chunk {chunk}: first {t_first:.3f} s = "
+            f"{len(work) * E / t_first:.1f} pulsar-epochs/s, launches "
+            f"{counts} ({ens.n_buckets} buckets x {-(-E // chunk)} chunks x "
+            f"2), output {nbytes / 2**30:.3f} GiB, peak memory "
+            f"{peak / 2**30:.3f} GiB; channel means vs expectation: max rel "
+            f"dev {worst:.3g}")
+        if worst > 0.02:
+            raise AssertionError("multi-pulsar channel means off by > 2%")
+        ref = [a.clone() for a in out]
+        del out
+        reps = 3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = ens.run(E, seed=0)
+        torch.cuda.synchronize()
+        t_ss = (time.perf_counter() - t0) / reps
+        del out
+        wall, busy, nev, by_name, _ = device_profile(
+            torch, lambda: ens.run(E, seed=0))
+        log(f"  steady run({E}): {t_ss * 1e3:.1f} ms = "
+            f"{len(work) * E / t_ss:.1f} pulsar-epochs/s; profiled wall "
+            f"{wall * 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
+            f"({busy / 1e6 / wall:.1%}), {nev} device events "
+            f"({self.card_line})")
+        for name, (us, k) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:8]:
+            log(f"  {us / 1e3:9.3f} ms {k:4d}x  {name[:100]}")
+
+        # (c) epoch splits and chunk sizes change no draw
+        half = E // 2
+        first, second = ens.run(half, seed=0), ens.run(half, seed=0,
+                                                       epoch_start=half)
+        wide = MultiPulsarFoldEnsemble(work, epoch_chunk=2 * chunk,
+                                       device=dev).run(E, seed=0)
+        for i, r in enumerate(ref):
+            if not torch.equal(torch.cat([first[i], second[i]]), r):
+                raise AssertionError(f"pulsar {i}: run({half}) + run({half}, "
+                                     f"epoch_start={half}) != run({E})")
+            if not torch.equal(wide[i], r):
+                raise AssertionError(f"pulsar {i}: epoch_chunk {2 * chunk} != "
+                                     f"{chunk}")
+        log(f"  (c) run({half}) + run({half}, epoch_start={half}) and "
+            f"epoch_chunk {2 * chunk}: bit-equal to run({E})")
+        del first, second, wide
+
+        # (d) MULTI_HOST pulsars x 2 epochs against device="cpu", and (e)
+        # one pulsar alone on the card against its rows in the full run
+        pick = members[:MULTI_HOST]
+        st = ens._staged(bkey, members)
+        cfg0 = work[pick[0]][0]
+        root = key(0, "cpu")
+        hkeys = fold_in(stage_key(root, "user", torch.tensor(pick))[:, None, :],
+                        torch.arange(2))
+        sl = slice(0, len(pick))
+
+        def inputs(device):
+            return [st[k][sl].to(device) for k in
+                    ("dms", "norms", "nfolds", "draw_norms", "profiles",
+                     "freqs", "dts")]
+
+        dm_, nn_, nf_, dn_, pr_, fr_, dt_ = inputs("cpu")
+        os.environ["PSS_SAMPLER"] = "hw"
+        try:
+            t0 = time.perf_counter()
+            host = fold_pipeline_hetero(hkeys, dm_, nn_, nf_, dn_, pr_, cfg0,
+                                        freqs=fr_, dt_ms=dt_,
+                                        device="cpu").numpy()
+            t_host = time.perf_counter() - t0
+        finally:
+            os.environ.pop("PSS_SAMPLER", None)
+        card = np.stack([ref[p][:2].cpu().numpy() for p in pick])
+        peak_v = np.abs(host).max()
+        err = np.abs(card - host)
+        bad = err > 1e-5 * np.abs(host) + 1e-5 * peak_v
+        log(f"  (d) pulsars {pick} x 2 epochs against device='cpu' "
+            f"(PSS_SAMPLER=hw, {t_host:.1f} s on the host): max|diff| "
+            f"{err.max():.3g} (peak {peak_v:.3g}), {int(bad.sum())} beyond "
+            f"rtol 1e-5 + 1e-5 of the peak; bit-equal "
+            f"{np.mean(card == host):.4f}")
+        if bad.any():
+            raise AssertionError("(d) the card differs from the host")
+        p = pick[0]
+        one_keys = fold_in(stage_key(root, "user", torch.tensor([p]))[:, None,
+                                                                      :],
+                           torch.arange(E))
+        dm_, nn_, nf_, dn_, pr_, fr_, dt_ = (v[:1] for v in inputs(dev))
+        alone = fold_pipeline_hetero(one_keys, dm_, nn_, nf_, dn_, pr_, cfg0,
+                                     freqs=fr_, dt_ms=dt_)
+        if not torch.equal(alone[0], ref[p]):
+            raise AssertionError(f"(e) pulsar {p} alone differs from its rows "
+                                 "in the full run")
+        log(f"  (e) pulsar {p} alone ({E} epochs): bit-equal to its rows in "
+            "the full run")
+
     def run(self, with_profile=False):
         self.phase("1 card", self.card)
         built = self.phase("2 build", self.build)
@@ -3170,6 +3685,8 @@ class Smoke:
             self.phase("12 scenario engine", self.scenarios)
             self.phase("13 SEARCH mode", self.search)
             self.phase("14 dataset factory", self.datasets)
+            self.phase("15 baseband", self.baseband)
+            self.phase("16 multi-pulsar ensemble", self.multipulsar)
         if self.failed:
             log(f"FAILED phases: {', '.join(self.failed)}")
             return 1
@@ -3177,10 +3694,13 @@ class Smoke:
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
         # the fused kernel's scenario launches and times ride beside its
-        # scenario-free ones (phase 12)
+        # scenario-free ones (phase 12), the sampler's baseband and
+        # multi-pulsar ones beside its main path's (phases 15-16), and
+        # every path's launches under launches_by_path
+        extra = ("scenario_", "baseband_", "multipulsar_", "launches_by_path")
         print(json.dumps({"kernels": [
             {**{k: kern[k] for k in keys},
-             **{k: v for k, v in kern.items() if k.startswith("scenario_")}}
+             **{k: v for k, v in kern.items() if k.startswith(extra)}}
             for kern in self.kernels.values()]}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": self.torch.cuda.get_device_name(0),
@@ -3235,6 +3755,69 @@ def config4():
                    Backend(samprate=12.5, name="B"))
     return build_single_config(sig, psr, tel, "BenchSys",
                                null_frac=g["null_frac"])
+
+
+def config3():
+    """BASELINE config 3's baseband geometry through the port's objects
+    (bench.py build_baseband_workload, plus the bench telescope for the
+    amplitude noise scale): ``(cfg, sqrt_profiles, noise_norm)``."""
+    from psrsigsim_torch.models.pulsar import GaussProfile, Pulsar
+    from psrsigsim_torch.models.telescope import Backend, Receiver, Telescope
+    from psrsigsim_torch.signal import BasebandSignal
+    from psrsigsim_torch.simulate import build_baseband_config
+    from psrsigsim_torch.utils import make_quant
+
+    g = CONFIG3
+    sig = BasebandSignal(g["fcent"], g["bw"], sample_rate=g["samprate_mhz"])
+    psr = Pulsar(g["period_s"], g["smean"], GaussProfile(width=0.05),
+                 name="BENCH", seed=0)
+    sig._tobs = make_quant(g["tobs_s"], "s")
+    tel = Telescope(100.0, area=5500.0, Tsys=35.0, name="BenchScope")
+    tel.add_system("BenchSys", Receiver(fcent=g["fcent"], bandwidth=g["bw"],
+                                        name="R"),
+                   Backend(samprate=12.5, name="B"))
+    return build_baseband_config(sig, psr, tel, "BenchSys", dm_max=g["dm"])
+
+
+def config5():
+    """BASELINE config 5's heterogeneous population through the port's
+    objects (bench.py time_tpu_multipulsar: 128 distinct MSP periods of
+    2.5-9.5 ms, portraits, fluxes and DMs from numpy seed 0, padded to the
+    [1024, 2048, 4096] grid): one ``(cfg, profiles, noise_norm, dm)`` per
+    pulsar."""
+    import numpy as np
+
+    from psrsigsim_torch.models.pulsar import GaussProfile, Pulsar
+    from psrsigsim_torch.models.telescope import Backend, Receiver, Telescope
+    from psrsigsim_torch.parallel import MultiPulsarFoldEnsemble
+    from psrsigsim_torch.signal import FilterBankSignal
+    from psrsigsim_torch.simulate import build_fold_config, natural_nbin
+    from psrsigsim_torch.utils import make_quant
+
+    tscope = Telescope(100.0, area=5500.0, Tsys=35.0, name="BenchScope")
+    tscope.add_system("BenchSys", Receiver(fcent=1380, bandwidth=400,
+                                           name="R"),
+                      Backend(samprate=12.5, name="B"))
+    rng = np.random.default_rng(0)
+    workloads = []
+    for i in range(MULTI_PULSARS):
+        period = 0.0025 + 0.007 * rng.random()
+        # the bench's signals sample below the band's Nyquist rate (a
+        # filterbank's time resolution): keep the 128 warnings out of the log
+        with contextlib.redirect_stdout(io.StringIO()):
+            sig = FilterBankSignal(1380, 400, Nsubband=64,
+                                   sample_rate=0.4096, sublen=0.5, fold=True)
+        psr = Pulsar(period, 0.002 + 0.02 * rng.random(), GaussProfile(
+            peak=0.25 + 0.5 * rng.random(), width=0.02 + 0.06 * rng.random()
+        ), name=f"P{i}")
+        sig._tobs = make_quant(1.0, "s")
+        nbin = MultiPulsarFoldEnsemble.choose_nbin(natural_nbin(sig, psr),
+                                                   MULTI_PAD)
+        cfg, profiles, noise_norm = build_fold_config(
+            sig, psr, tscope, "BenchSys", nbin=nbin)
+        workloads.append((cfg, profiles, noise_norm,
+                          5.0 + 60.0 * rng.random()))
+    return workloads
 
 
 def mc_kill_child(out, scratch):

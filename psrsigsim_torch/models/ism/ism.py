@@ -6,8 +6,8 @@ shift loop in the reference (disperse :57-60, FD_shift :136-139,
 scatter_broaden :203-206) becomes ONE batched Fourier shift
 (:func:`psrsigsim_torch.ops.shift.fourier_shift`) over the whole
 ``(Nchan, Nsamp)`` data tensor on the signal's device; the delays are host
-float64, as in the JAX package.  Coherent baseband dispersion comes with
-the baseband slice.
+float64, as in the JAX package.  Baseband signals are dispersed
+coherently (:func:`psrsigsim_torch.ops.shift.coherent_dedisperse`).
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 
 from ...ops.convolve import convolve_profiles as _convolve_profiles_op
-from ...ops.shift import fourier_shift
+from ...ops.shift import coherent_dedisperse, fourier_shift
 from ...utils.constants import DM_K, KOLMOGOROV_BETA
 from ...utils.quantity import Quantity, make_quant
 from ..pulsar.portraits import DataPortrait
@@ -98,10 +98,18 @@ class ISM:
         )
 
     def _disperse_baseband(self, signal, dm):
-        """Coherent dispersion via the L&K eq 5.21 transfer function
-        (reference: ism/ism.py:76-98): the baseband slice of the port."""
-        raise NotImplementedError(
-            "coherent dispersion of baseband signals is not ported yet")
+        """Coherent dispersion via the L&K eq 5.21 transfer function, all
+        channels in one batched FFT (reference: ism/ism.py:76-98): the
+        float64 host phase of the concrete DM, the rFFT form on the
+        signal's device."""
+        dt_us = float((1 / signal.samprate).to("us").value)
+        signal.data = coherent_dedisperse(
+            signal.data,
+            float(dm.value),
+            float(signal.fcent.to("MHz").value),
+            float(signal.bw.to("MHz").value),
+            dt_us,
+        )
 
     # -- frequency-dependent (FD) shift ------------------------------------
     def FD_shift(self, signal, FD_params):

@@ -156,9 +156,24 @@ class Pulsar:
 
     def _make_amp_pulses(self, signal):
         """Amplitude pulses for RF/Baseband signals (reference:
-        pulsar.py:153-183): the baseband slice of the port."""
-        raise NotImplementedError(
-            "amplitude pulses (RFSignal/BasebandSignal) are not ported yet")
+        pulsar.py:153-183): the square root of the float64 host profile at
+        every sample's phase, times jax's flat ``random.normal`` stream on
+        the ``"pulse"`` key, on the signal's device."""
+        import torch
+
+        from ...ops.stats import normal_sample
+        from ...utils.device import to_device
+
+        signal._nsamp = int((signal.tobs * signal.samprate).decompose())
+        signal.init_data(signal.nsamp)
+        dev = signal.device
+
+        phs = self._sample_phases(signal)
+        full_prof = np.sqrt(self.Profiles.calc_profiles(phs, Nchan=signal.Nchan))
+        amp = torch.as_tensor(np.asarray(full_prof, dtype=np.float32),
+                              device=dev)
+        signal.data = amp * normal_sample(
+            to_device(self._keys.next("pulse"), dev), tuple(amp.shape))
 
     def _make_pow_pulses(self, signal):
         """Power pulses for FilterBank signals (reference: pulsar.py:185-244)."""

@@ -27,6 +27,14 @@ def _add_pow_noise_kernel(key, data, df, norm):
     return fma(chi2_sample_compiled(key, df, tuple(data.shape)), norm, data)
 
 
+def _add_amp_noise_kernel(key, data, norm):
+    # the JAX package jits this kernel, and XLA compiles the scale-and-add
+    # into one FMA
+    from ...ops.stats import fma, normal_sample
+
+    return fma(normal_sample(key, tuple(data.shape)), norm, data)
+
+
 class Receiver:
     """A receiver: flat bandpass (fcent/bandwidth) + receiver temperature
     (reference: receiver.py:12-57).
@@ -146,10 +154,13 @@ class Receiver:
         return norm, float(df)
 
     def _add_amp_noise(self, signal, Tsys, gain, pulsar):
-        """Amplitude noise for RF/Baseband signals: the baseband slice of
-        the port."""
-        raise NotImplementedError(
-            "amplitude noise (RFSignal/BasebandSignal) is not ported yet")
+        from ...utils.device import to_device
+
+        norm = self._amp_noise_norm(signal, Tsys, gain, pulsar)
+        data = signal.data
+        signal.data = _add_amp_noise_kernel(
+            to_device(self._keys.next("noise"), data.device), data,
+            float(np.float32(norm)))
 
     def _add_pow_noise(self, signal, Tsys, gain, pulsar):
         from ...utils.device import to_device

@@ -3,7 +3,9 @@
 Plain functions on tensors: the random fields (:mod:`.stats`, with the
 CUDA sampler kernel in :mod:`.rng_hw`), the Fourier shift (:mod:`.shift`,
 on :mod:`.dfloat`), the PSRFITS quantizer (:mod:`.quantize`), the fused
-fold → quantize → pack kernel (:mod:`.fold_quantize`), the integrity
+fold → quantize → pack kernel (:mod:`.fold_quantize`), coherent
+(de)dispersion (:mod:`.shift`) and the baseband channelizer
+(:mod:`.channelize`), the integrity
 lattice's packed-digest kernel (:mod:`.digest`), FFTFIT TOA estimation
 (:mod:`.toa`), the profile convolution
 (:mod:`.convolve`) and the resamplers (:mod:`.resample`); plus the host
@@ -22,6 +24,9 @@ _LAZY = {
     "rng_field": "rng_hw", "rng_field_plain": "rng_hw",
     "rng_flat_field": "rng_hw", "rng_flat_field_plain": "rng_hw",
     "hw_chan_field": "rng_hw", "fourier_shift": "shift",
+    "coherent_dedisperse": "shift",
+    "coherent_dedispersion_transfer": "shift",
+    "channelize_power": "channelize",
     "flat_normal_field": "stats", "flat_chi2_field": "stats",
     "chan_chi2_field": "stats", "chan_normal_field": "stats",
     "chi2_draw_norm": "stats", "chi2_sample": "stats", "normal": "stats",
@@ -62,6 +67,9 @@ __all__ = [
     "packed_digest",
     "packed_digest_plain",
     "fourier_shift",
+    "coherent_dedisperse",
+    "coherent_dedispersion_transfer",
+    "channelize_power",
     "chan_chi2_field",
     "chan_normal_field",
     "flat_normal_field",

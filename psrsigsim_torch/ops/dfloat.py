@@ -18,8 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["split_f64", "two_sum", "two_prod", "df_mul_f32", "df_recip",
-           "df_mod1", "df_div_f32"]
+__all__ = ["split_f64", "two_sum", "two_prod", "df_mul_f32",
+           "df_mul_f32_fused", "df_recip", "df_mod1", "df_div_f32"]
 
 # Veltkamp splitter for float32 (24-bit mantissa): 2^12 + 1
 _SPLITTER = 4097.0
@@ -65,6 +65,18 @@ def df_mul_f32(a, bhi, blo):
     """(hi, lo) product of an exact float32 ``a`` with a double-float b."""
     p, e = two_prod(a, bhi)
     return _quick_two_sum(p, e + a * blo)
+
+
+def df_mul_f32_fused(a, bhi, blo):
+    """:func:`df_mul_f32` as XLA's CPU backend compiles the reference's:
+    the low-order term ``e + a·blo`` contracted into one fused multiply-add
+    (the reference's optimization barriers pin the sums, not that add).
+    The coherent-dispersion transfer function takes it, so its cycles equal
+    the JAX package's bit for bit."""
+    from .stats import fma
+
+    p, e = two_prod(a, bhi)
+    return _quick_two_sum(p, fma(a, blo, e))
 
 
 def df_recip(b):

@@ -360,6 +360,13 @@ def blocked_chan_normal(key, chan_ids, t0, length, block=SEQ_RNG_BLOCK):
     keyed by ``(channel, global block index)``: ``(..., C, length)`` for
     keys ``(..., 2)``.  Whole blocks are drawn and the span sliced out, so
     any split of the time axis gives the same stream."""
+    return _blocked_chan_draw(key, chan_ids, t0, length, block,
+                              lambda u: _SQRT2 * erf_inv(u))
+
+
+def _blocked_chan_draw(key, chan_ids, t0, length, block, transform):
+    """``transform(u)`` of the uniform (-1, 1) draws behind
+    :func:`blocked_chan_normal`, over the same blocks and span."""
     t0 = int(t0)
     b0 = t0 // block
     off = t0 - b0 * block
@@ -368,15 +375,28 @@ def blocked_chan_normal(key, chan_ids, t0, length, block=SEQ_RNG_BLOCK):
     ck = fold_in(key[..., None, :], chan_ids)                    # (..., C, 2)
     blocks = torch.arange(b0, b0 + nblk, dtype=torch.int64, device=key.device)
     kb = fold_in(ck[..., None, :], blocks)                       # (..., C, nblk, 2)
-    z = normal(kb, block)                                        # (..., C, nblk, block)
+    z = _from_uniform(kb, block, transform)                      # (..., C, nblk, block)
     z = z.reshape(z.shape[:-2] + (nblk * block,))
     return z[..., off:off + length]
 
 
 def blocked_chan_chi2(key, chan_ids, df, t0, length, block=SEQ_RNG_BLOCK):
-    """Blocked threefry χ² draws (reference: ``blocked_chan_chi2``)."""
-    return _chi2_from_normal(
-        blocked_chan_normal(key, chan_ids, t0, length, block), df)
+    """Blocked threefry χ² draws (reference: ``blocked_chan_chi2``).  A df
+    tensor (one per observation, the reference's traced df) takes the
+    arithmetic XLA compiles for it: ``sqrt(2)`` of the normal folded into
+    Wilson–Hilferty's ``sqrt(c)``, the add fused, ``t = fma(erf_inv(u),
+    f32(sqrt(2)·sqrt(c)), 1 - c)``, and ``z²`` where df = 1."""
+    if not isinstance(df, torch.Tensor) or os.environ.get("PSS_EXACT_CHI2"):
+        return _chi2_from_normal(
+            blocked_chan_normal(key, chan_ids, t0, length, block), df)
+    e = _blocked_chan_draw(key, chan_ids, t0, length, block, erf_inv)
+    k = df.to(device=e.device, dtype=_F32).reshape(
+        df.shape + (1,) * (e.dim() - df.dim()))
+    c = 2.0 / (9.0 * k)
+    t = fma(e, _SQRT2 * _sqrt(c), 1.0 - c)
+    z = _SQRT2 * e
+    return torch.where(k == 1.0, z * z,
+                       torch.clamp_min(k * (t * (t * t)), 0.0))
 
 
 # -- sampler dispatch -----------------------------------------------------------

@@ -1,6 +1,7 @@
-"""Ensembles (counterpart: psrsigsim_tpu/parallel/; this slice ports the
-one-device fold ensemble — meshes and multi-device runs come later)."""
+"""Ensembles (counterpart: psrsigsim_tpu/parallel/; the one-device fold
+ensemble and the multi-pulsar ensemble — meshes and multi-device runs come
+later)."""
 
-from .ensemble import FoldEnsemble
+from .ensemble import FoldEnsemble, MultiPulsarFoldEnsemble
 
-__all__ = ["FoldEnsemble"]
+__all__ = ["FoldEnsemble", "MultiPulsarFoldEnsemble"]

@@ -1,5 +1,6 @@
 """Monte-Carlo fold-mode ensembles on one device (counterpart:
-psrsigsim_tpu/parallel/ensemble.py, ``FoldEnsemble``).
+psrsigsim_tpu/parallel/ensemble.py, ``FoldEnsemble`` and
+``MultiPulsarFoldEnsemble``).
 
 The BASELINE workload: thousands of fold-mode observations of one pulsar,
 run a batch at a time, quantized to PSRFITS int16 with real DAT_SCL /
@@ -19,14 +20,16 @@ import numpy as np
 import torch
 
 from ..ops.quantize import quantize_packed
+from ..ops.stats import CHI2_WH_MIN_DF
 from ..scenarios.registry import _param, parse_stack, scenario_rows
-from ..simulate.pipeline import (build_fold_config, fold_pipeline,
-                                 fold_pipeline_quantized, fold_subints,
-                                 fused_route, noise_level)
+from ..simulate.pipeline import (_fold_pipeline_hetero, build_fold_config,
+                                 fold_pipeline, fold_pipeline_quantized,
+                                 fold_subints, fused_route, natural_nbin,
+                                 noise_level)
 from ..utils.device import resolve_device, to_device
 from ..utils.rng import fold_in, key, stage_key
 
-__all__ = ["FoldEnsemble"]
+__all__ = ["FoldEnsemble", "MultiPulsarFoldEnsemble"]
 
 
 def _split_packed_chunk(packed, nbin):
@@ -39,6 +42,22 @@ def _split_packed_chunk(packed, nbin):
     data = packed[..., :nbin]
     tail = np.ascontiguousarray(packed[..., nbin:]).view(np.float32)
     return data, tail[..., 0], tail[..., 1]
+
+
+def _check_hetero_nfolds(nfolds):
+    """The heterogeneous pipeline draws its χ² df (= Nfold per pulsar) per
+    observation, through Wilson–Hilferty: refuse a population outside its
+    validity domain when it is staged (reference: ``_check_hetero_nfolds``)."""
+    import os
+
+    if not os.environ.get("PSS_EXACT_CHI2") and np.min(nfolds) < CHI2_WH_MIN_DF:
+        raise ValueError(
+            f"heterogeneous ensemble has Nfold={float(np.min(nfolds)):.1f} "
+            f"< {CHI2_WH_MIN_DF:.0f}: the per-pulsar chi2 draws use the "
+            "Wilson-Hilferty approximation, only valid for large df. Use "
+            "longer subintegrations (the exact gamma sampler is not "
+            "ported).")
+    return nfolds
 
 
 class FoldEnsemble:
@@ -703,3 +722,167 @@ class FoldEnsemble:
     @property
     def pulsar(self):
         return self._pulsar
+
+
+class MultiPulsarFoldEnsemble:
+    """A fold-mode Monte-Carlo ensemble over MANY pulsars with different
+    portraits, periods, DMs and noise levels, on one device — BASELINE
+    config 5 (reference: ``MultiPulsarFoldEnsemble``; per-observation
+    semantics pulsar/pulsar.py:196-221).
+
+    Pulsars are bucketed by the static geometry ``(Nchan, Nph, nsub)``;
+    within a bucket every pulsar-specific quantity (portrait, DM, χ² df
+    ``nfold``, draw norm, noise norm, channel frequencies, sample spacing)
+    is a per-observation input of
+    :func:`~psrsigsim_torch.simulate.fold_pipeline_hetero`, so one body
+    runs the whole bucket: per bucket and epoch chunk, one sampler launch
+    draws the pulse field and one the noise field of all its pulsars
+    (``chi2_sel`` mode, a df per row).  With ``pad_nbin`` in
+    :meth:`from_simulations`, distinct periods land on a common phase
+    resolution and differ only in the sample spacing.
+
+    Keys are ``fold_in(stage_key(key(seed), "user", p), e)`` for the
+    global pulsar index ``p`` and the global epoch ``e``, so a pulsar's
+    rows do not depend on its bucket, the epoch chunking or how a run is
+    split over ``epoch_start``.
+
+    Parameters
+    ----------
+    workloads : list of (cfg, profiles, noise_norm, dm)
+        One entry per pulsar, as :func:`~psrsigsim_torch.simulate.
+        build_fold_config` gives them plus that pulsar's DM
+        (:meth:`from_simulations` builds them from ``Simulation`` objects).
+    mesh : must be None — meshes are a later slice of the port.
+    epoch_chunk : epochs per pass through the pipeline (bounds the working
+        set; None = all epochs of a run at once).  Changes no draw.
+    device : where the ensemble runs (default: the CUDA card).
+    """
+
+    def __init__(self, workloads, mesh=None, epoch_chunk=None, device=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh=: meshes and multi-device ensembles are not ported "
+                "yet; the port runs one device")
+        self.device = resolve_device(device)
+        self.mesh = None
+        self.workloads = list(workloads)
+        self.epoch_chunk = epoch_chunk
+        self._buckets = {}  # static geometry -> list of pulsar indices
+        for idx, (cfg, _, _, _) in enumerate(self.workloads):
+            bkey = (cfg.meta.nchan, cfg.nph, cfg.nsub)
+            self._buckets.setdefault(bkey, []).append(idx)
+        self._bucket_data = {}  # bucket key -> staged device inputs
+
+    @staticmethod
+    def choose_nbin(nph_natural, pad_nbin):
+        """A pulsar's padded phase resolution (reference:
+        ``choose_nbin``): ``"pow2"`` (the next power of two >= the natural
+        ``int(samprate * period)``), an int (one common NBIN), or a grid of
+        ceilings (the smallest >= natural; the largest when the natural
+        resolution exceeds them all)."""
+        if isinstance(pad_nbin, str):
+            if pad_nbin == "pow2":
+                return 1 << max(0, int(np.ceil(np.log2(max(1, nph_natural)))))
+            raise ValueError(
+                f"pad_nbin={pad_nbin!r}: the only string mode is 'pow2' "
+                "(pass an int or a grid of ceilings otherwise)")
+        if isinstance(pad_nbin, (int, np.integer)):
+            return int(pad_nbin)
+        grid = sorted(int(g) for g in pad_nbin)
+        if not grid:
+            raise ValueError("pad_nbin grid is empty")
+        for g in grid:
+            if g >= nph_natural:
+                return g
+        return grid[-1]
+
+    @classmethod
+    def from_simulations(cls, sims, mesh=None, pad_nbin=None,
+                         epoch_chunk=None, device=None):
+        """Build from configured ``Simulation`` objects (one per pulsar):
+        ``init_all`` + ``build_fold_config`` on each.  ``pad_nbin``: see
+        :meth:`choose_nbin` (None keeps every natural resolution).
+        ``device``: default the first simulation's."""
+        workloads = []
+        for s in sims:
+            s.init_all()
+            nbin = None
+            if pad_nbin is not None:
+                nbin = cls.choose_nbin(natural_nbin(s.signal, s.pulsar),
+                                       pad_nbin)
+            cfg, profiles, noise_norm = build_fold_config(
+                s.signal, s.pulsar, s.tscope, s.system_name, nbin=nbin)
+            dm = float(s.signal.dm.value) if s.signal.dm is not None else 0.0
+            workloads.append((cfg, profiles, noise_norm, dm))
+        if device is None and sims:
+            device = sims[0]._device
+        return cls(workloads, mesh=mesh, epoch_chunk=epoch_chunk,
+                   device=device)
+
+    @property
+    def n_buckets(self):
+        return len(self._buckets)
+
+    def _staged(self, bkey, members):
+        """A bucket's per-pulsar inputs on the device, staged once and
+        reused by every run (only the keys change)."""
+        if bkey in self._bucket_data:
+            return self._bucket_data[bkey]
+        dev = self.device
+        w = [self.workloads[i] for i in members]
+
+        def col(values):
+            return torch.as_tensor(np.asarray(values, np.float32), device=dev)
+
+        nfolds = _check_hetero_nfolds(
+            np.asarray([c.nfold for c, _, _, _ in w], np.float32))
+        staged = dict(
+            members=torch.as_tensor(members, dtype=torch.int64),
+            dms=col([d for _, _, _, d in w])[:, None],
+            norms=col([n for _, _, n, _ in w])[:, None],
+            nfolds=col(nfolds)[:, None],
+            draw_norms=col([c.draw_norm for c, _, _, _ in w])[:, None],
+            dts=col([c.dt_ms for c, _, _, _ in w])[:, None],
+            profiles=col(np.stack([np.asarray(p, np.float32)
+                                   for _, p, _, _ in w]))[:, None],
+            freqs=col(np.stack([np.asarray(c.meta.dat_freq_mhz(), np.float32)
+                                for c, _, _, _ in w]))[:, None],
+            chan_ids=torch.arange(bkey[0]),
+        )
+        self._bucket_data[bkey] = staged
+        return staged
+
+    def run(self, epochs, seed=0, epoch_start=0):
+        """Simulate ``epochs`` observations of every pulsar.
+
+        Returns a list (indexed like ``workloads``) of ``(epochs, Nchan,
+        nsub*Nph)`` float32 tensors on the ensemble's device (views into one
+        block per bucket).  ``run(E1, seed)`` then ``run(E2, seed,
+        epoch_start=E1)`` draws exactly what ``run(E1 + E2, seed)`` does.
+        """
+        epochs = int(epochs)
+        if epochs <= 0:
+            raise ValueError(f"epochs={epochs} must be positive")
+        root = key(seed, "cpu")
+        results = [None] * len(self.workloads)
+        step = epochs if self.epoch_chunk is None else min(self.epoch_chunk,
+                                                            epochs)
+        ep = torch.arange(epoch_start, epoch_start + epochs, dtype=torch.int64)
+        for bkey, members in self._buckets.items():
+            cfg0 = self.workloads[members[0]][0]
+            st = self._staged(bkey, members)
+            # key[p, e] = fold_in(stage_key(root, "user", p), global e)
+            keys = fold_in(stage_key(root, "user", st["members"])[:, None, :],
+                           ep[None, :])
+            out = torch.empty((len(members), epochs, bkey[0],
+                               cfg0.nsub * cfg0.nph), dtype=torch.float32,
+                              device=self.device)
+            for e0 in range(0, epochs, step):
+                e1 = min(e0 + step, epochs)
+                out[:, e0:e1] = _fold_pipeline_hetero(
+                    keys[:, e0:e1], st["dms"], st["norms"], st["nfolds"],
+                    st["draw_norms"], st["profiles"], cfg0, st["freqs"],
+                    st["chan_ids"], None, st["dts"], self.device)
+            for slot, idx in enumerate(members):
+                results[idx] = out[slot]
+        return results

@@ -312,26 +312,130 @@ class FilterBankSignal(BaseSignal):
         return self
 
 
-class _Unported(BaseSignal):
-    """A signal type of a later slice of the port."""
+class BasebandSignal(BaseSignal):
+    """Complex-band time-domain signal, 0 Hz → bw; Nyquist default
+    sampling; ``Nchan`` polarization channels (reference:
+    signal/bb_signal.py:9-77; the JAX package's ``BasebandSignal``).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{self._sigtype} is not ported yet (the baseband slice); the "
-            "port simulates FilterBankSignal")
-
-
-class BasebandSignal(_Unported):
-    """Complex-band time-domain signal (reference: signal/bb_signal.py;
-    the JAX package's ``BasebandSignal``).  Not ported yet: constructing
-    one raises ``NotImplementedError``."""
+    Optional Args:
+        device: where the data lives (``None`` = the CUDA card)
+    """
 
     _sigtype = "BasebandSignal"
 
+    def __init__(self, fcent, bandwidth, sample_rate=None, dtype=np.float32,
+                 Nchan=2, device=None):
+        super().__init__(fcent, bandwidth, sample_rate=sample_rate,
+                         dtype=dtype, Npols=1, device=device)
+        self._Nchan = int(Nchan)
+        self._dat_freq = Quantity(
+            np.full(self._Nchan, self._fcent.to("MHz").value), "MHz"
+        )
 
-class RFSignal(_Unported):
-    """Radio-frequency sampled time series (reference: signal/rf_signal.py;
-    the JAX package's ``RFSignal``).  Not ported yet: constructing one
-    raises ``NotImplementedError``."""
+        f_nyquist = 2 * self._bw
+        if self._samprate is None:
+            self._samprate = f_nyquist.to("MHz")
+        elif self._samprate < f_nyquist:
+            print(
+                "Warning: specified sample rate {} < Nyquist frequency {}".format(
+                    self._samprate, f_nyquist
+                )
+            )
+
+    def to_RF(self):
+        raise NotImplementedError()
+
+    def to_Baseband(self):
+        return self
+
+    def to_FilterBank(self, Nsubband=512):
+        """Channelize the baseband stream into a SEARCH-mode filterbank
+        (a stub in the reference, signal/bb_signal.py:58-76; the JAX
+        package's critically-sampled FFT filterbank,
+        :func:`psrsigsim_torch.ops.channelize.channelize_power`).
+
+        Requires data (synthesize with ``Pulsar.make_pulses`` first).
+        Returns a new :class:`FilterBankSignal` on this signal's device with
+        ``Nsubband`` channels, sample spacing ``2*Nsubband/samprate`` and
+        the detected AA+BB intensity; the baseband signal is unchanged.
+        """
+        if self._state is None or self._state.data is None:
+            raise ValueError(
+                "no baseband data to channelize; run make_pulses first")
+        from ..ops.channelize import channelize_power
+
+        nchan = int(Nsubband)
+        frame = 2 * nchan
+        nsamp_in = int(self._state.data.shape[-1])
+        if nsamp_in < frame:
+            raise ValueError(
+                f"need at least one frame of 2*Nsubband={frame} samples; "
+                f"have {nsamp_in}")
+        power = channelize_power(self._state.data, nchan)
+        nframes = int(power.shape[1])
+        samprate_in = float(self._samprate.to("MHz").value)
+        # made without sample_rate (then overridden), so the full-band
+        # Nyquist warning meant for user-given rates stays quiet: the
+        # detected stream is critically sampled per channel by construction
+        out = FilterBankSignal(
+            float(self._fcent.to("MHz").value),
+            float(self._bw.to("MHz").value),
+            Nsubband=nchan,
+            fold=False,
+            dtype=np.float32,
+            device=self._device,
+        )
+        out._samprate = make_quant(samprate_in / frame, "MHz")
+        out.data = power
+        out._nsamp = nframes
+        # tobs covers the whole frames (a partial last frame is dropped)
+        out._tobs = make_quant(nframes * frame / (samprate_in * 1e6), "s")
+        # one "subint" spanning the stream (the sublen=None SEARCH
+        # convention) and the source signal's flux scale
+        out._nsub = 1
+        out._sublen = out._tobs
+        if getattr(self, "_Smax", None) is not None:
+            out._Smax = self._Smax
+        if self.dm is not None:
+            out._dm = self.dm
+        return out
+
+
+class RFSignal(BaseSignal):
+    """True radio-frequency sampled time series (reference:
+    signal/rf_signal.py:9-87; the JAX package's ``RFSignal``).  Sampled at
+    ``2·(fcent + bw/2)`` by default: a 1.4 GHz band is a ~3 GHz stream.
+
+    Optional Args:
+        device: where the data lives (``None`` = the CUDA card)
+    """
 
     _sigtype = "RFSignal"
+
+    def __init__(self, fcent, bandwidth, sample_rate=None, dtype=np.float32,
+                 device=None):
+        super().__init__(fcent, bandwidth, sample_rate=sample_rate,
+                         dtype=dtype, Npols=1, device=device)
+        self._Nchan = 2
+        self._dat_freq = Quantity(
+            np.full(self._Nchan, self._fcent.to("MHz").value), "MHz"
+        )
+
+        f_nyquist = 2 * (self._fcent + self._bw / 2)
+        if self._samprate is None:
+            self._samprate = f_nyquist.to("MHz")
+        elif self._samprate < f_nyquist:
+            print(
+                "Warning: specified sample rate {} < Nyquist frequency {}".format(
+                    self._samprate, f_nyquist
+                )
+            )
+
+    def to_RF(self):
+        return self
+
+    def to_Baseband(self):
+        raise NotImplementedError()
+
+    def to_FilterBank(self, Nsubband=512):
+        raise NotImplementedError()

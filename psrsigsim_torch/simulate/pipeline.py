@@ -1,11 +1,14 @@
-"""The fold-mode and SEARCH-mode observation pipelines (counterpart:
-psrsigsim_tpu/simulate/pipeline.py, without baseband).
+"""The fold-mode, SEARCH-mode and baseband observation pipelines
+(counterpart: psrsigsim_tpu/simulate/pipeline.py).
 
 The reference's call chain ``make_pulses -> disperse -> observe(noise)``
 (psrsigsim/simulate/simulate.py:292-326) as one function on tensors,
 
     fold_pipeline(keys, dms, noise_norms, profiles, cfg) -> (..., Nchan, Nsamp)
+    fold_pipeline_hetero(keys, dms, noise_norms, nfolds, draw_norms,
+                         profiles, cfg, freqs, dt_ms=) -> (..., Nchan, Nsamp)
     single_pipeline(keys, dms, noise_norms, profiles, cfg) -> (..., Nchan, Nsamp)
+    baseband_pipeline(keys, dms, noise_norms, sqrt_profiles, cfg) -> (..., Npol, Nsamp)
 
 with every shape fixed by a static config.  Where the JAX package vmaps a
 one-observation function, the port writes the batch dimension out: keys
@@ -27,10 +30,12 @@ import torch
 
 from ..ops.fold_quantize import fold_quantize
 from ..ops.rng_hw import seed_words
-from ..ops.shift import fourier_shift
-from ..ops.stats import (_exact_chi2_unported, _hw_chi2_mode,
-                         chan_chi2_field, flat_chi2_field, flat_chi2_ok,
-                         sampler_backend, uniform)
+from ..ops.shift import (coherent_dedisperse, coherent_dedisperse_os,
+                         fourier_shift, plan_dedisperse_os)
+from ..ops.stats import (CHI2_WH_MIN_DF, _exact_chi2_unported,
+                         _hw_chi2_mode, chan_chi2_field, flat_chi2_field,
+                         flat_chi2_ok, flat_normal_field, sampler_backend,
+                         uniform)
 from ..scenarios.registry import (apply_scenario_additive,
                                   apply_scenario_additive_search,
                                   apply_scenario_pulse,
@@ -41,9 +46,11 @@ from ..utils.device import resolve_device, to_device
 from ..utils.rng import as_key, permutation, stage_key
 
 __all__ = ["default_shift_mode", "FoldPipelineConfig", "fold_pipeline",
-           "fold_pipeline_quantized", "fused_route", "fold_subints",
-           "noise_level", "build_fold_config", "natural_nbin",
-           "SinglePipelineConfig", "single_pipeline", "build_single_config"]
+           "fold_pipeline_hetero", "fold_pipeline_quantized", "fused_route",
+           "fold_subints", "noise_level", "build_fold_config",
+           "natural_nbin", "SinglePipelineConfig", "single_pipeline",
+           "build_single_config", "BasebandPipelineConfig",
+           "baseband_pipeline", "build_baseband_config"]
 
 
 def default_shift_mode():
@@ -105,15 +112,17 @@ class _FoldFront(NamedTuple):
     delays_ms: torch.Tensor   # (..., Nchan) on dev
     profiles: torch.Tensor    # (Nchan, Nph) on dev
     chan_ids: torch.Tensor
+    dt: object                # sample spacing: cfg.dt_ms, or (..., 1, 1) on dev
     prof: torch.Tensor | None  # envelope mode: (..., Nchan, Nph) shifted
 
 
 def _fold_front(key, dm, noise_norm, profiles, cfg, freqs, chan_ids,
-                extra_delays_ms, device):
-    """The front half shared by :func:`fold_pipeline` and
-    :func:`fold_pipeline_quantized`: inputs on the device, the pulse and
-    noise stage keys, the DM (+ extra) delays and, in envelope mode, the
-    portrait shifted by them (one small ``(..., Nchan, Nph)`` FFT)."""
+                extra_delays_ms, device, dt_ms=None):
+    """The front half shared by the fold routes: inputs on the device, the
+    pulse and noise stage keys, the DM (+ extra) delays and, in envelope
+    mode, the portrait shifted by them (one small ``(..., Nchan, Nph)``
+    FFT).  ``dt_ms``: one sample spacing per observation (the
+    heterogeneous route), else the static ``cfg.dt_ms``."""
     if isinstance(profiles, torch.Tensor):
         dev = profiles.device
     else:
@@ -128,17 +137,21 @@ def _fold_front(key, dm, noise_norm, profiles, cfg, freqs, chan_ids,
         freqs = np.asarray(cfg.meta.dat_freq_mhz(), np.float32)
     freqs = torch.as_tensor(freqs, dtype=f32, device=dev)
     if chan_ids is None:
-        chan_ids = torch.arange(freqs.shape[0])
+        chan_ids = torch.arange(freqs.shape[-1])
     if extra_delays_ms is not None:
         extra_delays_ms = torch.as_tensor(extra_delays_ms, dtype=f32, device=dev)
     delays_ms = _dispersion_delays(dm, freqs, extra_delays_ms)
+    dt = cfg.dt_ms
+    if dt_ms is not None:
+        dt = torch.as_tensor(dt_ms, dtype=f32, device=dev).expand(lead)
+        dt = dt[..., None, None]
     # dispersion applied to the PERIODIC envelope: one small (Nchan, Nph)
     # FFT instead of the full-length pair
-    prof = (fourier_shift(profiles, delays_ms, dt=cfg.dt_ms)
+    prof = (fourier_shift(profiles, delays_ms, dt=dt)
             if cfg.shift_mode == "envelope" else None)
     return _FoldFront(dev, lead, key, stage_key(key, "pulse"),
                       stage_key(key, "noise"), noise_norm, delays_ms,
-                      profiles, chan_ids, prof)
+                      profiles, chan_ids, dt, prof)
 
 
 def fold_pipeline(key, dm, noise_norm, profiles, cfg, freqs=None,
@@ -191,6 +204,17 @@ def fold_pipeline(key, dm, noise_norm, profiles, cfg, freqs=None,
     """
     f = _fold_front(key, dm, noise_norm, profiles, cfg, freqs, chan_ids,
                     extra_delays_ms, device)
+    return _fold_core(f, cfg, cfg.nfold, cfg.draw_norm, cfg.noise_df,
+                      null_frac, scenario, scenario_params, rows)
+
+
+def _fold_core(f, cfg, nfold, draw_norm, noise_df, null_frac=None,
+               scenario=None, scenario_params=None, rows=None):
+    """The fold body after the front half (reference: ``_fold_core``).
+    ``nfold``, ``draw_norm`` and ``noise_df`` are Python numbers (the
+    homogeneous route) or tensors with one value per observation (the
+    heterogeneous one, whose χ² fields then take the sampler's
+    ``chi2_sel`` mode)."""
     dev, lead = f.dev, f.lead
     nsub, nph = cfg.nsub, cfg.nph
     nsamp = nsub * nph
@@ -198,18 +222,20 @@ def fold_pipeline(key, dm, noise_norm, profiles, cfg, freqs=None,
 
     # pulse term: tiled portrait x chi2(nfold) x draw_norm, written into the
     # pulse field in place (the product commutes, so the rounding is the
-    # reference's; a draw_norm of 1.0, as for float32 signals, is exact and
-    # skips its pass over the block)
-    block = _chan_chi2(to_device(f.kp, dev), f.chan_ids, cfg.nfold, nsamp)
+    # reference's; a static draw_norm of 1.0, as for float32 signals, is
+    # exact and skips its pass over the block)
+    block = _chan_chi2(to_device(f.kp, dev), f.chan_ids, nfold, nsamp)
     shape = lead + (nchan, nsub, nph)
     if cfg.shift_mode == "envelope":
         block.view(shape).mul_(f.prof[..., None, :])
     else:
-        block.view(shape).mul_(f.profiles[:, None, :])
-    if cfg.draw_norm != 1.0:
-        block.mul_(cfg.draw_norm)
+        block.view(shape).mul_(f.profiles[..., None, :])
+    if isinstance(draw_norm, torch.Tensor):
+        block.mul_(draw_norm[..., None, None])
+    elif draw_norm != 1.0:
+        block.mul_(draw_norm)
     if cfg.shift_mode != "envelope":
-        block = fourier_shift(block, f.delays_ms, dt=cfg.dt_ms)
+        block = fourier_shift(block, f.delays_ms, dt=f.dt)
 
     if rows is None and scenario is not None:
         rows = _scenario_rows(f, cfg, scenario, scenario_params)
@@ -226,13 +252,75 @@ def fold_pipeline(key, dm, noise_norm, profiles, cfg, freqs=None,
         block.view(shape).mul_(live[..., None, :, None])
 
     # radiometer noise, added after dispersion (never shifted)
-    noise = _chan_chi2(to_device(f.kn, dev), f.chan_ids, cfg.noise_df, nsamp)
+    noise = _chan_chi2(to_device(f.kn, dev), f.chan_ids, noise_df, nsamp)
     noise.mul_(f.noise_norm[..., None, None])
     block.add_(noise)
     if rows is not None:
         # additive effects (RFI) ride on top of the radiometer noise
         apply_scenario_additive(block, rows, nsub, nph)
     return block
+
+
+def _hetero_df_guard(nfolds):
+    """The heterogeneous route draws its χ² fields with a per-observation
+    df, i.e. through Wilson–Hilferty (or ``z²`` for df = 1): refuse an
+    Nfold outside that domain (reference: the guard of
+    ``fold_pipeline_hetero``)."""
+    if os.environ.get("PSS_EXACT_CHI2"):
+        return
+    nf = np.asarray(nfolds, np.float64)
+    bad = nf[(nf != 1.0) & (nf < CHI2_WH_MIN_DF)]
+    if bad.size:
+        raise ValueError(
+            f"fold_pipeline_hetero draws its chi2 df per observation, "
+            f"through the Wilson-Hilferty approximation — only valid for "
+            f"Nfold >= {CHI2_WH_MIN_DF:.0f} (or exactly 1); got "
+            f"Nfold={float(bad.min()):g}. Use longer subintegrations "
+            f"(the exact gamma sampler, PSS_EXACT_CHI2=1, is not ported).")
+
+
+def fold_pipeline_hetero(key, dm, noise_norm, nfold, draw_norm, profiles, cfg,
+                         freqs=None, chan_ids=None, extra_delays_ms=None,
+                         dt_ms=None, device=None):
+    """Fold-mode observations with PER-OBSERVATION pulsar parameters
+    (reference: ``fold_pipeline_hetero``): portrait, DM, χ² df ``nfold``
+    (= sublen/period), draw norm, noise norm, channel frequencies and the
+    sample spacing ``dt_ms`` are inputs, so observations of different
+    pulsars that share ``(Nchan, Nph, nsub)`` run through one body (the
+    padded common-NBIN buckets of
+    :class:`~psrsigsim_torch.parallel.MultiPulsarFoldEnsemble`).
+
+    Arguments as :func:`fold_pipeline`, plus ``nfold`` and ``draw_norm``
+    ``(...)`` (scalars broadcast) and ``dt_ms`` ``(...)`` (default: the
+    static ``cfg.dt_ms``).  ``profiles`` may be ``(..., Nchan, Nph)`` and
+    ``freqs`` ``(..., Nchan)``, broadcasting against the keys' leading
+    axes (e.g. ``(P, 1, Nchan, Nph)`` for P pulsars × E epochs).  The
+    radiometer df is ``nfold`` (receiver.py:163-164).  Both χ² fields take
+    the per-observation df: on the card the sampler's ``chi2_sel`` mode.
+    Nfold below 50 (other than 1) raises ``ValueError``.
+
+    Returns ``(..., Nchan, nsub*Nph)`` float32 blocks.
+    """
+    _hetero_df_guard(torch.as_tensor(nfold).detach().cpu().numpy())
+    return _fold_pipeline_hetero(key, dm, noise_norm, nfold, draw_norm,
+                                 profiles, cfg, freqs, chan_ids,
+                                 extra_delays_ms, dt_ms, device)
+
+
+def _fold_pipeline_hetero(key, dm, noise_norm, nfold, draw_norm, profiles,
+                          cfg, freqs, chan_ids, extra_delays_ms, dt_ms,
+                          device):
+    """:func:`fold_pipeline_hetero` without the Nfold check (the ensemble
+    checks once, when it stages a bucket)."""
+    f = _fold_front(key, dm, noise_norm, profiles, cfg, freqs, chan_ids,
+                    extra_delays_ms, device, dt_ms=dt_ms)
+
+    def per_obs(v):
+        return torch.as_tensor(v, dtype=torch.float32,
+                               device=f.dev).expand(f.lead)
+
+    nfold = per_obs(nfold)
+    return _fold_core(f, cfg, nfold, per_obs(draw_norm), nfold)
 
 
 def noise_level(cfg, noise_norm):
@@ -662,3 +750,155 @@ def build_single_config(signal, pulsar, telescope, system, Tsys=None,
         shift_mode=default_shift_mode() if shift_mode is None else shift_mode,
     )
     return cfg, profiles_np, float(noise_norm)
+
+
+# ---------------------------------------------------------------------------
+# Baseband coherent-dedispersion pipeline (BASELINE config 3)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BasebandPipelineConfig:
+    """Static configuration of a baseband (amplitude-signal) observation
+    (reference: ``BasebandPipelineConfig``): Nyquist-sampled voltage-like
+    data, coherent dispersion by the L&K eq 5.21 transfer function
+    (pulsar.py:153-183, ism.py:76-98).  ``os_plan`` is the pow2-block
+    overlap-save plan of the dedispersion FFT (:class:`~psrsigsim_torch.
+    ops.shift.OSPlan`; None = the exact monolithic FFT)."""
+
+    meta: SignalMeta
+    period_s: float
+    nph: int
+    nsamp: int
+    fcent_mhz: float
+    bw_mhz: float
+    dt_us: float
+    os_plan: object = None
+
+
+def baseband_pipeline(key, dm, noise_norm, sqrt_profiles, cfg, device=None):
+    """Baseband observations (reference: ``baseband_pipeline``): amplitude
+    synthesis (the tiled sqrt-profile × N(0, 1); pulsar.py:153-183),
+    coherent dispersion of every polarization channel (ism.py:76-98) and
+    amplitude radiometer noise (receiver.py:123-138).
+
+    Args:
+        key: observation keys ``(..., 2)``.
+        dm: dispersion measures ``(...)`` (a per-observation DM: the
+            transfer function's double-float branch).
+        noise_norm: amplitude noise scales ``(...)`` (from
+            ``Receiver._amp_noise_norm``; 0 disables the noise).
+        sqrt_profiles: ``sqrt(profile)`` at each phase bin, ``(Npol, Nph)``;
+            a tensor fixes the device, numpy goes to ``device`` (default:
+            the CUDA card).
+        cfg: static :class:`BasebandPipelineConfig`.
+
+    Both the pulse and the noise normals come from the FLAT pol-major
+    stream (``flat_normal_field(k, 0, Npol·nsamp)``): on the card one
+    launch of the sampler's flat layout per stage for the whole batch.
+    Dispersion takes the overlap-save plan when ``cfg.os_plan`` is set,
+    else the full-length circular filter.
+
+    Returns ``(..., Npol, nsamp)`` float32.
+    """
+    if isinstance(sqrt_profiles, torch.Tensor):
+        dev = sqrt_profiles.device
+    else:
+        dev = resolve_device(device)
+        sqrt_profiles = torch.as_tensor(
+            np.asarray(sqrt_profiles, np.float32), device=dev)
+    key = as_key(key) if isinstance(key, torch.Tensor) else as_key(key, "cpu")
+    lead = key.shape[:-1]
+    f32 = torch.float32
+    dm = torch.as_tensor(dm, dtype=f32, device=dev).expand(lead)
+    noise_norm = torch.as_tensor(noise_norm, dtype=f32, device=dev).expand(lead)
+    kp = to_device(stage_key(key, "pulse"), dev)
+    kn = to_device(stage_key(key, "noise"), dev)
+    nsamp = cfg.nsamp
+    npol = sqrt_profiles.shape[0]
+    shape = lead + (npol, nsamp)
+
+    # amplitude = the tiled sqrt-profile x the flat normal stream, written
+    # into the stream in place (the product commutes)
+    block = flat_normal_field(kp, 0, npol * nsamp).reshape(shape)
+    _tile_periodic(block, sqrt_profiles, cfg.nph)
+
+    if cfg.os_plan is not None:
+        block = coherent_dedisperse_os(block, dm, cfg.fcent_mhz, cfg.bw_mhz,
+                                       cfg.dt_us, cfg.os_plan)
+    else:
+        block = coherent_dedisperse(block, dm, cfg.fcent_mhz, cfg.bw_mhz,
+                                    cfg.dt_us)
+
+    noise = flat_normal_field(kn, 0, npol * nsamp).reshape(shape)
+    noise.mul_(noise_norm[..., None, None])
+    return block.add_(noise)
+
+
+def build_baseband_config(signal, pulsar, telescope=None, system=None,
+                          Tsys=None, dm_max=None, exact_fft=None):
+    """Derive the static config + host inputs for :func:`baseband_pipeline`
+    (reference: ``build_baseband_config``).  Returns ``(cfg,
+    sqrt_profiles_np, noise_norm)``; ``noise_norm`` is 0 without a
+    telescope and system (noise then enters through
+    ``Receiver.radiometer_noise``).
+
+    ``dm_max`` sizes the overlap-save plan (default: the signal's DM; the
+    plan holds for any ``|dm| <= dm_max``).  ``exact_fft=True`` (or
+    ``PSS_EXACT_SHIFT=1``) keeps the monolithic FFT whatever the length.
+    """
+    if signal.sigtype != "BasebandSignal":
+        raise ValueError("build_baseband_config requires a BasebandSignal")
+
+    period_s = float(pulsar.period.to("s").value)
+    spp = float((signal.samprate * pulsar.period).decompose())
+    nph = int(round(spp))
+    if abs(spp - nph) > 1e-6 * max(1.0, nph):
+        raise ValueError(
+            f"samples per period must be integral for the in-graph baseband "
+            f"pipeline (got {spp}); use the OO path for fractional sampling"
+        )
+    tobs = signal.tobs
+    if tobs is None:
+        raise ValueError("set signal._tobs (or pass tobs through Simulation) first")
+    tobs_s = float(tobs.to("s").value)
+    nsamp = int(tobs_s * float(signal.samprate.to("MHz").value) * 1e6)
+
+    if pulsar.ref_freq is None:
+        pulsar._ref_freq = signal.fcent
+    pulsar.Profiles.init_profiles(nph, signal.Nchan)
+    profiles_np = np.asarray(pulsar.Profiles.profiles, dtype=np.float64)
+    pr = pulsar.Profiles._max_profile
+    signal._Smax = pulsar.Smean * len(pr) / float(np.sum(pr))
+    signal._nsamp = nsamp
+
+    noise_norm = 0.0
+    if telescope is not None and system is not None:
+        rcvr, _ = telescope.systems[system]
+        tsys = rcvr._resolve_tsys(
+            Tsys if Tsys is not None else telescope.Tsys, None
+        )
+        noise_norm = rcvr._amp_noise_norm(signal, tsys, telescope.gain, pulsar)
+
+    if exact_fft is None:
+        exact_fft = bool(os.environ.get("PSS_EXACT_SHIFT"))
+    if dm_max is None and signal.dm is not None:
+        dm_max = float(signal.dm.value)
+    fcent_mhz = float(signal.fcent.to("MHz").value)
+    bw_mhz = float(signal.bw.to("MHz").value)
+    dt_us = float((1 / signal.samprate).to("us").value)
+    os_plan = None
+    if not exact_fft and dm_max:
+        os_plan = plan_dedisperse_os(nsamp, dm_max, fcent_mhz, bw_mhz, dt_us)
+
+    cfg = BasebandPipelineConfig(
+        meta=signal.meta(),
+        period_s=period_s,
+        nph=nph,
+        nsamp=nsamp,
+        fcent_mhz=fcent_mhz,
+        bw_mhz=bw_mhz,
+        dt_us=dt_us,
+        os_plan=os_plan,
+    )
+    return cfg, np.sqrt(profiles_np).astype(np.float32), float(noise_norm)

@@ -8,7 +8,9 @@ unpacked with ``git archive`` into an ignored directory), in a process of
 its own, on BASELINE config 1 at full width (``chip_smoke.py``'s main
 path): sha256 prefixes of ``run_quantized(128)`` (codes, scales, offsets,
 finite guard), ``run(16)`` and ``iter_chunks(256, chunk_size=128)``
-big-endian; the fused kernel's time on the main path's chunk (three
+big-endian, of ``run_quantized(128)`` with phase 12's scenario stack and
+parameters, and of ``single_pipeline`` at BASELINE config 4 (phase 13's
+observations 0-1); the fused kernel's time on the main path's chunk (three
 CUDA-event means of 50 launches); and the instruction count and hash of
 the rows kernel's scenario-free instantiation in ``cuobjdump -sass``
 (addresses and encodings dropped).  One JSON line per tree, then the
@@ -54,6 +56,17 @@ def fingerprint(root):
            "iter_chunks": sha(*[x for _, c in ens.iter_chunks(
                256, chunk_size=128, seed=0, quantized=True, byte_order="big",
                finite_mask=True) for x in c])}
+    scen = cs.geometry(cs.MAIN, "cuda", scenario=cs.SCEN_STACK)
+    out["scenario"] = sha(*scen.run_quantized(
+        128, seed=0, scenario_params=cs.scenario_params(128)))
+    from psrsigsim_torch.simulate import single_pipeline
+    from psrsigsim_torch.utils import key, stage_key
+
+    cfg4, prof4, nn4 = cs.config4()
+    out["search2"] = sha(single_pipeline(
+        stage_key(key(0, "cpu"), "user", torch.arange(2)),
+        torch.full((2,), cs.CONFIG4["dm"]), torch.full((2,), nn4),
+        torch.as_tensor(prof4, device="cuda"), cfg4))
     a, kw, _ = smoke.main_fused_args()
     out["k3_ms"] = [cs.cuda_time_ms(lambda: fq.fold_quantize(**a, **kw), 50)
                     for _ in range(3)]

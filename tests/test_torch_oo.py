@@ -406,22 +406,13 @@ def test_signal_state_and_device():
 
 def test_unported_paths_raise():
     from psrsigsim_torch.pulsar import GaussProfile, Pulsar
-    from psrsigsim_torch.signal import (BasebandSignal, FilterBankSignal,
-                                        RFSignal, Signal)
-    from psrsigsim_torch.telescope import Receiver
+    from psrsigsim_torch.signal import FilterBankSignal, Signal
 
-    for cls in (BasebandSignal, RFSignal):
-        with pytest.raises(NotImplementedError):
-            cls(1400.0, 400.0)
     with pytest.raises(NotImplementedError):
         Signal()
     psr = Pulsar(0.00457, 0.03, GaussProfile(), seed=0)
     sig = FilterBankSignal(1400.0, 400.0, Nsubband=4, sample_rate=0.2048,
                            fold=True, sublen=0.1, device="cpu")
-    with pytest.raises(NotImplementedError):
-        psr._make_amp_pulses(sig)
-    with pytest.raises(NotImplementedError):
-        Receiver(fcent=1400, bandwidth=400)._add_amp_noise(sig, 35, 1, psr)
     # Nfold = 0.1 s / 4.57 ms < 50: the exact-gamma branch is not ported
     with pytest.raises(NotImplementedError):
         psr.make_pulses(sig, tobs=0.2)
