@@ -186,11 +186,28 @@ per-observation digest of a packed chunk.  Phases:
    pulsar-epochs/s, peak memory; (c) run(4) + run(4, epoch_start=4) and
    epoch_chunk=4 bit-equal to run(8); (d) 4 pulsars x 2 epochs against
    device="cpu" within the fold bound; (e) one pulsar alone bit-equal to
-   its rows in the full run.
+   its rows in the full run;
+17. the serving core (psrsigsim_torch.serve) on the card, with a serve spec
+   at BASELINE config 1's width (64 channels, 2048 bins, 20 x 60 s subints,
+   DM 15.9 with per-request offsets) and bucket widths 1, 8 and 32: (a) the
+   sampler's rows layout at the w32 serve shape on the requests' keys
+   against its plain version, bit for bit, and its time; (b) exactly 2
+   sampler launches per bucket execution and no other kernel, while 64
+   concurrent requests are served; (c) one request solo, coalesced into
+   w8, in a w32 batch and in a 5-request batch padded to 8, bit-equal, and
+   its channel means; (d) PSS_SAMPLER=threefry, the card against
+   device="cpu" within the fold bound; (e) serial w1 and 64-concurrent
+   requests/s, cache hits/s from a fresh service over the same cache dir
+   (no device call), request p50/p95/p99, the stage times and bottleneck,
+   the device's busy share and peak memory; (f) `python -m
+   psrsigsim_torch.serve --port 0` on the card answering 3 POST /simulate
+   and GET /result, /metrics and /healthz, then draining on SIGTERM; (g)
+   integrity=1.0 with a device.sdc fault, healed to the clean bytes.  Every
+   request must reach done.
 
 The line before the last is one JSON object with each kernel's launches
 (counted in the main path's run: phases 5 and 13; every path's count
-under ``launches_by_path``: phases 5, 9, 13, 15 and 16), error against
+under ``launches_by_path``: phases 5, 9, 13, 15, 16 and 17), error against
 its plain version, times and bound.
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of one
@@ -301,6 +318,13 @@ OO_BASEBAND_NSUB = 512  # phase 15(f): to_FilterBank(512)
 MULTI_PULSARS, MULTI_EPOCHS, MULTI_EPOCH_CHUNK = 128, 8, 2
 MULTI_PAD = [1024, 2048, 4096]
 MULTI_HOST = 4  # phase 16(d): pulsars held against the host, 2 epochs
+# phase 17: a serve spec at BASELINE config 1's width (64 channels, 2048
+# bins, 20 x 60 s subints), DM 15.9 with per-request offsets
+SERVE_SPEC = {"nchan": 64, "fcent_mhz": 1380.0, "bw_mhz": 400.0,
+              "sample_rate_mhz": 0.4096, "sublen_s": 60.0, "tobs_s": 1200.0,
+              "period_s": 0.005, "smean_jy": 0.009, "seed": 0, "dm": 15.9}
+SERVE_WIDTHS = (1, 8, 32)
+SERVE_SERIAL, SERVE_BURST = 16, 64  # phase 17(e)
 # phase 14: bench.py _DATASET_BENCH_SPEC (config 12: 4 channels, 20 pulses
 # of 1024 samples, rfi + single_pulse, dm and rfi_imp_snr priors)
 DATASET_SPEC = {
@@ -342,6 +366,11 @@ PARITY = dict(nchan=16, period_s=0.005, samprate_mhz=0.0512, sublen_s=60.0,
 
 def log(msg):
     print(msg, flush=True)
+
+
+def serve_spec(i):
+    """Phase 17's i-th request: its own seed and a DM offset."""
+    return dict(SERVE_SPEC, seed=1000 + i, dm=15.9 + 0.01 * (i % 97))
 
 
 def scenario_params(n, stack=SCEN_STACK, seed=12):
@@ -3662,6 +3691,318 @@ class Smoke:
         log(f"  (e) pulsar {p} alone ({E} epochs): bit-equal to its rows in "
             "the full run")
 
+    # -- 17 -----------------------------------------------------------------
+    def serving(self):
+        """The serving core on the card at BASELINE config 1's width (see the
+        module docstring)."""
+        import shutil
+        import tempfile
+
+        torch = self.torch
+        import numpy as np
+
+        from psrsigsim_torch.ops import rng_hw, stats
+        from psrsigsim_torch.runtime import FaultPlan
+        from psrsigsim_torch.serve import (SimulationService, build_geometry,
+                                           canonicalize, spec_hash)
+        from psrsigsim_torch.serve.service import request_keys
+        from psrsigsim_torch.utils import as_key, stage_key
+
+        os.environ.pop("PSS_SAMPLER", None)
+        os.environ.pop("PSS_EXACT_SHIFT", None)
+        dev = self.dev
+        cfg, profiles, noise_norm = build_geometry(canonicalize(SERVE_SPEC))
+        nch, L = cfg.meta.nchan, cfg.nsamp
+        W = SERVE_WIDTHS[-1]
+        log(f"  serve spec at config 1's width: nchan {nch} nph {cfg.nph} "
+            f"nsub {cfg.nsub} nfold {cfg.nfold:g} noise_df {cfg.noise_df:g}; "
+            f"widths {SERVE_WIDTHS}")
+
+        # (a) K1' at the w32 serve shape: the pulse field of 32 requests
+        canon = [canonicalize(serve_spec(i)) for i in range(W)]
+        keys = as_key(request_keys([c["seed"] for c in canon],
+                                   [spec_hash(c) for c in canon]), "cpu")
+        mode = stats._hw_chi2_mode(cfg.nfold)
+        seeds = rng_hw.seed_words(stage_key(keys, "pulse")).to(dev)
+        seeds = seeds.contiguous()
+        dfs = torch.full((W,), float(cfg.nfold), device=dev)
+        pos = torch.zeros((W, 2), dtype=torch.int32, device=dev)
+        got = rng_hw.rng_field(seeds, dfs, pos, mode, nch, L)
+        want = rng_hw.rng_field_plain(seeds, dfs, pos, mode, nch, L)
+        err = float((got - want).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"(a) rng_field at the serve shape differs "
+                                 f"from its plain version by {err:.3g}")
+        del got, want
+        ms = cuda_time_ms(lambda: rng_hw.rng_field(seeds, dfs, pos, mode,
+                                                   nch, L), 20)
+        plain_ms = cuda_time_ms(lambda: rng_hw.rng_field_plain(
+            seeds, dfs, pos, mode, nch, L), 1)
+        library_ms = cuda_time_ms(lambda: torch.randn((W, nch, L),
+                                                      device=dev), 20)
+        n = W * nch * L
+        b_ms, b_by, parts = bound(DRAW_OPS, n, 4 * n + W * (8 + 4 + 8))
+        self.kernels["rng_field"].update(
+            serve_shape=[W, nch, L], serve_max_abs_err=err, serve_ms=ms,
+            serve_plain_ms=plain_ms, serve_bound_ms=b_ms,
+            serve_bound_by=b_by, serve_library_ms=library_ms)
+        log(f"  (a) rng_field ({W} x {nch} x {L}, {mode}, request keys): "
+            f"bit-equal to its plain version; {ms:.4f} ms, {b_ms / ms:.1%} of "
+            f"its bound {b_ms:.4f} ms, {b_by} ({fmt_parts(parts)}); plain "
+            f"{plain_ms:.1f} ms; torch.randn {library_ms:.4f} ms "
+            f"({self.card_line})")
+
+        def serve(specs, widths, window, device=dev, **kw):
+            """Serve ``specs`` concurrently through a fresh service; every
+            request must reach done.  The rows, and the width -> calls
+            map."""
+            svc = SimulationService(widths=widths, batch_window_s=window,
+                                    device=device, **kw)
+            try:
+                svc.warmup(specs[0])
+                ids = [svc.submit(s)[0] for s in specs]
+                rows = [svc.result(i, timeout=600) for i in ids]
+                svc.registry.assert_single_compile()
+                calls = {w: c for (_, w), c in
+                         svc.registry.call_counts().items()}
+                return rows, calls, svc
+            finally:
+                svc.close()
+
+        # (c) solo, coalesced, w1/w8/w32 and a 5-request batch padded to 8
+        target = serve_spec(0)
+        legs = {"w1 solo": ([target], (1,)),
+                "w8 coalesced": ([serve_spec(i) for i in range(1, 8)]
+                                 + [target], (8,)),
+                "w32": ([serve_spec(i) for i in range(1, W)] + [target],
+                        (W,)),
+                "5 padded to 8": ([serve_spec(i) for i in range(1, 5)]
+                                  + [target], (8,))}
+        ref = None
+        for label, (specs, widths) in legs.items():
+            rows, calls, _ = serve(specs, widths, 0.5)
+            if set(calls) != set(widths):
+                raise AssertionError(f"(c) {label}: bucket calls {calls}")
+            if ref is None:
+                ref = rows[-1]
+            elif rows[-1].tobytes() != ref.tobytes():
+                raise AssertionError(f"(c) {label}: the target's row differs "
+                                     "from its solo row")
+        log(f"  (c) the same request solo (w1), coalesced (w8), in a w32 "
+            f"batch and in a 5-request batch padded to 8: bit-equal; shape "
+            f"{ref.shape}, finite {bool(np.isfinite(ref).all())}")
+        if ref.shape != (nch, cfg.nph) or not np.isfinite(ref).all():
+            raise AssertionError("(c) wrong shape or non-finite profile")
+        # a folded profile sums nsub subints of the pulse and noise terms
+        expect = cfg.nsub * (cfg.draw_norm * cfg.nfold
+                             * profiles.astype(np.float64).mean(axis=1)
+                             + cfg.noise_df * noise_norm)
+        rel = np.abs(ref.astype(np.float64).mean(axis=1) / expect - 1)
+        log(f"  (c) channel means vs expectation: max rel dev {rel.max():.3g}")
+        if rel.max() > 0.01:
+            raise AssertionError("(c) served channel means off by > 1%")
+
+        # (d) PSS_SAMPLER=threefry: the card against the host
+        os.environ["PSS_SAMPLER"] = "threefry"
+        try:
+            card = serve([target], (1,), 0.0)[0][0]
+            t0 = time.perf_counter()
+            host = serve([target], (1,), 0.0, device="cpu")[0][0]
+            t_host = time.perf_counter() - t0
+        finally:
+            os.environ.pop("PSS_SAMPLER", None)
+        peak_v = np.abs(host).max()
+        d = np.abs(card - host)
+        bad = d > 1e-5 * np.abs(host) + 1e-5 * peak_v
+        log(f"  (d) threefry, card against device='cpu' ({t_host:.1f} s on "
+            f"the host): max|diff| {d.max():.3g} (peak {peak_v:.3g}), "
+            f"{int(bad.sum())} beyond rtol 1e-5 + 1e-5 of the peak; "
+            f"bit-equal {np.mean(card == host):.4f}")
+        if bad.any():
+            raise AssertionError("(d) the card differs from the host")
+
+        # (e) throughput, latency, launches, busy share, peak memory
+        build = os.path.join(ROOT, "build")
+        os.makedirs(build, exist_ok=True)
+        work = tempfile.mkdtemp(prefix="serve-", dir=build)
+        try:
+            self._serve_rates(work, ref, target)
+            self._serve_cli(work, ref, target)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+
+        # (g) integrity with a device.sdc fault heals to the clean bytes
+        scratch = tempfile.mkdtemp(prefix="serve-faults-", dir=build)
+        try:
+            plan = FaultPlan(scratch, {"device.sdc": {"times": 1}})
+            self._zero_counts()
+            rows, _, svc = serve([target], (1,), 0.0, integrity=1.0,
+                                 faults=plan)
+            counts = self._counts()
+            st = svc.integrity.stats()
+            fired = plan.shots_fired("device.sdc")
+        finally:
+            shutil.rmtree(scratch, ignore_errors=True)
+        log(f"  (g) integrity=1.0 with device.sdc: fired {fired}, {st}; "
+            f"launches {counts}")
+        if fired != 1 or st["healed_chunks"] != 1:
+            raise AssertionError("(g) the device.sdc fault did not fire and "
+                                 "heal")
+        if rows[0].tobytes() != ref.tobytes():
+            raise AssertionError("(g) the healed row differs from the clean "
+                                 "one")
+        if counts["packed_digest"] or counts["fold_quantize"]:
+            raise AssertionError(f"(g) unexpected kernels {counts}")
+
+    def _serve_rates(self, work, ref, target):
+        """Phase 17 (b), (e): the service in process over a cache dir."""
+        torch = self.torch
+        from psrsigsim_torch.serve import SimulationService
+
+        cache = os.path.join(work, "cache")
+
+        def service():
+            return SimulationService(cache_dir=cache, widths=SERVE_WIDTHS,
+                                     device=self.dev)
+
+        svc = service()
+        try:
+            svc.warmup(target)
+            t0 = time.perf_counter()
+            for i in range(SERVE_SERIAL):
+                rid, _ = svc.submit(serve_spec(100 + i))
+                svc.result(rid, timeout=600)
+            t_serial = time.perf_counter() - t0
+
+            def burst(first):
+                ids = [svc.submit(serve_spec(first + i))[0]
+                       for i in range(SERVE_BURST)]
+                return [svc.result(i, timeout=600) for i in ids]
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            calls0 = svc.registry.device_calls
+            self._zero_counts()
+            t0 = time.perf_counter()
+            burst(1000)
+            t_burst = time.perf_counter() - t0
+            counts = self._counts()
+            execs = svc.registry.device_calls - calls0
+            peak = torch.cuda.max_memory_allocated() - base
+            want = {"rng_field": 2 * execs, "fold_quantize": 0,
+                    "packed_digest": 0}
+            log(f"  (b) {SERVE_BURST} concurrent requests: {execs} bucket "
+                f"executions {svc.registry.call_counts()}, launches {counts}")
+            if counts != want or execs <= 0:
+                raise AssertionError(f"(b) launches {counts}, expected "
+                                     f"{want}")
+            self._path("serve", counts)
+            wall, busy, nev, by_name, _ = device_profile(
+                torch, lambda: burst(2000))
+            snap = svc.timers.snapshot()
+        finally:
+            svc.close()
+        stages = ", ".join(f"{k} {snap[k + '_s']:.3f} s"
+                           for k in ("enqueue", "batch", "compute",
+                                     "respond"))
+        log(f"  (e) serial w1: {SERVE_SERIAL / t_serial:.1f} req/s; "
+            f"{SERVE_BURST} concurrent: {SERVE_BURST / t_burst:.1f} req/s; "
+            f"request p50 {snap['request_p50_s'] * 1e3:.2f} ms, p95 "
+            f"{snap['request_p95_s'] * 1e3:.2f} ms, p99 "
+            f"{snap['request_p99_s'] * 1e3:.2f} ms; stages {stages}; "
+            f"bottleneck {snap['bottleneck']}; profiled burst wall "
+            f"{wall * 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
+            f"({busy / 1e6 / wall:.1%}), {nev} device events; peak memory "
+            f"{peak / 2**30:.3f} GiB ({self.card_line})")
+        for name, (us, k) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:6]:
+            log(f"  {us / 1e3:9.3f} ms {k:4d}x  {name[:100]}")
+
+        # cache hits from a fresh service over the same directory
+        svc = service()
+        try:
+            t0 = time.perf_counter()
+            ids = [svc.submit(serve_spec(1000 + i)) for i in
+                   range(SERVE_BURST)]
+            rows = [svc.result(rid, timeout=60) for rid, _ in ids]
+            t_hit = time.perf_counter() - t0
+            calls = svc.registry.device_calls
+            hits = svc.cache_hits
+        finally:
+            svc.close()
+        log(f"  (e) {SERVE_BURST} cache hits from a fresh service: "
+            f"{SERVE_BURST / t_hit:.1f} req/s, device calls {calls}, hits "
+            f"{hits}")
+        if calls != 0 or hits != SERVE_BURST or any(
+                s != "done" for _, s in ids) or len(rows) != SERVE_BURST:
+            raise AssertionError("(e) the cache hits touched the device")
+
+    def _serve_cli(self, work, ref, target):
+        """Phase 17 (f): ``python -m psrsigsim_torch.serve`` on the card."""
+        import signal
+        import urllib.request
+
+        import numpy as np
+
+        spec_path = os.path.join(work, "warm.json")
+        with open(spec_path, "w") as f:
+            json.dump(target, f)
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        err_path = os.path.join(work, "cli-stderr.txt")
+        with open(err_path, "w") as err:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "psrsigsim_torch.serve", "--port",
+                 "0", "--cache-dir", os.path.join(work, "cli-cache"),
+                 "--warmup", spec_path], stdout=subprocess.PIPE, stderr=err,
+                text=True, cwd=ROOT, env=env)
+        try:
+            t0 = time.perf_counter()
+            ready = json.loads(proc.stdout.readline() or "{}")
+            t_ready = time.perf_counter() - t0
+            if not ready.get("ready"):
+                with open(err_path) as err:
+                    raise AssertionError(f"(f) no ready line: "
+                                         f"{err.read()[-3000:]}")
+            base = f"http://127.0.0.1:{ready['port']}"
+
+            def call(path, body=None):
+                req = urllib.request.Request(
+                    base + path, None if body is None
+                    else json.dumps(body).encode(),
+                    {"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    return r.status, json.loads(r.read())
+
+            ids = []
+            for spec in (target, serve_spec(1), serve_spec(2)):
+                code, body = call("/simulate", dict(spec, wait=300))
+                if code != 200 or body["status"] != "done":
+                    raise AssertionError(f"(f) /simulate: {code} {body}")
+                ids.append(body["id"])
+            code, res = call("/result/" + ids[0])
+            row = np.asarray(res["profile"], np.float32)
+            if code != 200 or row.tobytes() != ref.tobytes():
+                raise AssertionError("(f) /result differs from the "
+                                     "in-process row")
+            _, m = call("/metrics")
+            _, h = call("/healthz")
+            if not h["ok"] or m["programs"]["device_calls"] < 1:
+                raise AssertionError(f"(f) /healthz {h} /metrics programs "
+                                     f"{m['programs']}")
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        log(f"  (f) python -m psrsigsim_torch.serve: ready in {t_ready:.1f} "
+            f"s; 3 POST /simulate done, /result equal to the in-process "
+            f"row, /metrics device calls {m['programs']['device_calls']}, "
+            f"/healthz ok; SIGTERM drained, exit {rc}")
+        if rc != 0:
+            raise AssertionError(f"(f) the server exited {rc} on SIGTERM")
+
     def run(self, with_profile=False):
         self.phase("1 card", self.card)
         built = self.phase("2 build", self.build)
@@ -3687,6 +4028,7 @@ class Smoke:
             self.phase("14 dataset factory", self.datasets)
             self.phase("15 baseband", self.baseband)
             self.phase("16 multi-pulsar ensemble", self.multipulsar)
+            self.phase("17 serving", self.serving)
         if self.failed:
             log(f"FAILED phases: {', '.join(self.failed)}")
             return 1
@@ -3696,8 +4038,10 @@ class Smoke:
         # the fused kernel's scenario launches and times ride beside its
         # scenario-free ones (phase 12), the sampler's baseband and
         # multi-pulsar ones beside its main path's (phases 15-16), and
-        # every path's launches under launches_by_path
-        extra = ("scenario_", "baseband_", "multipulsar_", "launches_by_path")
+        # every path's launches under launches_by_path; the sampler's
+        # serving shape beside them (phase 17)
+        extra = ("scenario_", "baseband_", "multipulsar_", "serve_",
+                 "launches_by_path")
         print(json.dumps({"kernels": [
             {**{k: kern[k] for k in keys},
              **{k: v for k, v in kern.items() if k.startswith(extra)}}

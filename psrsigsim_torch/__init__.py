@@ -16,6 +16,8 @@ port-specific stream changes are listed in ``DIVERGENCES.md`` beside this
 file.
 """
 
+from . import utils  # noqa: F401
+
 __version__ = "0.1.0"
 
-__all__ = ["__version__"]
+__all__ = ["utils", "__version__"]

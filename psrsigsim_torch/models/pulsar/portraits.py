@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ...ops.interp import pchip_eval_np, pchip_fit_np
+from ...ops.interp import PchipCoeffs, pchip_eval_np, pchip_fit_np
 from ...ops.window import offpulse_window
 
 __all__ = ["PulsePortrait", "GaussPortrait", "DataPortrait", "UserPortrait"]
@@ -187,6 +187,18 @@ class DataPortrait(PulsePortrait):
         # init_profiles set one (reference: portraits.py:266)
         amax = self._Amax if hasattr(self, "_Amax") else np.max(profiles)
         return profiles / amax
+
+    def coeffs_device(self, device=None):
+        """The PCHIP coefficients as float32 tensors on ``device`` (default:
+        the CUDA card), for :func:`psrsigsim_torch.ops.pchip_eval`."""
+        import torch
+
+        from ...utils.device import resolve_device
+
+        dev = resolve_device(device)
+        return PchipCoeffs(*(torch.as_tensor(np.asarray(a, np.float32),
+                                             device=dev)
+                             for a in self._coeffs))
 
 
 class UserPortrait(PulsePortrait):

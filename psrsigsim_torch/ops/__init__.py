@@ -9,11 +9,14 @@ fold → quantize → pack kernel (:mod:`.fold_quantize`), coherent
 lattice's packed-digest kernel (:mod:`.digest`), FFTFIT TOA estimation
 (:mod:`.toa`), the profile convolution
 (:mod:`.convolve`) and the resamplers (:mod:`.resample`); plus the host
-helpers the portrait layer needs (:mod:`.interp`, :mod:`.window`).
+helpers the portrait layer needs (:mod:`.interp`, :mod:`.window`, which
+also hold their tensor twins); and the scenario draws (:mod:`.scenario`).
 """
 
-from .interp import PchipCoeffs, pchip_eval_np, pchip_fit_np
-from .window import fold_periods, offpulse_window
+from .interp import (PchipCoeffs, pchip_eval, pchip_eval_np, pchip_fit,
+                     pchip_fit_np, pchip_slopes)
+from .window import (fold_periods, offpulse_window, offpulse_window_indices,
+                     offpulse_window_jax)
 
 # the tensor modules load on first use: a host-only consumer of the numpy
 # helpers above (the PSRFITS writer processes unpickling a pulsar's
@@ -37,6 +40,8 @@ _LAZY = {
     "packed_digest": "digest", "packed_digest_plain": "digest",
     "fft_convolve_full": "convolve", "convolve_profiles": "convolve",
     "block_downsample": "resample", "rebin": "resample",
+    "scint_gain": "scenario", "rfi_levels": "scenario",
+    "pulse_energies": "scenario",
 }
 
 
@@ -52,6 +57,9 @@ def __getattr__(name):
 
 __all__ = [
     "PchipCoeffs",
+    "pchip_slopes",
+    "pchip_fit",
+    "pchip_eval",
     "pchip_fit_np",
     "pchip_eval_np",
     "clip_cast",
@@ -86,7 +94,12 @@ __all__ = [
     "fftfit_batch",
     "fftfit_combine",
     "offpulse_window",
+    "offpulse_window_jax",
+    "offpulse_window_indices",
     "fold_periods",
+    "scint_gain",
+    "rfi_levels",
+    "pulse_energies",
     "fft_convolve_full",
     "convolve_profiles",
     "block_downsample",

@@ -16,9 +16,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
-__all__ = ["KERNELS", "NVCC_FLAGS", "build_all", "library"]
+__all__ = ["KERNELS", "NVCC_FLAGS", "build_all", "library", "count_launch"]
 
 KERNELS = ("rng_field", "fold_quantize", "packed_digest")
 
@@ -35,6 +36,15 @@ _BUILD_DIR = (_PKG_DIR.parent / "build"
               else _PKG_DIR / "build")
 
 _LIBS = {}
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper):
+    """Add one to ``wrapper.launches``, the kernel's launch count, under a
+    lock: the serving layer launches from its batcher thread while another
+    thread may reset or read the counts."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def _nvcc():

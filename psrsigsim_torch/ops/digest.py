@@ -155,7 +155,7 @@ def packed_digest(packed, count=None):
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"packed_digest kernel launch failed: cudaError {err}")
-    packed_digest.launches += 1
+    _build.count_launch(packed_digest)
     return out
 
 

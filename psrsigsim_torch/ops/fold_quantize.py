@@ -240,7 +240,7 @@ def fold_quantize(seeds, dfs, modes, prof, noise_norm, *, nsub,
         *(None if f is None else f.data_ptr() for f in factors))
     if err != 0:
         raise RuntimeError(f"fold_quantize kernel launch failed: cudaError {err}")
-    fold_quantize.launches += 1
+    _build.count_launch(fold_quantize)
     return packed, flags.all(dim=1)
 
 

@@ -242,7 +242,7 @@ def rng_field(seeds, dfs, pos, mode, nchan, length):
     out = torch.empty((seeds.shape[0], nchan, length), dtype=torch.float32,
                       device=dev)
     _launch(seeds, dfs, pos, out, nchan, length, mode, "rows", 0)
-    rng_field.launches += 1
+    _build.count_launch(rng_field)
     return out
 
 
@@ -291,7 +291,7 @@ def rng_flat_field(seeds, dfs, pos, mode, skip, length):
     out = torch.empty((seeds.shape[0], length), dtype=torch.float32,
                       device=dev)
     _launch(seeds, dfs, pos, out, CHAN_GROUP, length, mode, "flat", skip)
-    rng_flat_field.launches += 1
+    _build.count_launch(rng_flat_field)
     return out
 
 

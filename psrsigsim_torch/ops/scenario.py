@@ -102,7 +102,7 @@ def scint_cells(freqs_mhz, nsub, dnu_d_mhz, dt_d_s, fcent_mhz, sublen_s,
 
 
 def scint_gain(keys, freqs_mhz, nsub, dnu_d_mhz, dt_d_s, mod_index,
-               fcent_mhz, sublen_s, f_lo_mhz):
+               fcent_mhz, sublen_s, f_lo_mhz=None):
     """Dynamic-spectrum scintillation gains ``(..., C, nsub)`` float32 for
     the observations' scintillation stage keys ``(..., 2)``.
 
@@ -110,7 +110,11 @@ def scint_gain(keys, freqs_mhz, nsub, dnu_d_mhz, dt_d_s, mod_index,
     folded by its frequency cell, then by its time cell (so two channels in
     one scintle draw the same gain); ``mod_index`` in [0, 1] interpolates
     from no modulation to saturated: ``g = 1 + m (e - 1)``.  Parameters
-    are one per leading index of ``keys`` (or scalars)."""
+    are one per leading index of ``keys`` (or scalars).  ``f_lo_mhz``: the
+    GLOBAL band floor; None takes the lowest of ``freqs_mhz`` (right only
+    when they are the whole band)."""
+    if f_lo_mhz is None:
+        f_lo_mhz = float(_host(freqs_mhz).min())
     keys = keys.to("cpu")
     lead = keys.shape[:-1]
     cell_f, cell_t = scint_cells(freqs_mhz, nsub, _host(dnu_d_mhz, lead),

@@ -1,15 +1,32 @@
-"""Off-pulse window detection, host side, and period folding (counterpart:
+"""Off-pulse window detection and period folding (counterpart:
 psrsigsim_tpu/ops/window.py).
 
 The minimum-integral sliding window over the peak profile, adapted by the
-reference from PyPulse (psrsigsim/pulsar/portraits.py:62-82).
+reference from PyPulse (psrsigsim/pulsar/portraits.py:62-82): on the host
+in float64 (:func:`offpulse_window`), and in tensor ops on the profile's
+device (:func:`offpulse_window_jax`, under the JAX package's name).  torch
+loads inside the tensor functions: the PSRFITS writer processes import this
+module.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["offpulse_window", "fold_periods"]
+__all__ = ["offpulse_window", "offpulse_window_jax", "offpulse_window_indices",
+           "fold_periods"]
+
+
+def offpulse_window_indices(nphase, device="cpu"):
+    """The circular window offsets of the off-pulse search, as an int64
+    tensor, and the half width: ``windowsize = nphase/8`` (may be
+    fractional); offsets span ``[-ws//2, +ws//2)`` exactly as the
+    reference's ``np.arange(i - ws//2, i + ws//2)`` (portraits.py:77)."""
+    import torch
+
+    ws = nphase / 8
+    half = int(ws // 2)
+    return torch.arange(-half, half, device=device), half
 
 
 def offpulse_window(max_profile, nphase=None):
@@ -28,6 +45,25 @@ def offpulse_window(max_profile, nphase=None):
     integral = vals.sum(axis=-1) - 0.5 * (vals[:, 0] + vals[:, -1])
     minind = int(np.argmin(integral))
     return (np.arange(-half, half + 1) + minind) % n
+
+
+def offpulse_window_jax(max_profile, nphase=None):
+    """Tensor twin of :func:`offpulse_window`, on the profile's device (host
+    data becomes a CPU tensor; float32 tie-breaking may differ from the
+    host version in fully flat off-pulse regions).  The name is the JAX
+    package's."""
+    import torch
+
+    prof = (max_profile if isinstance(max_profile, torch.Tensor)
+            else torch.as_tensor(np.asarray(max_profile, np.float32)))
+    n = prof.shape[-1] if nphase is None else nphase
+    offsets, half = offpulse_window_indices(n, prof.device)
+    centers = torch.arange(n, device=prof.device)[:, None]
+    win = (centers + offsets[None, :]) % n  # (n, 2*half)
+    vals = prof[win]
+    integral = vals.sum(dim=-1) - 0.5 * (vals[:, 0] + vals[:, -1])
+    minind = torch.argmin(integral)
+    return (torch.arange(-half, half + 1, device=prof.device) + minind) % n
 
 
 def fold_periods(data, nph):

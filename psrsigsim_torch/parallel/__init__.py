@@ -2,6 +2,7 @@
 ensemble and the multi-pulsar ensemble — meshes and multi-device runs come
 later)."""
 
-from .ensemble import FoldEnsemble, MultiPulsarFoldEnsemble
+from .ensemble import (FoldEnsemble, MultiPulsarFoldEnsemble,
+                       build_width_bucket_fn)
 
-__all__ = ["FoldEnsemble", "MultiPulsarFoldEnsemble"]
+__all__ = ["FoldEnsemble", "MultiPulsarFoldEnsemble", "build_width_bucket_fn"]

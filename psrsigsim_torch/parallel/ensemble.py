@@ -29,7 +29,76 @@ from ..simulate.pipeline import (_fold_pipeline_hetero, build_fold_config,
 from ..utils.device import resolve_device, to_device
 from ..utils.rng import fold_in, key, stage_key
 
-__all__ = ["FoldEnsemble", "MultiPulsarFoldEnsemble"]
+__all__ = ["FoldEnsemble", "MultiPulsarFoldEnsemble", "build_width_bucket_fn"]
+
+
+def build_width_bucket_fn(cfg, profiles, scenario=None, device=None):
+    """The serving layer's width-bucketed batch entry (reference:
+    ``build_width_bucket_fn``): a function
+
+        fn(keys, dms, norms, null_fracs) -> (B, Nchan, Nph) float32
+
+    that runs a batch of per-request inputs through :func:`fold_pipeline`
+    (with each request's own ``null_frac``) and folds each observation to
+    its pulse profile with :func:`fold_subints` — the sum over
+    subintegrations added one subint after the other, so a row's bits never
+    depend on the batch it was served in (the reference's ``.sum(axis=2)``
+    is a reduction whose order may follow the batch size).
+
+    ``keys``: ``(B, 2)`` uint32 key data (numpy) or a key tensor; the stage
+    keys are derived where they lie.  ``dms``, ``norms``, ``null_fracs``:
+    ``(B,)`` float32.  With a ``scenario`` stack
+    (:class:`~psrsigsim_torch.scenarios.ScenarioStack`, the serving
+    layer's ``"scenarios"`` geometry field) the function takes one more
+    input,
+
+        fn(keys, dms, norms, null_fracs, sc) -> (B, Nchan, Nph)
+
+    the ``(B, n_params)`` parameter matrix ordered by
+    ``scenario.param_names()``; its columns become the
+    ``{name: (B,) tensor}`` parameters of :func:`fold_pipeline` (the
+    factors are drawn on the host from the request keys, P13).
+
+    The portrait and the channel frequencies are staged on ``device``
+    (default: the CUDA card) once, here; the global channel ids stay on
+    the host, where the sampler reads the first one.  Returns the tensor
+    on that device.
+    """
+    if isinstance(profiles, torch.Tensor):
+        prof = profiles.to(torch.float32)
+    else:
+        prof = torch.as_tensor(np.asarray(profiles, np.float32),
+                               device=resolve_device(device))
+    dev = prof.device
+    freqs = torch.as_tensor(np.asarray(cfg.meta.dat_freq_mhz(), np.float32),
+                            device=dev)
+    chan_ids = torch.arange(cfg.meta.nchan)
+    stack = parse_stack(scenario)
+    names = stack.param_names() if stack is not None else ()
+
+    def per_request(v):
+        return to_device(torch.as_tensor(np.asarray(v, np.float32)), dev)
+
+    def _batch(keys, dms, norms, null_fracs, sc=None):
+        if (sc is None) != (stack is None):
+            raise ValueError(
+                "a scenario geometry takes the (B, n_params) parameter "
+                "matrix sc; a scenario-free one takes none")
+        params = None
+        if stack is not None:
+            sc = np.asarray(sc, np.float32)
+            if sc.ndim != 2 or sc.shape[1] != len(names):
+                raise ValueError(f"sc must be (B, {len(names)}) ordered by "
+                                 f"{list(names)}, got shape {sc.shape}")
+            params = {n: torch.from_numpy(np.ascontiguousarray(sc[:, i]))
+                      for i, n in enumerate(names)}
+        out = fold_pipeline(keys, per_request(dms), per_request(norms), prof,
+                            cfg, freqs=freqs, chan_ids=chan_ids,
+                            null_frac=per_request(null_fracs),
+                            scenario=stack, scenario_params=params)
+        return fold_subints(out, cfg.nsub, cfg.nph)
+
+    return _batch
 
 
 def _split_packed_chunk(packed, nbin):

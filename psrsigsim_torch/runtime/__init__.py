@@ -17,15 +17,27 @@
 - :mod:`~psrsigsim_torch.runtime.faults` — deterministic, explicitly
   armed fault injection at the export's named points.
 
+- :mod:`~psrsigsim_torch.runtime.programs` — the program registry: one
+  store of staged inputs and callables per hashable key with build and hit
+  counts (the serving layer's width buckets resolve through a private
+  instance of it).
+
+The integrity layer also digests and scrubs the Monte-Carlo study's and
+the dataset factory's artifacts (:func:`scrub_mc_dir`,
+:func:`scrub_dataset_dir`); the serving cache scrubs its own artifacts
+(:mod:`psrsigsim_torch.serve.cache`).
+
 Host-only: importing this package imports no torch (the export's spawn
-writers import it).  The JAX package's ``ProcessSupervisor`` (serving),
-its program registry, its pod runtime (``dist``) and the Monte-Carlo,
-dataset and serving digests and scrubs are not ported yet.
+writers import it).  The JAX package's ``ProcessSupervisor`` (the serving
+fleet's) and its pod runtime (``dist``) are not ported yet.
 """
 
 from .faults import FaultPlan
 from .integrity import (IntegrityChecker, IntegrityError,
-                        resolve_integrity, scrub_export_dir)
+                        resolve_integrity, scrub_dataset_dir,
+                        scrub_export_dir, scrub_mc_dir)
+from .programs import (ProgramRegistry, enable_compilation_cache,
+                       global_registry)
 from .retry import RetriesExhausted, RetryPolicy, call_with_retry
 from .supervisor import (RunResult, RunSupervisor, load_chunk_journal,
                          load_journal_records, supervised_export)
@@ -37,8 +49,13 @@ __all__ = [
     "IntegrityError",
     "resolve_integrity",
     "scrub_export_dir",
+    "scrub_mc_dir",
+    "scrub_dataset_dir",
     "load_chunk_journal",
     "load_journal_records",
+    "ProgramRegistry",
+    "enable_compilation_cache",
+    "global_registry",
     "RetryPolicy",
     "RetriesExhausted",
     "StageTimers",

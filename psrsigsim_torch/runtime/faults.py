@@ -1,5 +1,6 @@
-"""Deterministic fault injection for the export and supervisor stack (a
-copy of psrsigsim_tpu/runtime/faults.py, cut to the points the port has).
+"""Deterministic fault injection for the export, supervisor and serving
+stack (a copy of psrsigsim_tpu/runtime/faults.py, cut to the points the
+port has).
 
 Robustness code that is only exercised by real outages is dead code with
 a pager attached.  This module gives every failure-handling path in the
@@ -48,11 +49,62 @@ point                     where it fires
                           omitted) — SIGKILLs the sweeping process, for the
                           study's kill/resume tests.  Config:
                           ``{"after_start": int}``.
+``serve.kill``            the serving result cache
+                          (:meth:`psrsigsim_torch.serve.ResultCache.put`),
+                          immediately after the journal commit of the
+                          ``after_puts``-th artifact this process wrote
+                          — SIGKILLs the serving process (the preempted-
+                          server case: tests/serve_runner.py proves the
+                          relaunched server verifies its cache and
+                          serves the committed results without device
+                          execution).  Config: ``{"after_puts": int}``;
+                          omit to kill after the first commit.
+``serve.reject``          :meth:`psrsigsim_torch.serve.SimulationService.
+                          submit` — the admission check force-rejects
+                          the request (with a retry-after) exactly as a
+                          saturated queue would, exercising the client-
+                          visible backpressure path.  Config: ``times``
+                          only.
+``cache.contend``         :meth:`psrsigsim_torch.serve.ResultCache.put`,
+                          between the artifact rename and the journal
+                          append — sleeps ``hold_s`` (default 0.05)
+                          INSIDE the claim-held/journal-absent window,
+                          widening exactly the race the cross-process
+                          commit discipline exists for so contention
+                          stress tests hit it reliably.  Config:
+                          ``{"hold_s": float}``.
+``replica.slow``          the replica HTTP front end
+                          (:mod:`psrsigsim_torch.serve.http`), before a
+                          ``/simulate`` request is handled — sleeps
+                          ``delay_s`` so the replica is alive-but-slow
+                          (the GRAY failure health polling cannot see:
+                          ``/healthz`` still answers instantly), which
+                          the router's latency circuit breaker must
+                          eject.  Config: ``{"delay_s": float}`` plus
+                          ``times`` / ``match`` (token is the replica
+                          id, so one plan can slow exactly one fleet
+                          member).
+``cache.enospc``          :meth:`psrsigsim_torch.serve.ResultCache.put`
+                          — raises ``OSError(ENOSPC)`` mid-commit, the
+                          disk-full case for the shared cache tier.
+                          ``at: "artifact"`` (default) fires after the
+                          tmp bytes are written but before rename, so
+                          the cleanup path MUST unlink the tmp and
+                          release the claim; ``at: "journal"`` fires
+                          before the journal append, leaving a durable
+                          but unindexed artifact (the same benign state
+                          a SIGKILL between rename and append leaves).
+                          The serving engine degrades to pass-through
+                          (result served uncached, loud metric), never
+                          a failed request.  Config: ``{"at": str}``
+                          plus ``times`` / ``match`` (token is the
+                          spec hash).
 ``device.sdc``            the integrity-armed producers (the export's
                           :meth:`psrsigsim_torch.parallel.FoldEnsemble.
                           iter_chunks`, the study's chunk, the dataset
                           factory's chunk, whose ident is the chunk's
-                          first record) — ONE element of the chunk's
+                          first record, and the serving batch, matched
+                          on its first request's spec hash) — ONE element of the chunk's
                           device output buffer is perturbed before any
                           digest is computed, so the checksum lattice
                           attests the WRONG bytes (that is what silent
@@ -67,7 +119,8 @@ point                     where it fires
                           Config: ``{"after_start": int}`` / ``match`` /
                           ``times``.
 ``disk.bitrot``           immediately AFTER a durable commit of export
-                          files or of a dataset chunk (token
+                          files, of a dataset chunk or of a serving cache
+                          artifact (token the spec hash there; else
                           ``start=<first record>``, the byte at that
                           record's slot) — one byte of the committed file is
                           XOR-flipped, after its sha256 became the
@@ -77,9 +130,9 @@ point                     where it fires
                           basename) / ``times``.
 ========================  ====================================================
 
-The JAX package's other points (the serving and pod points) belong to
-subsystems the port has not taken over yet; naming one raises, like any
-unknown point.
+The JAX package's other points (``replica.kill``, ``route.blackhole``
+and ``pod.kill``) belong to the serving fleet and the pods, which the port
+has not taken over yet; naming one raises, like any unknown point.
 
 Arming is explicit and local: a :class:`FaultPlan` is built by a test and
 passed down via the ``faults=`` parameter; production call sites carry
@@ -103,8 +156,9 @@ import signal
 __all__ = ["FaultPlan", "should_fire", "crash_process", "POINTS"]
 
 POINTS = ("writer.crash", "shm.attach", "file.partial", "nan.obs",
-          "run.kill", "dataset.kill", "mc.kill", "device.sdc", "host.corrupt",
-          "disk.bitrot")
+          "run.kill", "dataset.kill", "mc.kill", "serve.kill",
+          "serve.reject", "cache.contend", "replica.slow", "cache.enospc",
+          "device.sdc", "host.corrupt", "disk.bitrot")
 
 
 class FaultPlan:

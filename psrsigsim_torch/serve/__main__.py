@@ -1,0 +1,163 @@
+"""``python -m psrsigsim_torch.serve`` — the simulation serving daemon
+(counterpart: ``python -m psrsigsim_tpu.serve``).
+
+Starts the dynamic-batching request engine behind an HTTP JSON API and
+prints ONE machine-parseable ready line to stdout (``{"ready": true,
+"port": ...}``) once the socket is bound and warmup (if any) finished —
+the contract tests and shell scripts wait on.  The buckets run on the
+CUDA card (the server refuses to start without one); ``--device cpu``
+runs them on the host (the port's one flag beyond the JAX package's).  ``--frontend`` selects the connection layer:
+``threaded`` (stdlib ``ThreadingHTTPServer``, one thread per
+connection — the fallback) or ``aio`` (the selectors event loop,
+:mod:`psrsigsim_torch.serve.aio` — thousands of keep-alive connections
+on one loop; the C10k front end).  Responses are byte-identical across
+front ends (shared endpoint semantics in
+:mod:`psrsigsim_torch.serve.http`).
+
+Example::
+
+    python -m psrsigsim_torch.serve --port 8641 --cache-dir /var/tmp/pss \
+        --warmup warmspec.json
+    curl -s localhost:8641/simulate -d @spec.json
+    curl -s localhost:8641/metrics
+
+``--warmup`` takes a JSON file holding one spec object or a list of
+them; each geometry is staged and run once for every bucket width before
+the ready line prints, so first-request latency is bounded.
+``--compile-cache-dir`` is accepted for the JAX package's command lines;
+the port compiles nothing, so it enables nothing.  The pod flags
+(``--pod-*``, ``--pod-follower``) raise ``NotImplementedError``: pods are
+not ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        prog="python -m psrsigsim_torch.serve",
+        description="dynamic-batching pulsar-simulation HTTP server")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8641,
+                    help="0 picks a free port (printed in the ready line)")
+    ap.add_argument("--cache-dir", default=None,
+                    help="content-addressed result cache root; omit to "
+                         "disable caching")
+    ap.add_argument("--compile-cache-dir", default=None,
+                    help="accepted for the JAX package's command lines; "
+                         "the port compiles nothing, so nothing is cached")
+    ap.add_argument("--device", default=None,
+                    help="where the buckets run (default: the CUDA card, "
+                         "refusing to start without one; 'cpu' for the "
+                         "host)")
+    ap.add_argument("--widths", default="1,8,32",
+                    help="comma-separated bucket widths")
+    ap.add_argument("--max-queue", type=int, default=64)
+    ap.add_argument("--batch-window-ms", type=float, default=2.0)
+    ap.add_argument("--frontend", default="threaded",
+                    choices=["threaded", "aio"],
+                    help="connection-handling layer: 'threaded' (stdlib "
+                         "thread-per-connection, the fallback) or 'aio' "
+                         "(selectors event loop — the C10k front end; "
+                         "PSS_AIO_MAX_CONNS / PSS_AIO_WORKERS tune it)")
+    ap.add_argument("--hot-mb", type=float, default=None,
+                    help="in-memory hot result tier budget in MiB "
+                         "(default: PSS_CACHE_HOT_MB or 256; 0 disables)")
+    ap.add_argument("--aio-max-conns", type=int, default=None,
+                    help="aio front end open-connection bound (default: "
+                         "PSS_AIO_MAX_CONNS or 10000)")
+    ap.add_argument("--warmup", default=None,
+                    help="JSON file: one spec (or a list) whose geometries "
+                         "are staged before the ready line")
+    ap.add_argument("--replica-id", type=int, default=None,
+                    help="fleet replica identity (reported in /healthz "
+                         "and the ready line; ReplicaFleet assigns it)")
+    ap.add_argument("--verify-cache", action="store_true",
+                    help="re-hash every cached artifact against the "
+                         "journal on startup (the relaunch-after-crash "
+                         "mode)")
+    ap.add_argument("--fault-plan", default=None,
+                    help="TESTS ONLY: FaultPlan JSON "
+                         '({"scratch_dir", "spec"}) arming serve.* points')
+    ap.add_argument("--pod-num-hosts", type=int, default=None,
+                    help="pods are not ported: any value above 1 raises "
+                         "NotImplementedError")
+    ap.add_argument("--pod-host", type=int, default=None,
+                    help="this process's pod process id (0 = leader, "
+                         "which owns the HTTP endpoint)")
+    ap.add_argument("--pod-coordinator", default=None,
+                    help="host:port of the pod coordinator (process 0)")
+    ap.add_argument("--pod-channel-port", type=int, default=None,
+                    help="leader's host-side control-channel port "
+                         "(default: coordinator port + 1)")
+    ap.add_argument("--pod-follower", action="store_true",
+                    help="run as a follower: no HTTP socket — join the "
+                         "leader's mesh and obey its program stream")
+    args = ap.parse_args(argv)
+
+    # keep stdout clean for the one-line ready protocol: the OO layer's
+    # reference-parity warnings print to stdout during warmup
+    real_stdout = sys.stdout
+    sys.stdout = sys.stderr
+
+    if (args.pod_num_hosts and args.pod_num_hosts > 1) or args.pod_follower \
+            or args.pod_host is not None or args.pod_coordinator is not None \
+            or args.pod_channel_port is not None:
+        raise NotImplementedError(
+            "multi-host pod serving is not ported (ROADMAP Queue 1 item 4: "
+            "meshes, pods and sequence sharding); run one process per "
+            "card")
+
+    from .http import make_server, run_server
+    from .service import SimulationService
+
+    faults = None
+    if args.fault_plan:
+        from ..runtime import FaultPlan
+
+        with open(args.fault_plan) as f:
+            plan = json.load(f)
+        faults = FaultPlan(plan["scratch_dir"], plan["spec"])
+
+    widths = tuple(int(w) for w in args.widths.split(","))
+    service = SimulationService(
+        cache_dir=args.cache_dir, widths=widths, max_queue=args.max_queue,
+        batch_window_s=args.batch_window_ms / 1e3,
+        verify_cache=args.verify_cache, faults=faults,
+        compile_cache_dir=args.compile_cache_dir,
+        replica_id=args.replica_id, device=args.device,
+        cache_hot_bytes=(None if args.hot_mb is None
+                         else int(args.hot_mb * (1 << 20))))
+
+    if args.warmup:
+        with open(args.warmup) as f:
+            specs = json.load(f)
+        for spec in specs if isinstance(specs, list) else [specs]:
+            service.warmup(spec)
+
+    if args.frontend == "aio":
+        from .aio import AioHTTPServer
+
+        srv = AioHTTPServer(args.host, args.port, service=service,
+                            max_conns=args.aio_max_conns)
+    else:
+        srv = make_server(args.host, args.port, service=service)
+
+    def _ready(s):
+        print(json.dumps({"ready": True, "host": args.host,
+                          "port": s.server_port,
+                          "replica_id": args.replica_id,
+                          "frontend": args.frontend,
+                          "cache": bool(args.cache_dir)}),
+              file=real_stdout, flush=True)
+
+    run_server(srv, ready_cb=_ready)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

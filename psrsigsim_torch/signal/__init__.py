@@ -8,7 +8,7 @@ from .signals import (
     RFSignal,
     Signal,
 )
-from .state import FLOAT32, INT8, SignalMeta, SignalState
+from .state import FLOAT32, INT8, SignalMeta, SignalState, empty_state
 
 __all__ = [
     "Signal",
@@ -20,4 +20,5 @@ __all__ = [
     "SignalState",
     "FLOAT32",
     "INT8",
+    "empty_state",
 ]

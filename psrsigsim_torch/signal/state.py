@@ -19,7 +19,7 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["SignalMeta", "SignalState", "FLOAT32", "INT8"]
+__all__ = ["SignalMeta", "SignalState", "FLOAT32", "INT8", "empty_state"]
 
 # dtype tags kept as strings so SignalMeta stays hashable
 FLOAT32 = "float32"
@@ -80,8 +80,24 @@ class SignalState:
             delay_ms=kw.get("delay_ms", self.delay_ms),
         )
 
+    def add_delay(self, delay_ms):
+        """Accumulate a per-channel delay vector (ms)."""
+        new = delay_ms if self.delay_ms is None else self.delay_ms + delay_ms
+        return self.replace(delay_ms=new)
+
     def __repr__(self):
         shape = tuple(getattr(self.data, "shape", ()))
         delay = "set" if self.delay_ms is not None else "None"
         return f"SignalState(data{shape}, delay={delay})"
 
+
+def empty_state(meta, nsamp, device=None):
+    """A :class:`SignalState` holding a zeroed ``(Nchan, nsamp)`` float32
+    tensor on ``device`` (default: the CUDA card)."""
+    import torch
+
+    from ..utils.device import resolve_device
+
+    return SignalState(data=torch.zeros((meta.nchan, nsamp),
+                                        dtype=torch.float32,
+                                        device=resolve_device(device)))

@@ -46,7 +46,7 @@ from ..utils.device import resolve_device, to_device
 from ..utils.rng import as_key, permutation, stage_key
 
 __all__ = ["default_shift_mode", "FoldPipelineConfig", "fold_pipeline",
-           "fold_pipeline_hetero", "fold_pipeline_quantized", "fused_route",
+           "fold_pipeline_batch", "fold_pipeline_hetero", "fold_pipeline_quantized", "fused_route",
            "fold_subints", "noise_level", "build_fold_config",
            "natural_nbin", "SinglePipelineConfig", "single_pipeline",
            "build_single_config", "BasebandPipelineConfig",
@@ -206,6 +206,24 @@ def fold_pipeline(key, dm, noise_norm, profiles, cfg, freqs=None,
                     extra_delays_ms, device)
     return _fold_core(f, cfg, cfg.nfold, cfg.draw_norm, cfg.noise_df,
                       null_frac, scenario, scenario_params, rows)
+
+
+def fold_pipeline_batch(cfg, shared_profiles=True, device=None):
+    """The ensemble form of :func:`fold_pipeline` (reference:
+    ``fold_pipeline_batch``, a vmap): a function ``(keys (B, 2), dms (B,),
+    noise_norms (B,), profiles) -> (B, Nchan, Nsamp)``, with one shared
+    ``(Nchan, Nph)`` portrait or, with ``shared_profiles=False``, one per
+    observation ``(B, Nchan, Nph)``.  ``device``: where numpy profiles go
+    (default: the CUDA card)."""
+
+    def batched(keys, dms, noise_norms, profiles):
+        if not shared_profiles and np.ndim(profiles) != 3:
+            raise ValueError("shared_profiles=False takes (B, Nchan, Nph) "
+                             f"profiles, got shape {tuple(np.shape(profiles))}")
+        return fold_pipeline(keys, dms, noise_norms, profiles, cfg,
+                             device=device)
+
+    return batched
 
 
 def _fold_core(f, cfg, nfold, draw_norm, noise_df, null_frac=None,

@@ -3,6 +3,7 @@ PRNG keys, device resolution and host-side numerics (counterpart:
 psrsigsim_tpu/utils/)."""
 
 from .constants import DM_K, DM_K_MS_MHZ2, KB_JY_M2_PER_K, KOLMOGOROV_BETA
+from .progress import ConsoleProgress
 from .quantity import Quantity, Unit, UnitConversionError, make_quant
 from .utils import (
     acf2d,
@@ -36,6 +37,7 @@ def __getattr__(name):
 
 
 __all__ = [
+    "ConsoleProgress",
     "make_quant",
     "Quantity",
     "Unit",

@@ -628,11 +628,14 @@ def test_fault_plan_names_the_export_points(tmp_path):
     from psrsigsim_torch.runtime.faults import POINTS
 
     for point in ("nan.obs", "run.kill", "mc.kill", "dataset.kill",
-                  "device.sdc", "host.corrupt", "disk.bitrot"):
+                  "serve.kill", "serve.reject", "cache.contend",
+                  "cache.enospc", "replica.slow", "device.sdc",
+                  "host.corrupt", "disk.bitrot"):
         assert point in POINTS
-    # the serving tier's points wait for the serving slice
-    with pytest.raises(ValueError, match="unknown fault point"):
-        FaultPlan(str(tmp_path), {"serve.kill": {}})
+    # the serving fleet's and the pods' points wait for their slices
+    for point in ("replica.kill", "route.blackhole", "pod.kill"):
+        with pytest.raises(ValueError, match="unknown fault point"):
+            FaultPlan(str(tmp_path), {point: {}})
 
 
 def test_runtime_imports_no_torch():
