@@ -203,11 +203,33 @@ per-observation digest of a packed chunk.  Phases:
    psrsigsim_torch.serve --port 0` on the card answering 3 POST /simulate
    and GET /result, /metrics and /healthz, then draining on SIGTERM; (g)
    integrity=1.0 with a device.sdc fault, healed to the clean bytes.  Every
-   request must reach done.
+   request must reach done;
+18. the serving fleet (psrsigsim_torch.serve.ReplicaFleet behind a
+   FleetRouter) on the card: `python -m psrsigsim_torch.serve` replica
+   processes sharing the one card and one cache dir under build/ (deleted
+   afterwards), with phase 17's spec at full width and bucket widths 1, 8
+   and 32, every profile bit-equal to an in-process service on the card:
+   (a) two replicas serve 64 distinct requests from 8 client threads;
+   each replica's /healthz gives its bucket executions, its builds (at
+   most one per geometry and width) and its kernel launches (the
+   sampler's exactly 2 a bucket execution, no other kernel), and the
+   router its share of requests; (b) replica.kill SIGKILLs the routed
+   replica after 8 requests of 32: the router fails over with the
+   remaining deadline, the supervisor restarts the replica on the card
+   (time from the kill to its ready line), every request bit-equal, and a
+   verify re-hash of the drained cache finds no lost or torn commit; (c)
+   the same 64-request stream from 4 client threads through one replica
+   and through two, each over a fresh cache: req/s, p50/p99, the ratio,
+   and the card's busy share over each burst (nvidia-smi's utilization,
+   sampled every 100 ms, since the work runs in other processes); (d) an
+   autoscaled fleet (1 to 2 replicas): a burst scales it up, an idle
+   window retires the new replica through a SIGTERM drain, every request
+   done and bit-equal, nothing lost.
 
 The line before the last is one JSON object with each kernel's launches
 (counted in the main path's run: phases 5 and 13; every path's count
-under ``launches_by_path``: phases 5, 9, 13, 15, 16 and 17), error against
+under ``launches_by_path``: phases 5, 9, 13, 15, 16, 17 and 18, the
+fleet's read from its replicas' /healthz), error against
 its plain version, times and bound.
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of one
@@ -325,6 +347,18 @@ SERVE_SPEC = {"nchan": 64, "fcent_mhz": 1380.0, "bw_mhz": 400.0,
               "period_s": 0.005, "smean_jy": 0.009, "seed": 0, "dm": 15.9}
 SERVE_WIDTHS = (1, 8, 32)
 SERVE_SERIAL, SERVE_BURST = 16, 64  # phase 17(e)
+# phase 18: request streams (serve_spec indices) for each leg of the fleet
+FLEET_STREAMS = {"c": range(3000, 3064), "a": range(4000, 4064),
+                 "b": range(5000, 5032), "d": range(6000, 6108)}
+FLEET_CLIENTS_A, FLEET_CLIENTS_C, FLEET_KILL_AFTER = 8, 4, 8
+FLEET_DEADLINE_S = 300.0
+# phase 18's routers: no latency ejection.  A blocking submit's latency
+# includes the replica's queue wait, so the router's outlier check reads a
+# busy replica as a slow one (the router's own docstring says so), and
+# with its peer SIGKILLed the dead peer's stale EWMA is the baseline: on
+# the card the survivor of (b) was ejected and a request failed with no
+# routable replica.  The error breaker stays on.
+FLEET_ROUTER = {"breaker_min_latency_s": 1e9}
 # phase 14: bench.py _DATASET_BENCH_SPEC (config 12: 4 channels, 20 pulses
 # of 1024 samples, rfi + single_pulse, dm and rfi_imp_snr priors)
 DATASET_SPEC = {
@@ -559,6 +593,32 @@ def ptxas_summary(build_log):
 
 def fmt_parts(parts):
     return ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+
+
+class GpuBusy:
+    """The card's busy share while a block runs, whichever process
+    launches the work: nvidia-smi's utilization.gpu (the share of each
+    sample period in which a kernel ran) sampled every 100 ms and
+    averaged."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            out, _ = self.proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, _ = self.proc.communicate()
+        vals = [float(v) for v in out.split() if v.strip().isdigit()]
+        self.n = len(vals)
+        self.share = sum(vals) / len(vals) / 100 if vals else float("nan")
+        return False
 
 
 class Smoke:
@@ -4003,6 +4063,365 @@ class Smoke:
         if rc != 0:
             raise AssertionError(f"(f) the server exited {rc} on SIGTERM")
 
+    # -- 18 -----------------------------------------------------------------
+    def fleet(self):
+        """The serving fleet on the card (see the module docstring)."""
+        import shutil
+        import tempfile
+
+        build = os.path.join(ROOT, "build")
+        os.makedirs(build, exist_ok=True)
+        work = tempfile.mkdtemp(prefix="fleet-", dir=build)
+        try:
+            self._fleet(work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+
+    def _fleet(self, work):
+        import numpy as np
+
+        from psrsigsim_torch.serve import (SimulationService, build_geometry,
+                                           canonicalize)
+
+        for k in ("PSS_SAMPLER", "PSS_EXACT_SHIFT", "PSS_INTEGRITY"):
+            os.environ.pop(k, None)
+        specs = {leg: {i: serve_spec(i) for i in ix}
+                 for leg, ix in FLEET_STREAMS.items()}
+        # every stream's bytes from an in-process service on the card
+        n_all = sum(len(v) for v in specs.values())
+        svc = SimulationService(widths=SERVE_WIDTHS, device=self.dev,
+                                max_queue=n_all)
+        try:
+            svc.warmup(SERVE_SPEC)
+            calls0 = svc.registry.device_calls
+            self._zero_counts()
+            t0 = time.perf_counter()
+            ids = {i: svc.submit(sp)[0] for leg in specs
+                   for i, sp in specs[leg].items()}
+            want = {i: svc.result(rid, timeout=600).tobytes()
+                    for i, rid in ids.items()}
+            t_ref = time.perf_counter() - t0
+            counts = self._counts()
+            execs = svc.registry.device_calls - calls0
+        finally:
+            svc.close()
+        log(f"  in-process service on the card: {len(want)} requests in "
+            f"{t_ref:.2f} s, {execs} bucket executions, launches {counts}")
+        if counts != {"rng_field": 2 * execs, "fold_quantize": 0,
+                      "packed_digest": 0}:
+            raise AssertionError(f"in-process launches {counts}, expected "
+                                 f"2 x {execs} of rng_field alone")
+        cfg, _, _ = build_geometry(canonicalize(SERVE_SPEC))
+        for row in want.values():
+            arr = np.frombuffer(row, np.float32)
+            if arr.size != cfg.meta.nchan * cfg.nph or not np.isfinite(
+                    arr).all():
+                raise AssertionError("an in-process profile has the wrong "
+                                     "size or a non-finite value")
+        self._fleet_work, self._fleet_want = work, want
+        self._fleet_warm = os.path.join(work, "warm.json")
+        with open(self._fleet_warm, "w") as f:
+            json.dump(SERVE_SPEC, f)
+        try:
+            # (c) solo: one replica over a fresh cache
+            fleet = self._fleet_start(1, "solo")
+            try:
+                solo = self._fleet_burst("(c) solo", fleet, specs["c"],
+                                         FLEET_CLIENTS_C)
+            finally:
+                fleet.drain()
+            # (c) fleet, (a) and (b): two replicas over a fresh cache
+            fleet = self._fleet_start(2, "pair")
+            try:
+                duo = self._fleet_burst("(c) fleet", fleet, specs["c"],
+                                        FLEET_CLIENTS_C)
+                self._fleet_path(fleet, specs["a"])
+                self._fleet_chaos(fleet, specs["b"])
+            finally:
+                codes = fleet.drain()
+            self._fleet_audit("(a)-(c) pair", "pair", codes,
+                              len(specs["c"]) + len(specs["a"])
+                              + len(specs["b"]))
+            ratio = solo["wall_s"] / duo["wall_s"]
+            log(f"  (c) fleet_over_solo {ratio:.3f}: solo "
+                f"{solo['req_s']:.2f} req/s, fleet {duo['req_s']:.2f} req/s "
+                f"({self.card_line})")
+            # (d) the elastic ramp
+            self._fleet_elastic(specs["d"])
+        except Exception:
+            self._fleet_logs()
+            raise
+
+    def _fleet_start(self, n, cache, **kw):
+        """A started fleet of ``n`` replicas on the card over
+        ``build/.../<cache>``, and its boot time logged."""
+        from psrsigsim_torch.serve import ReplicaFleet
+
+        kw.setdefault("quorum", 1)
+        fleet = ReplicaFleet(
+            n, os.path.join(self._fleet_work, cache), widths=SERVE_WIDTHS,
+            warmup_path=self._fleet_warm,
+            log_dir=os.path.join(self._fleet_work, "logs"), **kw)
+        t0 = time.perf_counter()
+        fleet.start()
+        if fleet.healthy_count() != n:
+            fleet.drain()
+            raise AssertionError(f"{fleet.healthy_count()} of {n} replicas "
+                                 f"came up: {fleet.health()}")
+        log(f"  {n} replica(s) over {cache}: ready in "
+            f"{time.perf_counter() - t0:.1f} s (started one after another)")
+        return fleet
+
+    def _fleet_logs(self):
+        logs = os.path.join(self._fleet_work, "logs")
+        for name in sorted(os.listdir(logs)) if os.path.isdir(logs) else ():
+            with open(os.path.join(logs, name), errors="replace") as f:
+                tail = f.read()[-3000:]
+            log(f"  --- {name} (tail)\n{tail}")
+
+    def _fleet_replicas(self, fleet, path):
+        """``{replica id: GET path}`` over the live replicas."""
+        import urllib.request
+
+        out = {}
+        for rid, url in fleet.endpoints():
+            with urllib.request.urlopen(url + path, timeout=60) as r:
+                out[rid] = json.loads(r.read())
+        return out
+
+    def _fleet_drive(self, router, specs, clients):
+        """Serve ``specs`` through ``router`` from ``clients`` threads; every
+        request must reach done, bit-equal to the in-process service.
+        ``(wall_s, latencies)``."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        import numpy as np
+
+        bad = []
+
+        def one(i):
+            t0 = time.perf_counter()
+            status, resp = router.submit(specs[i], deadline_s=FLEET_DEADLINE_S,
+                                         wait=True)
+            lat = time.perf_counter() - t0
+            if status != 200 or resp.get("status") != "done":
+                raise AssertionError(f"request {i}: HTTP {status} "
+                                     f"{str(resp)[:300]}")
+            if np.asarray(resp["profile"], np.float32).tobytes() \
+                    != self._fleet_want[i]:
+                bad.append(i)
+            return lat
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(clients) as pool:
+            lats = list(pool.map(one, sorted(specs)))
+        wall = time.perf_counter() - t0
+        if bad:
+            raise AssertionError(f"{len(bad)} profiles differ from the "
+                                 f"in-process service's: {sorted(bad)[:8]}")
+        return wall, lats
+
+    def _fleet_burst(self, label, fleet, specs, clients):
+        """One timed burst through a fresh router: req/s, p50/p99, the
+        card's busy share and the replicas' stage seconds."""
+        import numpy as np
+
+        from psrsigsim_torch.serve import FleetRouter
+
+        router = FleetRouter(fleet, **FLEET_ROUTER)
+        try:
+            m0 = self._fleet_replicas(fleet, "/metrics")
+            with GpuBusy() as busy:
+                wall, lats = self._fleet_drive(router, specs, clients)
+            m1 = self._fleet_replicas(fleet, "/metrics")
+            share = router.stats()["per_replica"]
+        finally:
+            router.close()
+        stages = {k: sum(m1[r]["stages"][k + "_s"] - m0[r]["stages"][k + "_s"]
+                         for r in m1) for k in ("compute", "respond")}
+        p50, p99 = np.percentile(lats, [50, 99])
+        out = {"req_s": len(specs) / wall, "wall_s": wall, "p50_s": p50,
+               "p99_s": p99, "busy": busy.share, "busy_samples": busy.n,
+               "per_replica": share, **{f"{k}_s": v for k, v in
+                                        stages.items()}}
+        log(f"  {label}: {len(specs)} requests from {clients} clients over "
+            f"{len(m1)} replica(s): {out['req_s']:.2f} req/s, p50 "
+            f"{p50 * 1e3:.1f} ms, p99 {p99 * 1e3:.1f} ms; card busy "
+            f"{busy.share:.1%} (nvidia-smi, {busy.n} samples); replicas' "
+            f"compute {stages['compute']:.3f} s, respond "
+            f"{stages['respond']:.3f} s of a {wall:.3f} s wall; requests "
+            f"per replica {share} ({self.card_line})")
+        return out
+
+    def _fleet_path(self, fleet, specs):
+        """(a): the fleet's main path, its kernels read from each replica's
+        /healthz just before and just after."""
+        from psrsigsim_torch.serve import FleetRouter
+
+        router = FleetRouter(fleet, **FLEET_ROUTER)
+        try:
+            h0 = self._fleet_replicas(fleet, "/healthz")
+            wall, _ = self._fleet_drive(router, specs, FLEET_CLIENTS_A)
+            h1 = self._fleet_replicas(fleet, "/healthz")
+            share = router.stats()["per_replica"]
+        finally:
+            router.close()
+        if set(h0) != set(h1) or len(h1) != 2:
+            raise AssertionError(f"(a) replicas changed under the burst: "
+                                 f"{sorted(h0)} -> {sorted(h1)}")
+        execs = sum(h1[r]["device_calls"] - h0[r]["device_calls"] for r in h1)
+        launches = {k: sum(h1[r]["kernel_launches"][k]
+                           - h0[r]["kernel_launches"][k] for r in h1)
+                    for k in h1[min(h1)]["kernel_launches"]}
+        builds = {r: h1[r]["compile_counts"] for r in h1}
+        log(f"  (a) 2 replicas, {len(specs)} requests from "
+            f"{FLEET_CLIENTS_A} clients in {wall:.2f} s, bit-equal to the "
+            f"in-process service; requests per replica {share}; bucket "
+            f"executions {execs} "
+            f"({ {r: h1[r]['device_calls'] - h0[r]['device_calls'] for r in h1} }"
+            f"); kernel launches read from /healthz {launches}, derived "
+            f"2 x executions = {2 * execs}; builds per replica {builds}")
+        if launches != {"rng_field": 2 * execs, "rng_flat_field": 0,
+                        "fold_quantize": 0, "packed_digest": 0} or execs <= 0:
+            raise AssertionError(f"(a) launches {launches}, expected 2 x "
+                                 f"{execs} of rng_field alone")
+        if any(c != 1 for b in builds.values() for c in b.values()):
+            raise AssertionError(f"(a) a replica built a bucket twice: "
+                                 f"{builds}")
+        if sum(share.values()) != len(specs):
+            raise AssertionError(f"(a) routed {share}")
+        self._path("fleet", {"rng_field": launches["rng_field"]})
+
+    def _fleet_chaos(self, fleet, specs):
+        """(b): replica.kill mid-traffic, failover and restart."""
+        import signal
+        import threading
+
+        from psrsigsim_torch.runtime import FaultPlan
+        from psrsigsim_torch.serve import FleetRouter
+
+        plan = FaultPlan(os.path.join(self._fleet_work, "chaos-scratch"),
+                         {"replica.kill": {"after_requests":
+                                           FLEET_KILL_AFTER}})
+        gens = {i: fleet.endpoint_gen(i) for i, _ in fleet.endpoints()}
+        killed, ready = {}, {}
+        kill = fleet.kill_replica
+
+        def timed_kill(i, sig=signal.SIGKILL):
+            killed[i] = time.perf_counter()
+            kill(i, sig)
+
+        fleet.kill_replica = timed_kill
+        stop = threading.Event()
+
+        def watch():
+            while not stop.is_set():
+                for i in killed:
+                    if i not in ready and fleet.endpoint_gen(i) > gens[i]:
+                        ready[i] = time.perf_counter()
+                time.sleep(0.01)
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        router = FleetRouter(fleet, faults=plan, **FLEET_ROUTER)
+        try:
+            wall, _ = self._fleet_drive(router, specs, FLEET_CLIENTS_A)
+            t_end = time.monotonic() + 300
+            while (fleet.healthy_count() < 2 or len(ready) < len(killed)) \
+                    and time.monotonic() < t_end:
+                time.sleep(0.05)
+            st = router.stats()
+        finally:
+            stop.set()
+            watcher.join()
+            router.close()
+            fleet.kill_replica = kill
+        restarts = sum(fleet.health()["restarts"].values())
+        spans = {i: ready[i] - killed[i] for i in ready}
+        log(f"  (b) replica.kill after {FLEET_KILL_AFTER} of {len(specs)} "
+            f"requests: kills fired {st['kills_fired']} (replica "
+            f"{sorted(killed)}), failovers {st['failovers']}, restarts "
+            f"{restarts}, all {len(specs)} bit-equal in {wall:.2f} s; "
+            f"from the kill to the restarted replica's ready line "
+            + ", ".join(f"{spans[i]:.1f} s" for i in sorted(spans))
+            + f" ({self.card_line})")
+        if st["kills_fired"] < 1 or restarts < 1 or st["failovers"] < 1 \
+                or fleet.healthy_count() != 2 or len(spans) != len(killed):
+            raise AssertionError(f"(b) no kill, failover or restart: {st}, "
+                                 f"restarts {restarts}, {fleet.health()}")
+
+    def _fleet_audit(self, label, cache, codes, n):
+        """The drained cache under a verify re-hash: no lost or torn
+        commit, no leaked claim or temp file, every replica exited 0."""
+        from psrsigsim_torch.serve import ResultCache
+
+        d = os.path.join(self._fleet_work, cache)
+        c = ResultCache(d, verify=True)
+        entries, dropped = len(c), c.dropped
+        c.close()
+        claims = os.listdir(os.path.join(d, "claims"))
+        tmps = [x for x in os.listdir(os.path.join(d, "results"))
+                if x.endswith(".tmp")]
+        log(f"  {label}: drained, exit codes {codes}; verify re-hash: "
+            f"{entries} entries for {n} requests, {dropped} lost or torn, "
+            f"{len(claims)} claims and {len(tmps)} temp files left")
+        if dropped or claims or tmps or entries != n or set(
+                codes.values()) != {0}:
+            raise AssertionError(f"{label}: the shared cache lost commits")
+
+    def _fleet_elastic(self, specs):
+        """(d): an autoscaled fleet scales up under a burst and back down
+        through a SIGTERM drain when idle; nothing lost."""
+        from psrsigsim_torch.serve import FleetRouter
+
+        fleet = self._fleet_start(
+            1, "elastic", autoscale=True, min_replicas=1, max_replicas=2,
+            max_queue=16, scale_up_queue_frac=0.1,
+            scale_down_queue_frac=0.02, scale_interval_s=0.05,
+            scale_up_cooldown_s=0.1, scale_down_cooldown_s=1.0,
+            health_interval_s=0.05)
+        ix = sorted(specs)
+        waves = [ix[0:32], ix[32:64], ix[64:96]]
+        served = 0
+        try:
+            router = FleetRouter(fleet, **FLEET_ROUTER)
+            t0 = time.perf_counter()
+            for wave in waves:
+                self._fleet_drive(router, {i: specs[i] for i in wave}, 8)
+                served += len(wave)
+                t_end = time.monotonic() + 5.0
+                while time.monotonic() < t_end and not (
+                        fleet.pending_scale_up() or fleet.scale_events):
+                    time.sleep(0.05)
+                if fleet.pending_scale_up() or fleet.scale_events:
+                    break
+            t_end = time.monotonic() + 300
+            while fleet.healthy_count() < 2 and time.monotonic() < t_end:
+                time.sleep(0.1)
+            up = fleet.healthy_count() == 2
+            t_up = time.perf_counter() - t0
+            wave_b = {i: specs[i] for i in ix[96:104]}
+            self._fleet_drive(router, wave_b, 4)
+            served += len(wave_b)
+            t_end = time.monotonic() + 300
+            while fleet.active_count() > 1 and time.monotonic() < t_end:
+                time.sleep(0.1)
+            down = fleet.active_count() == 1
+            wave_c = {i: specs[i] for i in ix[104:108]}
+            self._fleet_drive(router, wave_c, 2)
+            served += len(wave_c)
+            events = [(e["action"], e["replica"]) for e in fleet.scale_events]
+            router.close()
+        finally:
+            codes = fleet.drain()
+        log(f"  (d) elastic 1 -> 2 -> 1: scaled up {up}, down {down}, "
+            f"events {events}, {served} requests bit-equal, up within "
+            f"{t_up:.1f} s of the first burst")
+        if not (up and down) or [a for a, _ in events] != ["up", "down"]:
+            raise AssertionError(f"(d) the fleet did not scale up and back "
+                                 f"down: {events}")
+        self._fleet_audit("(d) elastic", "elastic", codes, served)
+
     def run(self, with_profile=False):
         self.phase("1 card", self.card)
         built = self.phase("2 build", self.build)
@@ -4029,6 +4448,7 @@ class Smoke:
             self.phase("15 baseband", self.baseband)
             self.phase("16 multi-pulsar ensemble", self.multipulsar)
             self.phase("17 serving", self.serving)
+            self.phase("18 serving fleet", self.fleet)
         if self.failed:
             log(f"FAILED phases: {', '.join(self.failed)}")
             return 1

@@ -17,16 +17,19 @@ __all__ = ["offpulse_window", "offpulse_window_jax", "offpulse_window_indices",
            "fold_periods"]
 
 
-def offpulse_window_indices(nphase, device="cpu"):
+def offpulse_window_indices(nphase, device=None):
     """The circular window offsets of the off-pulse search, as an int64
-    tensor, and the half width: ``windowsize = nphase/8`` (may be
+    tensor on ``device`` (default: the CUDA card; it raises without
+    one), and the half width: ``windowsize = nphase/8`` (may be
     fractional); offsets span ``[-ws//2, +ws//2)`` exactly as the
     reference's ``np.arange(i - ws//2, i + ws//2)`` (portraits.py:77)."""
     import torch
 
+    from ..utils.device import resolve_device
+
     ws = nphase / 8
     half = int(ws // 2)
-    return torch.arange(-half, half, device=device), half
+    return torch.arange(-half, half, device=resolve_device(device)), half
 
 
 def offpulse_window(max_profile, nphase=None):

@@ -4,7 +4,9 @@
   run loop around the chunked ensemble -> PSRFITS export
   (:func:`supervised_export` / :class:`RunSupervisor`): crash-safe
   journaled output with sha256-verified resume, NaN quarantine with a
-  salted retry, and an append-only chunk journal + atomic cursor.
+  salted retry, and an append-only chunk journal + atomic cursor; and
+  :class:`ProcessSupervisor`, the serving fleet's spawn/watch/restart
+  loop around one replica process.
 - :mod:`~psrsigsim_torch.runtime.integrity` — the silent-corruption
   defense of the export: the checksum lattice (per-observation digests
   computed on the card by the packed-digest kernel and re-checked on the
@@ -28,8 +30,8 @@ the dataset factory's artifacts (:func:`scrub_mc_dir`,
 (:mod:`psrsigsim_torch.serve.cache`).
 
 Host-only: importing this package imports no torch (the export's spawn
-writers import it).  The JAX package's ``ProcessSupervisor`` (the serving
-fleet's) and its pod runtime (``dist``) are not ported yet.
+writers import it).  The JAX package's pod runtime (``dist``) is not
+ported yet.
 """
 
 from .faults import FaultPlan
@@ -39,8 +41,9 @@ from .integrity import (IntegrityChecker, IntegrityError,
 from .programs import (ProgramRegistry, enable_compilation_cache,
                        global_registry)
 from .retry import RetriesExhausted, RetryPolicy, call_with_retry
-from .supervisor import (RunResult, RunSupervisor, load_chunk_journal,
-                         load_journal_records, supervised_export)
+from .supervisor import (ProcessSupervisor, RunResult, RunSupervisor,
+                         load_chunk_journal, load_journal_records,
+                         supervised_export)
 from .telemetry import StageTimers
 
 __all__ = [
@@ -60,6 +63,7 @@ __all__ = [
     "RetriesExhausted",
     "StageTimers",
     "call_with_retry",
+    "ProcessSupervisor",
     "RunResult",
     "RunSupervisor",
     "supervised_export",

@@ -1,11 +1,13 @@
 """Deterministic fault injection for the export, supervisor and serving
 stack (a copy of psrsigsim_tpu/runtime/faults.py, cut to the points the
-port has).
+port has: the pods' ``pod.kill`` is not among them, and naming it raises
+like any unknown point).
 
 Robustness code that is only exercised by real outages is dead code with
 a pager attached.  This module gives every failure-handling path in the
-run supervisor, the integrity layer and the export writer pool a *named
-injection point* that tests arm explicitly:
+run supervisor, the integrity layer, the export writer pool, the serving
+cache and the fleet router a *named injection point* that tests arm
+explicitly:
 
 ========================  ====================================================
 point                     where it fires
@@ -65,6 +67,19 @@ point                     where it fires
                           saturated queue would, exercising the client-
                           visible backpressure path.  Config: ``times``
                           only.
+``replica.kill``          the fleet router
+                          (:class:`psrsigsim_torch.serve.FleetRouter`),
+                          right BEFORE the ``after_requests``-th
+                          response would be produced — SIGKILLs the
+                          replica the request routed to (or the one
+                          named by ``replica``), so the forward that
+                          follows runs into the freshly dead socket:
+                          the hardest-ordering mid-traffic death for
+                          failover/restart proofs
+                          (tests/test_torch_fleet_proofs.py).  Config:
+                          ``{"after_requests": int, "replica": int}``;
+                          both optional (defaults: first request, the
+                          routed replica).
 ``cache.contend``         :meth:`psrsigsim_torch.serve.ResultCache.put`,
                           between the artifact rename and the journal
                           append — sleeps ``hold_s`` (default 0.05)
@@ -73,6 +88,14 @@ point                     where it fires
                           commit discipline exists for so contention
                           stress tests hit it reliably.  Config:
                           ``{"hold_s": float}``.
+``route.blackhole``       the fleet router, before forwarding to the
+                          routed replica — raises ``ConnectionError``
+                          as if the replica's socket vanished (network
+                          partition without a process death),
+                          exercising the failover re-route path while
+                          the replica itself stays healthy.  Config:
+                          ``times`` / ``match`` (token is the replica
+                          id).
 ``replica.slow``          the replica HTTP front end
                           (:mod:`psrsigsim_torch.serve.http`), before a
                           ``/simulate`` request is handled — sleeps
@@ -130,10 +153,6 @@ point                     where it fires
                           basename) / ``times``.
 ========================  ====================================================
 
-The JAX package's other points (``replica.kill``, ``route.blackhole``
-and ``pod.kill``) belong to the serving fleet and the pods, which the port
-has not taken over yet; naming one raises, like any unknown point.
-
 Arming is explicit and local: a :class:`FaultPlan` is built by a test and
 passed down via the ``faults=`` parameter; production call sites carry
 ``plan=None`` and :func:`should_fire` is a single ``is None`` check —
@@ -157,7 +176,8 @@ __all__ = ["FaultPlan", "should_fire", "crash_process", "POINTS"]
 
 POINTS = ("writer.crash", "shm.attach", "file.partial", "nan.obs",
           "run.kill", "dataset.kill", "mc.kill", "serve.kill",
-          "serve.reject", "cache.contend", "replica.slow", "cache.enospc",
+          "serve.reject", "replica.kill", "cache.contend",
+          "route.blackhole", "replica.slow", "cache.enospc",
           "device.sdc", "host.corrupt", "disk.bitrot")
 
 

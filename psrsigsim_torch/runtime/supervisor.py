@@ -1,5 +1,5 @@
 """Fault-tolerant run supervision for chunked ensemble exports
-(counterpart: psrsigsim_torch/runtime/supervisor.py).
+(counterpart: psrsigsim_tpu/runtime/supervisor.py).
 
 The north-star workload is a 10k-observation fold-mode ensemble streamed
 through :meth:`FoldEnsemble.iter_chunks` into
@@ -35,9 +35,10 @@ Everything is exercised by the deterministic fault-injection layer in
 :mod:`psrsigsim_torch.runtime.faults`; injection points are armed only by
 an explicit :class:`~psrsigsim_torch.runtime.faults.FaultPlan`.
 
-Host-only: nothing here imports torch.  The JAX package's
-``ProcessSupervisor`` (the serving fleet's keep-one-subprocess-alive
-loop) waits for the serving slice.  ``observe_rfi``/``observe_rfi_retry``
+Host-only: nothing here imports torch.  :class:`ProcessSupervisor` is
+the serving fleet's keep-one-subprocess-alive loop (spawn, watch,
+restart under a jittered :class:`~psrsigsim_torch.runtime.retry.
+RetryPolicy`).  ``observe_rfi``/``observe_rfi_retry``
 journal a scenario export's RFI ground truth (the exporter calls them for
 ensembles built with an RFI scenario).
 """
@@ -46,13 +47,19 @@ from __future__ import annotations
 
 import json
 import os
+import signal
+import subprocess
+import threading
+import time
 
 import numpy as np
 
 from .faults import crash_process
+from .retry import RetryPolicy
 
 __all__ = ["RunSupervisor", "RunResult", "supervised_export",
-           "load_chunk_journal", "load_journal_records"]
+           "ProcessSupervisor", "load_chunk_journal",
+           "load_journal_records"]
 
 _JOURNAL_NAME = "run_journal.jsonl"
 _CURSOR_NAME = "run_cursor.json"
@@ -517,6 +524,203 @@ class RunSupervisor:
                          self._recovered, self._degraded, self._hashes,
                          self.out_dir, pipeline=man.get("pipeline"),
                          integrity=man.get("integrity"))
+
+
+class ProcessSupervisor:
+    """Keep one subprocess alive: spawn, watch, restart with backoff.
+
+    The process-level sibling of the export writer pool's self-healing
+    loop, grown for the serving fleet: a replica that dies (OOM kill,
+    preemption, a ``replica.kill`` chaos shot) is restarted under a
+    :class:`~psrsigsim_torch.runtime.retry.RetryPolicy` — jittered, so a
+    fleet respawning after a shared outage does not restart in lockstep
+    — and a replica that keeps dying faster than ``healthy_after_s``
+    exhausts the policy's attempt budget and is marked ``failed``
+    instead of flapping forever (the bounded-respawn discipline the
+    writer pool established; an unbounded respawn loop amplifies the
+    outage it is supposed to absorb).
+
+    Parameters
+    ----------
+    name : str
+        Label for introspection/logging.
+    spawn : callable
+        Zero-argument callable returning a started
+        :class:`subprocess.Popen`.  Called for the initial start and
+        for every restart.
+    policy : RetryPolicy, optional
+        Restart backoff budget.  ``max_attempts`` bounds CONSECUTIVE
+        unhealthy deaths; a child that stayed up ``healthy_after_s``
+        resets the counter.  Default: 5 attempts, 0.05 s base, jittered.
+    healthy_after_s : float
+        Uptime after which a death counts as fresh (resets backoff).
+    on_spawn, on_exit : callable, optional
+        ``on_spawn(supervisor, proc)`` after every (re)spawn;
+        ``on_exit(supervisor, returncode)`` after every child death
+        (restart decisions already made) — the fleet uses these to
+        re-wire routing to the replacement's new port.
+    """
+
+    def __init__(self, name, spawn, policy=None, healthy_after_s=5.0,
+                 on_spawn=None, on_exit=None):
+        self.name = str(name)
+        self._spawn = spawn
+        self.policy = policy if policy is not None else RetryPolicy(
+            max_attempts=5, base_delay=0.05, max_delay=2.0, jitter=0.5)
+        self.healthy_after_s = float(healthy_after_s)
+        self._on_spawn = on_spawn
+        self._on_exit = on_exit
+        self._lock = threading.Lock()
+        self._proc = None
+        self._stopping = False
+        self.failed = False
+        self.restarts = 0
+        self._consecutive_deaths = 0
+        self._spawned_at = 0.0
+        self._watcher = None
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def start(self):
+        """Spawn the child and the watcher thread.  Idempotent on the
+        WATCHER, not the child: while a watcher is alive (child running
+        OR dead-and-in-backoff) a re-invocation is a no-op — a second
+        watcher would double-count every death and leak an unsupervised
+        child.  A fresh start (never started / stopped / failed) resets
+        the death budget."""
+        with self._lock:
+            if self._watcher is not None and self._watcher.is_alive():
+                return self
+            self._stopping = False
+            self.failed = False
+            self._consecutive_deaths = 0
+            self._respawn_locked()
+            self._watcher = threading.Thread(
+                target=self._watch, daemon=True,
+                name=f"pss-supervise-{self.name}")
+            self._watcher.start()
+        return self
+
+    def _respawn_locked(self):
+        self._proc = self._spawn()
+        self._spawned_at = time.monotonic()
+        if self._on_spawn is not None:
+            self._on_spawn(self, self._proc)
+
+    def _watch(self):
+        while True:
+            with self._lock:
+                proc = self._proc
+            if proc is None:
+                return
+            rc = proc.wait()
+            uptime = time.monotonic() - self._spawned_at
+            with self._lock:
+                if self._stopping:
+                    return
+                if self._on_exit is not None:
+                    self._on_exit(self, rc)
+                if uptime >= self.healthy_after_s:
+                    self._consecutive_deaths = 0
+                self._consecutive_deaths += 1
+                if self._consecutive_deaths >= self.policy.max_attempts:
+                    self.failed = True
+                    self._proc = None
+                    return
+                d = self.policy.delay(self._consecutive_deaths - 1)
+            if d > 0:
+                time.sleep(d)
+            with self._lock:
+                if self._stopping:
+                    return
+                # count at respawn START: a restart in progress (the
+                # replacement may take seconds to boot) is a restart
+                self.restarts += 1
+                self._respawn_locked()
+
+    # -- control -----------------------------------------------------------
+
+    def kill(self, sig=signal.SIGKILL):
+        """Send ``sig`` to the child (chaos shots use SIGKILL); the
+        watcher then restarts it under the policy."""
+        with self._lock:
+            proc = self._proc
+        if proc is not None and proc.poll() is None:
+            try:
+                proc.send_signal(sig)
+            except (ProcessLookupError, OSError):
+                pass
+
+    def restart(self, sig=signal.SIGTERM, kill_after_s=30.0):
+        """GRACEFUL restart: send ``sig`` (drain) and let the watcher
+        respawn the child when it exits — in-flight work finishes, then
+        the process is replaced.  A child that ignores the drain signal
+        is SIGKILLed after ``kill_after_s`` (the gray-failure case this
+        exists for: a wedged replica may be too sick to honor SIGTERM).
+        Non-blocking; the escalation runs on a daemon thread."""
+        with self._lock:
+            proc = self._proc
+        if proc is None or proc.poll() is not None:
+            return
+        self.kill(sig)
+
+        def _escalate():
+            try:
+                proc.wait(kill_after_s)
+            except subprocess.TimeoutExpired:
+                try:
+                    proc.kill()
+                except (ProcessLookupError, OSError):
+                    pass
+
+        threading.Thread(target=_escalate, daemon=True,
+                         name=f"pss-restart-{self.name}").start()
+
+    def stop(self, sig=signal.SIGTERM, timeout=30.0):
+        """Orchestrated shutdown: no restart, ``sig`` (drain) first,
+        SIGKILL after ``timeout``.  Returns the child's returncode (None
+        if it was never running)."""
+        with self._lock:
+            self._stopping = True
+            proc = self._proc
+        if proc is None:
+            return None
+        if proc.poll() is None:
+            try:
+                proc.send_signal(sig)
+            except (ProcessLookupError, OSError):
+                pass
+            try:
+                proc.wait(timeout)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        if self._watcher is not None and self._watcher is not threading.current_thread():
+            self._watcher.join(timeout)
+        return proc.returncode
+
+    # -- introspection -----------------------------------------------------
+
+    @property
+    def proc(self):
+        with self._lock:
+            return self._proc
+
+    @property
+    def pid(self):
+        with self._lock:
+            return self._proc.pid if self._proc is not None else None
+
+    def alive(self):
+        with self._lock:
+            return (not self.failed and self._proc is not None
+                    and self._proc.poll() is None)
+
+    def __repr__(self):
+        state = ("failed" if self.failed
+                 else "alive" if self.alive() else "down")
+        return (f"ProcessSupervisor({self.name!r}, {state}, "
+                f"restarts={self.restarts})")
 
 
 def supervised_export(ens, n_obs, out_dir, template, pulsar, *,

@@ -28,14 +28,26 @@
 - :mod:`~psrsigsim_torch.serve.aio` — :class:`AioHTTPServer`: the C10k
   front end over one ``selectors`` event loop (``--frontend aio``).
 
-The JAX package's serving fleet (``ReplicaFleet``, ``FleetRouter``,
-``PooledTransport``, ``RouteFailed``, ``make_router_server``) and its pod
-registry are not ported yet.
+- :mod:`~psrsigsim_torch.serve.fleet` — :class:`ReplicaFleet`: N
+  ``python -m psrsigsim_torch.serve`` replica processes over one shared
+  cache, each under a :class:`~psrsigsim_torch.runtime.ProcessSupervisor`
+  (restart with jittered backoff), health-polled, autoscaled between
+  bounds with hysteresis, drained fleet-wide on SIGTERM.
+- :mod:`~psrsigsim_torch.serve.router` — :class:`FleetRouter`:
+  rendezvous routing by spec hash, deadline-preserving failover, quorum
+  backpressure and per-replica circuit breakers over
+  :class:`PooledTransport` keep-alive upstreams; ``make_router_server``
+  puts one HTTP address in front of the fleet.
+
+The JAX package's pod registry is not ported yet.
 """
 
 from .aio import AioHTTPServer, make_aio_server
 from .cache import ByteLRU, ResultCache
+from .fleet import ReplicaFleet
 from .programs import DEFAULT_WIDTHS, ProgramRegistry, enable_compilation_cache
+from .router import (FleetRouter, PooledTransport, RouteFailed,
+                     make_router_server)
 from .service import (RequestFailed, RequestRejected, SERVE_STAGES,
                       SimulationService)
 from .spec import (SpecError, build_geometry, canonicalize, geometry_hash,
@@ -47,6 +59,11 @@ __all__ = [
     "RequestFailed",
     "ResultCache",
     "ByteLRU",
+    "ReplicaFleet",
+    "FleetRouter",
+    "PooledTransport",
+    "RouteFailed",
+    "make_router_server",
     "AioHTTPServer",
     "make_aio_server",
     "ProgramRegistry",

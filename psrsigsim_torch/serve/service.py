@@ -512,6 +512,10 @@ class SimulationService:
             "device_calls": reg["device_calls"],
             "programs": reg["programs"],
             "compile_counts": reg["compile_counts"],
+            # each kernel wrapper's launches in this process: a replica
+            # is another process, so this is how a fleet's caller reads
+            # the kernels its replicas ran
+            "kernel_launches": kernel_launches(),
             # the multi-host group this replica leads: always one
             # process here (the reference's field, kept for its readers)
             "pod": {"process_id": 0, "num_processes": 1, "is_pod": False},
@@ -818,6 +822,16 @@ class SimulationService:
         excess = len(terminal) - self.max_done
         for rid in terminal[:max(excess, 0)]:
             del self._requests[rid]
+
+
+def kernel_launches():
+    """Each kernel wrapper's launch count in this process."""
+    from ..ops import digest, fold_quantize, rng_hw
+
+    return {"rng_field": rng_hw.rng_field.launches,
+            "rng_flat_field": rng_hw.rng_flat_field.launches,
+            "fold_quantize": fold_quantize.fold_quantize.launches,
+            "packed_digest": digest.packed_digest.launches}
 
 
 def request_keys(seeds, rids):

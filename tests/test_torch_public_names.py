@@ -212,13 +212,25 @@ def test_offpulse_window_tensor_twin(ref):
     from psrsigsim_torch.ops import (offpulse_window, offpulse_window_indices,
                                      offpulse_window_jax)
 
-    off, half = offpulse_window_indices(100)
+    off, half = offpulse_window_indices(100, device="cpu")
     assert half == int(ref["win_half"])
     np.testing.assert_array_equal(off.numpy(), ref["win_offsets"])
     got = offpulse_window_jax(torch.from_numpy(window_profile()))
     np.testing.assert_array_equal(got.numpy(), ref["win"])
     np.testing.assert_array_equal(got.numpy(),
                                   offpulse_window(window_profile()))
+
+
+def test_offpulse_window_indices_defaults_to_the_card(monkeypatch):
+    """Like every entry point, the offsets land on the card unless the
+    caller names a device, and raise when there is no card."""
+    from psrsigsim_torch.ops import offpulse_window_indices
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        offpulse_window_indices(100)
+    off, half = offpulse_window_indices(100, device="cpu")
+    assert off.device.type == "cpu" and half == 6
 
 
 def test_empty_state_and_add_delay(ref):

@@ -630,12 +630,13 @@ def test_fault_plan_names_the_export_points(tmp_path):
     for point in ("nan.obs", "run.kill", "mc.kill", "dataset.kill",
                   "serve.kill", "serve.reject", "cache.contend",
                   "cache.enospc", "replica.slow", "device.sdc",
-                  "host.corrupt", "disk.bitrot"):
+                  "host.corrupt", "disk.bitrot", "replica.kill",
+                  "route.blackhole"):
         assert point in POINTS
-    # the serving fleet's and the pods' points wait for their slices
-    for point in ("replica.kill", "route.blackhole", "pod.kill"):
-        with pytest.raises(ValueError, match="unknown fault point"):
-            FaultPlan(str(tmp_path), {point: {}})
+        FaultPlan(str(tmp_path), {point: {}})
+    # the pods' point waits for their slice
+    with pytest.raises(ValueError, match="unknown fault point"):
+        FaultPlan(str(tmp_path), {"pod.kill": {}})
 
 
 def test_runtime_imports_no_torch():
