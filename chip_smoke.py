@@ -14,7 +14,10 @@ fields in its flat layout (rng_flat_field); the fused fold -> quantize
 -> pack kernel (csrc/fold_quantize.cu), which draws the same samples
 inside and writes the packed codes of run_quantized and iter_chunks; and
 the packed-digest kernel (csrc/packed_digest.cu), the integrity lattice's
-per-observation digest of a packed chunk.  Phases:
+per-observation digest of a packed chunk; and the exact-gamma kernel
+(csrc/gamma_field.cu), jax.random.gamma's draws bit for bit, which every
+chi^2 of a df below 50 (other than 1) and every chi^2 under
+PSS_EXACT_CHI2=1 takes.  Phases:
 
 1. the card, its power limit, the torch/CUDA versions and the host CPU;
 2. the build of the kernels (one nvcc each, started together), with each
@@ -224,12 +227,32 @@ per-observation digest of a packed chunk.  Phases:
    sampled every 100 ms, since the work runs in other processes); (d) an
    autoscaled fleet (1 to 2 replicas): a burst scales it up, an idle
    window retires the new replica through a SIGTERM drain, every request
-   done and bit-equal, nothing lost.
+   done and bit-equal, nothing lost;
+19. the exact-gamma chi^2 branch: (a) the exact-gamma kernel against its
+   plain version (ops/stats.py::gamma_plain) on the card, bit for bit, on
+   a whole 128-observation chunk's (observation, channel, block) keys at
+   alpha 0.5, 10, 20 and 6000, and on shape-level draws (one key, 64 x
+   40960) at a traced alpha 10 and 0.5 and a static 0.3; (b) the card's
+   plain version against the host's on one observation's field, bit for
+   bit; (c) mean, variance and the KS statistic of 1e7 draws against
+   chi^2(df) for df 1, 20 and 40; (d) BASELINE config 1's width in 0.1 s
+   subints (Nfold 20), on the unfused route: run_quantized(128) with the
+   kernel launched exactly twice and nothing else, obs/s, the codes of
+   chunk sizes 64 and 128 equal, a profiled chunk, then iter_chunks ->
+   export of 256 observations with writers=1 (4 launches), obs/s; (e)
+   config 1 itself under PSS_EXACT_CHI2=1: run_quantized(128), 2 launches,
+   obs/s; (f) make_pulses -> disperse -> observe(noise) at Nfold 20 on the
+   card and the host (pulses bit-equal, observed data within 2e-5 of the
+   peak, 2 launches); (g) SEARCH under the hatch at BASELINE config 4's
+   geometry, a batch of 4 (3 launches, channel means within 2%); (h) the
+   kernel's time at the main path's shape (one chunk's field) against its
+   bound at the issue limit, its plain version's time, and
+   torch._standard_gamma's at the same shape.
 
 The line before the last is one JSON object with each kernel's launches
-(counted in the main path's run: phases 5 and 13; every path's count
-under ``launches_by_path``: phases 5, 9, 13, 15, 16, 17 and 18, the
-fleet's read from its replicas' /healthz), error against
+(counted in the main path's run: phases 5, 13 and 19; every path's
+count under ``launches_by_path``: phases 5, 9, 13, 15, 16, 17, 18 and
+19, the fleet's read from its replicas' /healthz), error against
 its plain version, times and bound.
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of one
@@ -265,6 +288,11 @@ PEAK_OPS_PER_S = 67e12
 SMS, CLOCK_HZ = 132, 1.98e9
 RATES = {"int32": 64 * SMS * CLOCK_HZ, "fp32": 128 * SMS * CLOCK_HZ,
          "sfu": 16 * SMS * CLOCK_HZ}
+# the issue limit: each of an SM's 4 schedulers issues one warp instruction
+# a clock, 128 thread-operations of any class.  ptxas moves integer adds
+# onto the FMA pipe (IMAD), so a mix of integer work can beat the integer
+# pipe's 64 but never this; phase 19 bounds K9's integer-heavy mix by it
+ISSUE_RATE = 128 * SMS * CLOCK_HZ
 
 # Operations per output sample, by class, that the function itself needs,
 # counted as ptxas emits them from the sources (csrc/philox_field.cuh,
@@ -391,9 +419,29 @@ MC_BENCH = dict(fcent=1380.0, bandwidth=400.0, sample_rate=0.1024, Nchan=64,
                 tscope_name="TestScope", system_name="TestSys",
                 rcvr_fcent=1380.0, rcvr_bw=400.0, rcvr_name="TestRCVR",
                 backend_samprate=12.5, backend_name="TestBack", seed=0)
+# phase 19: the exact-gamma branch.  BASELINE config 1's width (64
+# channels, 2048 bins, 20 subints) in 0.1 s subints: Nfold 20
+GAMMA_ALPHAS = (0.5, 10.0, 20.0, 6000.0)  # (a): K9 against its plain version
+GAMMA_PLAIN_ROWS = 8192  # (a): rows of the plain version per comparison
+GAMMA_STAT_N = 10**7     # (c): draws per df
+GAMMA_STAT_DFS = (1.0, 20.0, 40.0)
+GAMMA_EXPORT_NOBS = 256  # (d): iter_chunks -> PSRFITS export, writers=1
+GAMMA_SEARCH_NOBS = 4    # (g): SEARCH under the hatch at config 4's geometry
+# threefry2x32's integer operations a call (csrc/threefry.cuh: 20 rounds of
+# add, rotate, XOR; 5 key injections of 2 adds; the key-schedule XOR)
+THREEFRY_INT_OPS = 73
+# K9's float32 operations, counted from csrc/gamma_field.cu: an inner pass
+# draws a normal (the uniform 3; log1p's small branch 20: 12 FMAs, the
+# division as one, 7 more; erf_inv's 8 FMAs, 8 coefficient selects and 7
+# more) and v = fma(x, c, 1) with its test: 48; an outer pass forms X, V
+# and U (5), the squeeze bound and its test (3), two XLA logs (26 each) and
+# the log test (7): 67 (the division's and the selects' expansions are not
+# counted, so the bound is a lower one)
+GAMMA_FP32_INNER, GAMMA_FP32_OUTER = 48, 67
 TEMPLATE = os.path.join(ROOT, "data", "B1855+09.L-wide.PUPPI.11y.x.sum.sm")
 MAIN = dict(nchan=64, period_s=0.005, samprate_mhz=0.4096, sublen_s=60.0,
             tobs_s=1200.0, fcent=1380.0, bw=400.0, smean=0.009, dm=15.9)
+GAMMA_MAIN = dict(MAIN, sublen_s=0.1, tobs_s=2.0)
 PARITY = dict(nchan=16, period_s=0.005, samprate_mhz=0.0512, sublen_s=60.0,
               tobs_s=240.0, fcent=1380.0, bw=400.0, smean=0.009, dm=15.9)
 
@@ -629,7 +677,8 @@ class Smoke:
         self.dev = torch.device("cuda")
         self.failed = []
         self.kernels = {"rng_field": {}, "rng_flat_field": {},
-                        "fold_quantize": {}, "packed_digest": {}}
+                        "fold_quantize": {}, "packed_digest": {},
+                        "gamma_field": {}}
         self._main = None
         self.export_rates = {}  # phase 8's obs/s, beside phase 9's
         self.sup_clean = None  # phase 9's clean 1-writer sha256s and obs/s
@@ -1005,12 +1054,13 @@ class Smoke:
     def _zero_counts(self):
         from psrsigsim_torch.ops import digest
         from psrsigsim_torch.ops import fold_quantize as fq
-        from psrsigsim_torch.ops import rng_hw
+        from psrsigsim_torch.ops import gamma, rng_hw
 
         rng_hw.rng_field.launches = 0
         rng_hw.rng_flat_field.launches = 0
         fq.fold_quantize.launches = 0
         digest.packed_digest.launches = 0
+        gamma.gamma_field.launches = 0
 
     def _path(self, label, counts):
         """Record one main path's launch counts under each kernel it
@@ -1021,17 +1071,20 @@ class Smoke:
 
     def _counts(self):
         """Launches since :meth:`_zero_counts`.  The sampler's flat layout
-        (SEARCH mode) joins the dict only when it launched, so the fold
-        phases' exact comparisons fail on a stray flat launch too."""
+        (SEARCH mode) and the exact-gamma kernel join the dict only when
+        they launched, so the other phases' exact comparisons fail on a
+        stray launch of either too."""
         from psrsigsim_torch.ops import digest
         from psrsigsim_torch.ops import fold_quantize as fq
-        from psrsigsim_torch.ops import rng_hw
+        from psrsigsim_torch.ops import gamma, rng_hw
 
         counts = {"rng_field": rng_hw.rng_field.launches,
                   "fold_quantize": fq.fold_quantize.launches,
                   "packed_digest": digest.packed_digest.launches}
         if rng_hw.rng_flat_field.launches:
             counts["rng_flat_field"] = rng_hw.rng_flat_field.launches
+        if gamma.gamma_field.launches:
+            counts["gamma_field"] = gamma.gamma_field.launches
         return counts
 
     def main_path(self):
@@ -4422,6 +4475,347 @@ class Smoke:
                                  f"down: {events}")
         self._fleet_audit("(d) elastic", "elastic", codes, served)
 
+    # -- 19 -----------------------------------------------------------------
+    def exact_gamma(self):
+        """The exact-gamma χ² branch (see the module docstring)."""
+        import shutil
+        import tempfile
+
+        import numpy as np
+
+        from psrsigsim_torch.ops import gamma, stats
+        from psrsigsim_torch.simulate.pipeline import fused_route
+        from psrsigsim_torch.utils import fold_in, key, stage_key
+
+        torch = self.torch
+        dev = self.dev
+        for k in ("PSS_SAMPLER", "PSS_EXACT_CHI2", "PSS_EXACT_SHIFT"):
+            os.environ.pop(k, None)
+        ens = geometry(GAMMA_MAIN, dev)
+        cfg = ens.cfg
+        C, L = cfg.meta.nchan, cfg.nsamp
+        nblk = -(-L // stats.SEQ_RNG_BLOCK)
+        log(f"  Nfold {cfg.nfold:g} (noise df {cfg.noise_df:g}), {C} x {L} "
+            f"({cfg.nsub} x {cfg.nph}); fused_route {fused_route(cfg, dev)}")
+        if cfg.nfold >= stats.CHI2_WH_MIN_DF or fused_route(cfg, dev):
+            raise AssertionError("phase 19's geometry must take the exact "
+                                 "branch on the unfused route")
+
+        # (a) K9 against its plain version on the card, bit for bit: the
+        # (observation, channel, block) keys of a whole 128-observation
+        # chunk's pulse field, and a shape-level draw
+        obs = stage_key(key(0, dev), "user",
+                        torch.arange(MAIN_NOBS, device=dev))
+        rows = fold_in(fold_in(stage_key(obs, "pulse")[:, None, :],
+                               torch.arange(C, device=dev))[..., None, :],
+                       torch.arange(nblk, device=dev)).reshape(-1, 2)
+        R, n = rows.shape[0], stats.SEQ_RNG_BLOCK
+        worst, passes, plain_full_ms = 0.0, {}, None
+        for alpha in GAMMA_ALPHAS:
+            a = torch.full((R,), alpha, device=dev)
+            got = gamma.gamma_field(rows, a, n, scale=2.0)
+            counts = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            diff = 0
+            for r0 in range(0, R, GAMMA_PLAIN_ROWS):
+                want = stats.gamma_plain(rows[r0:r0 + GAMMA_PLAIN_ROWS],
+                                         a[r0:r0 + GAMMA_PLAIN_ROWS], n,
+                                         scale=2.0, counts=counts)
+                part = got[r0:r0 + GAMMA_PLAIN_ROWS]
+                diff += int((part.view(torch.int32)
+                             != want.view(torch.int32)).sum())
+                worst = max(worst, float((part - want).abs().max()))
+                del want
+            torch.cuda.synchronize()
+            t_plain = (time.perf_counter() - t0) * 1e3
+            passes[alpha] = {k: v / (R * n) for k, v in counts.items()}
+            if alpha == 10.0:
+                plain_full_ms = t_plain
+            log(f"  (a) K9 vs gamma_plain, alpha {alpha:g}, {R} x {n} "
+                f"(obs, channel, block) rows: {diff} of {R * n} differ; "
+                f"passes per element {passes[alpha]}; plain {t_plain:.0f} ms")
+            if diff:
+                raise AssertionError(f"K9 differs from gamma_plain at alpha "
+                                     f"{alpha}")
+            del got
+        # (the last is the receiver noise's form, V = v^3 at the noise df)
+        k1 = stage_key(key(5, dev), "user", 0)[None]
+        for alpha, traced, cube in ((10.0, True, False), (0.3, False, False),
+                                    (0.5, True, False),
+                                    (cfg.noise_df / 2.0, False, True)):
+            a = torch.full((1,), alpha, device=dev)
+            got = gamma.gamma_field(k1, a, C * L, scale=2.0, traced=traced,
+                                    cube=cube)
+            want = stats.gamma_plain(k1, a, C * L, traced=traced, scale=2.0,
+                                     cube=cube)
+            diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+            log(f"  (a) shape-level draw ({C} x {L} from one key), alpha "
+                f"{alpha:g} {'traced' if traced else 'static'}"
+                f"{', cube=True' if cube else ''}: {diff} differ")
+            if diff:
+                raise AssertionError("K9 differs from gamma_plain on a "
+                                     "shape-level draw")
+        self.kernels["gamma_field"]["max_abs_err"] = worst
+
+        # (b) the card draws what the host draws: one observation's field
+        one = rows[:C * nblk]
+        a = torch.full((one.shape[0],), cfg.nfold / 2.0, device=dev)
+        t0 = time.perf_counter()
+        card = stats.gamma_plain(one, a, n, scale=2.0)
+        torch.cuda.synchronize()
+        plain_one_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        host = gamma.gamma_field(one.cpu(), a.cpu(), n, scale=2.0)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        diff = int((card.cpu().view(torch.int32)
+                    != host.view(torch.int32)).sum())
+        log(f"  (b) one observation's field ({one.shape[0]} x {n}): the "
+            f"card's plain version against the host's: {diff} differ "
+            f"(card {plain_one_ms:.0f} ms, host {host_ms:.0f} ms)")
+        if diff:
+            raise AssertionError("the card's plain version differs from the "
+                                 "host's")
+
+        # (c) statistics of 1e7 draws against chi2(df)
+        from scipy import stats as sps
+
+        for df in GAMMA_STAT_DFS:
+            x = stats._exact_chi2(key(9, dev), df, (GAMMA_STAT_N,),
+                                  traced=False).double()
+            mean, var = float(x.mean()), float(x.var())
+            xs = torch.sort(x).values.cpu().numpy()
+            cdf = sps.chi2.cdf(xs, df)
+            i = np.arange(1, GAMMA_STAT_N + 1) / GAMMA_STAT_N
+            ks = float(max((i - cdf).max(), (cdf - (i - 1 / GAMMA_STAT_N)).max()))
+            se_mean = np.sqrt(2 * df / GAMMA_STAT_N)
+            se_var = np.sqrt((12 * df * (df + 4) + 2 * (2 * df) ** 2)
+                             / GAMMA_STAT_N)
+            ks_crit = 1.95 / np.sqrt(GAMMA_STAT_N)  # 0.1% level
+            log(f"  (c) df {df:g}: mean {mean:.6f} ({(mean - df) / se_mean:+.2f}"
+                f" sigma), var {var:.5f} ({(var - 2 * df) / se_var:+.2f} "
+                f"sigma), KS {ks:.3g} (0.1% critical {ks_crit:.3g})")
+            if (abs(mean - df) > 6 * se_mean or abs(var - 2 * df) > 6 * se_var
+                    or ks > ks_crit):
+                raise AssertionError(f"1e7 draws of chi2({df}) fail the "
+                                     "statistics")
+            del x
+
+        # (d) the main path at Nfold 20: run_quantized(128), chunk sizes,
+        # then iter_chunks -> the PSRFITS export with one writer
+        ens.run_quantized(8, seed=0)
+        torch.cuda.synchronize()
+        self._zero_counts()
+        t0 = time.perf_counter()
+        d, s_, o_ = ens.run_quantized(MAIN_NOBS, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = self._counts()
+        want = {"rng_field": 0, "fold_quantize": 0, "packed_digest": 0,
+                "gamma_field": 2}
+        if counts != want:
+            raise AssertionError(f"run_quantized({MAIN_NOBS}) at Nfold 20: "
+                                 f"launches {counts}, expected {want}")
+        self.kernels["gamma_field"]["launches"] = counts["gamma_field"]
+        self._path(f"19 run_quantized({MAIN_NOBS}) Nfold 20", counts)
+        rate_d = MAIN_NOBS / wall
+        half = np.concatenate([c[1][0] for c in ens.iter_chunks(
+            MAIN_NOBS, chunk_size=MAIN_NOBS // 2, seed=0, quantized=True,
+            byte_order="little")])
+        same = bool(np.array_equal(half, d.cpu().numpy()))
+        log(f"  (d) run_quantized({MAIN_NOBS}) at Nfold 20: {wall:.3f} s = "
+            f"{rate_d:.1f} obs/s; launches {counts}; codes of chunk sizes "
+            f"{MAIN_NOBS // 2} and {MAIN_NOBS} equal: {same}")
+        if not same:
+            raise AssertionError("codes differ between chunk sizes")
+        del d, s_, o_, half
+        self.device_breakdown("(d) run_quantized(128) at Nfold 20",
+                              lambda: ens.run_quantized(MAIN_NOBS, seed=0))
+        from psrsigsim_torch.io import export_ensemble_psrfits
+
+        build = os.path.join(ROOT, "build")
+        os.makedirs(build, exist_ok=True)
+        work = tempfile.mkdtemp(prefix="gamma-export-", dir=build)
+        try:
+            self._zero_counts()
+            t0 = time.perf_counter()
+            paths = export_ensemble_psrfits(
+                ens, GAMMA_EXPORT_NOBS, work, TEMPLATE, ens.pulsar, seed=0,
+                chunk_size=MAIN_NOBS, writers=1)
+            wall = time.perf_counter() - t0
+            counts = self._counts()
+            nbytes = sum(os.path.getsize(p) for p in paths)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        want = {"rng_field": 0, "fold_quantize": 0, "packed_digest": 0,
+                "gamma_field": 4}
+        self._path(f"19 export({GAMMA_EXPORT_NOBS}) Nfold 20", counts)
+        log(f"  (d) iter_chunks -> export of {GAMMA_EXPORT_NOBS} at Nfold 20, "
+            f"writers=1: {len(paths)} files, {nbytes / 1e9:.3f} GB in "
+            f"{wall:.3f} s = {GAMMA_EXPORT_NOBS / wall:.1f} obs/s; launches "
+            f"{counts}")
+        if counts != want or len(paths) != GAMMA_EXPORT_NOBS:
+            raise AssertionError(f"export: launches {counts}, expected {want}")
+
+        # (e) BASELINE config 1 unchanged under PSS_EXACT_CHI2=1
+        main = self.main_ensemble()
+        os.environ["PSS_EXACT_CHI2"] = "1"
+        try:
+            if fused_route(main.cfg, dev):
+                raise AssertionError("the hatch must leave the fused route")
+            main.run_quantized(8, seed=0)
+            torch.cuda.synchronize()
+            self._zero_counts()
+            t0 = time.perf_counter()
+            d, _, _ = main.run_quantized(MAIN_NOBS, seed=0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = self._counts()
+        finally:
+            del os.environ["PSS_EXACT_CHI2"]
+        self._path(f"19 run_quantized({MAIN_NOBS}) config 1 hatch", counts)
+        log(f"  (e) config 1 (Nfold {main.cfg.nfold:g}) under PSS_EXACT_CHI2=1:"
+            f" run_quantized({MAIN_NOBS}) {wall:.3f} s = "
+            f"{MAIN_NOBS / wall:.1f} obs/s; launches {counts}")
+        want = {"rng_field": 0, "fold_quantize": 0, "packed_digest": 0,
+                "gamma_field": 2}
+        if counts != want:
+            raise AssertionError(f"hatch run_quantized: launches {counts}, "
+                                 f"expected {want}")
+        if d.shape[0] != MAIN_NOBS:
+            raise AssertionError("hatch run_quantized: wrong shape")
+        del d
+
+        # (f) one object-oriented observation at Nfold 20, card and host
+        flows = {}
+        for where in (dev, "cpu"):
+            self._zero_counts()
+            flows[str(where)] = self._gamma_oo(where)
+            if where == dev:
+                counts = self._counts()
+        self._path("19 object-oriented Nfold 20", counts)
+        a, b = flows[str(dev)], flows["cpu"]
+        pulses_equal = torch.equal(a["pulses"].cpu(), b["pulses"])
+        obs_err = float((a["obs"].cpu() - b["obs"]).abs().max()
+                        / b["obs"].abs().max())
+        log(f"  (f) make_pulses -> disperse -> observe(noise) at Nfold "
+            f"{a['nfold']:g}, {tuple(a['obs'].shape)}: pulses card == host "
+            f"{pulses_equal}; observed max |card-host| / peak {obs_err:.3g}; "
+            f"launches {counts}")
+        if (not pulses_equal or obs_err > 2e-5 or counts.get("gamma_field") != 2
+                or not bool(torch.isfinite(a["obs"]).all())):
+            raise AssertionError("the object-oriented flow at Nfold 20 failed")
+
+        # (g) SEARCH under the hatch at config 4's geometry
+        from psrsigsim_torch.simulate import single_pipeline
+
+        cfg4, prof4, nn4 = config4()
+        C4, L4 = cfg4.meta.nchan, cfg4.nsamp
+        hk = stage_key(key(0, "cpu"), "user", torch.arange(GAMMA_SEARCH_NOBS))
+        freqs = torch.as_tensor(np.asarray(cfg4.meta.dat_freq_mhz(),
+                                           np.float32), device=dev)
+        def search():
+            return single_pipeline(
+                hk, torch.full((GAMMA_SEARCH_NOBS,), CONFIG4["dm"]),
+                torch.full((GAMMA_SEARCH_NOBS,), nn4, dtype=torch.float32),
+                torch.as_tensor(prof4, device=dev), cfg4, freqs=freqs,
+                chan_ids=torch.arange(C4))
+
+        os.environ["PSS_EXACT_CHI2"] = "1"
+        try:
+            search()  # warm: the timed call below is not a first call
+            torch.cuda.synchronize()
+            self._zero_counts()
+            t0 = time.perf_counter()
+            block = search()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = self._counts()
+        finally:
+            del os.environ["PSS_EXACT_CHI2"]
+        self._path(f"19 single_pipeline({GAMMA_SEARCH_NOBS}) hatch", counts)
+        live = 1.0 - cfg4.n_null / cfg4.nsub
+        expect = (cfg4.draw_norm * prof4.astype(np.float64).mean(axis=1) * live
+                  * (cfg4.nsub * cfg4.nph / L4) + cfg4.noise_df * nn4)
+        rel = np.abs(block.double().mean(dim=(0, 2)).cpu().numpy() / expect
+                     - 1)
+        log(f"  (g) single_pipeline({GAMMA_SEARCH_NOBS}) under the hatch at "
+            f"{C4} x {L4}: {wall:.3f} s = {GAMMA_SEARCH_NOBS / wall:.2f} obs/s "
+            f"(after a warm call); launches {counts}; channel means max rel "
+            f"dev {rel.max():.3g}")
+        want = {"rng_field": 0, "fold_quantize": 0, "packed_digest": 0,
+                "gamma_field": 3}
+        if (counts != want or rel.max() > 0.02
+                or not bool(torch.isfinite(block).all())):
+            raise AssertionError("SEARCH under the hatch failed")
+        del block
+
+        # (h) K9's time at the main path's shape (one chunk's pulse field)
+        a = torch.full((R,), cfg.nfold / 2.0, device=dev)
+        ms = cuda_time_ms(lambda: gamma.gamma_field(rows, a, n, scale=2.0), 5)
+        alphas = torch.full((R, n), cfg.nfold / 2.0, device=dev)
+        library_ms = cuda_time_ms(lambda: torch._standard_gamma(alphas), 5)
+        del alphas
+        # the threefry calls the output needs (csrc/gamma_field.cu's
+        # bound): the element's key, then its first pass's key; three a
+        # pass and one after each rejection; two an inner pass and one
+        # after each repeat; two a boost
+        p = passes[10.0]
+        calls = 1 + 3 * p["outer"] + 3 * p["inner"] + 2 * p["boost"]
+        int_ops = THREEFRY_INT_OPS * calls + 4 * (p["outer"] + p["inner"])
+        fp_ops = GAMMA_FP32_INNER * p["inner"] + GAMMA_FP32_OUTER * p["outer"] + 2
+        t_issue = (int_ops + fp_ops) * R * n / ISSUE_RATE * 1e3
+        t_bytes = (4 * R * n + R * (8 + 16)) / PEAK_BYTES_PER_S * 1e3
+        b_ms = max(t_issue, t_bytes)
+        b_by = "operations" if t_issue >= t_bytes else "bytes"
+        # the integer pipe alone (64 a clock) is no bound here: ptxas
+        # issues part of the adds as IMAD on the FMA pipe
+        parts = {"issue": t_issue, "bytes": t_bytes,
+                 "int32_pipe_alone": int_ops * R * n / RATES["int32"] * 1e3}
+        self.kernels["gamma_field"].update(
+            name="gamma_field", route="cuda",
+            source="psrsigsim_torch/csrc/gamma_field.cu",
+            replaces="psrsigsim_tpu/ops/stats.py:50 (_exact_chi2: "
+                     "jax.random.gamma, an XLA while loop, no Pallas kernel)",
+            ms=ms, plain_ms=plain_full_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=library_ms)
+        log(f"  (h) gamma_field ({R} x {n}, alpha {cfg.nfold / 2:g}): {ms:.4f} "
+            f"ms; plain {plain_full_ms:.0f} ms ({plain_one_ms:.0f} ms at one "
+            f"observation); torch._standard_gamma {library_ms:.4f} ms; "
+            f"{calls:.3f} threefry calls, {int_ops:.1f} integer and "
+            f"{fp_ops:.1f} float32 operations an element; bound {b_ms:.4f} "
+            f"ms, {b_by} at the issue limit ({fmt_parts(parts)}); K9 at "
+            f"{b_ms / ms:.1%} of it, on {self.card_line}")
+
+    def _gamma_oo(self, device):
+        """Phase 19(f): make_pulses -> ISM().disperse -> observe(noise) of
+        one fold observation at Nfold 20 and config 1's width, on
+        ``device``."""
+        from psrsigsim_torch.ism import ISM
+        from psrsigsim_torch.models.pulsar import GaussProfile, Pulsar
+        from psrsigsim_torch.models.telescope import (Backend, Receiver,
+                                                      Telescope)
+        from psrsigsim_torch.signal import FilterBankSignal
+
+        g = GAMMA_MAIN
+        with contextlib.redirect_stdout(io.StringIO()):
+            sig = FilterBankSignal(g["fcent"], g["bw"], Nsubband=g["nchan"],
+                                   sample_rate=g["samprate_mhz"], fold=True,
+                                   sublen=g["sublen_s"], device=device)
+        psr = Pulsar(g["period_s"], g["smean"], GaussProfile(width=0.05),
+                     name="P", seed=3)
+        psr.make_pulses(sig, tobs=g["tobs_s"])
+        pulses = sig.data.clone()
+        ISM().disperse(sig, dm=g["dm"])
+        tel = Telescope(100.0, area=5500.0, Tsys=35.0, name="T")
+        tel.add_system("S", Receiver(fcent=g["fcent"], bandwidth=g["bw"],
+                                     name="R", seed=4),
+                       Backend(samprate=12.5, name="B"))
+        tel.observe(sig, psr, system="S", noise=True)
+        if device != "cpu":
+            self.torch.cuda.synchronize()
+        return {"pulses": pulses, "obs": sig.data, "nfold": sig.Nfold}
+
     def run(self, with_profile=False):
         self.phase("1 card", self.card)
         built = self.phase("2 build", self.build)
@@ -4449,6 +4843,7 @@ class Smoke:
             self.phase("16 multi-pulsar ensemble", self.multipulsar)
             self.phase("17 serving", self.serving)
             self.phase("18 serving fleet", self.fleet)
+            self.phase("19 exact-gamma chi2", self.exact_gamma)
         if self.failed:
             log(f"FAILED phases: {', '.join(self.failed)}")
             return 1

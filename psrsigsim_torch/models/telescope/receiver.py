@@ -21,10 +21,11 @@ __all__ = ["Receiver", "response_from_data"]
 def _add_pow_noise_kernel(key, data, df, norm):
     # df a Python number, so the χ² routing is by value; the JAX package
     # jits this kernel with df static, and XLA compiles the draw as
-    # chi2_sample_compiled does and the scale-and-add into one FMA
-    from ...ops.stats import chi2_sample_compiled, fma
+    # chi2_sample_compiled does and the scale-and-add into one FMA (with
+    # the exact gamma's constants folded into the scale)
+    from ...ops.stats import chi2_noise_compiled
 
-    return fma(chi2_sample_compiled(key, df, tuple(data.shape)), norm, data)
+    return chi2_noise_compiled(key, df, data, norm)
 
 
 def _add_amp_noise_kernel(key, data, norm):

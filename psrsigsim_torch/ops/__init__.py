@@ -1,7 +1,8 @@
 """Device numerics of the port (counterpart: psrsigsim_tpu/ops/).
 
 Plain functions on tensors: the random fields (:mod:`.stats`, with the
-CUDA sampler kernel in :mod:`.rng_hw`), the Fourier shift (:mod:`.shift`,
+CUDA sampler kernel in :mod:`.rng_hw` and the exact-gamma kernel in
+:mod:`.gamma`), the Fourier shift (:mod:`.shift`,
 on :mod:`.dfloat`), the PSRFITS quantizer (:mod:`.quantize`), the fused
 fold → quantize → pack kernel (:mod:`.fold_quantize`), coherent
 (de)dispersion (:mod:`.shift`) and the baseband channelizer

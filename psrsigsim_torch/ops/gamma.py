@@ -1,0 +1,132 @@
+"""The exact-gamma kernel (``csrc/gamma_field.cu``): ``jax.random.gamma``'s
+draws, bit for bit, for the exact χ² branch (counterpart: the JAX
+package's ``ops/stats.py::_exact_chi2``, ``2·jax.random.gamma(key,
+df/2)``, which XLA compiles to a batched while loop, not a Pallas kernel).
+
+Rows of (key, α, n): element ``j`` of row ``r`` is ``scale`` times the
+gamma draw of key ``start + j`` of jax's split of the row key — one key
+per (channel, 4096-sample block) for the pipelines' blocked fields, one key
+with ``prod(shape)`` elements for a shape-level draw.  Marsaglia–Tsang with
+XLA's CPU arithmetic, both rejection loops per element
+(:func:`~psrsigsim_torch.ops.stats.gamma_plain` says how).
+
+* :func:`gamma_field` — the wrapper.  A CUDA tensor launches the kernel
+  (counted in ``gamma_field.launches``); a CPU tensor runs
+  :func:`~psrsigsim_torch.ops.stats.gamma_plain`, the same function in
+  torch ops.  There is no fallback from one to the other.
+
+The per-row constants ``d``, ``c`` and ``1/α`` come from
+:func:`~psrsigsim_torch.ops.stats.gamma_consts` for both, so the kernel
+and its plain version share them.  The kernel is built by :mod:`._build`
+at first use.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .stats import gamma_consts, gamma_plain, xla_tables
+
+__all__ = ["gamma_field", "gamma_plain"]
+
+# elements per pass of the plain version on the host: a span's temporaries
+# stay small (the element keys and loop state are int64 and float64)
+_CPU_SPAN = 1 << 18
+
+
+def _check(keys, alpha, n, start):
+    if keys.dim() != 2 or keys.shape[1] != 2:
+        raise ValueError(f"keys must be (rows, 2), got {tuple(keys.shape)}")
+    if alpha.shape != keys.shape[:1]:
+        raise ValueError(f"alpha must be ({keys.shape[0]},), got "
+                         f"{tuple(alpha.shape)}")
+    if alpha.device != keys.device:
+        raise ValueError("keys and alpha must lie on one device")
+    if int(n) < 0 or int(start) < 0:
+        raise ValueError(f"n={n} and start={start} must be >= 0")
+
+
+def _plain_spans(keys, alpha, n, start, scale, traced, cube):
+    """:func:`gamma_plain` over spans of at most ``_CPU_SPAN`` elements
+    (rows grouped, long rows cut): every element is the same as in one
+    pass."""
+    R = keys.shape[0]
+    out = torch.empty((R, n), dtype=torch.float32, device=keys.device)
+    rows = max(1, _CPU_SPAN // max(n, 1))
+    span = min(n, _CPU_SPAN)
+    for r in range(0, R, rows):
+        for s in range(0, n, max(span, 1)):
+            m = min(span, n - s)
+            out[r:r + rows, s:s + m] = gamma_plain(
+                keys[r:r + rows], alpha[r:r + rows], m, start + s, traced,
+                scale, cube)
+    return out
+
+
+def _lib():
+    lib = _build.library("gamma_field")
+    fn = lib.gamma_field_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def gamma_field(keys, alpha, n, start=0, scale=1.0, traced=False,
+                cube=False):
+    """``scale · jax.random.gamma`` draws for rows of (key, α, n).
+
+    Args:
+        keys: ``(R, 2)`` key data (uint32 values in an int64 tensor).
+        alpha: ``(R,)`` float32 shapes (> 0), on the keys' device.
+        n: elements a row; element ``j`` draws key ``start + j`` of the
+            row key's split.
+        start: first element of each row's stream.
+        scale: a float32 factor applied to every draw (2 for χ²).
+        traced: the JAX package's arithmetic for a traced α (an eager call,
+            a per-observation df) instead of a static one
+            (:func:`~psrsigsim_torch.ops.stats.gamma_consts`).
+        cube: return the accepted ``V = v³`` of each draw instead (rows
+            with α ≥ 1; ``scale`` unused), the factor XLA keeps apart when
+            it folds ``d`` into a constant.
+
+    Returns:
+        ``(R, n)`` float32 on the keys' device.  CUDA tensors launch the
+        kernel on the current stream; CPU tensors run the plain version.
+    """
+    n, start = int(n), int(start)
+    _check(keys, alpha, n, start)
+    dev = keys.device
+    if dev.type == "cpu":
+        if cube and not bool((alpha >= 1.0).all()):
+            raise ValueError("cube=True needs alpha >= 1 (no boost)")
+        return _plain_spans(keys, alpha, n, start, scale, traced, cube)
+    if dev.type != "cuda":
+        raise ValueError(f"gamma_field runs on cuda or cpu tensors, not {dev}")
+    R = keys.shape[0]
+    out = torch.empty((R, n), dtype=torch.float32, device=dev)
+    if R == 0 or n == 0:
+        return out
+    alpha = alpha.to(torch.float32)
+    if cube and not bool((alpha >= 1.0).all()):
+        raise ValueError("cube=True needs alpha >= 1 (no boost)")
+    _, d, c, inv_alpha = gamma_consts(alpha, traced)
+    params = torch.stack((alpha, d, c, inv_alpha), dim=1).contiguous()
+    kd = keys.to(torch.int64) & 0xFFFFFFFF
+    words = torch.where(kd >= 2**31, kd - 2**32, kd).to(torch.int32)
+    err = _lib().gamma_field_launch(
+        words.data_ptr(), params.data_ptr(), xla_tables(dev)[0].data_ptr(),
+        out.data_ptr(), R, n, start, float(scale),
+        int(bool(traced)) | (2 if cube else 0),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"gamma_field kernel launch failed: cudaError {err}")
+    _build.count_launch(gamma_field)
+    return out
+
+
+gamma_field.launches = 0

@@ -24,8 +24,13 @@ layout on the card, the blocked draws reordered elsewhere.  The
 object-oriented flow draws jax's flat
 ``random.normal`` stream over a whole ``(Nchan, Nsamp)`` block
 (``normal_sample``, ``chi2_sample``, and ``chi2_sample_compiled``, the
-arithmetic XLA compiles for the JAX package's jitted kernels).  The exact gamma sampler (static df < 50, or
-``PSS_EXACT_CHI2=1``) is not ported yet and raises.
+arithmetic XLA compiles for the JAX package's jitted kernels).  A static
+df below 50 (other than 1), and every χ² draw under ``PSS_EXACT_CHI2=1``,
+takes the exact branch: ``2·jax.random.gamma(key, df/2)``, drawn bit for
+bit (``gamma_plain``, with XLA's arithmetic for a static or a traced α)
+by the exact-gamma kernel of :mod:`.gamma` on the card, from the same
+keys the reference splits: one per (channel, block) for the blocked
+fields, one per shape-level draw.
 """
 
 from __future__ import annotations
@@ -36,11 +41,12 @@ import numpy as np
 import torch
 
 from ..utils.device import to_device
-from ..utils.rng import fold_in, randint, random_bits
+from ..utils.rng import fold_in, randint, random_bits, threefry2x32
+from ._xla_tables import _EXP2F, _POWF_LOG2, _RSQRT_TABLE
 
 __all__ = ["SEQ_RNG_BLOCK", "CHI2_WH_MIN_DF", "fma", "exp", "erf_inv",
            "uniform", "normal", "normal_sample", "chi2_sample",
-           "chi2_sample_compiled", "blocked_chan_chi2",
+           "chi2_sample_compiled", "chi2_noise_compiled", "blocked_chan_chi2",
            "blocked_chan_normal", "sampler_backend",
            "chan_chi2_field", "chan_normal_field", "FLAT_TILE",
            "FLAT_MAX_OFFSET", "flat_normal_field", "flat_chi2_field",
@@ -211,10 +217,18 @@ def uniform(key, n, minval=0.0, maxval=1.0, start=0):
     """``jax.random.uniform(key, (n,), float32, minval, maxval)`` for keys
     of shape ``(..., 2)`` -> ``(..., n)`` (elements ``start ..
     start+n-1`` of the stream)."""
-    bits = random_bits(key, n, start)
+    return _bits_uniform(random_bits(key, n, start), minval, maxval)
+
+
+def _bits_uniform(bits, minval, maxval):
+    """jax's float32 uniform of 32-bit words: the top 23 bits as a
+    mantissa in [1, 2), minus 1, scaled into ``[minval, maxval)`` by one
+    fused multiply-add (XLA drops the ``* 1 + 0`` of ``[0, 1)``)."""
     floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(_F32) - 1.0
-    lo = torch.full((), minval, dtype=_F32, device=key.device)
-    hi = torch.full((), maxval, dtype=_F32, device=key.device)
+    if minval == 0.0 and maxval == 1.0:
+        return torch.clamp_min(floats, 0.0)
+    lo = torch.full((), minval, dtype=_F32, device=bits.device)
+    hi = torch.full((), maxval, dtype=_F32, device=bits.device)
     return torch.maximum(lo, fma(floats, hi - lo, lo))
 
 
@@ -271,11 +285,264 @@ def normal_sample(key, shape):
 # -- chi-squared routing -------------------------------------------------------
 
 
-def _exact_chi2_unported(df):
-    raise NotImplementedError(
-        f"chi2 df={df}: the exact gamma sampler (static df < "
-        f"{CHI2_WH_MIN_DF:.0f}, or PSS_EXACT_CHI2=1) is not ported yet; "
-        "the port draws df=1 exactly and df >= 50 by Wilson-Hilferty")
+_THIRD = _f32(1.0 / 3.0)
+_SQUEEZE = _f32(0.0331)
+
+
+def _log0(x):
+    """:func:`_log` with XLA's ``log(0) = -inf`` (the acceptance test's
+    uniform can be 0)."""
+    return torch.where(x == 0.0, float("-inf"), _log(x))
+
+
+def _flush(x):
+    """XLA's CPU code runs with flush-to-zero: a subnormal result is 0."""
+    return torch.where(x.abs() < _FLT_MIN, torch.zeros_like(x), x)
+
+
+_TABLES = {}
+
+
+def xla_tables(dev):
+    """The host libraries' tables (:mod:`._xla_tables`) on ``dev``, made
+    once per device: glibc's powf tables as one float64 tensor
+    (``__powf_log2_data``'s 37 values, then ``__exp2f_data``'s 36: the
+    layout the exact-gamma kernel reads) and the ``rsqrtss`` estimates as
+    int64 words."""
+    dev = torch.device(dev)
+    t = _TABLES.get(dev)
+    if t is None:
+        words = [int(_RSQRT_TABLE[i:i + 4], 16)
+                 for i in range(0, len(_RSQRT_TABLE), 4)]
+        t = (torch.cat([_f64(_POWF_LOG2), _f64(_EXP2F)]).to(dev),
+             torch.tensor(words, dtype=torch.int64, device=dev))
+        _TABLES[dev] = t
+    return t
+
+
+def _rsqrt_estimate(x):
+    """x86 ``rsqrtss`` of positive normal float32 ``x``: the estimate for
+    the exponent's parity and top 10 mantissa bits from
+    :data:`._xla_tables._RSQRT_TABLE`, scaled by ``2^-(e - parity)/2``."""
+    bits = x.view(torch.int32).to(torch.int64)
+    e = (bits >> 23) - 127
+    par = e & 1
+    j = (par << 10) | ((bits >> 13) & 0x3FF)
+    y0 = (7 << 27) | (xla_tables(x.device)[1][j] << 11)
+    y0 = y0 - (((e - par) >> 1) << 23)
+    return y0.to(torch.int32).view(_F32)
+
+
+def rsqrt_xla(x):
+    """XLA CPU's float32 ``rsqrt`` of positive normal ``x``: the
+    ``rsqrtss`` estimate, then two Newton steps ``y += (-y/2)·(x·y·y - 1)``
+    with the multiply-adds XLA's code contracts, ``fma(-y/2, fma(x·y, y,
+    -1), y)``."""
+    y = _rsqrt_estimate(x)
+    for _ in range(2):
+        y = fma(y * -0.5, fma(x * y, y, -1.0), y)
+    return y
+
+
+def _two_sum(a, b):
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _split(x):
+    c = x * 134217729.0          # 2**27 + 1, Veltkamp's split
+    hi = c - (c - x)
+    return hi, x - hi
+
+
+def fma64(a, b, c):
+    """Correctly rounded float64 ``a*b + c`` from float64 operations
+    (Boldo and Melquiond's emulation: the exact product as a pair, an
+    exact sum with ``c``, the low parts added with rounding to odd, one
+    final rounding).  Finite operands without overflow or underflow."""
+    a, b, c = (torch.as_tensor(v, dtype=torch.float64) for v in (a, b, c))
+    uh = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    ul = ((ah * bh - uh) + ah * bl + al * bh) + al * bl
+    th, tl = _two_sum(c, uh)
+    v, err = _two_sum(tl, ul)
+    even = (v.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, float("inf"), float("-inf"))
+    v = torch.where((err != 0) & even, torch.nextafter(v, toward), v)
+    return th + v
+
+
+def _f64(words):
+    """float64 values of their bit patterns."""
+    return torch.from_numpy(np.array(words, np.uint64).view(np.float64))
+
+
+def powf(x, y):
+    """glibc's float32 ``powf(x, y)`` — the function XLA's CPU code calls
+    for a float32 power — for positive normal ``x`` and finite ``y > 0``
+    with ``x^y`` at most 1 (the gamma sampler's boost): float64 ``log2``
+    from its table and polynomial, times ``y``, float64 ``exp2`` from its
+    table and polynomial, each multiply-add fused as its FMA build has it
+    (:func:`fma64`), rounded to float32 and flushed as XLA's code runs
+    (:data:`._xla_tables._POWF_LOG2`)."""
+    tab = xla_tables(x.device)[0]
+    lg, ex = tab[:len(_POWF_LOG2)], tab[len(_POWF_LOG2):]
+    ix = x.to(_F32).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    tmp = (ix - 0x3F330000) & 0xFFFFFFFF
+    i = (tmp >> 19) & 15
+    top = tmp & 0xFF800000
+    iz = (ix - top) & 0xFFFFFFFF
+    k = torch.where(top >= 2**31, top - 2**32, top) >> 23
+    z = torch.where(iz >= 2**31, iz - 2**32, iz).to(torch.int32).view(
+        _F32).double()
+    invc, logc = lg[2 * i], lg[2 * i + 1]
+    r = fma64(z, invc, -1.0)
+    y0 = logc + k.double()
+    yy = fma64(r, lg[32], lg[33])
+    p = fma64(r, lg[34], lg[35])
+    r2 = r * r
+    q = fma64(r, lg[36], y0)
+    r4 = r2 * r2
+    q = fma64(r2, p, q)
+    logx = fma64(yy, r4, q)
+    ylogx = y.to(_F32).double() * logx
+    kd = ylogx + ex[32]
+    ki = kd.view(torch.int64)
+    kd = kd - ex[32]
+    r = ylogx - kd
+    t = ex[:32].view(torch.int64)[ki & 31] + ((ki & 0x1FFFF) << 47)
+    s = t.view(torch.float64)
+    zz = fma64(r, ex[33], ex[34])
+    r2 = r * r
+    yv = fma64(r, ex[35], 1.0)
+    yv = fma64(zz, r2, yv) * s
+    # y·log2(x) <= -150 is glibc's underflow branch (a zero)
+    return _flush(torch.where(ylogx <= -150.0, 0.0, yv).to(_F32))
+
+
+def gamma_consts(alpha, traced=False):
+    """Per-row constants of jax's Marsaglia–Tsang sampler for float32
+    ``alpha`` (> 0): ``(boost, d, c, inv_alpha)`` — α < 1 is boosted to
+    α + 1, ``d = α - 1/3``, ``c = (1/3) / sqrt(d)``, and ``1/α`` (of the
+    unboosted α) for the boost's power.  A static α (``traced=False``, the
+    JAX package's jitted pipelines) has its constants folded by XLA's
+    evaluator, correctly rounded; a traced one (an eager call, a
+    per-observation df) computes ``c = (1/3) · rsqrt(d)``, XLA's
+    :func:`rsqrt_xla` (psrsigsim_torch/DIVERGENCES.md P21)."""
+    alpha = alpha.to(_F32)
+    if not bool((alpha > 0).all()):
+        raise ValueError("gamma needs alpha > 0")
+    boost = alpha < 1.0
+    a = torch.where(boost, alpha + 1.0, alpha)
+    d = a - _THIRD
+    if traced:
+        c = rsqrt_xla(d) * _THIRD
+    else:
+        c = torch.full_like(d, _THIRD) / _sqrt(d)
+    return boost, d, c, torch.ones_like(alpha) / alpha
+
+
+def _tf(k0, k1, ctr):
+    """Both threefry words of counter ``ctr`` (a split key)."""
+    z = torch.zeros_like(k0)
+    return threefry2x32(k0, k1, z, z + ctr)
+
+
+def _tf_bits(k0, k1):
+    """The 32 random bits of one draw from key ``(k0, k1)``."""
+    o0, o1 = _tf(k0, k1, 0)
+    return o0 ^ o1
+
+
+def gamma_plain(keys, alpha, n, start=0, traced=False, scale=1.0,
+                cube=False, counts=None):
+    """``jax.random.gamma(key, alpha, (N,), float32)`` elements ``start ..
+    start+n-1`` for each row, times ``scale``: ``(R, n)`` float32 for keys
+    ``(R, 2)`` and float32 ``alpha`` ``(R,)`` — bit for bit, the plain
+    version of the exact-gamma kernel (``ops/gamma.py``); ``traced``
+    selects the constants of a traced α (:func:`gamma_consts`); ``cube``
+    returns the accepted ``V = v³`` instead, for rows with α ≥ 1 (the form
+    XLA folds ``d`` out of, :func:`chi2_noise_compiled`).  A ``counts``
+    dict gets the passes the draw took added to its ``"outer"``,
+    ``"inner"`` and ``"boost"`` entries (the work a kernel's bound counts).
+
+    jax splits the row key into one key per element (element ``i``'s key is
+    both threefry words of counter ``i``) and runs Marsaglia–Tsang on each
+    (``_gamma_one``): ``key, subkey = split(key)``; then rejection passes,
+    each ``key, kx, ku = split(key, 3)``, an inner ``while v <= 0`` loop of
+    ``kx, k = split(kx)``, ``x = normal(k)``, ``v = 1 + x·c``, and ``U =
+    uniform(ku)``, until ``U < 1 - 0.0331·X²`` or ``log U < X/2 + d·(1 - V
+    + log V)`` with ``X = x²``, ``V = v³``; the draw is ``d·V`` times
+    ``(1 - uniform(subkey))^(1/α)`` where α was boosted.  The arithmetic is
+    what XLA's CPU backend compiles for it (psrsigsim_torch/DIVERGENCES.md
+    P21): ``v = fma(x, c, 1)``, the
+    squeeze bound ``fma(-X·X, 0.0331, 1)``, ``log`` XLA's polynomial with
+    ``log(0) = -inf``, ``X/2 + d·s`` (the multiply-add XLA contracts there
+    is exact: ``X/2`` is), the power glibc's ``powf`` (:func:`powf`) except
+    where XLA rewrites a static power of 2 or 3 as products, subnormals
+    flushed.  Each loop runs over its still-active elements only, and a
+    split key is derived only where the draw reads it (the subkey for a
+    boosted α, the next key after a rejection, the next kx after ``v <=
+    0``): the same keys."""
+    dev = keys.device
+    R = keys.shape[0]
+    alpha = alpha.to(device=dev, dtype=_F32).reshape(R)
+    idx = torch.arange(start, start + n, dtype=torch.int64, device=dev)
+    e0, e1 = threefry2x32(keys[:, 0, None], keys[:, 1, None],
+                          idx >> 32, idx & 0xFFFFFFFF)
+    e0, e1 = e0.reshape(-1), e1.reshape(-1)
+    boost, d, c, inv_alpha = (t[:, None].expand(R, n).reshape(-1)
+                              for t in gamma_consts(alpha, traced))
+    k0, k1 = _tf(e0, e1, 0)
+    V = torch.empty(R * n, dtype=_F32, device=dev)
+    act = torch.arange(R * n, dtype=torch.int64, device=dev)
+    tally = counts if counts is not None else {}
+    for name in ("outer", "inner", "boost"):
+        tally.setdefault(name, 0)
+    while act.numel():
+        tally["outer"] += act.numel()
+        a0, a1 = k0[act], k1[act]
+        x0, x1 = _tf(a0, a1, 1)
+        ca = c[act]
+        x = torch.zeros(act.shape, dtype=_F32, device=dev)
+        v = torch.full(act.shape, -1.0, dtype=_F32, device=dev)
+        inner = torch.arange(act.numel(), dtype=torch.int64, device=dev)
+        while inner.numel():
+            tally["inner"] += inner.numel()
+            b0, b1 = x0[inner], x1[inner]
+            w0, w1 = _tf(b0, b1, 1)
+            u = _bits_uniform(_tf_bits(w0, w1), _NORMAL_LO, 1.0)
+            xi = _SQRT2 * erf_inv(u)
+            vi = fma(xi, ca[inner], 1.0)
+            x[inner], v[inner] = xi, vi
+            again = vi <= 0.0
+            inner = inner[again]
+            x0[inner], x1[inner] = _tf(b0[again], b1[again], 0)
+        X = x * x
+        Vn = (v * v) * v
+        U = _bits_uniform(_tf_bits(*_tf(a0, a1, 2)), 0.0, 1.0)
+        reject = ((U >= fma(-(X * X), _SQUEEZE, 1.0))
+                  & (_log0(U) >= X * 0.5 + d[act] * ((1.0 - Vn) + _log0(Vn))))
+        V[act] = Vn
+        act = act[reject]
+        k0[act], k1[act] = _tf(a0[reject], a1[reject], 0)
+    if cube:
+        return V.reshape(R, n)
+    out = d * V
+    b = boost.nonzero().reshape(-1)
+    if b.numel():
+        tally["boost"] += b.numel()
+        samples = 1.0 - _bits_uniform(_tf_bits(*_tf(e0[b], e1[b], 1)),
+                                      0.0, 1.0)
+        ia = inv_alpha[b]
+        pw = powf(samples, ia)
+        if not traced:  # XLA rewrites a constant power 2 or 3 as products
+            pw = torch.where(ia == 2.0, samples * samples, pw)
+            pw = torch.where(ia == 3.0, (samples * samples) * samples, pw)
+        out[b] = _flush(out[b] * pw)
+    return (out * scale).reshape(R, n)
 
 
 def _static_df(df):
@@ -301,18 +568,50 @@ def wilson_hilferty(z, df, fused=False):
     return torch.clamp_min(k * (t * (t * t)), 0.0)
 
 
-def _chi2_from_normal(z, df):
-    """χ² draws from standard normals ``z`` (``(..., C, L)``) with the
-    reference's df routing.  A df tensor has one entry per leading index of
-    ``z`` (one per observation)."""
+def _gamma_routed(df):
+    """Whether the reference draws χ²(df) through the exact gamma sampler:
+    everywhere under ``PSS_EXACT_CHI2=1`` (df = 1 and a per-observation df
+    included), else a static df below :data:`CHI2_WH_MIN_DF` other than 1
+    (reference: ``chi2_sample``)."""
     if os.environ.get("PSS_EXACT_CHI2"):
-        _exact_chi2_unported(df)
+        return True
+    static_df = _static_df(df)
+    return (static_df is not None and static_df != 1.0
+            and static_df < CHI2_WH_MIN_DF)
+
+
+def _exact_chi2(key, df, shape, traced):
+    """``2·jax.random.gamma(key, df/2, shape)`` for keys ``(..., 2)`` ->
+    ``(..., *shape)`` (reference: ``_exact_chi2``): one row of
+    ``prod(shape)`` elements per key, α = float32(df)/2; a df tensor has
+    one entry per leading index of the keys (per observation) or of a
+    prefix of them.  Drawn by :func:`~psrsigsim_torch.ops.gamma.gamma_field`
+    (the kernel on the card, :func:`gamma_plain` on the host); ``traced``
+    as there."""
+    from .gamma import gamma_field
+
+    shape = _shape(shape)
+    lead = key.shape[:-1]
+    if isinstance(df, torch.Tensor):
+        k = df.to(device=key.device, dtype=_F32)
+        k = k.reshape(k.shape + (1,) * (len(lead) - k.dim())).expand(lead)
+    else:
+        k = torch.full(lead, float(df), dtype=_F32, device=key.device)
+    alpha = (k / 2.0).reshape(-1).contiguous()
+    out = gamma_field(key.reshape(-1, 2), alpha, int(np.prod(shape)),
+                      scale=2.0, traced=traced)
+    return out.reshape(lead + shape)
+
+
+def _chi2_from_normal(z, df):
+    """χ² draws from standard normals ``z`` (``(..., C, L)``) for the df
+    the reference transforms normals for: df = 1 is ``z²``, a static df ≥
+    50 Wilson–Hilferty, a df tensor (one entry per leading index of ``z``,
+    one per observation) selects between the two."""
     static_df = _static_df(df)
     if static_df == 1.0:
         return z * z
     if static_df is not None:
-        if static_df < CHI2_WH_MIN_DF:
-            _exact_chi2_unported(static_df)
         return wilson_hilferty(z, static_df)
     k = df.to(device=z.device, dtype=_F32).reshape(
         df.shape + (1,) * (z.dim() - df.dim()))
@@ -321,8 +620,13 @@ def _chi2_from_normal(z, df):
 
 def chi2_sample(key, df, shape):
     """χ²(df) draws ``(..., *shape)`` from one key per leading index
-    (reference: ``chi2_sample``); ``shape`` an int or a tuple, drawn as
-    :func:`normal_sample` draws it."""
+    (reference: ``chi2_sample``, called eagerly); ``shape`` an int or a
+    tuple.  df = 1, df ≥ 50 and a df tensor transform the draws of
+    :func:`normal_sample`; a static df below 50, or anything under
+    ``PSS_EXACT_CHI2=1``, draws the exact gamma with the arithmetic of an
+    eager call (jax traces α: :func:`gamma_consts`)."""
+    if _gamma_routed(df):
+        return _exact_chi2(key, df, shape, traced=True)
     return _chi2_from_normal(normal_sample(key, shape), df)
 
 
@@ -334,10 +638,12 @@ def chi2_sample_compiled(key, df, shape):
     normal and ``sqrt(c)`` of Wilson–Hilferty into one float32 constant and
     contracts the add, so ``t = fma(erf_inv(u), f32(sqrt(2)·sqrt(c)),
     1 - c)``; df = 1 (``z²``) compiles to :func:`chi2_sample`'s
-    arithmetic."""
+    arithmetic; the exact gamma (a df below 50, or ``PSS_EXACT_CHI2=1``)
+    takes the constants XLA folds for a static α."""
     static_df = _static_df(df)
-    if (static_df is None or static_df == 1.0 or static_df < CHI2_WH_MIN_DF
-            or os.environ.get("PSS_EXACT_CHI2")):
+    if _gamma_routed(df):
+        return _exact_chi2(key, df, shape, traced=static_df is None)
+    if static_df is None or static_df == 1.0:
         return chi2_sample(key, df, shape)
     k = torch.tensor(static_df, dtype=_F32)
     c = 2.0 / (9.0 * k)
@@ -354,6 +660,29 @@ def chi2_sample_compiled(key, df, shape):
         key.shape[:-1] + shape)
 
 
+def chi2_noise_compiled(key, df, data, norm):
+    """``data + χ²(df)·norm`` with the arithmetic XLA compiles for the JAX
+    package's ``Receiver._add_pow_noise_kernel`` (jitted, df static): the
+    scale-and-add is one fused multiply-add, ``fma(χ², norm, data)``.  An
+    exact-gamma draw of α = df/2 ≥ 1 is ``(d·V)·2``, and there XLA folds
+    the constants into the scalar, ``fma(V, f32(norm·f32(2d)), data)``;
+    below α = 1 the boost stands between them and only the 2 moves, which
+    changes no bit."""
+    static_df = _static_df(df)
+    shape = tuple(data.shape)
+    if (static_df is not None and static_df >= 2.0
+            and _gamma_routed(static_df)):
+        from .gamma import gamma_field
+
+        alpha = torch.full((1,), static_df, dtype=_F32) / 2.0
+        d = gamma_consts(alpha)[1]
+        c = float(torch.tensor(norm, dtype=_F32) * (d * 2.0))
+        v = gamma_field(key.reshape(-1, 2), alpha.to(key.device),
+                        int(np.prod(shape)), cube=True)
+        return fma(v.reshape(key.shape[:-1] + shape), c, data)
+    return fma(chi2_sample_compiled(key, df, shape), norm, data)
+
+
 def blocked_chan_normal(key, chan_ids, t0, length, block=SEQ_RNG_BLOCK):
     """Blocked threefry normal draws (reference: ``blocked_chan_normal``):
     standard normals for global span ``[t0, t0+length)`` of every channel,
@@ -367,6 +696,16 @@ def blocked_chan_normal(key, chan_ids, t0, length, block=SEQ_RNG_BLOCK):
 def _blocked_chan_draw(key, chan_ids, t0, length, block, transform):
     """``transform(u)`` of the uniform (-1, 1) draws behind
     :func:`blocked_chan_normal`, over the same blocks and span."""
+    kb, off = _block_keys(key, chan_ids, t0, length, block)
+    z = _from_uniform(kb, block, transform)                      # (..., C, nblk, block)
+    z = z.reshape(z.shape[:-2] + (z.shape[-2] * block,))
+    return z[..., off:off + length]
+
+
+def _block_keys(key, chan_ids, t0, length, block):
+    """The (channel, global block) keys ``(..., C, nblk, 2)`` covering the
+    global span ``[t0, t0+length)``, and the span's offset in the first
+    block."""
     t0 = int(t0)
     b0 = t0 // block
     off = t0 - b0 * block
@@ -374,9 +713,18 @@ def _blocked_chan_draw(key, chan_ids, t0, length, block, transform):
     chan_ids = to_device(torch.as_tensor(chan_ids, dtype=torch.int64), key.device)
     ck = fold_in(key[..., None, :], chan_ids)                    # (..., C, 2)
     blocks = torch.arange(b0, b0 + nblk, dtype=torch.int64, device=key.device)
-    kb = fold_in(ck[..., None, :], blocks)                       # (..., C, nblk, 2)
-    z = _from_uniform(kb, block, transform)                      # (..., C, nblk, block)
-    z = z.reshape(z.shape[:-2] + (nblk * block,))
+    return fold_in(ck[..., None, :], blocks), off                # (..., C, nblk, 2)
+
+
+def _blocked_chan_gamma(key, chan_ids, df, t0, length, block):
+    """Exact-gamma χ² fields over the blocks of :func:`blocked_chan_normal`:
+    each (channel, global block) key draws ``chi2_sample(k, df, (block,))``
+    through the gamma sampler, as the reference's blocked draw does; a
+    static df takes XLA's folded constants, a df tensor (one per leading
+    index of the keys) the traced ones."""
+    kb, off = _block_keys(key, chan_ids, t0, length, block)
+    z = _exact_chi2(kb, df, (block,), traced=isinstance(df, torch.Tensor))
+    z = z.reshape(z.shape[:-2] + (z.shape[-2] * block,))
     return z[..., off:off + length]
 
 
@@ -385,8 +733,13 @@ def blocked_chan_chi2(key, chan_ids, df, t0, length, block=SEQ_RNG_BLOCK):
     tensor (one per observation, the reference's traced df) takes the
     arithmetic XLA compiles for it: ``sqrt(2)`` of the normal folded into
     Wilson–Hilferty's ``sqrt(c)``, the add fused, ``t = fma(erf_inv(u),
-    f32(sqrt(2)·sqrt(c)), 1 - c)``, and ``z²`` where df = 1."""
-    if not isinstance(df, torch.Tensor) or os.environ.get("PSS_EXACT_CHI2"):
+    f32(sqrt(2)·sqrt(c)), 1 - c)``, and ``z²`` where df = 1.  A static df
+    below 50 (other than 1), or any df under ``PSS_EXACT_CHI2=1``, draws
+    the exact gamma of each (channel, block) key instead
+    (:func:`_blocked_chan_gamma`)."""
+    if _gamma_routed(df):
+        return _blocked_chan_gamma(key, chan_ids, df, t0, length, block)
+    if not isinstance(df, torch.Tensor):
         return _chi2_from_normal(
             blocked_chan_normal(key, chan_ids, t0, length, block), df)
     e = _blocked_chan_draw(key, chan_ids, t0, length, block, erf_inv)
@@ -407,7 +760,8 @@ def sampler_backend(device):
     :mod:`.rng_hw`) or ``"threefry"`` (the blocked draws above).
 
     * ``PSS_SAMPLER=threefry`` or ``PSS_SAMPLER=hw`` forces one;
-    * ``PSS_EXACT_CHI2=1`` forces threefry (where the exact sampler raises);
+    * ``PSS_EXACT_CHI2=1`` forces threefry, whose χ² fields are then the
+      exact gamma draws (:func:`blocked_chan_chi2`);
     * otherwise ``auto``: ``hw`` on a CUDA device, threefry elsewhere — as
       the reference picks its hardware sampler only on a TPU.
 

@@ -116,16 +116,17 @@ def _split_packed_chunk(packed, nbin):
 def _check_hetero_nfolds(nfolds):
     """The heterogeneous pipeline draws its χ² df (= Nfold per pulsar) per
     observation, through Wilson–Hilferty: refuse a population outside its
-    validity domain when it is staged (reference: ``_check_hetero_nfolds``)."""
+    validity domain when it is staged, unless ``PSS_EXACT_CHI2=1`` draws
+    the exact gamma (reference: ``_check_hetero_nfolds``)."""
     import os
 
     if not os.environ.get("PSS_EXACT_CHI2") and np.min(nfolds) < CHI2_WH_MIN_DF:
         raise ValueError(
             f"heterogeneous ensemble has Nfold={float(np.min(nfolds)):.1f} "
-            f"< {CHI2_WH_MIN_DF:.0f}: the per-pulsar chi2 draws use the "
+            f"< {CHI2_WH_MIN_DF:.0f}: the traced-df chi2 draws use the "
             "Wilson-Hilferty approximation, only valid for large df. Use "
-            "longer subintegrations (the exact gamma sampler is not "
-            "ported).")
+            "longer subintegrations, or export PSS_EXACT_CHI2=1 for the "
+            "exact (slower) gamma sampler.")
     return nfolds
 
 

@@ -32,7 +32,7 @@ from ..ops.fold_quantize import fold_quantize
 from ..ops.rng_hw import seed_words
 from ..ops.shift import (coherent_dedisperse, coherent_dedisperse_os,
                          fourier_shift, plan_dedisperse_os)
-from ..ops.stats import (CHI2_WH_MIN_DF, _exact_chi2_unported,
+from ..ops.stats import (CHI2_WH_MIN_DF,
                          _hw_chi2_mode, chan_chi2_field, flat_chi2_field,
                          flat_chi2_ok, flat_normal_field, sampler_backend,
                          uniform)
@@ -294,7 +294,7 @@ def _hetero_df_guard(nfolds):
             f"through the Wilson-Hilferty approximation — only valid for "
             f"Nfold >= {CHI2_WH_MIN_DF:.0f} (or exactly 1); got "
             f"Nfold={float(bad.min()):g}. Use longer subintegrations "
-            f"(the exact gamma sampler, PSS_EXACT_CHI2=1, is not ported).")
+            f"or export PSS_EXACT_CHI2=1 for the exact gamma sampler.")
 
 
 def fold_pipeline_hetero(key, dm, noise_norm, nfold, draw_norm, profiles, cfg,
@@ -315,7 +315,9 @@ def fold_pipeline_hetero(key, dm, noise_norm, nfold, draw_norm, profiles, cfg,
     axes (e.g. ``(P, 1, Nchan, Nph)`` for P pulsars × E epochs).  The
     radiometer df is ``nfold`` (receiver.py:163-164).  Both χ² fields take
     the per-observation df: on the card the sampler's ``chi2_sel`` mode.
-    Nfold below 50 (other than 1) raises ``ValueError``.
+    Nfold below 50 (other than 1) raises ``ValueError``, unless
+    ``PSS_EXACT_CHI2=1`` draws every field through the exact gamma sampler
+    (one α per observation).
 
     Returns ``(..., Nchan, nsub*Nph)`` float32 blocks.
     """
@@ -377,14 +379,20 @@ def fold_subints(block, nsub, nph):
 def fused_route(cfg, device, null_frac=None):
     """Whether the fold → quantize → pack body runs as the one fused kernel
     (:func:`fold_pipeline_quantized`): on a CUDA device, with the ``hw``
-    sampler, in envelope mode and without nulling.  Decided from the
-    configuration alone, before anything is launched; the threefry parity
-    sampler (``PSS_SAMPLER=threefry``), ``PSS_EXACT_SHIFT=1`` and the CPU
-    keep the unfused path.  A scenario stack does not change the route: the
-    kernel takes its factors."""
+    sampler, in envelope mode, without nulling, and with both χ² dfs (the
+    pulse's Nfold and the noise's) in the sampler's modes.  Decided from
+    the configuration alone, before anything is launched; the threefry
+    parity sampler (``PSS_SAMPLER=threefry``), ``PSS_EXACT_SHIFT=1``, the
+    CPU, and a df the reference draws through the exact gamma sampler (a
+    static df below 50 other than 1; ``PSS_EXACT_CHI2=1`` selects threefry)
+    keep the unfused path, whose fields come from ``chan_chi2_field``.  A
+    scenario stack does not change the route: the kernel takes its
+    factors."""
     return (torch.device(device).type == "cuda"
             and sampler_backend(device) == "hw"
-            and cfg.shift_mode == "envelope" and null_frac is None)
+            and cfg.shift_mode == "envelope" and null_frac is None
+            and _hw_chi2_mode(cfg.nfold) is not None
+            and _hw_chi2_mode(cfg.noise_df) is not None)
 
 
 def fold_pipeline_quantized(key, dm, noise_norm, profiles, cfg, freqs=None,
@@ -413,7 +421,10 @@ def fold_pipeline_quantized(key, dm, noise_norm, profiles, cfg, freqs=None,
     modes = (_hw_chi2_mode(cfg.nfold), _hw_chi2_mode(cfg.noise_df))
     for df, mode in zip((cfg.nfold, cfg.noise_df), modes):
         if mode is None:
-            _exact_chi2_unported(df)
+            raise ValueError(
+                f"chi2 df={df}: the fused kernel draws df=1 or df >= "
+                f"{CHI2_WH_MIN_DF:.0f}; this df takes the exact gamma "
+                "sampler on the unfused path (see fused_route)")
     nchan = f.profiles.shape[0]
     # the seed words of both stages and their dfs cross in one copy each
     seeds = to_device(seed_words(torch.stack([f.kp, f.kn]).reshape(2, -1, 2)),

@@ -158,6 +158,13 @@ def _flows(pkg):
                           ret_resampsig=True)
     out["int8"] = host(res)
     out["int8_sig"] = host(sig.data)
+
+    # Nfold = 0.1 s / 4.57 ms < 50: the exact gamma branch
+    psr = P.Pulsar(0.00457, 0.03, P.GaussProfile(), seed=0)
+    sig = S.FilterBankSignal(1400.0, 400.0, Nsubband=4, sample_rate=0.2048,
+                             fold=True, sublen=0.1, **kw)
+    psr.make_pulses(sig, tobs=0.2)
+    out["gamma_pulses"] = host(sig.data)
     return out
 
 
@@ -404,18 +411,18 @@ def test_signal_state_and_device():
     assert float(sig.data.sum()) == 64.0
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(ref, port):
+    """``Signal()`` and ``null(length=)`` raise; the exact-gamma branch
+    this test once held to a raise (``make_pulses`` at Nfold = 0.1 s /
+    4.57 ms < 50) now draws the JAX package's pulses, bit for bit where
+    they are normal numbers (``_within_ulps`` with 0 ulp)."""
     from psrsigsim_torch.pulsar import GaussProfile, Pulsar
     from psrsigsim_torch.signal import FilterBankSignal, Signal
 
     with pytest.raises(NotImplementedError):
         Signal()
     psr = Pulsar(0.00457, 0.03, GaussProfile(), seed=0)
-    sig = FilterBankSignal(1400.0, 400.0, Nsubband=4, sample_rate=0.2048,
-                           fold=True, sublen=0.1, device="cpu")
-    # Nfold = 0.1 s / 4.57 ms < 50: the exact-gamma branch is not ported
-    with pytest.raises(NotImplementedError):
-        psr.make_pulses(sig, tobs=0.2)
+    _within_ulps(port["gamma_pulses"], ref["gamma_pulses"], 0)
     sig = FilterBankSignal(1400.0, 400.0, Nsubband=4, sample_rate=0.2048,
                            fold=True, sublen=1.0, device="cpu")
     psr.make_pulses(sig, tobs=2.0)

@@ -80,6 +80,15 @@ def _child(out):
         res[f"hw{i}"] = np.asarray(rng_pallas.hw_chan_field(
             k7, 8, df, 4096, mode=mode, nchan=12, length=5000,
             interpret=True))
+    # the exact-gamma branch (a small df; anything under the hatch), jitted
+    # with df static as the pipelines draw it
+    k0 = jax.random.key(0)
+    res["exact_small_df"] = np.asarray(jax.jit(
+        lambda k: rstats.chan_chi2_field(k, jnp.arange(2), 10.0, 0, 16))(k0))
+    os.environ["PSS_EXACT_CHI2"] = "1"
+    res["exact_hatch_1"] = np.asarray(jax.jit(
+        lambda k: rstats.chan_chi2_field(k, jnp.arange(2), 1.0, 0, 16))(k0))
+    del os.environ["PSS_EXACT_CHI2"]
     np.savez(out, **res)
 
 
@@ -268,14 +277,19 @@ def test_hw_sampler_on_cpu_routes_through_plain_version(monkeypatch):
     assert torch.equal(got, want)
 
 
-def test_exact_gamma_branch_is_not_ported(monkeypatch):
+def test_exact_gamma_branch_is_not_ported(ref, monkeypatch):
+    """The two calls this test once held to ``NotImplementedError`` (named
+    for it): a small static df, and df = 1 under ``PSS_EXACT_CHI2=1``, now
+    draw the exact gamma branch, bit for bit the JAX package's."""
     monkeypatch.setenv("PSS_SAMPLER", "threefry")
     k = rng.key(0, device=CPU)
-    with pytest.raises(NotImplementedError):
-        stats.chan_chi2_field(k, torch.arange(2), 10.0, 0, 16)
+    got = stats.chan_chi2_field(k, torch.arange(2), 10.0, 0, 16).numpy()
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  ref["exact_small_df"].view(np.int32))
     monkeypatch.setenv("PSS_EXACT_CHI2", "1")
-    with pytest.raises(NotImplementedError):
-        stats.chan_chi2_field(k, torch.arange(2), 1.0, 0, 16)
+    got = stats.chan_chi2_field(k, torch.arange(2), 1.0, 0, 16).numpy()
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  ref["exact_hatch_1"].view(np.int32))
 
 
 def test_rng_field_checks_arguments():
