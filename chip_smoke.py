@@ -247,12 +247,41 @@ PSS_EXACT_CHI2=1 takes.  Phases:
    geometry, a batch of 4 (3 launches, channel means within 2%); (h) the
    kernel's time at the main path's shape (one chunk's field) against its
    bound at the issue limit, its plain version's time, and
-   torch._standard_gamma's at the same shape.
+   torch._standard_gamma's at the same shape;
+20. meshes and sequence sharding (psrsigsim_torch.parallel: make_mesh,
+   make_seq_mesh, make_obs_seq_mesh), every mesh built from repeated cuda:0
+   positions, so the shards run one after another on the one card: what
+   the sharding costs, not a speed-up.  (a) seq_sharded_search at BASELINE
+   config 4 (64 x 819,200, 20% nulled, DM 15.9) over n = 1, 2, 4, 8 and 16
+   shards (16: 51,200-sample slabs, not whole RNG blocks), in envelope and
+   fft mode: the envelope mode bit-equal to single_pipeline for every n,
+   the fft mode (two all_to_all transposes around the shift) bit-equal or
+   within 1e-5 of the stream's l2 (logged which); the sampler's flat layout
+   launched twice a shard and its rows layout once, ms per n; (b)
+   seq_sharded_search_ensemble with 16 observations on (obs, seq) meshes
+   (1, 1), (2, 2), (4, 1) and (1, 4), bit-equal to single_pipeline(16),
+   obs/s beside phase 13's; (c) BASELINE config 3 (2 x 4,000,000, DM 13.3):
+   each slab's normals equal baseband_pipeline's flat stream,
+   seq_sharded_baseband and seq_sharded_dedisperse at n = 1 (the full
+   circular filter) and n = 2 with a 1,048,576-sample halo (a 2^22 block),
+   the truncation error of n = 2 against n = 1 logged, and n = 2 against
+   the same call on the host (PSS_SAMPLER=hw) within rtol 1e-5 plus 1e-5
+   of the peak; (d) BASELINE config 1: FoldEnsemble over (obs, chan) meshes
+   (1, 1), (2, 1), (1, 2), (2, 2) and (1, 8), run_quantized(128)'s codes,
+   DAT_SCL and DAT_OFFS and run(16)'s floats bit-equal to the mesh-free
+   run, the fused kernel launched exactly once a position, and a
+   256-observation export (one writer) on (2, 2) byte-identical to the
+   mesh-free one; (e) the bench MC study on (4, 1), config 5's 128 pulsars
+   x 2 epochs on (2, 2) and a 128-record corpus on (2, 1), each
+   bit-identical to its mesh-free run, and (a) under PSS_EXACT_CHI2=1 at
+   n = 1 and 2 (the exact-gamma kernel three times a shard), bit-equal;
+   (f) a (1, 16) mesh, 4 channels a chan shard, raises the 8-channel-group
+   rule.
 
 The line before the last is one JSON object with each kernel's launches
 (counted in the main path's run: phases 5, 13 and 19; every path's
-count under ``launches_by_path``: phases 5, 9, 13, 15, 16, 17, 18 and
-19, the fleet's read from its replicas' /healthz), error against
+count under ``launches_by_path``: phases 5, 9, 13, 15, 16, 17, 18, 19
+and 20, the fleet's read from its replicas' /healthz), error against
 its plain version, times and bound.
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of one
@@ -438,6 +467,18 @@ THREEFRY_INT_OPS = 73
 # the log test (7): 67 (the division's and the selects' expansions are not
 # counted, so the bound is a lower one)
 GAMMA_FP32_INNER, GAMMA_FP32_OUTER = 48, 67
+# phase 20: meshes of repeated cuda:0 positions.  (a) seq_sharded_search at
+# config 4 over n shards (16: 51,200-sample slabs, not whole RNG blocks);
+# (b) 16 observations over (obs, seq) meshes; (c) config 3 at n = 2 with a
+# halo that fits its 2,000,000-sample slab (block 2^22); (d) config 1 over
+# (obs, chan) meshes; (e) the study, config 5 and a corpus
+SEQ_NS = (1, 2, 4, 8, 16)
+SEQ_ENS_NOBS = 16
+SEQ_ENS_SHAPES = ((1, 1), (2, 2), (4, 1), (1, 4))
+BASEBAND_HALO = 1_048_576
+FOLD_MESHES = ((1, 1), (2, 1), (1, 2), (2, 2), (1, 8))
+MESH_MC_TRIALS = 256
+MESH_DATASET_SPEC = dict(DATASET_SPEC, n_records=128)
 TEMPLATE = os.path.join(ROOT, "data", "B1855+09.L-wide.PUPPI.11y.x.sum.sm")
 MAIN = dict(nchan=64, period_s=0.005, samprate_mhz=0.4096, sublen_s=60.0,
             tobs_s=1200.0, fcent=1380.0, bw=400.0, smean=0.009, dm=15.9)
@@ -478,10 +519,10 @@ def scenario_params(n, stack=SCEN_STACK, seed=12):
     return {k: v for k, v in every.items() if k in names}
 
 
-def geometry(g, device, scenario=None):
+def geometry(g, device, scenario=None, mesh=None):
     """BASELINE config 1's objects (bench.py config1_fold64 with the J1713
     template and the TestScope/TestSys telescope), at the widths of ``g``,
-    with an optional scenario stack."""
+    with an optional scenario stack, on ``device`` or over ``mesh``."""
     import numpy as np
 
     from psrsigsim_torch.data import data_path
@@ -504,6 +545,9 @@ def geometry(g, device, scenario=None):
     tel.add_system("TestSys", Receiver(fcent=g["fcent"], bandwidth=g["bw"],
                                        name="TestRCVR"),
                    Backend(samprate=12.5, name="TestBack"))
+    if mesh is not None:
+        return FoldEnsemble(sig, psr, tel, "TestSys", scenario=scenario,
+                            mesh=mesh)
     return FoldEnsemble(sig, psr, tel, "TestSys", device=device,
                         scenario=scenario)
 
@@ -4816,6 +4860,456 @@ class Smoke:
             self.torch.cuda.synchronize()
         return {"pulses": pulses, "obs": sig.data, "nfold": sig.Nfold}
 
+    # -- 20 -----------------------------------------------------------------
+    def _sync(self):
+        if self.dev.type == "cuda":
+            self.torch.cuda.synchronize()
+
+    def _expect(self, label, want):
+        """The launches since :meth:`_zero_counts` must be ``want`` (the
+        kernels it omits: none); recorded under ``label``."""
+        counts = self._counts()
+        full = {"rng_field": 0, "fold_quantize": 0, "packed_digest": 0}
+        full.update(want)
+        full = {k: v for k, v in full.items()
+                if v or k in ("rng_field", "fold_quantize", "packed_digest")}
+        if counts != full:
+            raise AssertionError(f"{label}: launches {counts}, expected {full}")
+        self._path(label, counts)
+        return counts
+
+    def _timed(self, fn):
+        """``fn()`` once, after the card is idle: ``(result, seconds)``."""
+        self._sync()
+        t0 = time.perf_counter()
+        out = fn()
+        self._sync()
+        return out, time.perf_counter() - t0
+
+    def meshes(self):
+        """Meshes and sequence sharding on one card (see the module
+        docstring): every mesh of repeated cuda:0 positions, so the shards
+        run in series — the cost of sharding, not a speed-up."""
+        for k in ("PSS_SAMPLER", "PSS_EXACT_SHIFT", "PSS_EXACT_CHI2"):
+            os.environ.pop(k, None)
+        t0 = time.perf_counter()
+        self._mesh_seq_search()
+        self._mesh_obs_seq()
+        self._mesh_baseband()
+        self._mesh_fold()
+        self._mesh_users()
+        self._mesh_exact()
+        self._mesh_guard()
+        log(f"  phase 20 steps done in {time.perf_counter() - t0:.1f} s "
+            f"({self.card_line})")
+
+    def _seq_inputs(self):
+        torch = self.torch
+        from psrsigsim_torch.utils import key, stage_key
+
+        cfg, prof, nn = config4()
+        hk = stage_key(key(0, "cpu"), "user", torch.tensor(0))
+        return cfg, torch.as_tensor(prof, device=self.dev), nn, hk
+
+    def _mesh_seq_search(self):
+        """(a) seq_sharded_search at config 4, n in SEQ_NS, both modes."""
+        torch = self.torch
+        import dataclasses
+
+        from psrsigsim_torch.parallel import make_seq_mesh, seq_sharded_search
+        from psrsigsim_torch.simulate import single_pipeline
+
+        cfg, pdev, nn, hk = self._seq_inputs()
+        dm = CONFIG4["dm"]
+        for mode in ("envelope", "fft"):
+            c = dataclasses.replace(cfg, shift_mode=mode)
+
+            def single(c=c):
+                return single_pipeline(hk, torch.tensor(dm),
+                                       torch.tensor(nn, dtype=torch.float32),
+                                       pdev, c)
+
+            single()
+            ref, t_single = self._timed(single)
+            l2 = float(torch.sqrt((ref.double() ** 2).mean() * ref.shape[-1]))
+            log(f"  (a) {mode}: single_pipeline(1) at {cfg.meta.nchan} x "
+                f"{cfg.nsamp}: {t_single * 1e3:.2f} ms")
+            for n in SEQ_NS:
+                run = seq_sharded_search(
+                    c, make_seq_mesh(devices=[self.dev] * n))
+                run(hk, dm, nn, pdev)
+                self._zero_counts()
+                out, t = self._timed(lambda: run(hk, dm, nn, pdev))
+                # per shard: the pulse and noise fields (one flat launch
+                # each: every channel's span shares the tile phase) and
+                # the nulled pulses' replacement row
+                counts = self._expect(f"20a seq_search {mode} n={n}",
+                                      {"rng_field": n,
+                                       "rng_flat_field": 2 * n})
+                if tuple(out.shape) != tuple(ref.shape) or not bool(
+                        torch.isfinite(out).all()):
+                    raise AssertionError(f"seq_search {mode} n={n}: shape "
+                                         "or non-finite")
+                err = float((out - ref).abs().max())
+                equal = bool(torch.equal(out, ref))
+                log(f"  (a) {mode} n={n:2d} (L={cfg.nsamp // n}"
+                    f"{'' if (cfg.nsamp // n) % 4096 == 0 else ', unaligned'}"
+                    f"): {t * 1e3:.2f} ms, launches {counts}; against "
+                    f"single_pipeline: bit-equal {equal}, max|diff| "
+                    f"{err:.3g} ({err / l2:.3g} of l2)")
+                if mode == "envelope" and not equal:
+                    raise AssertionError(f"envelope seq_search n={n} is not "
+                                         "bit-equal to single_pipeline")
+                if err >= 1e-5 * l2:
+                    raise AssertionError(f"fft seq_search n={n}: max|diff| "
+                                         f"{err:.3g} >= 1e-5 l2")
+                del out
+            del ref
+
+    def _mesh_obs_seq(self):
+        """(b) seq_sharded_search_ensemble, SEQ_ENS_NOBS observations."""
+        torch = self.torch
+
+        from psrsigsim_torch.parallel import (make_obs_seq_mesh,
+                                              seq_sharded_search_ensemble)
+        from psrsigsim_torch.simulate import single_pipeline
+        from psrsigsim_torch.utils import key, stage_key
+
+        cfg, pdev, nn, _ = self._seq_inputs()
+        B = SEQ_ENS_NOBS
+        hk = stage_key(key(0, "cpu"), "user", torch.arange(B))
+        dms = torch.full((B,), CONFIG4["dm"])
+        nns = torch.full((B,), nn, dtype=torch.float32)
+        ref = single_pipeline(hk, dms, nns, pdev, cfg)
+        phase13 = getattr(self, "search_rate", None)
+        for shape in SEQ_ENS_SHAPES:
+            k = shape[0] * shape[1]
+            run = seq_sharded_search_ensemble(
+                cfg, make_obs_seq_mesh(shape, [self.dev] * k))
+            run(hk, dms, nns, pdev)
+            self._zero_counts()
+            out, t = self._timed(lambda: run(hk, dms, nns, pdev))
+            counts = self._expect(f"20b obs_seq {shape}",
+                                  {"rng_field": k, "rng_flat_field": 2 * k})
+            equal = bool(torch.equal(out, ref))
+            log(f"  (b) obs x seq {shape}: {B} observations in "
+                f"{t * 1e3:.2f} ms = {B / t:.1f} obs/s (phase 13's "
+                f"single_pipeline({SEARCH_NOBS}): "
+                f"{phase13[0] if phase13 else float('nan'):.1f} obs/s), "
+                f"launches {counts}; bit-equal to single_pipeline({B}) "
+                f"{equal}")
+            if not equal:
+                raise AssertionError(f"obs x seq {shape} differs from "
+                                     "single_pipeline")
+            del out
+        del ref
+
+    def _mesh_baseband(self):
+        """(c) seq_sharded_baseband / seq_sharded_dedisperse at config 3."""
+        torch = self.torch
+        import numpy as np
+
+        from psrsigsim_torch.ops.shift import coherent_dedisperse
+        from psrsigsim_torch.ops.stats import flat_normal_field, flat_spans
+        from psrsigsim_torch.parallel import (make_seq_mesh,
+                                              seq_sharded_baseband,
+                                              seq_sharded_dedisperse)
+        from psrsigsim_torch.utils import key, stage_key
+        from psrsigsim_torch.utils.device import to_device
+
+        cfg, sp, nn = config3()
+        dm = CONFIG3["dm"]
+        npol, L = sp.shape[0], cfg.nsamp
+        hk = stage_key(key(0, "cpu"), "user", torch.tensor(0))
+        # the draws: each slab's spans are baseband_pipeline's flat stream
+        for stage in ("pulse", "noise"):
+            k = to_device(stage_key(hk, stage), self.dev)
+            whole = flat_normal_field(k, 0, npol * L).reshape(npol, L)
+            for n in (1, 2):
+                S = L // n
+                got = torch.cat([flat_spans(k, [p * L + s * S
+                                                for p in range(npol)], S)
+                                 for s in range(n)], dim=-1)
+                if not torch.equal(got, whole):
+                    raise AssertionError(f"baseband {stage} draws at n={n} "
+                                         "differ from baseband_pipeline's")
+            del whole, got
+        sdev = torch.as_tensor(sp, device=self.dev)
+        meshes = {1: (make_seq_mesh(devices=[self.dev]), None),
+                  2: (make_seq_mesh(devices=[self.dev] * 2), BASEBAND_HALO)}
+        outs, times = {}, {}
+        for n, (m, halo) in meshes.items():
+            run = seq_sharded_baseband(cfg, dm, mesh=m, halo=halo)
+            run(hk, nn, sdev)
+            self._zero_counts()
+            outs[n], times[n] = self._timed(lambda: run(hk, nn, sdev))
+            # per shard and stage one flat launch per polarization: the two
+            # spans p*nsamp + t0 lie at different tile phases
+            self._expect(f"20c seq_baseband n={n}",
+                         {"rng_flat_field": 2 * npol * n})
+        o1 = outs[1]
+        std = float(o1.double().std())
+        e = (outs[2] - o1).double()
+        log(f"  (c) seq_sharded_baseband at {npol} x {L}: n=1 (the full "
+            f"circular filter) {times[1] * 1e3:.2f} ms, n=2 (halo "
+            f"{BASEBAND_HALO}) {times[2] * 1e3:.2f} ms; truncation error of "
+            f"n=2 against n=1: max {float(e.abs().max()) / std:.3g}, rms "
+            f"{float(e.std()) / std:.3g} of the std ({self.card_line})")
+        del e
+        x = torch.randn((npol, L), generator=torch.Generator(
+            device=self.dev).manual_seed(5), device=self.dev)
+        d = {}
+        for n, (m, halo) in meshes.items():
+            run = seq_sharded_dedisperse(cfg, dm, mesh=m, halo=halo)
+            run(x)
+            d[n], t = self._timed(lambda: run(x))
+            log(f"  (c) seq_sharded_dedisperse n={n}: {t * 1e3:.2f} ms")
+        if not torch.equal(d[1], coherent_dedisperse(
+                x, dm, cfg.fcent_mhz, cfg.bw_mhz, cfg.dt_us)):
+            raise AssertionError("seq_sharded_dedisperse n=1 is not the "
+                                 "full circular filter")
+        e = (d[2] - d[1]).double()
+        std = float(d[1].double().std())
+        log(f"  (c) dedisperse truncation error of n=2 against n=1: max "
+            f"{float(e.abs().max()) / std:.3g}, rms {float(e.std()) / std:.3g}"
+            " of the std")
+        del d, e, x
+        # the card against the host: the same sharded call at n=2 on the
+        # kernel's stream (its plain version on the host)
+        os.environ["PSS_SAMPLER"] = "hw"
+        try:
+            run = seq_sharded_baseband(cfg, dm, mesh=make_seq_mesh(
+                devices=["cpu"] * 2), halo=BASEBAND_HALO)
+            host, t_host = self._timed(lambda: run(hk, nn, sp))
+        finally:
+            os.environ.pop("PSS_SAMPLER", None)
+        card = outs[2].cpu().numpy()
+        host = host.numpy()
+        peak_v = np.abs(host).max()
+        err = np.abs(card - host)
+        bad = err > 1e-5 * np.abs(host) + 1e-5 * peak_v
+        log(f"  (c) n=2 card against host ({t_host:.1f} s on the host): "
+            f"max|diff| {err.max():.3g} ({err.max() / peak_v:.3g} of the "
+            f"peak), {int(bad.sum())} beyond rtol 1e-5 + 1e-5 of the peak; "
+            f"bit-equal {np.mean(card == host):.4f}")
+        if bad.any():
+            raise AssertionError("seq_sharded_baseband: the card differs "
+                                 "from the host")
+        del outs, o1, card, host
+
+    def _mesh_fold(self):
+        """(d) FoldEnsemble at config 1 over meshes of cuda:0."""
+        torch = self.torch
+        import hashlib
+        import shutil
+        import tempfile
+
+        from psrsigsim_torch.io import export_ensemble_psrfits
+        from psrsigsim_torch.parallel import make_mesh
+
+        base = self.main_ensemble()
+        want, t_base = self._timed(lambda: base.run_quantized(MAIN_NOBS))
+        want, t_base = self._timed(lambda: base.run_quantized(MAIN_NOBS))
+        wantf = base.run(FLOAT_NOBS)
+        log(f"  (d) mesh-free run_quantized({MAIN_NOBS}): "
+            f"{t_base * 1e3:.2f} ms = {MAIN_NOBS / t_base:.1f} obs/s")
+        for shape in FOLD_MESHES:
+            k = shape[0] * shape[1]
+            ens = geometry(MAIN, self.dev, mesh=make_mesh(
+                shape, [self.dev] * k))
+            self._zero_counts()
+            got = ens.run_quantized(MAIN_NOBS)
+            self._sync()
+            self._expect(f"20d run_quantized({MAIN_NOBS}) {shape}",
+                         {"fold_quantize": k})
+            for name, a, b in zip(("codes", "DAT_SCL", "DAT_OFFS"), got, want):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{shape}: {name} differ from the "
+                                         "mesh-free run")
+            _, t = self._timed(lambda: ens.run_quantized(MAIN_NOBS))
+            self._zero_counts()
+            gotf = ens.run(FLOAT_NOBS)
+            self._sync()
+            self._expect(f"20d run({FLOAT_NOBS}) {shape}",
+                         {"rng_field": 2 * k})
+            if not torch.equal(gotf, wantf):
+                raise AssertionError(f"{shape}: run({FLOAT_NOBS}) differs")
+            log(f"  (d) {shape}: run_quantized({MAIN_NOBS}) bit-equal, fused "
+                f"kernel {k} launches, {t * 1e3:.2f} ms = "
+                f"{MAIN_NOBS / t:.1f} obs/s; run({FLOAT_NOBS}) bit-equal")
+            del got, gotf, ens
+        del want, wantf
+        # the export of EXPORT_NOBS observations, one writer: mesh-free and
+        # on (2, 2), file for file
+        build = os.path.join(ROOT, "build")
+        os.makedirs(build, exist_ok=True)
+        work = tempfile.mkdtemp(prefix="mesh-export-", dir=build)
+        meshed = geometry(MAIN, self.dev, mesh=make_mesh((2, 2),
+                                                         [self.dev] * 4))
+        try:
+            shas, rates = [], {}
+            # in turns, mesh-free then (2, 2), twice
+            for k, (label, ens) in enumerate((("mesh-free", base),
+                                              ("(2, 2)", meshed)) * 2):
+                out = os.path.join(work, str(k))
+                self._zero_counts()
+                _, t = self._timed(lambda: export_ensemble_psrfits(
+                    ens, EXPORT_NOBS, out, TEMPLATE, ens.pulsar, seed=0,
+                    chunk_size=MAIN_NOBS, writers=1))
+                self._expect(f"20d export({EXPORT_NOBS}) {label}",
+                             {"fold_quantize": (EXPORT_NOBS // MAIN_NOBS)
+                              * ens.mesh.size})
+                h = {}
+                for name in sorted(os.listdir(out)):
+                    if name.endswith(".fits"):
+                        with open(os.path.join(out, name), "rb") as fh:
+                            h[name] = hashlib.sha256(fh.read()).hexdigest()
+                shas.append(h)
+                rates.setdefault(label, []).append(EXPORT_NOBS / t)
+                shutil.rmtree(out)
+            log(f"  (d) export({EXPORT_NOBS}), writers=1, in turns: "
+                + "; ".join(f"{label} {', '.join(f'{r:.1f}' for r in v)} "
+                            "obs/s" for label, v in rates.items()))
+            if any(h != shas[0] for h in shas) or \
+                    len(shas[0]) != EXPORT_NOBS:
+                raise AssertionError("the (2, 2) export's files differ from "
+                                     "the mesh-free export's")
+            log(f"  (d) the (2, 2) export's {EXPORT_NOBS} files are "
+                "byte-identical to the mesh-free export's")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+
+    def _mesh_users(self):
+        """(e) the study on (4, 1), the 128-pulsar ensemble on (2, 2), a
+        corpus on (2, 1)."""
+        torch = self.torch
+        import hashlib
+        import shutil
+        import tempfile
+
+        import numpy as np
+
+        from psrsigsim_torch.datasets import DatasetFactory
+        from psrsigsim_torch.mc import MonteCarloStudy
+        from psrsigsim_torch.parallel import MultiPulsarFoldEnsemble, make_mesh
+        from psrsigsim_torch.simulate import Simulation
+
+        sim = Simulation(psrdict=MC_BENCH, device=self.dev)
+        m41 = make_mesh((4, 1), [self.dev] * 4)
+        res = {}
+        for label, kw in (("mesh-free", {}), ("(4, 1)", {"mesh": m41})):
+            study = MonteCarloStudy.from_simulation(sim, MC_PRIORS, seed=1,
+                                                    **kw)
+            study.run(MESH_MC_TRIALS, chunk_size=MC_CHUNK)
+            self._zero_counts()
+            res[label], t = self._timed(lambda: study.run(
+                MESH_MC_TRIALS, chunk_size=MC_CHUNK))
+            shards = 1 if not kw else 4
+            self._expect(f"20e study({MESH_MC_TRIALS}) {label}",
+                         {"rng_field": 2 * shards * (MESH_MC_TRIALS
+                                                     // MC_CHUNK)})
+            log(f"  (e) study {label} (a second run): {MESH_MC_TRIALS} "
+                f"trials in {t:.3f} s = {MESH_MC_TRIALS / t:.1f} trials/s")
+        if not (np.array_equal(res["(4, 1)"].metrics,
+                               res["mesh-free"].metrics)
+                and np.array_equal(res["(4, 1)"].hist,
+                                   res["mesh-free"].hist)):
+            raise AssertionError("the (4, 1) study's rows differ")
+        log("  (e) the (4, 1) study's rows and histograms are bit-identical")
+
+        work = config5()
+        plain = MultiPulsarFoldEnsemble(work, epoch_chunk=MULTI_EPOCH_CHUNK,
+                                        device=self.dev)
+        plain.run(MULTI_EPOCH_CHUNK)
+        want, t_plain = self._timed(lambda: plain.run(MULTI_EPOCH_CHUNK))
+        ens = MultiPulsarFoldEnsemble(work, epoch_chunk=MULTI_EPOCH_CHUNK,
+                                      mesh=make_mesh((2, 2), [self.dev] * 4))
+        ens.run(MULTI_EPOCH_CHUNK)
+        self._zero_counts()
+        got, t = self._timed(lambda: ens.run(MULTI_EPOCH_CHUNK))
+        self._expect(f"20e multipulsar({MULTI_EPOCH_CHUNK}) (2, 2)",
+                     {"rng_field": 2 * 4 * ens.n_buckets})
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("the (2, 2) multi-pulsar run differs")
+        pe = len(work) * MULTI_EPOCH_CHUNK
+        log(f"  (e) multi-pulsar, {len(work)} pulsars x {MULTI_EPOCH_CHUNK} "
+            f"epochs on (2, 2): bit-equal, {t * 1e3:.1f} ms = "
+            f"{pe / t:.1f} pulsar-epochs/s (mesh-free {t_plain * 1e3:.1f} ms "
+            f"= {pe / t_plain:.1f}; second runs)")
+        del got, want, ens, plain
+
+        build = os.path.join(ROOT, "build")
+        os.makedirs(build, exist_ok=True)
+        out = tempfile.mkdtemp(prefix="mesh-dataset-", dir=build)
+        try:
+            shas = {}
+            for label, kw in (("mesh-free", {"device": self.dev}),
+                              ("(2, 1)", {"mesh": make_mesh(
+                                  (2, 1), [self.dev] * 2)})):
+                path = os.path.join(out, label.strip("()").replace(", ", "x"))
+                fac = DatasetFactory(MESH_DATASET_SPEC, **kw)
+                fac.run(path + "-warm", chunk_size=64)
+                _, t = self._timed(lambda: fac.run(path, chunk_size=64))
+                h = hashlib.sha256()
+                for name in sorted(os.listdir(path)):
+                    if name.startswith("shard-"):
+                        with open(os.path.join(path, name), "rb") as fh:
+                            h.update(name.encode() + fh.read())
+                shas[label] = h.hexdigest()
+                log(f"  (e) corpus {label} (a second run): "
+                    f"{MESH_DATASET_SPEC['n_records']} records in {t:.3f} s")
+            if shas["(2, 1)"] != shas["mesh-free"]:
+                raise AssertionError("the (2, 1) corpus differs")
+            log("  (e) the (2, 1) corpus is byte-identical")
+        finally:
+            shutil.rmtree(out, ignore_errors=True)
+
+    def _mesh_exact(self):
+        """(e) (a) under PSS_EXACT_CHI2=1 at n = 1 and 2: the exact-gamma
+        kernel draws every field."""
+        torch = self.torch
+
+        from psrsigsim_torch.parallel import make_seq_mesh, seq_sharded_search
+        from psrsigsim_torch.simulate import single_pipeline
+
+        cfg, pdev, nn, hk = self._seq_inputs()
+        dm = CONFIG4["dm"]
+        os.environ["PSS_EXACT_CHI2"] = "1"
+        try:
+            ref = single_pipeline(hk, torch.tensor(dm),
+                                  torch.tensor(nn, dtype=torch.float32),
+                                  pdev, cfg)
+            for n in (1, 2):
+                run = seq_sharded_search(cfg, make_seq_mesh(
+                    devices=[self.dev] * n))
+                run(hk, dm, nn, pdev)   # warm: time the second call
+                self._zero_counts()
+                out, t = self._timed(lambda: run(hk, dm, nn, pdev))
+                # per shard: pulse, noise and the replacement row
+                counts = self._expect(f"20e exact seq_search n={n}",
+                                      {"gamma_field": 3 * n})
+                equal = bool(torch.equal(out, ref))
+                log(f"  (e) PSS_EXACT_CHI2=1 n={n}: {t * 1e3:.2f} ms, "
+                    f"launches {counts}, bit-equal to single_pipeline "
+                    f"{equal}")
+                if not equal:
+                    raise AssertionError(f"exact seq_search n={n} differs")
+        finally:
+            os.environ.pop("PSS_EXACT_CHI2", None)
+
+    def _mesh_guard(self):
+        """(f) a 4-channel chan shard raises the 8-channel-group rule."""
+        from psrsigsim_torch.parallel import make_mesh
+
+        try:
+            geometry(MAIN, self.dev, mesh=make_mesh((1, 16), [self.dev] * 16))
+        except ValueError as err:
+            if "8-channel group" not in str(err):
+                raise
+            log(f"  (f) a (1, 16) mesh (4 channels a shard) raises: {err}")
+            return
+        raise AssertionError("a (1, 16) mesh on the kernel path did not raise")
+
     def run(self, with_profile=False):
         self.phase("1 card", self.card)
         built = self.phase("2 build", self.build)
@@ -4844,6 +5338,7 @@ class Smoke:
             self.phase("17 serving", self.serving)
             self.phase("18 serving fleet", self.fleet)
             self.phase("19 exact-gamma chi2", self.exact_gamma)
+            self.phase("20 meshes and sequence sharding", self.meshes)
         if self.failed:
             log(f"FAILED phases: {', '.join(self.failed)}")
             return 1

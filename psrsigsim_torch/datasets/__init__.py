@@ -23,7 +23,8 @@ corpus: its ground truth is the same draw as the injection.
   changed chunk sizes), stage telemetry, manifest fingerprint guard.
 
 ``DatasetFactory(spec, device="cuda").run(out_dir, chunk_size=...)``
-writes a corpus on the card; ``mesh=`` raises (meshes are not ported).
+writes a corpus on the card; ``mesh=`` (a single-process ``(obs, chan)``
+mesh) writes the same bytes.
 """
 
 # the tensor modules load on first use: the record writer and reader

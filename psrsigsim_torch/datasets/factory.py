@@ -74,9 +74,10 @@ class DatasetFactory:
     ----------
     spec : dict
         A dataset spec (:func:`datasets.spec.canonicalize` rules).
-    mesh : None
-        Meshes are not ported yet: anything else raises
-        ``NotImplementedError``.
+    mesh : an ``(obs, chan)`` :class:`~psrsigsim_torch.parallel.Mesh`,
+        optional: forwarded to the record sampler (records over ``obs``,
+        channels over ``chan``); the corpus is the mesh-free one, byte for
+        byte.
     device : str or torch.device, optional
         Where the records are simulated: the CUDA card by default (raises
         without one); ``"cpu"`` runs them on the host.

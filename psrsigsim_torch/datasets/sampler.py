@@ -17,11 +17,13 @@ One training record is composed from pieces the port already has:
   plus the sampled prior values themselves.
 
 Where the JAX package vmaps one record over a chunk and shards it over a
-mesh, the port runs the chunk's records as one batch on one device;
-``mesh=`` raises.  Record ``i``'s key is ``stage_key(key(seed), "user",
-i)`` — the ensemble's observation-key derivation — and every step is
-per record, so a record's bytes depend only on ``(seed, i)``: identical
-for any chunk size, which the factory's kill/resume byte identity needs.
+mesh, the port runs the tile body once per ``(obs, chan)`` position of
+its mesh (its records × its channels, on its device; no mesh is one
+position on one device), assembled on the mesh's first device.
+Record ``i``'s key is ``stage_key(key(seed), "user", i)`` — the
+ensemble's observation-key derivation — and every step is per record, so
+a record's bytes depend only on ``(seed, i)``: identical for any chunk
+size or mesh, which the factory's kill/resume byte identity needs.
 """
 
 from __future__ import annotations
@@ -33,9 +35,11 @@ import numpy as np
 import torch
 
 from ..mc.priors import parse_prior, sample_priors
+from ..ops.stats import flat_chi2_ok, sampler_backend
+from ..parallel.mesh import (CHAN_AXIS, MeshSlabs, check_chan_groups,
+                             mesh_devices)
 from ..scenarios.registry import scenario_rows
 from ..simulate.pipeline import noise_level, single_pipeline
-from ..utils.device import resolve_device
 from ..utils.rng import key as make_key
 from ..utils.rng import stage_key
 from .spec import (PRIORS_FIELD, build_search_geometry, canonical_json,
@@ -53,20 +57,18 @@ class RecordSampler:
     ----------
     canonical : dict
         A canonical spec from :func:`datasets.spec.canonicalize`.
-    mesh : None
-        Meshes are not ported yet: anything else raises
-        ``NotImplementedError``.
+    mesh : an ``(obs, chan)`` :class:`~psrsigsim_torch.parallel.Mesh`,
+        optional: records split over ``obs`` (a chunk pads to the obs
+        shards), channels over ``chan``; results land on the mesh's first
+        device (a different ``device`` raises).  The bytes of every record
+        are the mesh-free ones.
     device : str or torch.device, optional
         Where the records are simulated: the CUDA card by default (raises
         without one); ``"cpu"`` runs them on the host.
     """
 
     def __init__(self, canonical, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: meshes and multi-device corpora are not ported yet; "
-                "the port's record sampler runs one device")
-        self.device = resolve_device(device)
+        self.mesh, self.device = mesh_devices(mesh, device)
         self.canonical = dict(canonical)
         self.stack = scenario_stack(canonical)
         self.cfg, profiles_np, self.noise_norm = build_search_geometry(
@@ -97,6 +99,8 @@ class RecordSampler:
         self._freqs = torch.as_tensor(self._freqs_np, device=dev)
         # global channel ids stay on the host (the sampler reads the first)
         self._chan_ids = torch.arange(self.cfg.meta.nchan)
+        self._check_mesh()
+        self._slabs = MeshSlabs(self.mesh, self._profiles, self._freqs)
 
         # the JAX package's program digest (its registry key), kept for
         # describe(): the canonical spec minus the corpus-shape fields,
@@ -108,6 +112,26 @@ class RecordSampler:
                                    float(self.noise_norm)]
         self._program_digest = hashlib.sha256(
             json.dumps(digest_src, sort_keys=True).encode()).hexdigest()
+
+    def _check_mesh(self):
+        """``Nchan`` divides over the chan axis; the 8-channel-group rule
+        applies only where the tile's fields leave the flat stream (whose
+        spans any channel split draws alike) for the kernel's rows."""
+        cfg = self.cfg
+        span_end = cfg.meta.nchan * cfg.nsamp
+        rows = not (flat_chi2_ok(1.0, span_end=span_end)
+                    and flat_chi2_ok(cfg.noise_df, span_end=span_end))
+        check_chan_groups(cfg.meta.nchan, self.mesh.shape[CHAN_AXIS],
+                          sampler_backend(self.device) if rows else None)
+
+    def _tile(self, keys, dms, norms, rows):
+        """The chunk's tiles ``(W, Nchan, nsamp)`` on the device: one
+        ``single_pipeline`` batch per mesh position."""
+        self._check_mesh()
+        return self._slabs.run(
+            lambda k, dn, r, p, f, c: single_pipeline(
+                k, *dn, p, self.cfg, freqs=f, chan_ids=c, rows=r),
+            keys, (dms, norms), rows, (0, 1), self.device)
 
     # -- record schema ------------------------------------------------------
 
@@ -152,9 +176,7 @@ class RecordSampler:
                                  noise_level(cfg, nn_dev),
                                  freqs=self._freqs_np,
                                  chan_ids=self._chan_ids)
-        tile = single_pipeline(keys, vals["dm"].to(dev), nn_dev,
-                               self._profiles, cfg, freqs=self._freqs,
-                               chan_ids=self._chan_ids, rows=rows)
+        tile = self._tile(keys, vals["dm"].to(dev), nn_dev, rows)
 
         def columns(names, table):
             if not names:
@@ -172,11 +194,12 @@ class RecordSampler:
         return tuple(out[name] for name, _, _ in self.field_layout())
 
     def chunk_width(self, chunk_size):
-        """Records per chunk: ``chunk_size``, at most the corpus."""
+        """Records per chunk: ``chunk_size``, at most the corpus, rounded up
+        to the mesh's obs shards (the ensemble's padding rule)."""
         chunk_size = min(int(chunk_size), self.n_records)
         if chunk_size <= 0:
             raise ValueError("chunk_size must be positive")
-        return chunk_size
+        return self.mesh.padded(chunk_size)
 
     def dispatch(self, start, width, audit=False):
         """Launch one chunk: device tensors for records ``start ..
@@ -195,8 +218,8 @@ class RecordSampler:
 
     def record_host(self, index):
         """One record as a host dict (label checks and tutorials): the
-        factory's path at width 1."""
-        out = self.dispatch(int(index), 1)
+        factory's path at its narrowest width (1, or the obs shards)."""
+        out = self.dispatch(int(index), self.chunk_width(1))
         return {name: a[0].cpu().numpy()
                 for (name, _, _), a in zip(self.field_layout(), out)}
 

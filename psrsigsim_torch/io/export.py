@@ -1636,8 +1636,9 @@ def _integrity_check_chunk(ens, checker, supervisor, start, chunk_size,
         return data, scl, offs
 
     # re-run at the EXACT width and index content of the main pass —
-    # identical rows, so digests are comparable bit for bit
-    eff = min(int(chunk_size), int(n_obs))
+    # identical rows, so digests are comparable bit for bit (a mesh pads
+    # the chunk to its obs shards, as iter_chunks does)
+    eff = ens.mesh.padded(min(int(chunk_size), int(n_obs)))
     idx = (start + np.arange(eff)) % n_obs
 
     def _reexec(audit_run):

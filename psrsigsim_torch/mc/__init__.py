@@ -12,7 +12,8 @@ per chunk, so a SIGKILLed 100k-trial run resumes bit-identically, and
 the fingerprinted artifact.  ``python -m psrsigsim_torch.mc study.toml``
 runs a study from a declarative spec file.  The scenario engine's
 parameters are knobs too (scintillation, RFI, single-pulse energies).
-Meshes and pods are not ported yet and raise ``NotImplementedError``.
+``mesh=`` takes a single-process mesh with a chan axis of 1 (trials over
+``obs``); pods are not ported yet.
 """
 
 from .priors import (Choice, Fixed, Grid, LogUniform, Normal, Prior,

@@ -1,5 +1,5 @@
 """Monte-Carlo study engine: parameter space -> trials -> results
-(counterpart: psrsigsim_tpu/mc/study.py, without meshes and pods).
+(counterpart: psrsigsim_tpu/mc/study.py; single-process meshes, no pods).
 
 One trial is a complete program on the device — pulse synthesis, ISM
 delays, radiometer noise (the two χ² fields drawn by the sampler kernel
@@ -52,7 +52,8 @@ from ..scenarios.registry import scenario_knobs as _scenario_knobs
 from ..scenarios.registry import stack_from_knobs
 from ..simulate.pipeline import (_dispersion_delays, fold_pipeline,
                                  fold_subints)
-from ..utils.device import resolve_device, to_device
+from ..parallel.mesh import CHAN_AXIS, MeshSlabs, mesh_devices
+from ..utils.device import to_device
 from ..utils.rng import key as make_key
 from ..utils.rng import stage_key
 from .priors import Prior, parse_prior, sample_priors
@@ -154,9 +155,12 @@ class MonteCarloStudy:
         trial_index)``.
     dm : float
         Base DM when no ``dm`` prior is given.
-    mesh : None
-        Meshes are not ported yet: anything else raises
-        ``NotImplementedError``.
+    mesh : an ``(obs, chan)`` :class:`~psrsigsim_torch.parallel.Mesh`,
+        optional: trials split over ``obs`` (a chunk pads to the obs
+        shards), each position's trials on its device, the rows assembled
+        on the mesh's first device (a different ``device`` raises).  The
+        chan axis must be 1.  Rows are bit-identical for any obs-shard
+        count.
     nharm : int, optional
         FFTFIT harmonic cap (default all).
     hist_bins : int
@@ -172,11 +176,7 @@ class MonteCarloStudy:
     def __init__(self, cfg, profiles, noise_norm, priors, seed=0, dm=0.0,
                  mesh=None, nharm=None, hist_bins=32, hist_ranges=None,
                  base_width=0.05, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: meshes and multi-device studies are not ported yet; "
-                "the port runs one device")
-        self.device = resolve_device(device)
+        self.mesh, self.device = mesh_devices(mesh, device)
         self.cfg = cfg
         self._profiles_np = np.ascontiguousarray(profiles, np.float32)
         self.noise_norm = float(noise_norm)
@@ -213,6 +213,18 @@ class MonteCarloStudy:
                 f"program only; cfg.shift_mode={cfg.shift_mode!r}. Build "
                 "the config with shift_mode='envelope' (unset "
                 "PSS_EXACT_SHIFT) to run studies.")
+        nchan = cfg.meta.nchan
+        n_chan_shards = self.mesh.shape[CHAN_AXIS]
+        if nchan % n_chan_shards:
+            raise ValueError(
+                f"Nchan={nchan} must be divisible by the chan mesh axis "
+                f"({n_chan_shards})")
+        if n_chan_shards > 1:
+            # fftfit's channel combine is a cross-channel reduction; a
+            # trial keeps its channels on one device
+            raise ValueError(
+                "MonteCarloStudy shards trials only: use a mesh with "
+                "chan axis 1 (the default make_mesh())")
 
         self._hist_ranges = {}
         overrides = dict(hist_ranges or {})
@@ -244,6 +256,7 @@ class MonteCarloStudy:
         self._hist_hi = torch.tensor(
             [self._hist_ranges[m][1] for m in self.metric_names],
             dtype=_F32, device=dev)
+        self._slabs = MeshSlabs(self.mesh, self._profiles, self._freqs)
 
     # -- construction bridges ---------------------------------------------
 
@@ -279,13 +292,18 @@ class MonteCarloStudy:
         return sample_priors(self.priors, self.param_names, keys,
                              torch.as_tensor(np.asarray(idx)), stage="prior")
 
-    def _trial_block(self, keys, p):
-        """The trials' blocks ``(B, Nchan, Nsamp)`` on the device, their
-        delay curves ``(B, Nchan)`` and templates: :func:`fold_pipeline`
-        with each trial's DM, extra (scattering) delays, portrait, nulling
-        probability and noise norm — so a study whose priors touch only
-        dm/noise draws the ensemble's observations bit for bit."""
-        cfg, dev = self.cfg, self.device
+    def _trial_block(self, keys, p, profiles=None, freqs=None):
+        """The trials' blocks ``(B, Nchan, Nsamp)``, their delay curves
+        ``(B, Nchan)`` and templates, on the device of ``profiles`` and
+        ``freqs`` (a mesh position's; default the study's):
+        :func:`fold_pipeline` with each trial's DM, extra (scattering)
+        delays, portrait, nulling probability and noise norm — so a study
+        whose priors touch only dm/noise draws the ensemble's observations
+        bit for bit."""
+        cfg = self.cfg
+        if profiles is None:
+            profiles, freqs = self._profiles, self._freqs
+        dev = profiles.device
         B = keys.shape[0]
 
         def param(name, default):
@@ -301,7 +319,7 @@ class MonteCarloStudy:
             scen = {n: p[n] for n in self._scenario.param_names() if n in p}
         extra = None
         if "tau_d_ms" in p:
-            ratio = self._freqs / scalar(self._tau_ref_mhz, dev)
+            ratio = freqs / scalar(self._tau_ref_mhz, dev)
             extra = param("tau_d_ms", 0.0)[:, None] * ratio ** _f32(
                 _SCATTER_EXPONENT)
         if "width" in p or "amp" in p:
@@ -314,26 +332,27 @@ class MonteCarloStudy:
             prof = row[:, None, :]                   # one per trial
             portrait = prof.expand(B, cfg.meta.nchan, cfg.nph)
         else:
-            prof = portrait = self._profiles
+            prof = portrait = profiles
         # f32 base norm times the f32 scale, as the JAX package's trial
         nn = param("noise_scale", 1.0) * _f32(self.noise_norm)
         null = param("null_frac", 0.0) if "null_frac" in p else None
         # scenario effects on the trial's own noise level: the pipeline's
         # order and draws, so a trial equals the ensemble's observation
-        block = fold_pipeline(keys, dm, nn, portrait, cfg, freqs=self._freqs,
+        block = fold_pipeline(keys, dm, nn, portrait, cfg, freqs=freqs,
                               chan_ids=self._chan_ids, extra_delays_ms=extra,
                               null_frac=null, scenario=self._scenario,
                               scenario_params=scen)
-        return block, _dispersion_delays(dm, self._freqs, extra), prof
+        return block, _dispersion_delays(dm, freqs, extra), prof
 
-    def _trial_rows(self, keys, idx):
-        """The chunk's metric rows ``(B, M)`` float32 on the device: fold
-        on the device, FFTFIT every channel against the trial's own
-        template, subtract the known delay curve, combine across the
-        band."""
-        cfg, dev = self.cfg, self.device
+    def _trial_rows(self, keys, idx, profiles, freqs):
+        """The trials' metric rows ``(B, M)`` float32 on the device of
+        ``profiles`` (a mesh position's): fold on the device, FFTFIT every
+        channel against the trial's own template, subtract the known delay
+        curve, combine across the band."""
+        cfg = self.cfg
+        dev = profiles.device
         p = self._sample_params(keys, idx)
-        block, delays_ms, prof = self._trial_block(keys, p)
+        block, delays_ms, prof = self._trial_block(keys, p, profiles, freqs)
         folded = fold_subints(block, cfg.nsub, cfg.nph)
         del block
         s, e, b = fftfit_shift(folded, prof, nharm=self.nharm)
@@ -362,7 +381,11 @@ class MonteCarloStudy:
         independent launch of the same deterministic work, so the audit
         runs this same function (psrsigsim_torch/DIVERGENCES.md P10)."""
         idx = (start + np.arange(width)) % n_trials
-        rows = self._trial_rows(self._trial_keys(idx), idx)
+        # each obs shard's trials on its device (the chan axis is 1)
+        rows = self._slabs.run(
+            lambda k, cols, r, prof, freqs, c: self._trial_rows(
+                k, cols[0], prof, freqs),
+            self._trial_keys(idx), (idx,), None, (0, None), self.device)
         valid = torch.arange(width, device=self.device) < count
         cols = rows.T
         hist = fixed_histogram(cols, self._hist_lo, self._hist_hi,
@@ -511,6 +534,8 @@ class MonteCarloStudy:
         chunk_size = min(int(chunk_size), n_trials)
         if chunk_size <= 0:
             raise ValueError("chunk_size must be positive")
+        # every chunk pads to the obs shards (the ensemble's rule)
+        chunk_size = self.mesh.padded(chunk_size)
         width = chunk_size
 
         checker = resolve_integrity(
@@ -834,7 +859,7 @@ class MonteCarloStudy:
                 # * f32 scale): the exported stream must be the trial's
                 noise_norms = np.asarray(
                     np.float32(self.noise_norm) * params[:, j], np.float64)
-        ens = self._simulation.to_ensemble()
+        ens = self._simulation.to_ensemble(mesh=self.mesh)
         common = dict(seed=self.seed, dms=dms, noise_norms=noise_norms,
                       manifest_extra={
                           "mc_study": self._fingerprint_digest(n_trials)},

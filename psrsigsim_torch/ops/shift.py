@@ -33,7 +33,8 @@ from .dfloat import (df_mod1, df_mul_f32, df_mul_f32_fused, df_recip,
                      split_f64)
 
 __all__ = ["fourier_shift", "fft_group_rows",
-           "coherent_dedispersion_transfer", "coherent_dedisperse", "OSPlan",
+           "coherent_dedispersion_transfer", "dedispersion_filter",
+           "coherent_dedisperse", "OSPlan",
            "plan_dedisperse_os", "coherent_dedisperse_os"]
 
 _TWO_PI32 = float(np.float32(2 * np.pi))
@@ -244,27 +245,44 @@ def _dedisperse_packed(rows, re, im):
     return y.reshape(y.shape[:-3] + (-1, n))[..., :r, :]
 
 
-def coherent_dedisperse(data, dm, fcent_mhz, bw_mhz, dt_us):
+def dedispersion_filter(nsamp, dm, fcent_mhz, bw_mhz, dt_us, device):
+    """The transfer function of a host DM (a Python number) as one
+    complex64 tensor on ``device``: the host float64 planes
+    :func:`coherent_dedisperse` multiplies such a DM's spectrum by.  A
+    caller that filters many streams of one length builds it once (the
+    reference's compiled program folds it once)."""
+    re, im = coherent_dedispersion_transfer(nsamp, dm, fcent_mhz, bw_mhz,
+                                            dt_us)
+    h = torch.complex(torch.from_numpy(re), torch.from_numpy(im))
+    return to_device(h, device)
+
+
+def coherent_dedisperse(data, dm, fcent_mhz, bw_mhz, dt_us, filt=None):
     """Apply the coherent dispersion transfer function to ``(..., Nsamp)``
     float32 data (reference: ``coherent_dedisperse``), all streams in
     batched FFTs in fixed row groups.
 
     A host DM (a Python number: the object-oriented path) takes the host
-    float64 planes and the rFFT form.  A DM tensor takes the double-float
-    planes, one row per DM: ``data``'s leading axes start with the DM's,
+    float64 planes and the rFFT form; ``filt`` gives those planes built
+    already (:func:`dedispersion_filter` for this length and DM).  A DM
+    tensor takes the double-float planes, one row per DM: ``data``'s leading axes start with the DM's,
     and for even ``Nsamp`` pairs of each observation's streams are packed
     into complex streams (:func:`_dedisperse_packed`, the reference's
     in-graph form), else the rFFT form.
     """
     n = data.shape[-1]
+    host_dm = not isinstance(dm, torch.Tensor) and np.ndim(dm) == 0
+    if filt is None and host_dm and not any(
+            isinstance(g, torch.Tensor) for g in (fcent_mhz, bw_mhz, dt_us)):
+        filt = dedispersion_filter(n, dm, fcent_mhz, bw_mhz, dt_us,
+                                   data.device)
+    if filt is not None:
+        return _irfft_rows(_rfft_rows(data) * filt, n)
     if isinstance(dm, torch.Tensor):
         dm = to_device(dm, data.device)
-    elif np.ndim(dm) != 0:
+    elif not host_dm:
         dm = torch.as_tensor(np.asarray(dm, np.float32), device=data.device)
     re, im = coherent_dedispersion_transfer(n, dm, fcent_mhz, bw_mhz, dt_us)
-    if isinstance(re, np.ndarray):
-        h = torch.complex(torch.from_numpy(re), torch.from_numpy(im))
-        return _irfft_rows(_rfft_rows(data) * to_device(h, data.device), n)
     rows = data.reshape(re.shape[:-1] + (-1, n))
     if n % 2 == 0:
         out = _dedisperse_packed(rows, re, im)

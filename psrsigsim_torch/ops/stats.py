@@ -50,8 +50,8 @@ __all__ = ["SEQ_RNG_BLOCK", "CHI2_WH_MIN_DF", "fma", "exp", "erf_inv",
            "blocked_chan_normal", "sampler_backend",
            "chan_chi2_field", "chan_normal_field", "FLAT_TILE",
            "FLAT_MAX_OFFSET", "flat_normal_field", "flat_chi2_field",
-           "flat_chi2_ok", "chi2_draw_norm", "choice", "fixed_histogram",
-           "exponential"]
+           "flat_chi2_ok", "flat_spans", "chi2_draw_norm", "choice",
+           "fixed_histogram", "exponential"]
 
 # Fixed span of global time samples per RNG key: every pipeline draw is keyed
 # by (stage, channel, global block index), so a seed gives the same stream
@@ -892,13 +892,9 @@ def flat_normal_field(key, f0, length):
     return _flat_draw(key, f0, length, "normal", 0.0)
 
 
-def flat_chi2_field(key, f0, length, df):
-    """χ² draws from the flat normal stream (reference:
-    ``flat_chi2_field``): df = 1 is ``z²``, a static df ≥ 50 the
-    Wilson–Hilferty cube of ``z``, a per-observation df tensor selects
-    between the two.  On the card the transform runs in the kernel's
-    registers.  A static df below 50 (other than 1) raises: the gamma
-    sampler has no flat-normal form (:func:`flat_chi2_ok` guards it)."""
+def _check_flat_df(df):
+    """A static df's value (None for a tensor), after refusing one the flat
+    stream cannot draw."""
     static_df = _static_df(df)
     if (static_df is not None and static_df != 1.0
             and static_df < CHI2_WH_MIN_DF):
@@ -906,6 +902,17 @@ def flat_chi2_field(key, f0, length, df):
             f"flat_chi2_field needs df=1 or df >= {CHI2_WH_MIN_DF:.0f} "
             f"(got {static_df}): small-df chi2 uses the gamma rejection "
             "sampler, which has no flat-normal form — use chan_chi2_field")
+    return static_df
+
+
+def flat_chi2_field(key, f0, length, df):
+    """χ² draws from the flat normal stream (reference:
+    ``flat_chi2_field``): df = 1 is ``z²``, a static df ≥ 50 the
+    Wilson–Hilferty cube of ``z``, a per-observation df tensor selects
+    between the two.  On the card the transform runs in the kernel's
+    registers.  A static df below 50 (other than 1) raises: the gamma
+    sampler has no flat-normal form (:func:`flat_chi2_ok` guards it)."""
+    static_df = _check_flat_df(df)
     if sampler_backend(key.device) == "hw":
         mode = _hw_chi2_mode(df)
         return _flat_draw(key, f0, length, mode,
@@ -935,6 +942,57 @@ def flat_chi2_ok(df, span_end=None):
     if static_df is None:
         return True
     return static_df == 1.0 or static_df >= CHI2_WH_MIN_DF
+
+
+def flat_spans(key, f0s, length, df=None):
+    """Several spans of one flat stream: ``(..., len(f0s), length)``, span
+    ``s`` equal to ``flat_normal_field(key, f0s[s], length)`` (``df``
+    None) or ``flat_chi2_field(key, f0s[s], length, df)``, bit for bit —
+    e.g. a time slab of every channel, at offsets ``c·nsamp + t0``.
+
+    On the card the spans that share a tile phase ``f0 % FLAT_TILE`` are
+    one launch of the flat kernel, a row per (key, span) with the span's
+    first block in the row's position; elsewhere each span is drawn as
+    above."""
+    f0s = [int(f) for f in f0s]
+    if df is not None:
+        _check_flat_df(df)
+    if sampler_backend(key.device) != "hw":
+        return torch.stack([flat_normal_field(key, f, length) if df is None
+                            else flat_chi2_field(key, f, length, df)
+                            for f in f0s], dim=-2)
+    from .rng_hw import rng_flat_field, seed_words
+
+    mode = "normal" if df is None else _hw_chi2_mode(df)
+    dev = key.device
+    lead = key.shape[:-1]
+    seeds = seed_words(key.reshape(-1, 2))
+    B = seeds.shape[0]
+    if isinstance(df, torch.Tensor):
+        dfs = df.to(device=dev, dtype=_F32).expand(lead).reshape(B)
+    else:
+        dfv = 0.0 if mode in ("normal", "chi2_1") else float(df)
+        dfs = torch.full((B,), dfv, dtype=_F32, device=dev)
+    out = torch.empty((B, len(f0s), int(length)), dtype=_F32, device=dev)
+    groups = {}
+    for s, f in enumerate(f0s):
+        b0, skip = divmod(f, FLAT_TILE)
+        groups.setdefault(skip, []).append((s, b0))
+    for skip, members in groups.items():
+        G = len(members)
+        pos = torch.zeros((B * G, 2), dtype=torch.int32)
+        pos[:, 1] = torch.tensor([b0 for _, b0 in members],
+                                 dtype=torch.int32).repeat(B)
+        rows = rng_flat_field(
+            seeds.repeat_interleave(G, dim=0).contiguous(),
+            dfs.repeat_interleave(G).contiguous(), to_device(pos, dev),
+            mode, skip, int(length))
+        idx = [s for s, _ in members]
+        if idx == list(range(idx[0], idx[0] + G)):
+            out[:, idx[0]:idx[0] + G] = rows.view(B, G, -1)
+        else:
+            out[:, idx] = rows.view(B, G, -1)
+    return out.reshape(lead + (len(f0s), int(length)))
 
 
 def choice(key, n, p=None):

@@ -1,17 +1,21 @@
-"""Monte-Carlo fold-mode ensembles on one device (counterpart:
-psrsigsim_tpu/parallel/ensemble.py, ``FoldEnsemble`` and
-``MultiPulsarFoldEnsemble``).
+"""Monte-Carlo fold-mode ensembles on one device or over an ``(obs,
+chan)`` mesh (counterpart: psrsigsim_tpu/parallel/ensemble.py,
+``FoldEnsemble`` and ``MultiPulsarFoldEnsemble``).
 
 The BASELINE workload: thousands of fold-mode observations of one pulsar,
 run a batch at a time, quantized to PSRFITS int16 with real DAT_SCL /
 DAT_OFFS columns and packed into one buffer per chunk.  Where the reference
 shards a vmapped program over an (obs, chan) mesh, the port runs a written-
-out batch on one device.  Every random draw is keyed by (seed, global
-observation index, stage, global channel), so results do not depend on the
-chunking.  A scenario stack (``scenario=``, :mod:`psrsigsim_torch.scenarios`)
-adds scintillation, RFI with its ground-truth mask and single-pulse
-energies, drawn once per chunk on the host and carried into the fused
-kernel as per-row factors.
+out batch once per position of its mesh (``mesh=``, :func:`.mesh.make_mesh`;
+None is a ``(1, 1)`` mesh on ``device``) — a sub-batch of observations × a
+slab of channels on that position's device — assembled on the mesh's first
+device.
+Every random draw is keyed by (seed, global observation index, stage,
+global channel), so results do not depend on the chunking or the mesh.
+A scenario stack (``scenario=``, :mod:`psrsigsim_torch.scenarios`) adds
+scintillation, RFI with its ground-truth mask and single-pulse energies,
+drawn once per chunk on the host and carried into the fused kernel as
+per-row factors.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import numpy as np
 import torch
 
 from ..ops.quantize import quantize_packed
-from ..ops.stats import CHI2_WH_MIN_DF
+from ..ops.stats import CHI2_WH_MIN_DF, sampler_backend
 from ..scenarios.registry import _param, parse_stack, scenario_rows
 from ..simulate.pipeline import (_fold_pipeline_hetero, build_fold_config,
                                  fold_pipeline, fold_pipeline_quantized,
@@ -28,6 +32,7 @@ from ..simulate.pipeline import (_fold_pipeline_hetero, build_fold_config,
                                  noise_level)
 from ..utils.device import resolve_device, to_device
 from ..utils.rng import fold_in, key, stage_key
+from .mesh import CHAN_AXIS, MeshSlabs, check_chan_groups, mesh_devices
 
 __all__ = ["FoldEnsemble", "MultiPulsarFoldEnsemble", "build_width_bucket_fn"]
 
@@ -130,8 +135,15 @@ def _check_hetero_nfolds(nfolds):
     return nfolds
 
 
+def _padded(idx, mesh):
+    """``idx`` padded to the obs shards by tiling it modulo its length (the
+    reference's rule: any pad works, even one longer than ``idx``)."""
+    idx = np.asarray(idx)
+    return idx[np.arange(mesh.padded(idx.shape[0])) % idx.shape[0]]
+
+
 class FoldEnsemble:
-    """A fold-mode Monte-Carlo ensemble on one device.
+    """A fold-mode Monte-Carlo ensemble on one device or over a mesh.
 
     Build from configured signal/pulsar/telescope objects, then ``run``
     batches of observations with per-observation DMs and noise scales.
@@ -143,6 +155,17 @@ class FoldEnsemble:
     defaults fill unset knobs).  ``None`` runs the scenario-free body,
     byte for byte as without the engine.
 
+    ``mesh``: an ``(obs, chan)`` :class:`~psrsigsim_torch.parallel.Mesh`
+    (:func:`~psrsigsim_torch.parallel.make_mesh`; devices may repeat).
+    Observations split over ``obs`` (a batch pads to the obs shards by
+    tiling its indices and is trimmed after), channels over ``chan``
+    (``Nchan`` must divide; on the sampler kernel's path a chan shard must
+    hold a multiple of 8 channels, the kernel's channel group).  Each
+    position runs the one-device body on its device, one position after
+    the other; results are assembled on the mesh's first device, which is
+    the ensemble's ``device`` (a different ``device=`` raises).  The bytes
+    equal the mesh-free run's.
+
     Example
     -------
     >>> ens = FoldEnsemble(signal, pulsar, telescope, "Lband_GUPPI")
@@ -150,8 +173,8 @@ class FoldEnsemble:
     """
 
     def __init__(self, signal, pulsar, telescope, system, Tsys=None,
-                 device=None, scenario=None):
-        self.device = resolve_device(device)
+                 device=None, scenario=None, mesh=None):
+        self.mesh, self.device = mesh_devices(mesh, device)
         cfg, profiles_np, noise_norm = build_fold_config(
             signal, pulsar, telescope, system, Tsys=Tsys)
         dm = float(signal.dm.value) if signal.dm is not None else 0.0
@@ -164,13 +187,13 @@ class FoldEnsemble:
 
     @classmethod
     def from_config(cls, cfg, profiles, noise_norm, dm=0.0, device=None,
-                    scenario=None):
+                    scenario=None, mesh=None):
         """An ensemble over an already staged geometry (``cfg``, the
         ``(Nchan, Nph)`` portrait and the noise scale), e.g. one carried
         across from the JAX package by
         :func:`psrsigsim_torch.compat.config_from_reference`."""
         self = cls.__new__(cls)
-        self.device = resolve_device(device)
+        self.mesh, self.device = mesh_devices(mesh, device)
         if isinstance(profiles, torch.Tensor):
             profiles = profiles.detach().cpu().numpy()
         self._stage(cfg, profiles, noise_norm, dm, scenario)
@@ -196,6 +219,24 @@ class FoldEnsemble:
         # global channel ids stay on the host: the sampler reads the first
         # one, and the threefry path copies them where its keys are
         self._chan_ids = torch.arange(cfg.meta.nchan)
+        self._check_mesh()
+        self._slabs = MeshSlabs(self.mesh, self._profiles, self._freqs)
+
+    def _check_mesh(self):
+        """``Nchan`` divides over the chan axis and, on the sampler kernel's
+        path, every chan shard starts on an 8-channel group (checked when
+        staged and before every meshed run: the sampler is chosen then)."""
+        check_chan_groups(self.cfg.meta.nchan, self.mesh.shape[CHAN_AXIS],
+                          sampler_backend(self.device))
+
+    def _on_mesh(self, fn, keys, dms, norms, rows, dims):
+        """``fn(keys, dms, norms, rows, profiles, freqs, chan_ids)`` at every
+        mesh position (:meth:`.mesh.MeshSlabs.run`), assembled on the
+        ensemble's device."""
+        self._check_mesh()
+        return self._slabs.run(
+            lambda k, dn, r, p, f, c: fn(k, *dn, r, p, f, c),
+            keys, (dms, norms), rows, dims, self.device)
 
     @staticmethod
     def _validate_per_obs(n_obs, dms, noise_norms):
@@ -294,9 +335,10 @@ class FoldEnsemble:
         return keys, dms, norms
 
     def _blocks(self, keys, dms, norms, rows=None):
-        return fold_pipeline(keys, dms, norms, self._profiles, self.cfg,
-                             freqs=self._freqs, chan_ids=self._chan_ids,
-                             rows=rows)
+        return self._on_mesh(
+            lambda k, d, n, r, p, f, c: fold_pipeline(
+                k, d, n, p, self.cfg, freqs=f, chan_ids=c, rows=r),
+            keys, dms, norms, rows, (0, 1))
 
     def _quantized_packed(self, keys, dms, norms, byte_order, rows=None):
         """One batch through the pipeline, the finite guard and the
@@ -309,12 +351,16 @@ class FoldEnsemble:
         the threefry parity sampler, ``PSS_EXACT_SHIFT=1`` and the CPU run
         the unfused float body, quantizer and packing.  The route follows
         the configuration (:func:`~psrsigsim_torch.simulate.pipeline.fused_route`);
-        ``rows`` (:meth:`_rows`) carries a scenario's factors to either."""
-        if fused_route(self.cfg, self.device):
-            return fold_pipeline_quantized(
-                keys, dms, norms, self._profiles, self.cfg, freqs=self._freqs,
-                chan_ids=self._chan_ids, byte_order=byte_order, rows=rows)
-        return self._unfused_packed(keys, dms, norms, byte_order, rows)
+        ``rows`` (:meth:`_rows`) carries a scenario's factors to either.
+        Every mesh position runs its part so (the fused kernel with its
+        first global channel, ``chan0``)."""
+        if not fused_route(self.cfg, self.device):
+            return self._unfused_packed(keys, dms, norms, byte_order, rows)
+        return self._on_mesh(
+            lambda k, d, n, r, p, f, c: fold_pipeline_quantized(
+                k, d, n, p, self.cfg, freqs=f, chan_ids=c,
+                byte_order=byte_order, rows=r),
+            keys, dms, norms, rows, ((0, 2), (0, 1)))
 
     def _unfused_packed(self, keys, dms, norms, byte_order, rows=None):
         """The unfused body: float blocks, then the finite guard, the
@@ -333,10 +379,11 @@ class FoldEnsemble:
 
     def _prep_inputs(self, n_obs, seed, dms, noise_norms, scenario_params):
         """Keys, DMs, noise scales and scenario rows of observations
-        ``0..n_obs-1``."""
+        ``0..n_obs-1``, padded to the mesh's obs shards (the caller trims
+        to ``n_obs``)."""
         self._validate_per_obs(n_obs, dms, noise_norms)
         self._validate_scenario_params(n_obs, scenario_params)
-        idx = np.arange(n_obs)
+        idx = _padded(np.arange(n_obs), self.mesh)
         keys, dms_t, norms_t = self._prep_chunk(idx, seed, dms, noise_norms)
         rows = self._rows(keys, norms_t,
                           self._prep_scenario(idx, scenario_params))
@@ -350,7 +397,7 @@ class FoldEnsemble:
         parameters; unset knobs take registry defaults."""
         keys, dms_t, norms_t, rows = self._prep_inputs(
             n_obs, seed, dms, noise_norms, scenario_params)
-        return self._blocks(keys, dms_t, norms_t, rows)
+        return self._blocks(keys, dms_t, norms_t, rows)[:n_obs]
 
     def run_quantized(self, n_obs, seed=0, dms=None, noise_norms=None,
                       return_finite=False, return_rfi=False,
@@ -374,11 +421,11 @@ class FoldEnsemble:
             n_obs, seed, dms, noise_norms, scenario_params)
         packed, finite = self._quantized_packed(keys, dms_t, norms_t, "little",
                                                 rows)
-        result = self._split_packed_device(packed)
+        result = self._split_packed_device(packed[:n_obs])
         if return_finite:
-            result = result + (finite,)
+            result = result + (finite[:n_obs],)
         if return_rfi:
-            result = result + (rows.mask,)
+            result = result + (rows.mask[:n_obs],)
         return result
 
     def run_quantized_at(self, indices, seed=0, dms=None, noise_norms=None,
@@ -430,19 +477,20 @@ class FoldEnsemble:
         indices = np.asarray(indices, np.int64).reshape(-1)
         if indices.size == 0:
             raise ValueError("indices must be non-empty")
-        # the JAX package pads the batch to its mesh's observation shards by
-        # tiling the indices modulo their count, and trims the result; one
-        # device needs neither
-        keys, dms_c, norms_c = self._prep_chunk(indices, seed, dms,
-                                                noise_norms,
+        n = indices.size
+        # padded to the mesh's observation shards by tiling the indices
+        # modulo their count, trimmed after (the reference's rule)
+        idx = _padded(indices, self.mesh)
+        keys, dms_c, norms_c = self._prep_chunk(idx, seed, dms, noise_norms,
                                                 fold_salt=fold_salt)
         rows = self._rows(keys, norms_c,
-                          self._prep_scenario(indices, scenario_params))
+                          self._prep_scenario(idx, scenario_params))
         packed, finite = self._quantized_packed(keys, dms_c, norms_c,
                                                 byte_order, rows)
-        result = self._split_packed_device(packed) + (finite,)
+        packed = packed[:n]
+        result = self._split_packed_device(packed) + (finite[:n],)
         if return_rfi:
-            result = result + (rows.mask,)
+            result = result + (rows.mask[:n],)
         if return_digest:
             from ..runtime.integrity import device_packed_digest_rows
 
@@ -547,6 +595,8 @@ class FoldEnsemble:
         if n_obs <= 0:
             return
         chunk_size = min(chunk_size, n_obs)
+        # every chunk pads to the mesh's obs shards (the reference's rule)
+        chunk_size = self.mesh.padded(chunk_size)
         nbin = self.cfg.nph
         cuda = self.device.type == "cuda"
         copy_stream = torch.cuda.Stream(self.device) if cuda else None
@@ -772,6 +822,7 @@ class FoldEnsemble:
         from ..mc import MonteCarloStudy
 
         kw.setdefault("device", self.device)
+        kw.setdefault("mesh", self.mesh)
         return MonteCarloStudy(self.cfg, self._profiles_np, self.noise_norm,
                                priors, seed=seed, dm=self.dm, **kw)
 
@@ -822,23 +873,27 @@ class MultiPulsarFoldEnsemble:
         One entry per pulsar, as :func:`~psrsigsim_torch.simulate.
         build_fold_config` gives them plus that pulsar's DM
         (:meth:`from_simulations` builds them from ``Simulation`` objects).
-    mesh : must be None — meshes are a later slice of the port.
+    mesh : an ``(obs, chan)`` :class:`~psrsigsim_torch.parallel.Mesh`,
+        optional: pulsars split over ``obs`` (a bucket pads to the obs
+        shards by tiling its pulsars), channels over ``chan`` (as
+        :class:`FoldEnsemble`'s; the results live on the mesh's first
+        device, a different ``device`` raises).  Changes no draw.
     epoch_chunk : epochs per pass through the pipeline (bounds the working
         set; None = all epochs of a run at once).  Changes no draw.
     device : where the ensemble runs (default: the CUDA card).
     """
 
     def __init__(self, workloads, mesh=None, epoch_chunk=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: meshes and multi-device ensembles are not ported "
-                "yet; the port runs one device")
-        self.device = resolve_device(device)
-        self.mesh = None
+        self.mesh, self.device = mesh_devices(mesh, device)
         self.workloads = list(workloads)
         self.epoch_chunk = epoch_chunk
+        n_chan = self.mesh.shape[CHAN_AXIS]
         self._buckets = {}  # static geometry -> list of pulsar indices
         for idx, (cfg, _, _, _) in enumerate(self.workloads):
+            if cfg.meta.nchan % n_chan:
+                raise ValueError(
+                    f"pulsar {idx}: Nchan={cfg.meta.nchan} must be divisible "
+                    f"by the chan mesh axis ({n_chan})")
             bkey = (cfg.meta.nchan, cfg.nph, cfg.nsub)
             self._buckets.setdefault(bkey, []).append(idx)
         self._bucket_data = {}  # bucket key -> staged device inputs
@@ -895,10 +950,13 @@ class MultiPulsarFoldEnsemble:
 
     def _staged(self, bkey, members):
         """A bucket's per-pulsar inputs on the device, staged once and
-        reused by every run (only the keys change)."""
+        reused by every run (only the keys change): its pulsar list padded
+        to the obs shards (tiled), the per-channel inputs cut into the
+        mesh's chan slabs."""
         if bkey in self._bucket_data:
             return self._bucket_data[bkey]
         dev = self.device
+        members = list(_padded(members, self.mesh))
         w = [self.workloads[i] for i in members]
 
         def col(values):
@@ -917,10 +975,28 @@ class MultiPulsarFoldEnsemble:
                                    for _, p, _, _ in w]))[:, None],
             freqs=col(np.stack([np.asarray(c.meta.dat_freq_mhz(), np.float32)
                                 for c, _, _, _ in w]))[:, None],
-            chan_ids=torch.arange(bkey[0]),
         )
+        staged["slabs"] = MeshSlabs(self.mesh, staged["profiles"][:, 0],
+                                    staged["freqs"][:, 0], lead=1)
         self._bucket_data[bkey] = staged
         return staged
+
+    def _run_mesh(self, st, keys, cfg0):
+        """One bucket's epoch chunk: each mesh position runs its pulsars ×
+        its channels on its device; ``(P, E, Nchan, Nsamp)`` on the
+        ensemble's device."""
+        check_chan_groups(cfg0.meta.nchan, self.mesh.shape[CHAN_AXIS],
+                          sampler_backend(self.device))
+
+        def one(k, cols, r, prof, freqs, chan_ids):
+            dms, norms, nfolds, draw_norms, dts = cols
+            return _fold_pipeline_hetero(
+                k, dms, norms, nfolds, draw_norms, prof[:, None], cfg0,
+                freqs[:, None], chan_ids, None, dts, prof.device)
+
+        cols = tuple(st[k] for k in ("dms", "norms", "nfolds", "draw_norms",
+                                     "dts"))
+        return st["slabs"].run(one, keys, cols, None, (0, 2), self.device)
 
     def run(self, epochs, seed=0, epoch_start=0):
         """Simulate ``epochs`` observations of every pulsar.
@@ -949,10 +1025,8 @@ class MultiPulsarFoldEnsemble:
                               device=self.device)
             for e0 in range(0, epochs, step):
                 e1 = min(e0 + step, epochs)
-                out[:, e0:e1] = _fold_pipeline_hetero(
-                    keys[:, e0:e1], st["dms"], st["norms"], st["nfolds"],
-                    st["draw_norms"], st["profiles"], cfg0, st["freqs"],
-                    st["chan_ids"], None, st["dts"], self.device)
+                out[:, e0:e1] = self._run_mesh(
+                    st, keys[:, e0:e1], cfg0)[:len(members)]
             for slot, idx in enumerate(members):
                 results[idx] = out[slot]
         return results

@@ -108,9 +108,8 @@ def main(argv=None):
             or args.pod_host is not None or args.pod_coordinator is not None \
             or args.pod_channel_port is not None:
         raise NotImplementedError(
-            "multi-host pod serving is not ported (ROADMAP Queue 1 item 4: "
-            "meshes, pods and sequence sharding); run one process per "
-            "card")
+            "multi-host pod serving is not ported (ROADMAP Queue 1 item 4b: "
+            "pods); run one process per card")
 
     from .http import make_server, run_server
     from .service import SimulationService

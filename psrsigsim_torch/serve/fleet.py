@@ -177,8 +177,7 @@ class ReplicaFleet:
         if group_hosts > 1:
             raise NotImplementedError(
                 "multi-host replica groups are not ported (ROADMAP Queue 1 "
-                "item 4: meshes, pods and sequence sharding); a replica is "
-                "one process")
+                "item 4b: pods); a replica is one process")
         from ..utils.device import resolve_device
 
         # the card check runs HERE, in the parent: a fleet without a card

@@ -605,15 +605,18 @@ def _null_mask_row(key, cfg, t0, length, device):
     return _null_mask_at(key, cfg, gidx)
 
 
-def _roll_rows(row, shifts):
+def _roll_rows(row, shifts, t0=0, length=None):
     """``jnp.roll(row[b], shifts[b, c])`` for every channel: rows ``(B,
     n)`` and integer shifts ``(B, C)`` -> ``(B, C, n)``, each output sample
     ``row[b, (t - shift) mod n]``.  One gather pass: each (b, c) row is the
-    window of the doubled row starting at ``(-shift) mod n``."""
+    window of the doubled row starting at ``(-shift) mod n``.  ``t0`` and
+    ``length`` keep samples ``[t0, t0 + length)`` of each rolled row only
+    (a time slab)."""
     n = row.shape[-1]
+    length = n if length is None else int(length)
     doubled = torch.cat([row, row], dim=-1)
-    windows = doubled.unfold(-1, n, 1)                  # (B, n + 1, n) view
-    start = torch.remainder(-shifts.to(torch.int64), n)
+    windows = doubled.unfold(-1, length, 1)   # (B, 2n - length + 1, length)
+    start = torch.remainder(int(t0) - shifts.to(torch.int64), n)
     b = torch.arange(row.shape[0], device=row.device)[:, None]
     return windows[b, start]
 

@@ -34,13 +34,6 @@ from ..utils.utils import make_par
 __all__ = ["Simulation"]
 
 
-def _unported_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: meshes and multi-device ensembles are not ported yet; "
-            "the port runs one device")
-
-
 class Simulation:
     """Convenience class for full simulations (reference:
     simulate/simulate.py:18-118; see that docstring for the parameter
@@ -322,11 +315,14 @@ class Simulation:
         ``scenario``: optional list of scenario-effect labels (or a
         :class:`~psrsigsim_torch.scenarios.ScenarioStack`) enabling the
         scenario engine's effects on every run of the ensemble — see
-        :mod:`psrsigsim_torch.scenarios`.  ``mesh`` (a device mesh) belongs
-        to a later slice of the port and raises ``NotImplementedError``."""
+        :mod:`psrsigsim_torch.scenarios`.  ``mesh``: an ``(obs, chan)``
+        device mesh (:func:`~psrsigsim_torch.parallel.make_mesh`); the
+        ensemble then runs over it and its results land on the mesh's
+        first device, which must be this simulation's device when one was
+        named."""
         from ..parallel.ensemble import FoldEnsemble
+        from ..parallel.mesh import mesh_devices
 
-        _unported_mesh(mesh)
         # the ensemble's PSRFITS exit path fits polycos: make sure they
         # barycenter on THIS instance's kernel, not whichever Simulation
         # touched the global switch last — applied now, and stamped on
@@ -334,9 +330,10 @@ class Simulation:
         # time (another Simulation may run in between)
         self._activate_ephemeris()
         self.init_all()
+        mesh, device = mesh_devices(mesh, self._device)
         ens = FoldEnsemble(self.signal, self.pulsar, self.tscope,
-                           self.system_name, device=self._device,
-                           scenario=scenario)
+                           self.system_name, device=device,
+                           scenario=scenario, mesh=mesh)
         ens.ephemeris_source = self._ephemeris
         return ens
 
@@ -362,8 +359,8 @@ class Simulation:
         under supervision — and ``scenario_params``).  ``scenario`` builds
         the ensemble with that scenario stack (:meth:`to_ensemble`); the
         JAX package's façade has no such keyword, its callers export a
-        scenario ensemble through the exporter directly.  ``mesh`` raises
-        ``NotImplementedError``.
+        scenario ensemble through the exporter directly.  ``mesh``: as
+        :meth:`to_ensemble` (the files are the mesh-free export's bytes).
         """
         if template is None:
             template = self.tempfile
@@ -395,7 +392,8 @@ class Simulation:
         crash-safe journal and the fingerprinted artifact; ``study_kw``
         passes construction options (``nharm``, ``hist_bins``, ...) and
         ``run_kw`` run options (``chunk_size``, ``resume``, ``telemetry``,
-        ``progress``, ...).  ``mesh`` raises ``NotImplementedError``.
+        ``progress``, ...).  ``mesh``: an ``(obs, chan)`` mesh with chan
+        axis 1, over which the trials split.
         """
         from ..mc import MonteCarloStudy
 

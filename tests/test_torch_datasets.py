@@ -338,8 +338,14 @@ def test_reader_and_record_host(hw, tmp_path):
 def test_unported_options_raise_and_writer_imports_no_torch():
     from psrsigsim_torch.datasets import DatasetFactory
 
-    with pytest.raises(NotImplementedError, match="mesh"):
+    from psrsigsim_torch.parallel import make_mesh
+
+    # mesh= takes a Mesh (tests/test_torch_mesh.py holds its corpora)
+    with pytest.raises(TypeError, match="Mesh"):
         DatasetFactory(SMALL, mesh=object(), device="cpu")
+    fac = DatasetFactory(SMALL, mesh=make_mesh((2, 1), ["cpu"] * 2))
+    assert fac.sampler.record_host(3)["tile"].shape == \
+        (2, fac.sampler.cfg.nsamp)
     code = ("import sys; import psrsigsim_torch.datasets.writer; "
             "assert 'torch' not in sys.modules; print('clean')")
     proc = subprocess.run([sys.executable, "-c", code],

@@ -336,14 +336,20 @@ def test_unknown_knob_and_unported_options_raise(study_dm):
     with pytest.raises(ValueError, match="ambiguous"):
         _study({"sp_sigma": {"dist": "fixed", "value": 0.5},
                 "sp_amp": {"dist": "fixed", "value": 2.0}})
-    with pytest.raises(NotImplementedError, match="mesh"):
+    from psrsigsim_torch.parallel import make_mesh
+
+    # mesh= takes a Mesh (tests/test_torch_mesh.py holds the rows across
+    # mesh shapes)
+    with pytest.raises(TypeError, match="Mesh"):
         MonteCarloStudy(study_dm.cfg, study_dm._profiles_np,
                         study_dm.noise_norm, {}, mesh=object(), device="cpu")
     from psrsigsim_torch.simulate import Simulation
 
-    with pytest.raises(NotImplementedError, match="mesh"):
-        Simulation(psrdict=dict(SIM_CONFIG), device="cpu").run_mc_study(
-            {}, 4, mesh=object())
+    sim = Simulation(psrdict=dict(SIM_CONFIG), device="cpu")
+    with pytest.raises(TypeError, match="Mesh"):
+        sim.run_mc_study({}, 4, mesh=object())
+    res = sim.run_mc_study({}, 4, mesh=make_mesh((2, 1), ["cpu"] * 2))
+    assert res.metrics.shape[0] == 4
 
 
 def test_exact_fft_config_rejected(study_dm):

@@ -335,8 +335,15 @@ def test_from_simulations_matches_reference(ref):
 def test_mesh_and_missing_card_raise(monkeypatch, population):
     from psrsigsim_torch.parallel import MultiPulsarFoldEnsemble
 
-    with pytest.raises(NotImplementedError, match="mesh"):
+    from psrsigsim_torch.parallel import make_mesh
+
+    # mesh= takes a Mesh (tests/test_torch_mesh.py holds the blocks across
+    # mesh shapes)
+    with pytest.raises(TypeError, match="Mesh"):
         MultiPulsarFoldEnsemble(population, mesh=object(), device="cpu")
+    ens = MultiPulsarFoldEnsemble(population,
+                                  mesh=make_mesh((2, 1), ["cpu"] * 2))
+    assert len(ens.run(1)) == len(population)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MultiPulsarFoldEnsemble(population)

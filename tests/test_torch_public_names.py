@@ -7,7 +7,8 @@ each held to the reference on the CPU: the device PCHIP
 ``simulate.fold_pipeline_batch``, ``data.list_data``, the scenario draws
 re-exported from ``ops`` (``scint_gain``, ``rfi_levels``,
 ``pulse_energies``), ``utils.ConsoleProgress`` (and ``psrsigsim_torch.
-utils``), and the scrubs ``runtime.scrub_mc_dir``/``scrub_dataset_dir``.
+utils``), the scrubs ``runtime.scrub_mc_dir``/``scrub_dataset_dir``, and
+every name of the reference's ``parallel`` package.
 
 Reference values come from a child process (this file run as a script,
 with the R1/R2 shims of tests/test_torch_toa.py).  Tolerances: the PCHIP
@@ -152,6 +153,9 @@ def _child(out):
     import psrsigsim_tpu.runtime as rt
 
     res["runtime_all"] = np.array(rt.__all__)
+    import psrsigsim_tpu.parallel as par
+
+    res["parallel_all"] = np.array(par.__all__)
     np.savez(os.path.join(out, "ref.npz"), **res)
 
 
@@ -320,6 +324,23 @@ def test_runtime_exports_the_scrubs(ref):
     for name in ("scrub_mc_dir", "scrub_dataset_dir", "scrub_export_dir"):
         assert name in rt.__all__ and name in list(ref["runtime_all"])
         assert getattr(rt, name) is getattr(integrity, name)
+
+
+
+def test_parallel_exports_the_reference_names(ref):
+    """Every public name of the reference's ``parallel`` package imports
+    from the port's (meshes and sequence sharding: tests/test_torch_mesh.py,
+    tests/test_torch_seqshard.py, tests/test_torch_seqshard_baseband.py,
+    tests/test_torch_obs_seq.py hold their behaviour)."""
+    import psrsigsim_torch.parallel as par
+
+    names = list(ref["parallel_all"])
+    assert "seq_sharded_search" in names and "make_mesh" in names
+    for name in names:
+        assert name in par.__all__, name
+        assert getattr(par, name) is not None, name
+    assert par.OBS_AXIS == "obs" and par.CHAN_AXIS == "chan"
+    assert par.SEQ_AXIS == "seq" and par.SEQ_RNG_BLOCK == 4096
 
 
 if __name__ == "__main__":

@@ -293,13 +293,20 @@ def test_ephemeris_is_stamped_and_reapplied(tmp_path, monkeypatch):
 
 
 def test_later_slices_raise(tmp_path):
+    """mesh= (ported: tests/test_torch_mesh.py) takes a Mesh; anything
+    else raises TypeError, a real one runs."""
+    from psrsigsim_torch.parallel import make_mesh
+
     sim = _sim()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
         sim.to_ensemble(mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
         sim.export_ensemble(2, str(tmp_path), mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
         sim.run_mc_study({}, 4, mesh=object())
+    m = make_mesh((2, 1), ["cpu"] * 2)
+    assert sim.to_ensemble(mesh=m).run(3).shape[0] == 3
+    assert sim.run_mc_study({}, 4, mesh=m).metrics.shape[0] == 4
 
 
 def test_entry_points_need_a_device_without_cuda(monkeypatch):
