@@ -276,12 +276,35 @@ PSS_EXACT_CHI2=1 takes.  Phases:
    bit-identical to its mesh-free run, and (a) under PSS_EXACT_CHI2=1 at
    n = 1 and 2 (the exact-gamma kernel three times a shard), bit-equal;
    (f) a (1, 16) mesh, 4 channels a chan shard, raises the 8-channel-group
-   rule.
+   rule;
+21. pods (psrsigsim_torch.runtime.dist, psrsigsim_torch/tools/pod_runner.py):
+   two processes on the one card, each on cuda:0, one mesh position a
+   process ((obs 2, chan 1)), the channel fetch (PSS_POD_FETCH=channel), a
+   timeout on every process: (a) run_quantized(128) and run(16) at BASELINE
+   config 1's width on the pod, bit-equal to the one-process (2, 1) mesh
+   and to the mesh-free run, the fused kernel launched once a rank and the
+   sampler twice a rank, each held against its plain version at a rank's
+   shapes; obs/s and the channel exchange's ms and bytes a chunk; (b) a
+   256-observation supervised export in 64-observation chunks led by the
+   leader and mirrored by pod_export_follower, pod.kill SIGKILLing the
+   follower after its second chunk: the leader exits 73 within
+   POD_KILL_BOUND_S with chunk 0 committed, a fresh pod resumes with
+   resume="verify" launching the fused kernel for the missing chunks
+   only, and the files equal phase 9's clean export; (c)
+   ReplicaFleet(group_hosts=2) serving 64 requests bit-equal to an
+   in-process service (req/s, p50, p99), the
+   leader's /healthz launches 2 a bucket execution, a follower SIGKILL
+   taking the leader down with exit 73 and the supervisor restarting the
+   group, every request then served again from the cache (no lost commit);
+   (d) the bench MC study and a 128-record corpus on the pod, bit-identical
+   to their one-process runs.  No pod process builds a kernel (the build
+   directory's files do not change).
 
 The line before the last is one JSON object with each kernel's launches
 (counted in the main path's run: phases 5, 13 and 19; every path's
-count under ``launches_by_path``: phases 5, 9, 13, 15, 16, 17, 18, 19
-and 20, the fleet's read from its replicas' /healthz), error against
+count under ``launches_by_path``: phases 5, 9, 13, 15, 16, 17, 18, 19,
+20 and 21, the fleet's read from its replicas' /healthz, the pod's a
+rank), error against
 its plain version, times and bound.
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of one
@@ -479,6 +502,14 @@ BASEBAND_HALO = 1_048_576
 FOLD_MESHES = ((1, 1), (2, 1), (1, 2), (2, 2), (1, 8))
 MESH_MC_TRIALS = 256
 MESH_DATASET_SPEC = dict(DATASET_SPEC, n_records=128)
+# phase 21: a 2-process pod on the one card
+POD_PROCS = 2
+POD_TIMEOUT_S = 240.0      # every pod process
+POD_KILL_BOUND_S = 30.0    # (b): the follower's death to the leader's exit
+POD_EXPORT_CHUNK = MAIN_NOBS // 2  # (b): four chunks of phase 9's export
+POD_THREADS = 4            # each rank's host threads (8 cores, 2 ranks)
+POD_SERVE = range(7000, 7064)  # (c): serve_spec indices of the burst
+POD_SERVE_CLIENTS = 4
 TEMPLATE = os.path.join(ROOT, "data", "B1855+09.L-wide.PUPPI.11y.x.sum.sm")
 MAIN = dict(nchan=64, period_s=0.005, samprate_mhz=0.4096, sublen_s=60.0,
             tobs_s=1200.0, fcent=1380.0, bw=400.0, smean=0.009, dm=15.9)
@@ -5310,6 +5341,414 @@ class Smoke:
             return
         raise AssertionError("a (1, 16) mesh on the kernel path did not raise")
 
+    # -- 21 -----------------------------------------------------------------
+    def pods(self):
+        """Pods on the one card (see the module docstring)."""
+        import shutil
+        import tempfile
+
+        for k in ("PSS_SAMPLER", "PSS_EXACT_SHIFT", "PSS_EXACT_CHI2",
+                  "PSS_INTEGRITY", "PSS_POD_FETCH"):
+            os.environ.pop(k, None)
+        build = os.path.join(ROOT, "build")
+        os.makedirs(build, exist_ok=True)
+        libs = sorted(n for n in os.listdir(build) if n.endswith(".so"))
+        work = tempfile.mkdtemp(prefix="pods-", dir=build)
+        t0 = time.perf_counter()
+        try:
+            self._pod_identity(work)
+            self._pod_export(work)
+            self._pod_serve(work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        now = sorted(n for n in os.listdir(build) if n.endswith(".so"))
+        if now != libs:
+            raise AssertionError(f"a pod process built a kernel: "
+                                 f"{sorted(set(now) - set(libs))}")
+        log(f"  no pod process built a kernel ({len(libs)} libraries in "
+            f"build/ before and after); phase 21 steps done in "
+            f"{time.perf_counter() - t0:.1f} s ({self.card_line})")
+
+    @staticmethod
+    def _pod_runner():
+        """The pod driver, loaded from its file under a name of its own
+        (a top-level ``pod_runner`` may be another module)."""
+        import importlib.util
+
+        name = "psrsigsim_torch_pod_runner"
+        mod = sys.modules.get(name)
+        if mod is None:
+            spec = importlib.util.spec_from_file_location(
+                name, os.path.join(ROOT, "psrsigsim_torch", "tools",
+                                   "pod_runner.py"))
+            mod = importlib.util.module_from_spec(spec)
+            sys.modules[name] = mod
+            spec.loader.exec_module(mod)
+        return mod
+
+    def _pod_expect(self, label, got, want):
+        """One rank's launches (a pod_runner leg's counts) must be
+        ``want`` (the kernels it omits: none); recorded under ``label``."""
+        full = {k: want.get(k, 0) for k in got}
+        if got != full:
+            raise AssertionError(f"{label}: launches {got}, expected {full}")
+        self._path(label, {k: v for k, v in got.items() if v})
+
+    def _pod_identity(self, work):
+        """(a) and (d): the ensemble, the study and a corpus on the pod,
+        against one-process runs in this process."""
+        torch = self.torch
+        import hashlib
+
+        import numpy as np
+
+        from psrsigsim_torch.datasets import DatasetFactory
+        from psrsigsim_torch.mc import MonteCarloStudy
+        from psrsigsim_torch.ops import fold_quantize as fq
+        from psrsigsim_torch.ops import rng_hw
+        from psrsigsim_torch.parallel import make_mesh
+        from psrsigsim_torch.simulate import Simulation
+        from psrsigsim_torch.utils import key, stage_key
+
+        pr = self._pod_runner()
+        sim = Simulation(psrdict=main_psrdict(), device=self.dev)
+        sim.init_all()
+        want = {}
+        for label, mesh in (("mesh-free", None),
+                            ("(2, 1)", make_mesh((2, 1), [self.dev] * 2))):
+            ens = sim.to_ensemble(mesh=mesh)
+            d, s_, o = (t.cpu().numpy()
+                        for t in ens.run_quantized(MAIN_NOBS, seed=pr.SEED))
+            f = ens.run(FLOAT_NOBS, seed=pr.SEED).cpu().numpy()
+            want[label] = {"ensemble_quantized": pr.sha(d, s_, o),
+                           "ensemble_float": pr.sha(f)}
+            del ens, d, s_, o, f
+        if want["mesh-free"] != want["(2, 1)"]:
+            raise AssertionError("the one-process (2, 1) mesh differs from "
+                                 "the mesh-free run")
+        msim = Simulation(psrdict=dict(pr.MC_BENCH), device=self.dev)
+        msim.init_all()
+        res = MonteCarloStudy.from_simulation(
+            msim, pr.MC_BENCH_PRIORS, seed=pr.SEED).run(
+                MC_TRIALS, chunk_size=MC_CHUNK, out_dir=None)
+        want_mc = {"mc_metrics": pr.sha(res.metrics),
+                   "mc_hist": pr.sha(res.hist)}
+        corpus = os.path.join(work, "corpus-solo")
+        DatasetFactory(dict(pr.DATASET_BENCH), device=self.dev).run(
+            corpus, chunk_size=64, resume=False)
+        h = hashlib.sha256()
+        for name in sorted(os.listdir(corpus)):
+            if name.startswith("shard-") and name.endswith(".records"):
+                with open(os.path.join(corpus, name), "rb") as fh:
+                    h.update(fh.read())
+        want_corpus = h.hexdigest()
+
+        # the pod: two ranks on cuda:0, one mesh position each
+        cmd = [sys.executable, os.path.join(ROOT, "psrsigsim_torch", "tools",
+                                            "pod_runner.py"),
+               "--mode", "identity", "--hosts", str(POD_PROCS),
+               "--families", "ensemble,mc,dataset", "--device", "cuda",
+               "--geometry", "config1", "--total-devices", str(POD_PROCS),
+               "--ens-obs", str(MAIN_NOBS), "--ens-float", str(FLOAT_NOBS),
+               "--ens-chunk", "0", "--warm", "--mc-geometry", "bench",
+               "--mc-trials", str(MC_TRIALS), "--mc-chunk", str(MC_CHUNK),
+               "--dataset-out", os.path.join(work, "corpus-pod"),
+               "--threads", str(POD_THREADS), "--timeout", str(POD_TIMEOUT_S)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                              timeout=POD_TIMEOUT_S + 60)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"the pod failed (rc {proc.returncode}): "
+                                 f"{proc.stderr[-3000:]}")
+        verdict = json.loads(proc.stdout.strip().splitlines()[-1])
+        if not verdict["ok"] or verdict["mismatches"]:
+            raise AssertionError(f"the pod's ranks disagree: "
+                                 f"{verdict['mismatches']}")
+        ranks = verdict["workers"][str(POD_PROCS)]
+        expect = dict(want["mesh-free"], **want_mc,
+                      dataset_corpus=want_corpus)
+        for w in ranks:
+            r = w["process_id"]
+            # every rank holds the whole result: each rank's own hashes
+            for k, v in expect.items():
+                if w["hashes"].get(k) != v:
+                    raise AssertionError(f"pod rank {r}'s {k} differs from "
+                                         "the one-process run")
+            per = MC_TRIALS // MC_CHUNK
+            for leg, counts in (("run_quantized", {"fold_quantize": 1}),
+                                ("run", {"rng_field": 2}),
+                                ("mc", {"rng_field": 2 * per}),
+                                ("dataset", {"rng_flat_field": 2 * (
+                                    pr.DATASET_BENCH["n_records"] // 64)})):
+                self._pod_expect(f"21 {leg} pod rank {r}",
+                                 w["launches"][leg], counts)
+        lead = ranks[0]
+        ex = lead["exchange"]["run_quantized"]
+        t_rq = lead["timings"]["run_quantized"]
+        log(f"  (a) pod of {POD_PROCS} ranks on cuda:0 in {wall:.1f} s: "
+            f"run_quantized({MAIN_NOBS}) and run({FLOAT_NOBS}) on every rank "
+            "bit-equal to the one-process (2, 1) mesh and the mesh-free run; "
+            "fused kernel "
+            "1 launch a rank, sampler 2 a rank in run; run_quantized "
+            f"{t_rq * 1e3:.1f} ms = {MAIN_NOBS / t_rq:.1f} obs/s, of which "
+            f"the channel exchange {ex['seconds'] * 1e3:.1f} ms, "
+            f"{ex['bytes_sent']} bytes sent and {ex['bytes_received']} "
+            f"received a chunk (rank 0); run({FLOAT_NOBS}) "
+            f"{lead['timings']['run'] * 1e3:.1f} ms, exchange "
+            f"{lead['exchange']['run']['seconds'] * 1e3:.1f} ms "
+            f"({self.card_line})")
+        log(f"  (d) the bench study ({MC_TRIALS} trials, chunks of "
+            f"{MC_CHUNK}: {lead['timings']['mc']:.2f} s) and a "
+            f"{pr.DATASET_BENCH['n_records']}-record corpus "
+            f"({lead['timings']['dataset']:.2f} s) on the pod bit-identical "
+            "to their one-process runs on every rank")
+
+        # each kernel against its plain version at a rank's shapes
+        a, kw, _ = self.main_fused_args(nobs=MAIN_NOBS // POD_PROCS)
+        g = fq.fold_quantize(**a, **kw)
+        w_ = fq.fold_quantize_plain(**a, **kw)
+        if not (torch.equal(g[0], w_[0]) and torch.equal(g[1], w_[1])):
+            raise AssertionError("fused kernel differs from its plain version "
+                                 "at a rank's shape")
+        nobs = FLOAT_NOBS // POD_PROCS
+        obs = stage_key(key(pr.SEED, self.dev), "user",
+                        torch.arange(nobs, device=self.dev))
+        nsamp = sim.to_ensemble().cfg.nsamp
+        worst = 0.0
+        for stage in ("pulse", "noise"):
+            k = stage_key(obs, stage)
+            gr = rng_hw.hw_chan_field(k, 0, 12000.0, 0, mode="chi2_wh",
+                                      nchan=MAIN["nchan"], length=nsamp)
+            wr = rng_hw.rng_field_plain(
+                rng_hw.seed_words(k),
+                torch.full((nobs,), 12000.0, device=self.dev),
+                torch.zeros((nobs, 2), dtype=torch.int32, device=self.dev),
+                "chi2_wh", MAIN["nchan"], nsamp)
+            err, ok = ulp_close(gr, wr)
+            if not ok:
+                raise AssertionError("sampler differs from its plain version "
+                                     "at a rank's shape")
+            worst = max(worst, err)
+        log(f"  (a) at a rank's shapes: fused kernel {tuple(g[0].shape)} "
+            f"bit-equal to its plain version; sampler {tuple(gr.shape)} "
+            f"max|kernel-plain| {worst:.3g}")
+        del g, w_, gr, wr
+        if not np.isfinite(res.metrics).all():
+            raise AssertionError("the study's metrics are not finite")
+
+    def _pod_export(self, work):
+        """(b): the export program group, a follower's death, the resume.
+
+        At depth 0 each chunk's exchange happens when it is dispatched, one
+        chunk ahead of the loop's consumer: the exchange of chunk k+2
+        follows the leader's commit of chunk k, so a follower SIGKILLed
+        after its loop passed chunk 1 leaves chunk 0 committed (chunk 1
+        too if the leader's writes beat its watchdog) and the leader short
+        of chunk 3's exchange."""
+        import hashlib
+
+        from psrsigsim_torch.runtime import supervised_export
+
+        pr = self._pod_runner()
+
+        def hashes(out):
+            res = {}
+            for n in sorted(os.listdir(out)):
+                if n.endswith(".fits"):
+                    with open(os.path.join(out, n), "rb") as fh:
+                        res[n] = hashlib.sha256(fh.read()).hexdigest()
+            return res
+
+        if self.sup_clean is not None:
+            want = self.sup_clean[0]
+            origin = "phase 9's clean export"
+        else:   # phase 21 alone: the same export in this process
+            ref = os.path.join(work, "export-solo")
+            ens = geometry(MAIN, self.dev)
+            supervised_export(ens, SUP_NOBS, ref, TEMPLATE, ens.pulsar,
+                              seed=0, chunk_size=MAIN_NOBS, writers=1)
+            want = hashes(ref)
+            origin = "a one-process export"
+        out = os.path.join(work, "export-pod")
+        plan = os.path.join(work, "podkill.json")
+        with open(plan, "w") as fh:
+            json.dump({"scratch_dir": os.path.join(work, "podkill"),
+                       "spec": {"pod.kill": {"after_chunks": 2}}}, fh)
+        common = dict(timeout=POD_TIMEOUT_S, device="cuda",
+                      geometry="config1", devices_per_host=1, seed=0,
+                      threads=POD_THREADS)
+        ends = []
+        t0 = time.perf_counter()
+        (lrc, _, lerr), (frc, _, ferr) = pr.spawn_export_group(
+            out, POD_PROCS, SUP_NOBS, POD_EXPORT_CHUNK, follower_plan=plan,
+            pipeline_depth=0, ends=ends, **common)
+        t_kill = time.perf_counter() - t0
+        if frc not in (-9, 137):
+            raise AssertionError(f"the follower was not SIGKILLed (rc {frc}): "
+                                 f"{ferr[-2000:]}")
+        if lrc != 73:
+            raise AssertionError(f"the leader did not exit 73 (rc {lrc}): "
+                                 f"{lerr[-2000:]}")
+        gap = ends[0] - ends[1]
+        if gap > POD_KILL_BOUND_S:
+            raise AssertionError(f"the leader took {gap:.1f} s to notice its "
+                                 "follower's death")
+        partial = hashes(out)
+        with open(os.path.join(out, "run_journal.jsonl")) as fh:
+            committed = [json.loads(line)["ident"] for line in fh
+                         if json.loads(line)["e"] == "commit"]
+        if committed not in ([0], [0, POD_EXPORT_CHUNK]) \
+                or not POD_EXPORT_CHUNK <= len(partial) < SUP_NOBS \
+                or any(want[n] != v for n, v in partial.items()):
+            raise AssertionError(f"after the kill: commits {committed}, "
+                                 f"{len(partial)} files (or one differs "
+                                 "from the one-process export)")
+        ends = []
+        t0 = time.perf_counter()
+        res = pr.spawn_export_group(out, POD_PROCS, SUP_NOBS,
+                                    POD_EXPORT_CHUNK, pipeline_depth=2,
+                                    ends=ends, **common)
+        t_res = time.perf_counter() - t0
+        missing = SUP_NOBS // POD_EXPORT_CHUNK - len(committed)
+        for r, (rc, o, e) in enumerate(res):
+            if rc != 0:
+                raise AssertionError(f"resume rank {r} rc {rc}: {e[-2000:]}")
+            self._pod_expect(f"21 export resume pod rank {r}",
+                             json.loads(o.strip().splitlines()[-1])[
+                                 "launches"], {"fold_quantize": missing})
+        if hashes(out) != want:
+            raise AssertionError("the resumed pod export differs from the "
+                                 "one-process export")
+        log(f"  (b) export group of {SUP_NOBS} in chunks of "
+            f"{POD_EXPORT_CHUNK}: pod.kill after the follower's second "
+            f"chunk, the follower SIGKILLed, the leader exited 73 "
+            f"{gap:.2f} s later (group {t_kill:.1f} s; chunks {committed} "
+            f"committed, {len(partial)} files on disk, each {origin}'s); "
+            f"the resume (verify) {t_res:.1f} s, the "
+            f"fused kernel {missing} times a rank (the missing chunks "
+            f"only), all {SUP_NOBS} files byte-identical to {origin} "
+            f"({self.card_line})")
+
+    def _pod_serve(self, work):
+        """(c): a serving replica that is a 2-process pod group."""
+        import signal
+        import urllib.request
+        from concurrent.futures import ThreadPoolExecutor
+
+        import numpy as np
+
+        from psrsigsim_torch.serve import (FleetRouter, ReplicaFleet,
+                                           SimulationService)
+
+        specs = {i: serve_spec(i) for i in POD_SERVE}
+        svc = SimulationService(widths=SERVE_WIDTHS, device=self.dev,
+                                max_queue=len(specs))
+        try:
+            svc.warmup(SERVE_SPEC)
+            ids = {i: svc.submit(sp)[0] for i, sp in specs.items()}
+            want = {i: svc.result(rid, timeout=600).tobytes()
+                    for i, rid in ids.items()}
+        finally:
+            svc.close()
+        warm = os.path.join(work, "warm.json")
+        with open(warm, "w") as fh:
+            json.dump(SERVE_SPEC, fh)
+
+        def drive(router):
+            def one(i):
+                t0 = time.perf_counter()
+                status, resp = router.submit(specs[i], deadline_s=300.0,
+                                             wait=True)
+                if status != 200 or resp.get("status") != "done":
+                    raise AssertionError(f"request {i}: HTTP {status} "
+                                         f"{str(resp)[:300]}")
+                if np.asarray(resp["profile"], np.float32).tobytes() \
+                        != want[i]:
+                    raise AssertionError(f"request {i} differs from the "
+                                         "in-process service")
+                return time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(POD_SERVE_CLIENTS) as pool:
+                lats = list(pool.map(one, sorted(specs)))
+            return time.perf_counter() - t0, np.asarray(lats)
+
+        def health(fleet):
+            (_, url), = fleet.endpoints()
+            with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+                return json.loads(r.read())
+
+        fleet = ReplicaFleet(1, os.path.join(work, "serve-cache"),
+                             widths=SERVE_WIDTHS, warmup_path=warm,
+                             quorum=1, group_hosts=POD_PROCS,
+                             log_dir=os.path.join(work, "serve-logs"))
+        t0 = time.perf_counter()
+        fleet.start()
+        try:
+            if fleet.healthy_count() != 1:
+                raise AssertionError(f"the pod group did not come up: "
+                                     f"{fleet.health()}")
+            t_up = time.perf_counter() - t0
+            router = FleetRouter(fleet, **FLEET_ROUTER)
+            try:
+                # the warm-up's own launches (one a width) come before
+                h0 = health(fleet)
+                wall, lats = drive(router)
+                h = health(fleet)
+                if h["pod"] != {"process_id": 0, "num_processes": POD_PROCS,
+                                "is_pod": True}:
+                    raise AssertionError(f"/healthz pod block {h['pod']}")
+                execs = h["device_calls"] - h0["device_calls"]
+                launches = {k: v - h0["kernel_launches"][k]
+                            for k, v in h["kernel_launches"].items()}
+                if launches != {"rng_field": 2 * execs, "rng_flat_field": 0,
+                                "fold_quantize": 0, "packed_digest": 0}:
+                    raise AssertionError(f"the leader's launches {launches} "
+                                         f"for {execs} bucket executions")
+                self._path("21 serve pod leader", {"rng_field":
+                                                   launches["rng_field"]})
+                leader = fleet._sups[0].proc
+                follower = fleet._group_procs[0][0]
+                t_kill = time.perf_counter()
+                os.kill(follower.pid, signal.SIGKILL)
+                deadline = time.monotonic() + POD_KILL_BOUND_S
+                while leader.poll() is None and time.monotonic() < deadline:
+                    time.sleep(0.05)
+                if leader.poll() != 73:
+                    raise AssertionError(f"the leader's exit {leader.poll()} "
+                                         "after its follower's death")
+                t_dead = time.perf_counter() - t_kill
+                deadline = time.monotonic() + 240
+                while time.monotonic() < deadline and not (
+                        fleet._sups[0].alive() and fleet.endpoints()
+                        and fleet._sups[0].proc is not leader):
+                    time.sleep(0.1)
+                if fleet._sups[0].proc is leader or not fleet.endpoints():
+                    raise AssertionError("the pod group never restarted")
+                t_back = time.perf_counter() - t_kill
+                wall2, _ = drive(router)
+                h2 = health(fleet)
+                if h2["device_calls"] != 0:
+                    raise AssertionError(f"the restarted group ran "
+                                         f"{h2['device_calls']} batches: a "
+                                         "commit was lost")
+            finally:
+                router.close()
+        finally:
+            fleet.drain()
+        log(f"  (c) pod group (leader + 1 follower on cuda:0) up in "
+            f"{t_up:.1f} s; {len(specs)} requests from {POD_SERVE_CLIENTS} "
+            f"clients bit-equal to the in-process service in {wall:.2f} s = "
+            f"{len(specs) / wall:.2f} req/s, p50 "
+            f"{np.percentile(lats, 50) * 1e3:.1f} ms, p99 "
+            f"{np.percentile(lats, 99) * 1e3:.1f} ms; {execs} bucket "
+            f"executions, the leader's sampler {launches['rng_field']} "
+            f"launches; follower SIGKILL: the leader exited 73 after "
+            f"{t_dead:.2f} s, the group served again {t_back:.1f} s after "
+            f"the kill, all {len(specs)} requests from the cache in "
+            f"{wall2:.2f} s, bit-equal, no batch run ({self.card_line})")
+
     def run(self, with_profile=False):
         self.phase("1 card", self.card)
         built = self.phase("2 build", self.build)
@@ -5339,6 +5778,7 @@ class Smoke:
             self.phase("18 serving fleet", self.fleet)
             self.phase("19 exact-gamma chi2", self.exact_gamma)
             self.phase("20 meshes and sequence sharding", self.meshes)
+            self.phase("21 pods", self.pods)
         if self.failed:
             log(f"FAILED phases: {', '.join(self.failed)}")
             return 1

@@ -24,8 +24,9 @@ discipline (shared loader
 The corpus identity is the spec fingerprint
 (:func:`~psrsigsim_torch.datasets.spec.fingerprint_hash`); the manifest
 guard refuses to resume a directory written under a different one, the
-same contract as the export/study manifests.  Pods (several processes
-writing one corpus) are not ported: the factory runs one process.
+same contract as the export/study manifests.  On a pod mesh
+(:mod:`psrsigsim_torch.runtime.dist`) every process computes every chunk
+and the leader alone writes shards, indexes, journal and manifest.
 """
 
 from __future__ import annotations
@@ -193,12 +194,29 @@ class DatasetFactory:
 
         checker = resolve_integrity(integrity, fingerprint=self.fingerprint,
                                     faults=faults)
+        from ..runtime.dist import is_leader, is_pod
+
+        if checker is not None and is_pod():
+            # audit/heal re-dispatches would break the pod's lockstep (the
+            # study's rule): refuse loudly, don't hang
+            raise RuntimeError(
+                "integrity checking is not supported on a pod mesh yet; "
+                "run integrity-armed corpora single-host")
+        # pod: every process computes every chunk (the exchange gives each
+        # the whole chunk), ONE owns the shards/journal/manifest; followers
+        # read the same journal and shards, so skip decisions stay in
+        # lockstep
+        lead = is_leader()
 
         os.makedirs(out_dir, exist_ok=True)
-        self._check_manifest(out_dir, resume)
+        if lead:
+            self._check_manifest(out_dir, resume)
         journal_path = os.path.join(out_dir, _JOURNAL_NAME)
         cursor_path = os.path.join(out_dir, _CURSOR_NAME)
-        if not resume:
+        if not resume and not lead:
+            # a follower never reads the journal the leader is wiping
+            done = {}
+        elif not resume:
             # the overwrite path removes EVERY previous corpus byte, not
             # just the journal: a prior corpus with more records or more
             # shards would otherwise leave stale tail bytes inside (and
@@ -216,15 +234,19 @@ class DatasetFactory:
                 except FileNotFoundError:
                     pass
         else:
-            done = load_chunk_journal(journal_path)
+            done = load_chunk_journal(journal_path, truncate=lead)
 
+        # a follower's writer only reads (the resume check re-hashes the
+        # leader's records)
         writer = ShardWriter(out_dir, self.n_records, self.n_shards,
                              layout, RECORD_FORMAT_VERSION)
-        # indexes are a pure function of the spec: write them first (and
-        # on every resume — idempotent, atomic), so even a corpus killed
-        # mid-run has self-describing shards
-        writer.write_indexes(self.fingerprint, self.canonical["seed"])
-        journal_f = open(journal_path, "a")
+        journal_f = None
+        if lead:
+            # indexes are a pure function of the spec: write them first
+            # (and on every resume — idempotent, atomic), so even a corpus
+            # killed mid-run has self-describing shards
+            writer.write_indexes(self.fingerprint, self.canonical["seed"])
+            journal_f = open(journal_path, "a")
 
         commits = 0
         resumed = 0
@@ -354,6 +376,10 @@ class DatasetFactory:
             fsync, THEN the journal line, THEN the atomic cursor — a
             SIGKILL leaves either a committed record or none."""
             nonlocal commits
+            if journal_f is None:
+                # a pod follower: the leader owns the durable record
+                commits += 1
+                return
             t0 = _time.perf_counter()
             touched = set()
             h = hashlib.sha256()
@@ -410,7 +436,9 @@ class DatasetFactory:
                 dig = None
                 if checker is not None:
                     host, dig = _integrity_verify(s0, c0, host)
-                recs = _encode(s0, c0, host)
+                # a pod follower drops the bytes in _commit: it pays no
+                # encode for them
+                recs = [] if journal_f is None else _encode(s0, c0, host)
                 _commit(s0, recs, dig=dig)
                 _report(c0)
                 if (_stop_after_chunks is not None
@@ -436,7 +464,8 @@ class DatasetFactory:
                 if stopped:
                     return None
         finally:
-            journal_f.close()
+            if journal_f is not None:
+                journal_f.close()
             writer.close()
 
         out = {

@@ -43,9 +43,10 @@ duplicate-execution audit (:mod:`psrsigsim_torch.runtime.integrity`).
 Given the same quantized chunks the files are byte-identical to the JAX
 package's (tests/test_torch_export.py).  A scenario ensemble
 (``FoldEnsemble(scenario=[...])``) exports with ``scenario_params=``;
-supervised, its RFI ground truth is journaled per observation.  Pods are
-not ported yet: :func:`pod_export_follower` raises
-:class:`NotImplementedError`.
+supervised, its RFI ground truth is journaled per observation.  On a pod
+(:mod:`psrsigsim_torch.runtime.dist`) the leader runs the supervised export
+and owns every file, journal and manifest, while each follower drives the
+same chunk loop through :func:`pod_export_follower`.
 """
 
 from __future__ import annotations
@@ -1159,20 +1160,71 @@ class _GroupPacker:
 
 
 
-def _unported(name, what):
-    raise NotImplementedError(
-        f"{name}: {what} is not ported to psrsigsim_torch yet (ROADMAP.md, "
-        "Queue 1); the JAX package has it")
-
-
 def pod_export_follower(ens, n_obs, out_dir, seed=0, dms=None,
                         noise_norms=None, chunk_size=256, resume=True,
                         verify=False, obs_per_file=1, pipeline_depth=2,
                         scenario_params=None, progress=None):
-    """A pod follower's half of a supervised export (the JAX package's
-    ``pod_export_follower``).  Pods (multi-host meshes, ``runtime/dist.py``)
-    are not ported: this raises :class:`NotImplementedError`."""
-    _unported("pod_export_follower", "the pod runtime (multi-host exports)")
+    """A pod FOLLOWER's half of a supervised export: drive the SAME chunk
+    sequence as the leader (same skip decisions, same dispatches, same
+    exchanges) while the leader alone owns files, journal and manifest.
+
+    Lockstep is by construction, not coordination: both sides read the
+    same ``out_dir`` state before computing anything (existence under plain
+    resume; journal/manifest sha256 under ``verify``, read with
+    ``truncate=False`` because the live leader owns the journal), and every
+    later decision is a function of data every process holds identically
+    (the exchange gives each process the whole chunk).  The leader's
+    salted-retry quarantine is single-host, so a non-finite observation
+    raises here after the loop, as the leader's pod guard does.
+
+    Returns the (leader-owned) output paths this process mirrored.
+    """
+    from ..runtime.dist import is_pod
+
+    if not is_pod():
+        raise RuntimeError("pod_export_follower requires an initialized "
+                           "pod (runtime.dist.init_pod)")
+    from ..runtime.supervisor import file_done_check, load_resume_hashes
+
+    dms_np = None if dms is None else np.asarray(dms, np.float64)
+    packer = _GroupPacker(n_obs, obs_per_file, dms=dms_np)
+    paths = _export_paths(out_dir, n_obs, obs_per_file, packer)
+
+    # the SAME hash source and per-file predicate the leader's supervisor
+    # uses, so the skip decisions are identical by construction
+    hashes = {}
+    if verify:
+        hashes, _ = load_resume_hashes(out_dir, truncate=False)
+    verified = set()
+
+    def file_done(path):
+        return file_done_check(path, hashes, verify, verified)
+
+    skip = None
+    if resume:
+        skip, _ = _chunk_skip_predicate(packer, paths, file_done)
+
+    want_rfi = getattr(ens, "_has_rfi", False)
+    bad_chunks = []
+    for start, block in ens.iter_chunks(
+        n_obs, chunk_size=chunk_size, seed=seed, dms=dms,
+        noise_norms=noise_norms, quantized=True, progress=progress,
+        skip_chunk=skip, byte_order="big", finite_mask=True,
+        rfi_mask=want_rfi, scenario_params=scenario_params,
+        prefetch=max(1, pipeline_depth), fetch_ahead=pipeline_depth,
+    ):
+        if not np.asarray(block[3]).all():
+            # the leader quarantines and keeps driving the loop, raising
+            # only after it; raising here mid-loop would kill this process
+            # while the leader still exchanges
+            bad_chunks.append(int(start))
+    if bad_chunks:
+        raise RuntimeError(
+            f"pod export: non-finite observation(s) in chunk(s) "
+            f"{bad_chunks} on a pod mesh (the leader's salted-retry "
+            "quarantine is single-host only; this mirrors its loud "
+            "post-loop failure — fix the inputs or export single-host)")
+    return paths
 
 
 def export_ensemble_psrfits(ens, n_obs, out_dir, template, pulsar,
@@ -1281,8 +1333,29 @@ def export_ensemble_psrfits(ens, n_obs, out_dir, template, pulsar,
     Returns:
         list of the output file paths (length ``ceil(n_obs/obs_per_file)``).
     """
+    from ..runtime.dist import is_leader as _pod_leader, is_pod as _pod
     from ..runtime.telemetry import StageTimers
 
+    if _pod() and not _pod_leader():
+        # one process owns the files/journal/manifest; followers drive the
+        # same chunk loop through the mirror instead
+        raise RuntimeError(
+            "pod followers must drive exports with "
+            "psrsigsim_torch.io.export.pod_export_follower(); only the "
+            "pod leader runs export_ensemble_psrfits")
+    if _pod() and supervisor is None:
+        # the follower mirror replays the supervised leader's resume
+        # decisions (journal and manifest); an unsupervised leader has
+        # none to replay
+        raise RuntimeError(
+            "pod exports must be supervised: use "
+            "psrsigsim_torch.runtime.supervised_export (the follower "
+            "mirror assumes the supervised leader's chunk sequence)")
+    if _pod() and integrity is not None:
+        raise RuntimeError(
+            "integrity checking is not supported on a pod mesh yet "
+            "(duplicate-execution audits break host lockstep); export "
+            "integrity-armed runs single-host")
     pipeline_depth = int(pipeline_depth)
     if pipeline_depth < 0:
         raise ValueError("pipeline_depth must be >= 0")
@@ -1567,6 +1640,12 @@ def export_ensemble_psrfits(ens, n_obs, out_dir, template, pulsar,
             if pool.degraded and supervisor is not None:
                 supervisor.note_degraded()
 
+    if supervisor is not None and bad_obs and _pod():
+        raise RuntimeError(
+            f"pod export: {len(bad_obs)} observation(s) hit the NaN "
+            "quarantine; the salted-retry pass re-runs on the leader alone, "
+            "which would desynchronize the pod — fix the inputs or export "
+            "single-host")
     if supervisor is not None and bad_obs:
         _retry_quarantined(ens, supervisor, state, packer, paths, bad_obs,
                            seed, dms, noise_norms, dms_np, scenario_params)

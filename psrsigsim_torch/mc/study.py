@@ -541,6 +541,23 @@ class MonteCarloStudy:
         checker = resolve_integrity(
             integrity, fingerprint=self._fingerprint_digest(n_trials),
             faults=faults)
+        from ..runtime.dist import is_leader, is_pod
+
+        if checker is not None and is_pod():
+            # the audit and the heal re-run a chunk on the detecting
+            # process alone, which would desynchronize the pod's exchange:
+            # refuse loudly instead of hanging
+            raise RuntimeError(
+                "integrity checking is not supported on a pod mesh yet "
+                "(duplicate-execution audits break host lockstep); run "
+                "integrity-armed sweeps single-host")
+        # under a pod every process computes the FULL result (the exchange
+        # gives each the whole chunk), but exactly one owns the durable
+        # side effects: manifest, journal, raw rows, cursor, artifact.
+        # Followers read the same journal and rows for their resume
+        # decisions — identical inputs, identical branches, which keeps
+        # the pod in lockstep.
+        lead = is_leader()
 
         matrix = np.empty((n_trials, M), np.float32)
         hist_tot = np.zeros((M, self.hist_bins), np.int64)
@@ -551,20 +568,27 @@ class MonteCarloStudy:
         done = {}
         if out_dir is not None:
             os.makedirs(out_dir, exist_ok=True)
-            self._check_manifest(out_dir, self.fingerprint(n_trials), resume)
             journal_path = os.path.join(out_dir, _JOURNAL_NAME)
             cursor_path = os.path.join(out_dir, _CURSOR_NAME)
             raw_path = os.path.join(out_dir, _TRIALS_RAW)
-            if not resume:
-                for path in (journal_path, cursor_path, raw_path):
-                    try:
-                        os.unlink(path)
-                    except FileNotFoundError:
-                        pass
-            else:
-                done = load_chunk_journal(journal_path)
-            raw_fd = os.open(raw_path, os.O_RDWR | os.O_CREAT, 0o644)
-            journal_f = open(journal_path, "a")
+            if lead:
+                self._check_manifest(out_dir, self.fingerprint(n_trials),
+                                     resume)
+                if not resume:
+                    for path in (journal_path, cursor_path, raw_path):
+                        try:
+                            os.unlink(path)
+                        except FileNotFoundError:
+                            pass
+                raw_fd = os.open(raw_path, os.O_RDWR | os.O_CREAT, 0o644)
+                journal_f = open(journal_path, "a")
+            elif resume and os.path.exists(raw_path):
+                # a follower reads the leader's rows, never writes them
+                raw_fd = os.open(raw_path, os.O_RDONLY)
+            if resume:
+                # a follower never truncates the journal the live leader
+                # appends to
+                done = load_chunk_journal(journal_path, truncate=lead)
 
         commits = 0
         done_trials = 0
@@ -612,6 +636,8 @@ class MonteCarloStudy:
             none."""
             nonlocal commits
             if journal_f is None:
+                # an in-memory run, or a pod follower (the leader owns the
+                # durable record)
                 commits += 1
                 return
             from ..io.export import _atomic_write_json
@@ -793,6 +819,7 @@ class MonteCarloStudy:
                 man["integrity"] = checker.stats()
                 _atomic_write_json(man_path, man, indent=1)
 
+        telemetry.gauge("pod_leader", int(lead))
         result = StudyResult(
             metric_names=self.metric_names,
             param_names=self.param_names,
@@ -803,7 +830,7 @@ class MonteCarloStudy:
             spec=self.fingerprint(n_trials),
             telemetry=telemetry.snapshot(),
         )
-        if out_dir is not None:
+        if out_dir is not None and lead:
             result.save(out_dir, keep_trials=keep_trials)
         return result
 

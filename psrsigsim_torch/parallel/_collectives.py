@@ -71,12 +71,46 @@ def ppermute(parts, perm, devices):
     return out
 
 
-def gather_grid(grid, dims, device):
+def _pod_fill(grid, device, tag):
+    """The cells of ``grid`` another pod process computed (None here),
+    received through the pod exchange
+    (:func:`psrsigsim_torch.runtime.dist.exchange`, the machinery of its
+    ``device_get``): this process sends its own cells and every process
+    ends with every cell, on ``device``."""
+    from ..runtime.dist import exchange
+
+    single = None
+    local = {}
+    for i, row in enumerate(grid):
+        for j, cell in enumerate(row):
+            if cell is None:
+                continue
+            single = isinstance(cell, torch.Tensor)
+            local[(i, j)] = (cell,) if single else tuple(cell)
+    full = exchange(local, tag=tag)
+    out = []
+    for i, row in enumerate(grid):
+        new = []
+        for j, cell in enumerate(row):
+            if cell is None:
+                got = tuple(torch.as_tensor(a).to(device)
+                            for a in full[(i, j)])
+                cell = got[0] if single else got
+            new.append(cell)
+        out.append(new)
+    return out
+
+
+def gather_grid(grid, dims, device, tag=None):
     """One tensor on ``device`` from a grid of shard outputs: ``grid[i][j]``
     is the output of mesh position ``(i, j)``, a tensor or a tuple of
     tensors; ``dims`` gives, per output, the axis the first mesh axis
     concatenates along and the axis the second does (None: the output is
-    the same on every position of that axis, and the first is kept)."""
+    the same on every position of that axis, and the first is kept).  A
+    None cell is another pod process's position: every process's cells
+    are exchanged first (``tag`` checks the processes' lockstep)."""
+    if any(cell is None for row in grid for cell in row):
+        grid = _pod_fill(grid, device, tag)
     single = isinstance(grid[0][0], torch.Tensor)
     if single:
         grid = [[(t,) for t in row] for row in grid]

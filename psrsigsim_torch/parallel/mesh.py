@@ -14,8 +14,12 @@ the mesh's first device (psrsigsim_torch/DIVERGENCES.md P22).
 An explicit device list may repeat a device: each entry is one shard.  That
 is how one card (or the host, in the tests) holds any shard count.
 
-Multi-process meshes (pods, ``torch.distributed``) are a later slice:
-:func:`distributed_init` raises for more than one process.
+Under a pod (:mod:`psrsigsim_torch.runtime.dist`, :func:`distributed_init`)
+every mesh position also carries the index of the process that runs it:
+:func:`make_mesh` builds the global position list, each process's devices
+in process order (the counterpart of ``jax.devices()`` turning global), and
+:meth:`MeshSlabs.run` runs this process's positions only, then exchanges
+the parts so that every process holds the whole result.
 """
 
 from __future__ import annotations
@@ -61,9 +65,11 @@ class Mesh:
     """A named grid of devices: ``devices`` is a numpy object array of
     ``torch.device`` entries, ``axis_names`` one name per axis, and
     ``mesh.shape[axis]`` the size of an axis (jax's lookup).  Entries may
-    repeat; each is one shard."""
+    repeat; each is one shard.  ``processes`` (same shape; default: this
+    process for every position) names the pod process that runs each
+    position."""
 
-    def __init__(self, devices, axis_names):
+    def __init__(self, devices, axis_names, processes=None):
         arr = np.asarray(devices, dtype=object)
         axis_names = tuple(axis_names)
         if arr.ndim != len(axis_names):
@@ -81,6 +87,17 @@ class Mesh:
                              f"{types}")
         self.devices = flat.reshape(arr.shape)
         self.axis_names = axis_names
+        if processes is None:
+            processes = np.full(arr.shape, _process_id())
+        self.processes = np.asarray(processes, dtype=np.int64)
+        if self.processes.shape != arr.shape:
+            raise ValueError(f"processes {self.processes.shape} must match "
+                             f"the device grid {arr.shape}")
+        local = self.processes == _process_id()
+        if not local.any():
+            raise ValueError("a mesh needs at least one position of this "
+                             "process")
+        self._local = local
 
     @property
     def shape(self):
@@ -99,12 +116,24 @@ class Mesh:
 
     @property
     def first_device(self):
-        """Where a meshed entry point assembles its results."""
-        return self.devices.reshape(-1)[0]
+        """Where a meshed entry point assembles its results: the first
+        position of this process."""
+        return self.devices[self._local][0]
+
+    def is_local(self, pos):
+        """Whether this process runs mesh position ``pos``."""
+        return bool(self._local[pos])
+
+    @property
+    def spans_processes(self):
+        """True when another process runs some of the positions (a pod
+        mesh)."""
+        return not self._local.all()
 
     def _key(self):
         return (self.axis_names, self.devices.shape,
-                tuple(str(d) for d in self.devices.reshape(-1)))
+                tuple(str(d) for d in self.devices.reshape(-1)),
+                tuple(self.processes.reshape(-1).tolist()))
 
     def __eq__(self, other):
         return isinstance(other, Mesh) and self._key() == other._key()
@@ -113,8 +142,18 @@ class Mesh:
         return hash(self._key())
 
     def __repr__(self):
+        tail = ""
+        if self.spans_processes:
+            tail = f", processes={self.processes.reshape(-1).tolist()}"
         return (f"Mesh({dict(self.shape)}, "
-                f"devices={[str(d) for d in self.devices.reshape(-1)]})")
+                f"devices={[str(d) for d in self.devices.reshape(-1)]}"
+                f"{tail})")
+
+
+def _process_id():
+    from ..runtime.dist import pod_info
+
+    return pod_info().process_id
 
 
 def visible_devices():
@@ -137,9 +176,18 @@ def make_mesh(shape=None, devices=None):
         devices: explicit device list (default: every visible CUDA device).
             Entries may repeat (each is one shard).
 
-    A shape that does not tile the devices raises ``ValueError``.
+    Under a pod ``devices`` are this process's; every process passes as
+    many, and the mesh's positions are process 0's devices, then process
+    1's, and so on (row-major over ``shape``).  A shape that does not tile
+    the (global) positions raises ``ValueError``.
     """
+    from ..runtime.dist import pod_info
+
     devices = visible_devices() if devices is None else list(devices)
+    nproc = pod_info().num_processes if pod_info().is_pod else 1
+    procs = np.repeat(np.arange(nproc), len(devices))
+    if nproc > 1:
+        devices = devices * nproc
     if shape is None:
         shape = (len(devices), 1)
     if len(shape) != 2 or shape[0] * shape[1] != len(devices):
@@ -147,7 +195,8 @@ def make_mesh(shape=None, devices=None):
             f"mesh shape {tuple(shape)} does not tile {len(devices)} devices")
     dev_array = np.empty(len(devices), dtype=object)
     dev_array[:] = devices
-    return Mesh(dev_array.reshape(tuple(shape)), (OBS_AXIS, CHAN_AXIS))
+    return Mesh(dev_array.reshape(tuple(shape)), (OBS_AXIS, CHAN_AXIS),
+                processes=procs.reshape(tuple(shape)))
 
 
 def mesh_devices(mesh, device):
@@ -244,13 +293,15 @@ class MeshSlabs:
 
     def run(self, fn, keys, cols, rows, dims, device):
         """``fn(keys, cols, rows, profiles, freqs, chan_ids)`` at every mesh
-        position, one after the other, on its device: its part of the
-        (padded) batch — ``keys`` cut where they lie, each of the
-        per-observation ``cols`` cut and moved to its device (a numpy
+        position of this process, one after the other, on its device: its
+        part of the (padded) batch — ``keys`` cut where they lie, each of
+        the per-observation ``cols`` cut and moved to its device (a numpy
         column only cut), the scenario ``rows`` (or None) cut to its
         observations and channels — and its slab of channels.  The outputs
         are assembled on ``device`` along ``dims`` (per output: the
-        observation axis, the channel axis; :func:`gather_grid`)."""
+        observation axis, the channel axis; :func:`gather_grid`); on a pod
+        mesh the other processes' parts arrive through the pod exchange,
+        checked against a digest of ``keys``."""
         n_obs, n_chan = self.mesh.devices.shape
         per = keys.shape[0] // n_obs
         grid = []
@@ -258,6 +309,9 @@ class MeshSlabs:
             obs = slice(i * per, (i + 1) * per)
             row = []
             for j in range(n_chan):
+                if not self.mesh.is_local((i, j)):
+                    row.append(None)
+                    continue
                 dev = self.mesh.devices[i, j]
                 prof, freqs, chan_ids = self.get(dev, j)
                 if self._lead:
@@ -269,7 +323,13 @@ class MeshSlabs:
                                   cut_rows(rows, obs, self.chans(j), dev),
                                   prof, freqs, chan_ids))
             grid.append(row)
-        return gather_grid(grid, dims, device)
+        tag = None
+        if self.mesh.spans_processes:
+            import hashlib
+
+            tag = hashlib.sha256(
+                keys.cpu().numpy().tobytes()).hexdigest()[:16]
+        return gather_grid(grid, dims, device, tag=tag)
 
 
 class Sharding(collections.namedtuple("Sharding", "mesh spec")):
@@ -312,11 +372,13 @@ def distributed_init(coordinator_address=None, num_processes=None,
                      process_id=None, **kw):
     """Multi-process setup (reference: ``jax.distributed.initialize``).  One
     process — the single-controller mesh — needs none, so this is a no-op
-    for ``num_processes`` None or 1; more processes are the pods slice of
-    the port (ROADMAP Queue 1 item 4b), not ported yet."""
+    for ``num_processes`` None or 1; more processes join the pod
+    (:func:`psrsigsim_torch.runtime.dist.init_pod`, which takes the
+    remaining keywords: ``channel_port``, ``timeout_s``), after which
+    :func:`make_mesh` builds pod-wide meshes."""
     if num_processes in (None, 1):
-        return
-    raise NotImplementedError(
-        f"distributed_init(num_processes={num_processes}): multi-process "
-        "meshes (pods, over torch.distributed) are not ported yet "
-        "(ROADMAP Queue 1 item 4b); a single-process mesh needs no setup")
+        return None
+    from ..runtime.dist import init_pod
+
+    return init_pod(coordinator=coordinator_address,
+                    num_processes=num_processes, process_id=process_id, **kw)

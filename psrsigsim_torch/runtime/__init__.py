@@ -29,11 +29,21 @@ the dataset factory's artifacts (:func:`scrub_mc_dir`,
 :func:`scrub_dataset_dir`); the serving cache scrubs its own artifacts
 (:mod:`psrsigsim_torch.serve.cache`).
 
+- :mod:`~psrsigsim_torch.runtime.dist` — pods: the ``PSS_POD_*``
+  bootstrap with a byte-identical single-process fallback, the process
+  index on every mesh position, the pod exchange behind
+  :func:`device_get` (the TCP channel by default, ``torch.distributed``
+  under ``PSS_POD_FETCH=collective``), the leader-rooted control channel
+  with its peer-death watchdog, and the topology fingerprint the registry
+  keys on.
+
 Host-only: importing this package imports no torch (the export's spawn
-writers import it).  The JAX package's pod runtime (``dist``) is not
-ported yet.
+writers import it).
 """
 
+from .dist import (PodChannel, PodInfo, PodPeerLost, device_get, init_pod,
+                   is_leader, is_pod, pod_info, pod_key, put_sharded,
+                   shutdown_pod)
 from .faults import FaultPlan
 from .integrity import (IntegrityChecker, IntegrityError,
                         resolve_integrity, scrub_dataset_dir,
@@ -48,6 +58,17 @@ from .telemetry import StageTimers
 
 __all__ = [
     "FaultPlan",
+    "PodChannel",
+    "PodInfo",
+    "PodPeerLost",
+    "init_pod",
+    "pod_info",
+    "pod_key",
+    "is_pod",
+    "is_leader",
+    "put_sharded",
+    "device_get",
+    "shutdown_pod",
     "IntegrityChecker",
     "IntegrityError",
     "resolve_integrity",

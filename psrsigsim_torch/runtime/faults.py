@@ -151,6 +151,18 @@ point                     where it fires
                           (:mod:`psrsigsim_torch.runtime.integrity`)
                           exists to find.  Config: ``match`` (file
                           basename) / ``times``.
+``pod.kill``              a pod FOLLOWER process (the mirrored export loop
+                          of :func:`psrsigsim_torch.io.export.
+                          pod_export_follower`, driven by
+                          ``psrsigsim_torch/tools/pod_runner.py``'s export
+                          group), after the ``after_chunks``-th chunk of
+                          its loop completed — SIGKILLs the follower (a
+                          host dying mid-run).  The leader's channel
+                          watchdog turns that into a LOUD whole-group
+                          abort (exit ``POD_PEER_EXIT``, never a wedged
+                          exchange), and a clean relaunch of the full
+                          group resumes to byte-identical output.
+                          Config: ``{"after_chunks": int}``.
 ========================  ====================================================
 
 Arming is explicit and local: a :class:`FaultPlan` is built by a test and
@@ -178,7 +190,7 @@ POINTS = ("writer.crash", "shm.attach", "file.partial", "nan.obs",
           "run.kill", "dataset.kill", "mc.kill", "serve.kill",
           "serve.reject", "replica.kill", "cache.contend",
           "route.blackhole", "replica.slow", "cache.enospc",
-          "device.sdc", "host.corrupt", "disk.bitrot")
+          "device.sdc", "host.corrupt", "disk.bitrot", "pod.kill")
 
 
 class FaultPlan:

@@ -66,24 +66,30 @@ def trace_env_key(device=None):
     COMPUTES (:mod:`psrsigsim_torch.ops.stats` and the pipelines read them
     at call time): the sampler selector ``PSS_SAMPLER``, the exact-χ²
     switch ``PSS_EXACT_CHI2``, the exact-shift switch ``PSS_EXACT_SHIFT``,
-    and :func:`donation_enabled`; the last slot is the JAX package's pod
-    topology, always None here (the port runs one process).  Every
-    registry key for a device callable includes this tuple, so an artifact
-    staged and warmed under one sampler is never served under another."""
+    :func:`donation_enabled`, and the pod topology
+    (:func:`psrsigsim_torch.runtime.dist.pod_key`: a callable staged for a
+    single-process mesh is never served to a pod, and every process of one
+    pod resolves identical, process-id-independent keys).  Every registry
+    key for a device callable includes this tuple, so an artifact staged
+    and warmed under one sampler is never served under another."""
+    from .dist import pod_key
+
     return (os.environ.get("PSS_SAMPLER", "auto"),
             bool(os.environ.get("PSS_EXACT_CHI2")),
             bool(os.environ.get("PSS_EXACT_SHIFT")),
             donation_enabled(device),
-            None)
+            pod_key())
 
 
 def enable_compilation_cache(path):
     """The JAX package points its persistent compilation cache at ``path``
-    so that a restarted server warms from disk.  The port compiles no
-    programs (its kernels are built by ``ops/_build.py`` into ``build/``,
-    keyed by their sources), so there is nothing to cache: the path is
-    accepted and ignored, and the return value is False (the cache is not
-    enabled)."""
+    (under a pod, :func:`~psrsigsim_torch.runtime.dist.compile_cache_path`'s
+    per-host-count directory) so that a restarted server warms from disk.
+    The port compiles no programs (its kernels are built by
+    ``ops/_build.py`` into ``build/``, keyed by their sources, and every
+    process of every topology loads the same files), so there is nothing to
+    cache: the path is accepted and ignored, and the return value is False
+    (the cache is not enabled)."""
     del path
     return False
 

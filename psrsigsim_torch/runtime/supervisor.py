@@ -110,12 +110,13 @@ def load_journal_records(path, truncate=True):
     return records, valid_end
 
 
-def load_chunk_journal(path, event="chunk", key="start"):
+def load_chunk_journal(path, event="chunk", key="start", truncate=True):
     """Valid committed-chunk records of an append-only fsync'd journal,
     keyed by ``int(rec[key])`` for records whose ``"e"`` equals
     ``event`` — the chunked-run view over
-    :func:`load_journal_records` (one torn-tail rule in the repo)."""
-    records, _ = load_journal_records(path)
+    :func:`load_journal_records` (one torn-tail rule in the repo).  A pod
+    follower passes ``truncate=False``: the live leader owns the file."""
+    records, _ = load_journal_records(path, truncate=truncate)
     return {int(rec[key]): rec for rec in records if rec.get("e") == event}
 
 
@@ -125,9 +126,11 @@ def load_resume_hashes(out_dir, journal_path=None, truncate=True):
     commit records.  Returns ``(hashes, records)`` (the raw records so
     :meth:`RunSupervisor._load_previous` can replay its extra events).
 
-    THE one hash source for resume (in the JAX package the pod follower
-    mirror loads through it too, with ``truncate=False``: the live leader
-    owns the journal file; pods are not ported yet)."""
+    THE one hash source for resume: the leader's supervisor and the pod
+    follower mirror (:func:`psrsigsim_torch.io.export.pod_export_follower`)
+    both load through here, so their skip decisions derive from the same
+    bytes.  Followers pass ``truncate=False``: the live leader owns the
+    journal file."""
     from ..io.export import _load_manifest
 
     hashes = {}
@@ -148,9 +151,9 @@ def file_done_check(path, hashes, verify, verified):
     existence + sha256 match against ``hashes`` under ``verify``
     (unknown or mismatched hashes mean "rewrite it").  Paths proven ok
     are remembered in the caller-owned ``verified`` set so chunk-skip /
-    per-file / group predicates don't re-hash multi-GB outputs.  Behind
-    :meth:`RunSupervisor.file_ok` — the definition of "done" is a single
-    point of truth."""
+    per-file / group predicates don't re-hash multi-GB outputs.  Shared by
+    :meth:`RunSupervisor.file_ok` and the pod follower mirror — the
+    definition of "done" is a single point of truth."""
     if path in verified:
         return True
     if not os.path.exists(path):
@@ -754,7 +757,14 @@ def supervised_export(ens, n_obs, out_dir, template, pulsar, *,
         :class:`RunResult`.
     """
     from ..io.export import export_ensemble_psrfits
+    from .dist import is_leader, is_pod
 
+    if is_pod() and not is_leader():
+        # checked before the supervisor opens (and would write) the journal
+        raise RuntimeError(
+            "pod followers must drive exports with "
+            "psrsigsim_torch.io.export.pod_export_follower(); only the "
+            "pod leader runs supervised_export")
     verify = resume == "verify"
     sup = RunSupervisor(out_dir, resume=bool(resume), verify=verify,
                         faults=faults, retry=retry)

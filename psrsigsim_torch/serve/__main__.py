@@ -25,9 +25,18 @@ Example::
 them; each geometry is staged and run once for every bucket width before
 the ready line prints, so first-request latency is bounded.
 ``--compile-cache-dir`` is accepted for the JAX package's command lines;
-the port compiles nothing, so it enables nothing.  The pod flags
-(``--pod-*``, ``--pod-follower``) raise ``NotImplementedError``: pods are
-not ported.
+the port compiles nothing, so it enables nothing.
+
+A pod serving group (:mod:`psrsigsim_torch.serve.pod`) is one leader and
+``--pod-num-hosts - 1`` followers, each started with the same
+``--pod-num-hosts``/``--pod-coordinator``/``--pod-channel-port`` and its
+own ``--pod-host``; the followers add ``--pod-follower``, print a ready
+line of their own and serve no HTTP::
+
+    python -m psrsigsim_torch.serve --port 0 --pod-num-hosts 2 --pod-host 0 \
+        --pod-coordinator 127.0.0.1:29500 --device cpu &
+    python -m psrsigsim_torch.serve --pod-num-hosts 2 --pod-host 1 \
+        --pod-coordinator 127.0.0.1:29500 --pod-follower --device cpu
 """
 
 from __future__ import annotations
@@ -84,8 +93,8 @@ def main(argv=None):
                     help="TESTS ONLY: FaultPlan JSON "
                          '({"scratch_dir", "spec"}) arming serve.* points')
     ap.add_argument("--pod-num-hosts", type=int, default=None,
-                    help="pods are not ported: any value above 1 raises "
-                         "NotImplementedError")
+                    help="processes in this replica's pod group (> 1 joins "
+                         "a pod; runtime/dist.py)")
     ap.add_argument("--pod-host", type=int, default=None,
                     help="this process's pod process id (0 = leader, "
                          "which owns the HTTP endpoint)")
@@ -104,12 +113,36 @@ def main(argv=None):
     real_stdout = sys.stdout
     sys.stdout = sys.stderr
 
-    if (args.pod_num_hosts and args.pod_num_hosts > 1) or args.pod_follower \
-            or args.pod_host is not None or args.pod_coordinator is not None \
-            or args.pod_channel_port is not None:
-        raise NotImplementedError(
-            "multi-host pod serving is not ported (ROADMAP Queue 1 item 4b: "
-            "pods); run one process per card")
+    pod = bool(args.pod_num_hosts and args.pod_num_hosts > 1)
+    if args.pod_follower and not pod:
+        raise ValueError("--pod-follower needs a pod: --pod-num-hosts > 1, "
+                         "--pod-host and --pod-coordinator")
+    if pod:
+        from ..runtime.dist import init_pod
+
+        init_pod(coordinator=args.pod_coordinator,
+                 num_processes=args.pod_num_hosts,
+                 process_id=args.pod_host,
+                 channel_port=args.pod_channel_port)
+
+    widths = tuple(int(w) for w in args.widths.split(","))
+    if args.pod_follower:
+        # a follower's whole life: the ready line the spawner waits on,
+        # then the leader's register/exec stream until its clean shutdown
+        # (a leader's DEATH ends this process through the channel
+        # watchdog instead)
+        from ..runtime.dist import shutdown_pod
+        from ..utils.device import resolve_device
+        from .pod import pod_serve_follower
+
+        device = resolve_device(args.device)
+        print(json.dumps({"ready": True, "pod_follower": args.pod_host,
+                          "pod_num_hosts": args.pod_num_hosts}),
+              file=real_stdout, flush=True)
+        pod_serve_follower(widths, compile_cache_dir=args.compile_cache_dir,
+                           device=device)
+        shutdown_pod()
+        return 0
 
     from .http import make_server, run_server
     from .service import SimulationService
@@ -122,7 +155,6 @@ def main(argv=None):
             plan = json.load(f)
         faults = FaultPlan(plan["scratch_dir"], plan["spec"])
 
-    widths = tuple(int(w) for w in args.widths.split(","))
     service = SimulationService(
         cache_dir=args.cache_dir, widths=widths, max_queue=args.max_queue,
         batch_window_s=args.batch_window_ms / 1e3,
@@ -155,6 +187,13 @@ def main(argv=None):
               file=real_stdout, flush=True)
 
     run_server(srv, ready_cb=_ready)
+    if pod:
+        # the leader's drain (service.close inside run_server's shutdown)
+        # already ended the followers' stream; BYE the watchdog so this
+        # exit is not taken for a death
+        from ..runtime.dist import shutdown_pod
+
+        shutdown_pod()
     return 0
 
 

@@ -49,9 +49,12 @@ bound the fleet, ``PSS_FLEET_SCALE_UP_FRAC`` / ``PSS_FLEET_SCALE_DOWN_FRAC``
 are the queue-fraction thresholds (up must exceed down),
 ``PSS_FLEET_SCALE_COOLDOWN_S`` the base cooldown (scale-down waits 2x).
 
-A replica is one process: the JAX package's multi-host program groups
-(``group_hosts > 1``) raise ``NotImplementedError`` (pods are not
-ported).
+A replica may be a pod program group (``group_hosts > 1``,
+:mod:`psrsigsim_torch.serve.pod`): one leader process owning the HTTP
+endpoint plus ``group_hosts - 1`` followers joined to its mesh, supervised
+as one unit — a follower's death ends the leader with
+``POD_PEER_EXIT`` through the channel watchdog, and the supervisor
+respawns the whole group.
 """
 
 from __future__ import annotations
@@ -174,10 +177,6 @@ class ReplicaFleet:
             raise ValueError("n_replicas must be >= 1")
         if group_hosts < 1:
             raise ValueError("group_hosts must be >= 1")
-        if group_hosts > 1:
-            raise NotImplementedError(
-                "multi-host replica groups are not ported (ROADMAP Queue 1 "
-                "item 4b: pods); a replica is one process")
         from ..utils.device import resolve_device
 
         # the card check runs HERE, in the parent: a fleet without a card
@@ -196,6 +195,14 @@ class ReplicaFleet:
         # fallback.  The chaos/elastic proofs run under BOTH.
         self.frontend = str(frontend)
         self.hot_mb = None if hot_mb is None else float(hot_mb)
+        # a replica may be a pod PROGRAM GROUP (runtime/dist.py): one
+        # leader process owning the HTTP endpoint + group_hosts-1 followers
+        # joined to its mesh.  The ProcessSupervisor watches the LEADER
+        # only — a follower's death aborts the leader through the pod
+        # channel watchdog (POD_PEER_EXIT), so the whole group restarts as
+        # one unit; a leader's death makes the followers exit the same way
+        self.group_hosts = int(group_hosts)
+        self._group_procs = {}   # replica id -> [follower Popen, ...]
         self.widths = tuple(int(w) for w in widths)
         self.max_queue = int(max_queue)
         self.batch_window_ms = float(batch_window_ms)
@@ -310,6 +317,7 @@ class ReplicaFleet:
             # was a no-op on the not-yet-started supervisor: finish the
             # shutdown here rather than leak a running server
             sup.stop(signal.SIGTERM)
+            self._reap_group(i)
             self._mark_down(i)
             return None
         self._record_scale("up", i)
@@ -333,6 +341,10 @@ class ReplicaFleet:
 
         def _drain_one():
             sup.stop(signal.SIGTERM, timeout=timeout)
+            # a pod replica's followers exit through the watchdog once
+            # their leader drains; scale-down never respawns this id, so
+            # nothing else would wait() on them
+            self._reap_group(i)
 
         threading.Thread(target=_drain_one, daemon=True,
                          name=f"pss-retire-{i}").start()
@@ -374,7 +386,7 @@ class ReplicaFleet:
 
     # -- spawning ----------------------------------------------------------
 
-    def _replica_cmd(self, i):
+    def _replica_cmd(self, i, pod=None, pod_host=0):
         cmd = [sys.executable, "-m", "psrsigsim_torch.serve",
                "--host", self.host, "--port", "0",
                "--cache-dir", self.cache_dir,
@@ -389,6 +401,15 @@ class ReplicaFleet:
             cmd += ["--hot-mb", str(self.hot_mb)]
         if self.compile_cache_dir:
             cmd += ["--compile-cache-dir", self.compile_cache_dir]
+        if pod is not None:
+            coord_port, chan_port = pod
+            cmd += ["--pod-num-hosts", str(self.group_hosts),
+                    "--pod-host", str(pod_host),
+                    "--pod-coordinator", f"127.0.0.1:{coord_port}",
+                    "--pod-channel-port", str(chan_port)]
+            if pod_host > 0:
+                cmd += ["--pod-follower"]
+                return cmd   # followers take no warmup/fault extras
         if self.warmup_path:
             cmd += ["--warmup", str(self.warmup_path)]
         if self.verify_cache:
@@ -397,20 +418,65 @@ class ReplicaFleet:
             cmd += ["--fault-plan", str(self.fault_plan_path)]
         return cmd
 
+    def _reap_group(self, i, timeout=10.0):
+        """Collect (or kill) replica ``i``'s follower processes: a clean
+        leader drain already sent them the shutdown stream; a leader death
+        made them exit through the watchdog — this bounds how long the
+        fleet waits before SIGKILLing stragglers."""
+        procs = self._group_procs.pop(i, [])
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            while p.poll() is None and time.monotonic() < deadline:
+                time.sleep(0.05)
+            if p.poll() is None:
+                try:
+                    p.kill()
+                except OSError:
+                    pass
+                p.wait()
+
     def _spawn_replica(self, i):
-        """Launch replica ``i`` and wait for its one-line ready protocol
-        (which carries the kernel-assigned port).  On a failed/withheld
-        ready line the process is killed and returned anyway — the
-        supervisor's watcher sees the death and retries under the
-        backoff policy, so a replica that crashes during startup cannot
-        wedge the fleet."""
-        if self.log_dir:
+        """Launch replica ``i`` (leader + followers when ``group_hosts`` >
+        1) and wait for the leader's one-line ready protocol (which
+        carries the kernel-assigned port).  On a failed/withheld ready
+        line the group is killed and the leader returned anyway — the
+        supervisor's watcher sees the death and retries under the backoff
+        policy, so a replica that crashes during startup cannot wedge the
+        fleet.  A respawn takes fresh pod ports and a fresh follower set:
+        the previous generation exited through the watchdog and is reaped
+        here."""
+        pod = None
+        if self.group_hosts > 1:
+            self._reap_group(i)
+            from ..runtime.dist import free_ports
+
+            pod = tuple(free_ports(2))
+
+        def _stderr(suffix):
+            if not self.log_dir:
+                return subprocess.DEVNULL
             os.makedirs(self.log_dir, exist_ok=True)
-            stderr = open(os.path.join(self.log_dir, f"replica{i}.log"), "ab")
-        else:
-            stderr = subprocess.DEVNULL
+            return open(os.path.join(self.log_dir,
+                                     f"replica{i}{suffix}.log"), "ab")
+
+        if pod is not None:
+            followers = []
+            for k in range(1, self.group_hosts):
+                err = _stderr(f".pod{k}")
+                followers.append(subprocess.Popen(
+                    self._replica_cmd(i, pod=pod, pod_host=k),
+                    stdout=subprocess.DEVNULL, stderr=err, text=True,
+                    env=self._env))
+                if err is not subprocess.DEVNULL:
+                    err.close()
+            self._group_procs[i] = followers
+        stderr = _stderr("")
+        # plain replicas call the bare signature, so subclass overrides
+        # (the tests' stub fleets) keep working unchanged
+        cmd = (self._replica_cmd(i) if pod is None
+               else self._replica_cmd(i, pod=pod, pod_host=0))
         proc = subprocess.Popen(
-            self._replica_cmd(i), stdout=subprocess.PIPE, stderr=stderr,
+            cmd, stdout=subprocess.PIPE, stderr=stderr,
             text=True, env=self._env)
         if stderr is not subprocess.DEVNULL:
             stderr.close()
@@ -429,9 +495,12 @@ class ReplicaFleet:
             except json.JSONDecodeError:
                 ready = {}
         if not ready.get("ready"):
-            # startup failure: hand the corpse to the supervisor
+            # startup failure: hand the corpse to the supervisor (and take
+            # the followers with it — half a group is not capacity)
             if proc.poll() is None:
                 proc.kill()
+            if self.group_hosts > 1:
+                self._reap_group(i, timeout=2.0)
             self._mark_down(i)
             return proc
         with self._lock:
@@ -483,6 +552,10 @@ class ReplicaFleet:
         codes = {}
         for i, sup in sups.items():
             codes[i] = sup.stop(signal.SIGTERM, timeout=timeout)
+            if self.group_hosts > 1:
+                # the leader's drain already ended the follower stream;
+                # bound the wait for their clean exits
+                self._reap_group(i, timeout=min(timeout, 15.0))
         if self._health_thread is not None:
             self._health_thread.join(timeout)
         if self._scale_thread is not None:

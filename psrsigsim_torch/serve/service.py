@@ -48,8 +48,11 @@ request dicts" and "padded device batches through staged width buckets":
   :class:`~psrsigsim_torch.runtime.StageTimers` (p50/p95/p99 in
   ``/metrics``).
 
-Where the JAX package's service leads a multi-host pod when one is
-configured, the port's is one process (the pod runtime is not ported).
+Under a pod (:mod:`psrsigsim_torch.runtime.dist`) the service is the
+group's leader: its buckets span every process of the group
+(:class:`~psrsigsim_torch.serve.pod.PodProgramRegistry`, each batch
+broadcast to the followers before it runs), while the queue, the cache and
+the HTTP front end stay the leader's alone.
 """
 
 from __future__ import annotations
@@ -196,8 +199,22 @@ class SimulationService:
             compile_cache_dir = os.path.join(str(cache_dir), "compile_cache")
         self.replica_id = replica_id
         self.started_at = time.time()
-        self.registry = ProgramRegistry(
-            widths, compile_cache_dir=compile_cache_dir, device=self.device)
+        from ..runtime.dist import is_pod, pod_channel, pod_info
+
+        self._pod = pod_info()
+        if is_pod():
+            # pod leader: the buckets span every process of the group; each
+            # batch is broadcast to the followers (serve/pod.py) — the
+            # HTTP/cache/queue half of the service is the leader's alone
+            from .pod import PodProgramRegistry
+
+            self.registry = PodProgramRegistry(
+                widths, compile_cache_dir=compile_cache_dir,
+                channel=pod_channel(), device=self.device)
+        else:
+            self.registry = ProgramRegistry(
+                widths, compile_cache_dir=compile_cache_dir,
+                device=self.device)
         self.cache = (ResultCache(cache_dir, verify=verify_cache,
                                   faults=faults,
                                   hot_max_bytes=cache_hot_bytes)
@@ -209,6 +226,11 @@ class SimulationService:
 
         self.integrity = resolve_integrity(integrity, fingerprint="serve",
                                            faults=faults)
+        if self.integrity is not None and is_pod():
+            raise RuntimeError(
+                "integrity checking is not supported on a pod serving group "
+                "yet (duplicate-execution audits break host lockstep); arm "
+                "it on single-process replicas only")
         self.max_queue = int(max_queue)
         self.batch_window_s = float(batch_window_s)
         self.retry_after_s = float(retry_after_s)
@@ -471,6 +493,12 @@ class SimulationService:
 
     def close(self, timeout=30.0):
         ok = self.drain(timeout)
+        # a pod leader's registry holds followers blocked on its exec
+        # stream: the drain above guarantees no more batches, so the clean
+        # end of the stream belongs here, for every caller that closes the
+        # service
+        if hasattr(self.registry, "shutdown_followers"):
+            self.registry.shutdown_followers()
         if self.cache is not None:
             self.cache.close()
         return ok
@@ -516,9 +544,9 @@ class SimulationService:
             # is another process, so this is how a fleet's caller reads
             # the kernels its replicas ran
             "kernel_launches": kernel_launches(),
-            # the multi-host group this replica leads: always one
-            # process here (the reference's field, kept for its readers)
-            "pod": {"process_id": 0, "num_processes": 1, "is_pod": False},
+            # the pod group this replica leads (one process when solo):
+            # the fleet's group supervision and the smoke's pod leg read it
+            "pod": self._pod.describe(),
         }
         if fe is not None:
             # connection pressure for the fleet health poll and the

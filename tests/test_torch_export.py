@@ -436,12 +436,12 @@ def _export_with(ens, out, template=TEMPLATE, **kw):
 
 @pytest.mark.parametrize("option", ["pod"])
 def test_unported_options_raise(ens, tmp_path, option):
-    """(f): pods are not ported: asking for them raises instead of being
-    ignored."""
+    """(f): a pod follower's export mirror outside a pod raises instead of
+    being ignored (the pod itself: tests/test_torch_pod_groups.py)."""
     from psrsigsim_torch.io.export import pod_export_follower
 
     out = str(tmp_path / "u")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(RuntimeError, match="requires an initialized pod"):
         pod_export_follower(ens, N_OBS, out, seed=SEED)
     assert not os.path.exists(out)
 

@@ -559,10 +559,23 @@ def test_device_is_forwarded_to_every_replica(tmp_path, monkeypatch):
 
 
 def test_multi_host_groups_raise(tmp_path):
+    """A group of no process raises; a 2-process group (the pod program
+    group, tests/test_torch_pod_groups.py) is a leader command plus a
+    follower command that serves no HTTP and forwards the device."""
     from psrsigsim_torch.serve import ReplicaFleet
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        ReplicaFleet(1, str(tmp_path), group_hosts=2, device="cpu")
+    with pytest.raises(ValueError, match="group_hosts"):
+        ReplicaFleet(1, str(tmp_path), group_hosts=0, device="cpu")
+    fleet = ReplicaFleet(1, str(tmp_path), group_hosts=2, device="cpu")
+    lead = fleet._replica_cmd(0, pod=(1234, 1235), pod_host=0)
+    fol = fleet._replica_cmd(0, pod=(1234, 1235), pod_host=1)
+    for cmd, host in ((lead, "0"), (fol, "1")):
+        i = cmd.index("--pod-num-hosts")
+        assert cmd[i:i + 8] == ["--pod-num-hosts", "2", "--pod-host", host,
+                                "--pod-coordinator", "127.0.0.1:1234",
+                                "--pod-channel-port", "1235"]
+        assert cmd[cmd.index("--device") + 1] == "cpu"
+    assert "--pod-follower" in fol and "--pod-follower" not in lead
 
 
 def test_fleet_and_router_import_neither_jax_nor_the_jax_package():

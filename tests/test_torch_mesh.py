@@ -152,12 +152,25 @@ def test_sharding_helpers():
 
 
 def test_distributed_init_single_process_only():
+    """One process needs no setup; more join a pod through init_pod, which
+    refuses a missing or impossible process id before it binds anything
+    (the pod itself: tests/test_torch_pod.py)."""
     from psrsigsim_torch.parallel import distributed_init
+    from psrsigsim_torch.runtime import dist
 
     assert distributed_init() is None
     assert distributed_init(num_processes=1) is None
-    with pytest.raises(NotImplementedError, match="pods"):
-        distributed_init("localhost:1234", num_processes=2, process_id=0)
+    prev = dist._pod
+    try:
+        dist._pod = dist._SOLO
+        with pytest.raises(ValueError, match="process id"):
+            distributed_init("localhost:1234", num_processes=2)
+        with pytest.raises(ValueError, match="outside a pod"):
+            distributed_init("localhost:1234", num_processes=2,
+                             process_id=2)
+        assert not dist.is_pod() and dist.pod_channel() is None
+    finally:
+        dist._pod = prev
 
 
 @pytest.mark.parametrize("split,concat", [(0, 1), (1, 0), (-1, -2)])

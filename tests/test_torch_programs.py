@@ -89,14 +89,15 @@ class TestProgramRegistry:
             == ref["script"]
 
     def test_trace_env_key_matches_reference(self, ref, monkeypatch):
-        """The switches' slots equal the reference's on the CPU (where
-        donation is off under ``auto``); the topology slot is None."""
+        """Every slot equals the reference's on the CPU (where donation is
+        off under ``auto``), the pod topology's included (``("solo",)``
+        outside a pod; the pod's own keys: tests/test_torch_pod.py)."""
         from psrsigsim_torch.runtime.programs import trace_env_key
 
         monkeypatch.setattr("torch.cuda.is_available", lambda: False)
         got = env_keys(trace_env_key)
-        assert [k[:4] for k in got] == [k[:4] for k in ref["env"]]
-        assert all(len(k) == 5 and k[4] is None for k in got)
+        assert json.loads(json.dumps(got)) == ref["env"]
+        assert all(len(k) == 5 and k[4] == ("solo",) for k in got)
 
     def test_build_once_then_hit(self):
         from psrsigsim_torch.runtime import ProgramRegistry

@@ -327,6 +327,21 @@ def test_runtime_exports_the_scrubs(ref):
 
 
 
+def test_runtime_exports_the_reference_names(ref):
+    """Every public name of the reference's ``runtime`` package — the pod
+    runtime's among them — imports from the port's (the pods' behaviour:
+    tests/test_torch_pod.py, tests/test_torch_pod_groups.py)."""
+    import psrsigsim_torch.runtime as rt
+    from psrsigsim_torch.runtime import dist
+
+    names = list(ref["runtime_all"])
+    assert "init_pod" in names and "PodChannel" in names
+    for name in names:
+        assert name in rt.__all__, name
+        assert getattr(rt, name) is not None, name
+    assert rt.init_pod is dist.init_pod and rt.device_get is dist.device_get
+
+
 def test_parallel_exports_the_reference_names(ref):
     """Every public name of the reference's ``parallel`` package imports
     from the port's (meshes and sequence sharding: tests/test_torch_mesh.py,

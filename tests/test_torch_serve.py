@@ -419,7 +419,7 @@ class TestBatchingInvariance:
             SimulationService()
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["--port", "0"])
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        with pytest.raises(ValueError, match="pod-num-hosts"):
             main(["--port", "0", "--device", "cpu", "--pod-follower"])
 
 

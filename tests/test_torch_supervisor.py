@@ -631,12 +631,63 @@ def test_fault_plan_names_the_export_points(tmp_path):
                   "serve.kill", "serve.reject", "cache.contend",
                   "cache.enospc", "replica.slow", "device.sdc",
                   "host.corrupt", "disk.bitrot", "replica.kill",
-                  "route.blackhole"):
+                  "route.blackhole", "pod.kill"):
         assert point in POINTS
         FaultPlan(str(tmp_path), {point: {}})
-    # the pods' point waits for their slice
+    # a typo never silently disarms a fault test
     with pytest.raises(ValueError, match="unknown fault point"):
-        FaultPlan(str(tmp_path), {"pod.kill": {}})
+        FaultPlan(str(tmp_path), {"pod.kil": {}})
+
+
+_VML_PROBE = r"""
+import sys
+import numpy as np
+import torch
+
+torch.set_num_threads(2)
+VML = {torch.sin, torch.cos, torch.exp, torch.log, torch.sqrt}
+seen = []
+
+
+def hook(frame, event, arg):
+    if event == "c_call" and any(arg is f for f in VML):
+        seen.append(frame.f_code.co_filename)
+
+
+sys.setprofile(hook)
+from psrsigsim_torch.ops.shift import fourier_shift  # noqa: E402
+sys.setprofile(None)
+print(sum("psrsigsim_torch" in f for f in seen))
+# F2's shape: 2 observations x 4 channels x 513 bins of a ramp, two
+# threads; observation 0 and 1 have the same inputs
+prof = torch.tensor(np.random.default_rng(0).random((4, 1024)),
+                    dtype=torch.float32)
+delays = torch.full((2, 4), 0.0123, dtype=torch.float32)
+out = fourier_shift(prof, delays, dt=0.0048828125)
+print(int(torch.equal(out[0], out[1])))
+"""
+
+
+def test_host_vector_math_is_set_up_serially_at_import():
+    """F2, the SIGKILL-resume flake: on the host, ATen evaluates float
+    cos/sin/exp through MKL's vector math (VML) in 2048-element blocks on
+    the intra-op threads, and VML's first call in a process, made from two
+    threads at once, races its own set-up — one thread's block (observation
+    0 of the shift's ramp) then came out ~1e-4 off.  The killed child was a
+    fresh process whose first such call was that ramp; the pytest worker
+    had called it before.  The port now makes one serial call into VML when
+    its device module is imported, before any parallel one: a fresh process
+    that imports the shift has called it from the port's own code (the
+    parent made no such call, so this fails there by construction), and the
+    first shift of F2's shape gives identical observations identical
+    rows."""
+    proc = subprocess.run([sys.executable, "-c", _VML_PROBE], env=_env(),
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    calls, same = (int(v) for v in proc.stdout.split()[-2:])
+    assert calls >= 1
+    assert same == 1
 
 
 def test_runtime_imports_no_torch():
