@@ -6,7 +6,8 @@
 Drives psrsigsim_torch's fold-mode ensemble main path on the card, from
 configured signal/pulsar/telescope objects to packed int16 PSRFITS
 buffers and files, its SEARCH mode and dataset factory, its baseband
-pipeline and its multi-pulsar ensemble, through the
+pipeline and its multi-pulsar ensemble (and at the end the port's linter
+and its 12 tutorials), through the
 port's hand-written CUDA kernels, built here with nvcc into build/: the
 random-field sampler (psrsigsim_torch/csrc/rng_field.cu), which draws the
 float blocks of FoldEnsemble.run in its rows layout and the SEARCH-mode
@@ -298,13 +299,30 @@ PSS_EXACT_CHI2=1 takes.  Phases:
    group, every request then served again from the cache (no lost commit);
    (d) the bench MC study and a 128-record corpus on the pod, bit-identical
    to their one-process runs.  No pod process builds a kernel (the build
-   directory's files do not change).
+   directory's files do not change);
+22. the linter and its probe on the card (psrsigsim_torch.analysis):
+   ``python -m psrsigsim_torch.analysis`` exits 0 on the port's tree
+   against its own baseline; every public ops symbol runs through its
+   probe on the card, the steady-state call under
+   torch.cuda.set_sync_debug_mode("error") (or listed in
+   trace_check.SYNCS with its reason; six exempt as host helpers), then
+   the serving buckets (widths 1 and 8), the dataset record chunk and the
+   main path's steady ``run_quantized(128)`` at config 1's full width; the
+   probe must launch K1' in both layouts, K3' and K4; the counts probed,
+   syncing by design and exempt, the launches and the seconds are logged;
+23. the 12 tutorials of docs/torch/ on the card through the CPU test's
+   runner (psrsigsim_torch/tools/tutorials.py): every block in order, in
+   one namespace a tutorial with DEVICE = "cuda", from a scratch
+   directory under build/ (deleted afterwards), with its
+   numeric-RuntimeWarning gate; each tutorial's seconds and its launches
+   of K1' (rows and flat), K3', K4 and K9 logged.  A failing block fails
+   the phase.
 
 The line before the last is one JSON object with each kernel's launches
 (counted in the main path's run: phases 5, 13 and 19; every path's
 count under ``launches_by_path``: phases 5, 9, 13, 15, 16, 17, 18, 19,
-20 and 21, the fleet's read from its replicas' /healthz, the pod's a
-rank), error against
+20, 21, 22 and 23, the fleet's read from its replicas' /healthz, the
+pod's a rank, each tutorial's under its number), error against
 its plain version, times and bound.
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of one
@@ -5749,6 +5767,103 @@ class Smoke:
             f"the kill, all {len(specs)} requests from the cache in "
             f"{wall2:.2f} s, bit-equal, no batch run ({self.card_line})")
 
+    # -- 22 -----------------------------------------------------------------
+    def linter(self):
+        """The port's linter on its own tree, and its device probe on the
+        card under sync-debug "error" (see the module docstring)."""
+        from psrsigsim_torch import ops
+        from psrsigsim_torch.analysis import trace_check
+
+        for k in ("PSS_SAMPLER", "PSS_EXACT_SHIFT", "PSS_EXACT_CHI2",
+                  "PSS_INTEGRITY"):
+            os.environ.pop(k, None)
+        t0 = time.perf_counter()
+        lint = subprocess.run(
+            [sys.executable, "-m", "psrsigsim_torch.analysis"], cwd=ROOT,
+            capture_output=True, text=True, timeout=300)
+        tail = (lint.stdout.strip().splitlines() or [""])[-1]
+        if lint.returncode != 0:
+            raise AssertionError(f"python -m psrsigsim_torch.analysis exited "
+                                 f"{lint.returncode}:\n{lint.stdout[-3000:]}"
+                                 f"{lint.stderr[-3000:]}")
+        log(f"  python -m psrsigsim_torch.analysis: exit 0, {tail!r} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        self._zero_counts()
+        t1 = time.perf_counter()
+        results = trace_check.run_trace_check(device="cuda")
+        if [r.name for r in results] != list(ops.__all__):
+            raise AssertionError("the probe did not cover ops.__all__")
+        results += trace_check.run_serve_trace_check(widths=(1, 8),
+                                                     device="cuda")
+        results += trace_check.run_dataset_trace_check(device="cuda")
+        # the main path's own steady call at config 1's full width
+        results += trace_check.run_ensemble_trace_check(self.main_ensemble(),
+                                                        MAIN_NOBS)
+        self._sync()
+        counts = self._counts()
+        if self.torch.cuda.get_sync_debug_mode() != 0:
+            raise AssertionError("the probe left the sync-debug mode on")
+        for name in ("rng_field", "rng_flat_field", "fold_quantize",
+                     "packed_digest"):
+            if not counts.get(name):
+                raise AssertionError(f"the probe never launched {name}: "
+                                     f"{counts}")
+        self._path("22 probe", counts)
+        by = {s: [r.name for r in results if r.status == s]
+              for s in ("ok", "sync", "exempt")}
+        log(f"  probe on the card: {len(results)} probes "
+            f"({len(ops.__all__)} ops symbols, 2 serve buckets, 1 dataset "
+            f"chunk, run_quantized({MAIN_NOBS}) at config 1): {len(by['ok'])} clean under sync-debug 'error', "
+            f"{len(by['sync'])} syncing by design ({', '.join(by['sync'])}), "
+            f"{len(by['exempt'])} exempt; launches {counts} "
+            f"({time.perf_counter() - t1:.1f} s)")
+        log(f"  phase 22 done in {time.perf_counter() - t0:.1f} s "
+            f"({self.card_line})")
+
+    # -- 23 -----------------------------------------------------------------
+    def tutorials(self):
+        """Every tutorial of docs/torch/ on the card (see the module
+        docstring), through the CPU test's runner
+        (psrsigsim_torch/tools/tutorials.py) with DEVICE = "cuda", from a
+        scratch directory under build/."""
+        import glob
+        import shutil
+        import tempfile
+
+        from psrsigsim_torch.tools.tutorials import number, run_tutorial
+
+        for k in ("PSS_SAMPLER", "PSS_EXACT_SHIFT", "PSS_EXACT_CHI2",
+                  "PSS_INTEGRITY"):
+            os.environ.pop(k, None)
+        paths = sorted(glob.glob(os.path.join(ROOT, "docs", "torch",
+                                              "tutorial_*.md")), key=number)
+        if len(paths) != 12:
+            raise AssertionError(f"{len(paths)} tutorials in docs/torch/")
+        build = os.path.join(ROOT, "build")
+        os.makedirs(build, exist_ok=True)
+        t0 = time.perf_counter()
+        for path in paths:
+            name = os.path.basename(path)
+            work = tempfile.mkdtemp(prefix="tutorial-", dir=build)
+            self._zero_counts()
+            t1 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    n_blocks = run_tutorial(path, "cuda", work)
+                self._sync()
+            finally:
+                shutil.rmtree(work, ignore_errors=True)
+            seconds = time.perf_counter() - t1
+            counts = self._counts()
+            self._path(f"23 tutorial {number(path)}", counts)
+            log(f"  {name}: {n_blocks} blocks in {seconds:.2f} s; K1' "
+                f"rows {counts['rng_field']}, K1' flat "
+                f"{counts.get('rng_flat_field', 0)}, K3' "
+                f"{counts['fold_quantize']}, K4 {counts['packed_digest']}, "
+                f"K9 {counts.get('gamma_field', 0)}")
+        log(f"  phase 23: {len(paths)} tutorials on cuda in "
+            f"{time.perf_counter() - t0:.1f} s ({self.card_line})")
+
     def run(self, with_profile=False):
         self.phase("1 card", self.card)
         built = self.phase("2 build", self.build)
@@ -5779,6 +5894,8 @@ class Smoke:
             self.phase("19 exact-gamma chi2", self.exact_gamma)
             self.phase("20 meshes and sequence sharding", self.meshes)
             self.phase("21 pods", self.pods)
+            self.phase("22 linter and probe on the card", self.linter)
+            self.phase("23 tutorials on the card", self.tutorials)
         if self.failed:
             log(f"FAILED phases: {', '.join(self.failed)}")
             return 1

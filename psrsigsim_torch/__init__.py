@@ -21,3 +21,20 @@ from . import utils  # noqa: F401
 __version__ = "0.1.0"
 
 __all__ = ["utils", "__version__"]
+
+
+def __getattr__(name):
+    # lazy submodule access keeps `import psrsigsim_torch` light (torch and
+    # the card load only with the submodules that need them)
+    import importlib
+
+    if name in ("signal", "pulsar", "models", "ops", "ism", "telescope",
+                "simulate", "io", "parallel", "data", "runtime", "mc"):
+        try:
+            return importlib.import_module(f".{name}", __name__)
+        except ModuleNotFoundError as err:
+            # keep hasattr()/getattr(default) semantics intact
+            raise AttributeError(
+                f"module {__name__!r} has no attribute {name!r}"
+            ) from err
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

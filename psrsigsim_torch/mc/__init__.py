@@ -12,8 +12,8 @@ per chunk, so a SIGKILLed 100k-trial run resumes bit-identically, and
 the fingerprinted artifact.  ``python -m psrsigsim_torch.mc study.toml``
 runs a study from a declarative spec file.  The scenario engine's
 parameters are knobs too (scintillation, RFI, single-pulse energies).
-``mesh=`` takes a single-process mesh with a chan axis of 1 (trials over
-``obs``); pods are not ported yet.
+``mesh=`` takes a mesh with a chan axis of 1 (trials over ``obs``),
+single-process or spanning a pod (:mod:`psrsigsim_torch.runtime.dist`).
 """
 
 from .priors import (Choice, Fixed, Grid, LogUniform, Normal, Prior,

@@ -1,5 +1,5 @@
 """Monte-Carlo study engine: parameter space -> trials -> results
-(counterpart: psrsigsim_tpu/mc/study.py; single-process meshes, no pods).
+(counterpart: psrsigsim_tpu/mc/study.py).
 
 One trial is a complete program on the device — pulse synthesis, ISM
 delays, radiometer noise (the two χ² fields drawn by the sampler kernel

@@ -14,11 +14,13 @@ from __future__ import annotations
 
 import numpy as np
 
-from ...ops.convolve import convolve_profiles as _convolve_profiles_op
-from ...ops.shift import coherent_dedisperse, fourier_shift
 from ...utils.constants import DM_K, KOLMOGOROV_BETA
 from ...utils.quantity import Quantity, make_quant
 from ..pulsar.portraits import DataPortrait
+
+# the shift and convolution ops import torch, so the methods load them: the
+# models package stays importable without torch (a PSRFITS writer process
+# unpickles a pulsar through it)
 
 __all__ = ["ISM", "fd_delays_ms", "scatter_delays_ms"]
 
@@ -92,6 +94,8 @@ class ISM:
         signal.delay = (
             time_delays if signal.delay is None else signal.delay + time_delays
         )
+        from ...ops.shift import fourier_shift
+
         shift_dt = (1 / signal.samprate).to("ms")
         signal.data = fourier_shift(
             signal.data, time_delays.value, dt=float(shift_dt.value)
@@ -102,6 +106,8 @@ class ISM:
         channels in one batched FFT (reference: ism/ism.py:76-98): the
         float64 host phase of the concrete DM, the rFFT form on the
         signal's device."""
+        from ...ops.shift import coherent_dedisperse
+
         dt_us = float((1 / signal.samprate).to("us").value)
         signal.data = coherent_dedisperse(
             signal.data,
@@ -129,6 +135,8 @@ class ISM:
         signal.delay = (
             time_delays if signal.delay is None else signal.delay + time_delays
         )
+        from ...ops.shift import fourier_shift
+
         shift_dt = (1 / signal.samprate).to("ms")
         signal.data = fourier_shift(signal.data, delays_ms, dt=float(shift_dt.value))
         signal._FDshifted = True
@@ -152,6 +160,8 @@ class ISM:
             signal.delay = (
                 tau_d_scaled if signal.delay is None else signal.delay + tau_d_scaled
             )
+            from ...ops.shift import fourier_shift
+
             shift_dt = (1 / signal.samprate).to("ms")
             signal.data = fourier_shift(
                 signal.data, tau_d_scaled.value, dt=float(shift_dt.value)
@@ -189,7 +199,9 @@ class ISM:
     def convolve_profile_device(self, profiles, convolve_array, width=2048):
         """Device variant of :meth:`convolve_profile` (float32 tensors on
         their device) for ensembles with per-observation scattering."""
-        return _convolve_profiles_op(profiles, convolve_array, width)
+        from ...ops.convolve import convolve_profiles
+
+        return convolve_profiles(profiles, convolve_array, width)
 
     # -- scintillation scaling laws (Michael Lam 2017; Stinebring & Condon
     #    1990 for the beta branches; reference: ism/ism.py:300-358) ---------

@@ -39,7 +39,10 @@
   :class:`PooledTransport` keep-alive upstreams; ``make_router_server``
   puts one HTTP address in front of the fleet.
 
-The JAX package's pod registry is not ported yet.
+- :mod:`~psrsigsim_torch.serve.pod` — :class:`PodProgramRegistry` and
+  ``pod_serve_follower``: one replica as a pod program group, the leader
+  serving HTTP while followers run their slab of every batch
+  (``python -m psrsigsim_torch.serve --pod-num-hosts N ...``).
 """
 
 from .aio import AioHTTPServer, make_aio_server

@@ -82,10 +82,21 @@ SERVE_SPEC = {"nchan": 4, "fcent_mhz": 1400.0, "bw_mhz": 400.0,
               "period_s": 0.005, "smean_jy": 0.05, "seed": 0, "dm": 10.0}
 
 
+def lazy_names(package):
+    """The submodule names a package's ``__getattr__`` resolves lazily:
+    the tuple of names among its code's constants."""
+    [names] = [c for c in package.__getattr__.__code__.co_consts
+               if isinstance(c, tuple) and c
+               and all(isinstance(n, str) for n in c)]
+    return list(names)
+
+
 def _child(out):
     shims()
     import jax
     import jax.numpy as jnp
+
+    import psrsigsim_tpu
 
     from psrsigsim_tpu import ops
     from psrsigsim_tpu.data import list_data
@@ -156,6 +167,10 @@ def _child(out):
     import psrsigsim_tpu.parallel as par
 
     res["parallel_all"] = np.array(par.__all__)
+    res["lazy_names"] = np.array(lazy_names(psrsigsim_tpu))
+    import psrsigsim_tpu.models as models
+
+    res["models_all"] = np.array(models.__all__)
     np.savez(os.path.join(out, "ref.npz"), **res)
 
 
@@ -356,6 +371,52 @@ def test_parallel_exports_the_reference_names(ref):
         assert getattr(par, name) is not None, name
     assert par.OBS_AXIS == "obs" and par.CHAN_AXIS == "chan"
     assert par.SEQ_AXIS == "seq" and par.SEQ_RNG_BLOCK == 4096
+
+
+def test_top_level_lazy_submodules_match_reference(ref):
+    """``psrsigsim_torch.<name>`` resolves the reference's 12 lazy names to
+    the port's submodules after a bare ``import psrsigsim_torch`` (a fresh
+    process: the worker may have imported them already), the import itself
+    loading no torch, and an unknown name stays an ``AttributeError``."""
+    import psrsigsim_torch
+
+    names = [str(n) for n in ref["lazy_names"]]
+    assert len(names) == 12 and "ops" in names and "mc" in names
+    assert lazy_names(psrsigsim_torch) == names
+    code = f"""
+import sys
+import psrsigsim_torch
+assert 'torch' not in sys.modules, 'import psrsigsim_torch loaded torch'
+for name in {names!r}:
+    mod = getattr(psrsigsim_torch, name)
+    assert mod.__name__ == 'psrsigsim_torch.' + name, (name, mod)
+assert not hasattr(psrsigsim_torch, 'no_such_module')
+print('clean')
+"""
+    proc = subprocess.run([sys.executable, "-c", code],
+                          env=dict(os.environ,
+                                   PYTHONPATH=os.path.dirname(HERE)),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("clean")
+
+
+def test_models_exports_match_reference(ref):
+    """``psrsigsim_torch.models`` exports the reference's three model
+    packages, and importing it loads no torch (a writer process unpickles a
+    pulsar through it)."""
+    import psrsigsim_torch.models as models
+
+    assert models.__all__ == list(ref["models_all"])
+    for name in models.__all__:
+        assert getattr(models, name).__name__ == f"psrsigsim_torch.models.{name}"
+    code = ("import sys; import psrsigsim_torch.models; "
+            "assert 'torch' not in sys.modules; print('clean')")
+    proc = subprocess.run([sys.executable, "-c", code],
+                          env=dict(os.environ,
+                                   PYTHONPATH=os.path.dirname(HERE)),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and "clean" in proc.stdout, proc.stderr
 
 
 if __name__ == "__main__":
