@@ -53,6 +53,7 @@ from ..scenarios.registry import stack_from_knobs
 from ..simulate.pipeline import (_dispersion_delays, fold_pipeline,
                                  fold_subints)
 from ..parallel.mesh import CHAN_AXIS, MeshSlabs, mesh_devices
+from ..runtime.telemetry import span
 from ..utils.device import to_device
 from ..utils.rng import key as make_key
 from ..utils.rng import stage_key
@@ -282,15 +283,19 @@ class MonteCarloStudy:
 
     def _trial_keys(self, idx):
         """Keys ``(B, 2)`` on the host for global trial indices ``idx``."""
-        return stage_key(make_key(self.seed, "cpu"), "user",
-                         torch.as_tensor(np.asarray(idx), dtype=torch.int64))
+        with span("keys"):
+            return stage_key(make_key(self.seed, "cpu"), "user",
+                             torch.as_tensor(np.asarray(idx),
+                                             dtype=torch.int64))
 
     def _sample_params(self, keys, idx):
         """All prior draws of a batch of trials, on the host: the key fold
         is (trial key -> "prior" stage -> parameter slot), so adding or
         removing one prior never perturbs another's stream."""
-        return sample_priors(self.priors, self.param_names, keys,
-                             torch.as_tensor(np.asarray(idx)), stage="prior")
+        with span("priors"):
+            return sample_priors(self.priors, self.param_names, keys,
+                                 torch.as_tensor(np.asarray(idx)),
+                                 stage="prior")
 
     def _trial_block(self, keys, p, profiles=None, freqs=None):
         """The trials' blocks ``(B, Nchan, Nsamp)``, their delay curves
@@ -677,17 +682,22 @@ class MonteCarloStudy:
                             crash_process()
 
         def _dispatch(start, count):
-            t0 = _time.perf_counter()
-            out = self._chunk_program(start, n_trials, width, count)
-            if checker is not None:
-                # device.sdc perturbs the metric rows BEFORE the digest
-                # attests them (the corruption only the audit can see)
-                metrics = checker.apply_sdc(out[0], ident=start)
-                out = (metrics,) + tuple(out[1:]) \
-                    + (device_digest_rows(metrics),)
-            telemetry.add("dispatch", _time.perf_counter() - t0)
+            """Launch one chunk: its device tensors and, on the card, the
+            event that marks them complete."""
+            with telemetry.span("dispatch", chunk=start):
+                out = self._chunk_program(start, n_trials, width, count)
+                if checker is not None:
+                    # device.sdc perturbs the metric rows BEFORE the digest
+                    # attests them (the corruption only the audit can see)
+                    metrics = checker.apply_sdc(out[0], ident=start)
+                    out = (metrics,) + tuple(out[1:]) \
+                        + (device_digest_rows(metrics),)
+                ready = None
+                if out[0].is_cuda:
+                    ready = torch.cuda.Event()
+                    ready.record(torch.cuda.current_stream(out[0].device))
             telemetry.track_live(out)
-            return out
+            return out, ready
 
         def _host(dev):
             return tuple(t.cpu().numpy() for t in dev)
@@ -751,24 +761,29 @@ class MonteCarloStudy:
                 os.fsync(journal_f.fileno())
             return tuple(fetched), dig_a
 
-        def _fetch(dev):
-            t0 = _time.perf_counter()
-            host = _host(dev)
-            telemetry.untrack_live(dev)
-            telemetry.add("fetch", _time.perf_counter() - t0,
-                          nbytes=sum(a.nbytes for a in host))
+        def _fetch(start, dev, ready):
+            """The chunk on the host.  ``fetch.wait`` is the wait for this
+            chunk's own launches; the copies' ``.cpu()`` then also waits
+            for whatever was launched behind it."""
+            with telemetry.span("fetch", chunk=start) as sp:
+                if ready is not None:
+                    with span("wait"):
+                        ready.synchronize()
+                host = _host(dev)
+                telemetry.untrack_live(dev)
+                sp.nbytes = sum(a.nbytes for a in host)
             return host
 
         stopped = False
         try:
             # dispatch-ahead of one chunk: the device computes chunk N+1
             # while the host merges/journals chunk N
-            inflight = []  # [(start, count, device tensors)]
+            inflight = []  # [(start, count, (device tensors, event))]
 
             def _drain_one():
                 nonlocal stopped
-                s0, c0, dev = inflight.pop(0)
-                host = _fetch(dev)
+                s0, c0, (dev, ready) = inflight.pop(0)
+                host = _fetch(s0, dev, ready)
                 del dev
                 dig = None
                 if checker is not None:

@@ -20,11 +20,14 @@ per-row factors.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
 from ..ops.quantize import quantize_packed
 from ..ops.stats import CHI2_WH_MIN_DF, sampler_backend
+from ..runtime.telemetry import span
 from ..scenarios.registry import _param, parse_stack, scenario_rows
 from ..simulate.pipeline import (_fold_pipeline_hetero, build_fold_config,
                                  fold_pipeline, fold_pipeline_quantized,
@@ -329,10 +332,11 @@ class FoldEnsemble:
         observation's stream alone (None is the main pass)."""
         dev = self.device
         idx = np.asarray(idx)
-        keys = stage_key(key(seed, "cpu"), "user",
-                         torch.as_tensor(idx, dtype=torch.int64))
-        if fold_salt is not None:
-            keys = fold_in(keys, int(fold_salt))
+        with span("keys"):
+            keys = stage_key(key(seed, "cpu"), "user",
+                             torch.as_tensor(idx, dtype=torch.int64))
+            if fold_salt is not None:
+                keys = fold_in(keys, int(fold_salt))
         f32 = torch.float32
         dms = (torch.full(idx.shape, self.dm, dtype=f32, device=dev)
                if dms_full is None
@@ -613,51 +617,58 @@ class FoldEnsemble:
         cuda = self.device.type == "cuda"
         copy_stream = torch.cuda.Stream(self.device) if cuda else None
 
+        def _span(stage, start):
+            return (timers.span(stage, chunk=start) if timers is not None
+                    else contextlib.nullcontext())
+
         def _dispatch(start, count):
             """Launch one chunk: its device tensors, trimmed to ``count``
             observations, and the event that marks them complete.  A
             quantized chunk also gathers its DAT_SCL/DAT_OFFS halves into
             one small contiguous tensor on the device, so the host split is
             a view instead of a gather over the whole buffer."""
-            t0 = _time.perf_counter()
-            idx = (start + np.arange(chunk_size)) % n_obs
-            keys, dms_c, norms_c = self._prep_chunk(idx, seed, dms,
-                                                    noise_norms)
-            rows = self._rows(keys, norms_c,
-                              self._prep_scenario(idx, scenario_params))
-            if quantized:
-                packed, finite = self._quantized_packed(keys, dms_c, norms_c,
-                                                        byte_order, rows)
-                if integrity is not None:
-                    # device.sdc arm: perturb the device buffer BEFORE the
-                    # digest attests it (tests only; a None plan is a
-                    # no-op) — silent device corruption carries a
-                    # self-consistent digest
-                    packed = integrity.apply_sdc(packed, ident=start)
-                dev = (packed[:count], packed[:count, ..., nbin:].contiguous())
-                if finite_mask:
-                    dev = dev + (finite[:count],)
-                if rfi_mask:
-                    dev = dev + (rows.mask[:count],)
-                if integrity is not None:
-                    from ..runtime.integrity import device_packed_digest_rows
+            with _span("dispatch", start):
+                idx = (start + np.arange(chunk_size)) % n_obs
+                keys, dms_c, norms_c = self._prep_chunk(idx, seed, dms,
+                                                        noise_norms)
+                rows = self._rows(keys, norms_c,
+                                  self._prep_scenario(idx, scenario_params))
+                if quantized:
+                    packed, finite = self._quantized_packed(
+                        keys, dms_c, norms_c, byte_order, rows)
+                    if integrity is not None:
+                        # device.sdc arm: perturb the device buffer BEFORE
+                        # the digest attests it (tests only; a None plan is
+                        # a no-op) — silent device corruption carries a
+                        # self-consistent digest
+                        packed = integrity.apply_sdc(packed, ident=start)
+                    dev = (packed[:count],
+                           packed[:count, ..., nbin:].contiguous())
+                    if finite_mask:
+                        dev = dev + (finite[:count],)
+                    if rfi_mask:
+                        dev = dev + (rows.mask[:count],)
+                    if integrity is not None:
+                        from ..runtime.integrity import \
+                            device_packed_digest_rows
 
-                    # launched on the compute stream before the ready event
-                    # below is recorded, so the copy stream waits for it
-                    dev = dev + (device_packed_digest_rows(packed, nbin,
-                                                           count=count),)
-            else:
-                dev = (self._blocks(keys, dms_c, norms_c, rows)[:count],)
-                if rfi_mask:
-                    dev = dev + (rows.mask[:count],)
-            ready = None
-            if cuda:
-                ready = torch.cuda.Event()
-                ready.record()
+                        # launched on the compute stream before the ready
+                        # event below is recorded, so the copy stream waits
+                        # for it
+                        dev = dev + (device_packed_digest_rows(
+                            packed, nbin, count=count),)
+                else:
+                    dev = (self._blocks(keys, dms_c, norms_c, rows)[:count],)
+                    if rfi_mask:
+                        dev = dev + (rows.mask[:count],)
+                ready = None
+                if cuda:
+                    ready = torch.cuda.Event()
+                    ready.record()
             if timers is not None:
-                timers.add("dispatch", _time.perf_counter() - t0)
                 timers.track_live(dev)
-            return {"dev": dev, "ready": ready, "copy": None, "s": 0.0}
+            return {"start": start, "dev": dev, "ready": ready, "copy": None,
+                    "s": 0.0}
 
         def _start_fetch(chunk):
             """Queue the chunk's device→host copies on the copy stream,
@@ -669,9 +680,11 @@ class FoldEnsemble:
             # here, whichever thread fetches
             with torch.cuda.stream(copy_stream):
                 copy_stream.wait_event(chunk["ready"])
-                pinned = []
+                pinned, pin_ns = [], 0
                 for t in chunk["dev"]:
+                    p0 = _time.perf_counter_ns()
                     h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    pin_ns += _time.perf_counter_ns() - p0
                     # the allocator must not hand this memory to a later
                     # chunk while the copy still reads it
                     t.record_stream(copy_stream)
@@ -681,6 +694,8 @@ class FoldEnsemble:
                 done.record(copy_stream)
             chunk["copy"] = (pinned, done)
             chunk["s"] += _time.perf_counter() - t0
+            if timers is not None:
+                timers.add("fetch.pin", pin_ns / 1e9)
 
         def _fetch(chunk):
             """The chunk as host numpy arrays (the copies started if they
@@ -689,7 +704,8 @@ class FoldEnsemble:
             t0 = _time.perf_counter()
             if cuda:
                 pinned, done = chunk["copy"]
-                done.synchronize()
+                with _span("fetch.wait", chunk["start"]):
+                    done.synchronize()
                 host = [h.numpy() for h in pinned]
             else:
                 host = [t.numpy() for t in chunk["dev"]]

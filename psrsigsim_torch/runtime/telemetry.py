@@ -15,7 +15,19 @@ queue depth samples.  The exporter folds a snapshot into the export
 manifest (``pipeline`` key) and ``chip_smoke.py``'s export phase prints
 it, so every run names its own bottleneck.  (A copy of
 psrsigsim_tpu/runtime/telemetry.py; the live-buffer gauge sums the
-``nbytes`` of tensors and arrays instead of jax pytree leaves.)
+``nbytes`` of tensors and arrays instead of jax pytree leaves, the
+percentiles are exact and stages nest: psrsigsim_torch/DIVERGENCES.md
+P28.)
+
+Spans: ``with timers.span("dispatch", chunk=start):`` times one stage on
+the calling thread, and deep code opens a child of whatever span is open
+on its thread with the module-level :func:`span` —
+``with span("keys"):`` records ``dispatch.keys`` — without a timers
+argument threaded through to it; with no span open it does nothing.  A
+child's time is also inside its parent's.  While a PyTorch profiler is
+active every closed span is also logged with its start and end on
+``time.perf_counter_ns`` (the clock a device trace is anchored to), so a
+trace's idle gaps can be put down to the host work inside them.
 
 Thread-safety: ``add``/``depth`` are called from the fetch thread and
 the main thread concurrently; all mutation is under one lock.  The
@@ -27,62 +39,95 @@ the pipeline actually pays.
 from __future__ import annotations
 
 import math
+import sys
 import threading
 import time
+from collections import deque
 
-__all__ = ["StageTimers", "STAGES", "LATENCY_LOG10_LO", "LATENCY_LOG10_HI",
-           "LATENCY_NBINS", "latency_bin_index", "latency_bin_edges"]
+__all__ = ["StageTimers", "STAGES", "SAMPLES_KEPT", "SPAN_LOG_MAX", "span"]
 
 STAGES = ("dispatch", "fetch", "encode", "write")
 
-# Bounded per-stage latency histogram: fixed equal bins over
-# log10(seconds) in [LATENCY_LOG10_LO, LATENCY_LOG10_HI), out-of-range
-# samples clamped into the edge bins — the host-side mirror of
-# ``ops/stats.fixed_histogram`` semantics (equal bins, clamp-not-drop),
-# applied to log-latency so microsecond encode calls and multi-second
-# device dispatches share one fixed-size table.  10 bins per decade from
-# 1 us to 100 s: memory is ``nbins`` ints per stage, forever bounded.
-LATENCY_LOG10_LO = -6.0
-LATENCY_LOG10_HI = 2.0
-LATENCY_NBINS = 80
+#: the latest samples of each stage that its percentiles are taken over
+SAMPLES_KEPT = 4096
+#: the most closed spans the log keeps while a profiler runs (oldest
+#: dropped first, counted in ``spans_dropped``)
+SPAN_LOG_MAX = 16384
+
+#: the percentiles a snapshot reports for each stage
+_PCTS = {"p50": 0.50, "p95": 0.95, "p99": 0.99}
+
+_local = threading.local()   # .stack: the thread's open spans, innermost last
 
 
-def latency_bin_index(seconds):
-    """The histogram bin a latency sample lands in (clamped into the edge
-    bins exactly like ``fixed_histogram`` clamps its tails)."""
-    s = max(float(seconds), 1e-30)
-    span = LATENCY_LOG10_HI - LATENCY_LOG10_LO
-    idx = int(math.floor(
-        (math.log10(s) - LATENCY_LOG10_LO) / span * LATENCY_NBINS))
-    return min(max(idx, 0), LATENCY_NBINS - 1)
+def _profiling():
+    """Whether a PyTorch profiler is active (read without importing
+    torch: a process that never loaded the profiler is not profiling)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and getattr(prof, "_is_profiler_enabled", False)
 
 
-def latency_bin_edges():
-    """Bin UPPER edges in SECONDS (len ``LATENCY_NBINS``): bin ``i``
-    spans ``[edges[i-1], edges[i])`` (lower edge of bin 0 is
-    ``10**LATENCY_LOG10_LO``), with out-of-range samples clamped into
-    bins 0 and ``LATENCY_NBINS - 1``."""
-    span = LATENCY_LOG10_HI - LATENCY_LOG10_LO
-    return [10.0 ** (LATENCY_LOG10_LO + (i + 1) * span / LATENCY_NBINS)
-            for i in range(LATENCY_NBINS)]
-
-
-def _hist_percentile(counts, q):
-    """Percentile estimate from the fixed-bin histogram: the UPPER edge
-    (in seconds) of the bin where the cumulative count crosses ``q`` —
-    conservative (never under-reports) and exact to one bin width
-    (~26% in time, 10 bins/decade)."""
-    total = sum(counts)
-    if total == 0:
+def _nearest_rank(ordered, q):
+    """The nearest-rank ``q`` quantile (0..1) of a sorted sequence:
+    ``numpy.percentile(..., method="inverted_cdf")``; 0.0 when empty."""
+    n = len(ordered)
+    if not n:
         return 0.0
-    edges = latency_bin_edges()
-    target = q * total
-    acc = 0
-    for i, c in enumerate(counts):
-        acc += c
-        if acc >= target:
-            return edges[i]
-    return edges[-1]
+    return ordered[min(max(math.ceil(q * n) - 1, 0), n - 1)]
+
+
+class _NoSpan:
+    """The span of a thread with no span open: nothing is timed."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    """One open span (see :meth:`StageTimers.span`): ``nbytes`` may be set
+    inside it and is reported with its time."""
+
+    __slots__ = ("timers", "stage", "parent", "chunk", "nbytes", "t0")
+
+    def __init__(self, timers, stage, parent, chunk):
+        self.timers = timers
+        self.stage = stage
+        self.parent = parent
+        self.chunk = chunk
+        self.nbytes = 0
+
+    def __enter__(self):
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        stack.append(self)
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter_ns()
+        _local.stack.pop()
+        self.timers._close(self, t1)
+        return False
+
+
+def span(name):
+    """A child of the innermost span open on this thread, recorded as
+    ``<parent>.<name>`` in that span's timers with its chunk; with no span
+    open, a context that does nothing (one thread-local lookup)."""
+    stack = getattr(_local, "stack", None)
+    if not stack:
+        return _NO_SPAN
+    p = stack[-1]
+    return _Span(p.timers, f"{p.stage}.{name}", p.stage, p.chunk)
 
 
 def _nbytes(tree):
@@ -105,9 +150,11 @@ class StageTimers:
     ``latency_stages`` names stages that record END-TO-END latency
     rather than exclusive busy time (the serving engine's ``"request"``
     stage spans queue wait + batch window + compute, once per request):
-    they get the same histograms/percentiles but are excluded from the
+    they get the same percentiles but are excluded from the
     ``bottleneck`` pick, which compares exclusive busy totals — an e2e
-    stage double-counts every other stage and would always win.
+    stage double-counts every other stage and would always win.  Child
+    stages (``<parent>.<child>``, see :func:`span`) are left out of it
+    for the same reason: their time is inside their parent's.
     """
 
     def __init__(self, extra_stages=(), latency_stages=()):
@@ -118,13 +165,16 @@ class StageTimers:
         self._latency_stages = frozenset(latency_stages)
         self._seconds = {k: 0.0 for k in self._stages}
         self._calls = {k: 0 for k in self._stages}
-        self._hist = {k: [0] * LATENCY_NBINS for k in self._stages}
-        self._bytes_fetched = 0
+        self._samples = {k: deque(maxlen=SAMPLES_KEPT) for k in self._stages}
         self._stage_bytes = {}  # stage -> payload bytes reported to it
         self._depths = {}  # queue name -> [sum, samples, max]
         self._counters = {}  # name -> int (program builds, cache events...)
         self._gauges = {}  # name -> last-set value (degraded flags, levels)
         self._live_bytes = 0  # dispatched-but-unfetched device bytes
+        # closed spans while a profiler runs: [stage, t0_ns, t1_ns,
+        # parent stage, chunk]
+        self._span_log = deque(maxlen=SPAN_LOG_MAX)
+        self._spans_dropped = 0
 
     def add(self, stage, seconds, nbytes=0):
         """Accumulate ``seconds`` of busy time against ``stage`` (one of
@@ -133,39 +183,48 @@ class StageTimers:
         from a reporting thread); ``nbytes`` counts the stage's payload
         bytes — device->host transfers for ``fetch``, committed record
         bytes for the dataset factory's ``write``, ... — accumulated
-        per stage (``<stage>_bytes`` in snapshots; the legacy
-        ``bytes_fetched`` total keeps summing every report, which
-        matches its historical value because only ``fetch`` reported
-        bytes before per-stage accounting existed).  Each call also
-        lands one sample in the stage's bounded latency histogram, from
-        which :meth:`snapshot` reports p50/p95/p99."""
+        per stage (``<stage>_bytes`` in snapshots).  Each call also
+        keeps one sample among the stage's latest :data:`SAMPLES_KEPT`,
+        over which :meth:`snapshot` reports p50/p95/p99."""
         with self._lock:
             if stage not in self._seconds:
                 self._stages = self._stages + (stage,)
                 self._seconds[stage] = 0.0
                 self._calls[stage] = 0
-                self._hist[stage] = [0] * LATENCY_NBINS
+                self._samples[stage] = deque(maxlen=SAMPLES_KEPT)
             self._seconds[stage] += float(seconds)
             self._calls[stage] += 1
-            self._hist[stage][latency_bin_index(seconds)] += 1
+            self._samples[stage].append(float(seconds))
             if nbytes:
                 self._stage_bytes[stage] = (
                     self._stage_bytes.get(stage, 0) + int(nbytes))
-                if stage == "fetch":
-                    self._bytes_fetched += int(nbytes)
 
-    def histogram(self, stage):
-        """A copy of one stage's latency-histogram counts (len
-        :data:`LATENCY_NBINS`; bin semantics in :func:`latency_bin_index`)."""
-        with self._lock:
-            return list(self._hist.get(stage, [0] * LATENCY_NBINS))
+    def span(self, stage, chunk=None):
+        """A context that times ``stage`` on the calling thread and closes
+        through :meth:`add` (``nbytes`` set on the span is reported with
+        it).  ``chunk`` (a chunk's start index) tags the span and every
+        child that :func:`span` opens inside it.  A dotted ``stage`` is a
+        child of the part before its last dot."""
+        return _Span(self, stage, stage.rpartition(".")[0] or None, chunk)
+
+    def _close(self, sp, t1):
+        self.add(sp.stage, (t1 - sp.t0) / 1e9, sp.nbytes)
+        if _profiling():
+            entry = [sp.stage, sp.t0, t1, sp.parent,
+                     None if sp.chunk is None else int(sp.chunk)]
+            with self._lock:
+                log = self._span_log
+                if len(log) == log.maxlen:
+                    self._spans_dropped += 1
+                log.append(entry)
 
     def percentile(self, stage, q):
-        """Latency percentile ``q`` (0..1) for ``stage``, estimated from
-        the bounded histogram (conservative: the crossing bin's upper
-        edge; 0.0 when the stage never reported)."""
+        """Latency percentile ``q`` (0..1) for ``stage``, exact (nearest
+        rank) over its latest :data:`SAMPLES_KEPT` samples; 0.0 when the
+        stage never reported."""
         with self._lock:
-            return _hist_percentile(self._hist.get(stage, ()), q)
+            samples = sorted(self._samples.get(stage, ()))
+        return _nearest_rank(samples, q)
 
     def count(self, name, n=1):
         """Bump a named event counter (e.g. ``program_builds`` from the
@@ -239,21 +298,22 @@ class StageTimers:
         queue-depth stats, wall time, and the named bottleneck stage (the
         stage with the most accumulated busy time — in an ideally
         overlapped pipeline its time approaches the wall time and every
-        other stage hides under it)."""
+        other stage hides under it).  Spans logged while a profiler ran
+        ride it as ``spans`` (oldest first) with ``spans_dropped``; with
+        none logged neither key is there."""
+        samples = {}
         with self._lock:
             out = {}
             for k in self._stages:
                 out[f"{k}_s"] = round(self._seconds[k], 6)
                 out[f"{k}_calls"] = self._calls[k]
                 if self._calls[k]:
-                    # per-call latency percentiles from the bounded
-                    # histogram (/metrics and bench JSON report
-                    # p50/p95/p99 per stage)
-                    for tag, q in (("p50", 0.50), ("p95", 0.95),
-                                   ("p99", 0.99)):
-                        out[f"{k}_{tag}_s"] = round(
-                            _hist_percentile(self._hist[k], q), 6)
-            out["bytes_fetched"] = self._bytes_fetched
+                    # per-call latency percentiles over the latest samples
+                    # (/metrics and bench JSON report p50/p95/p99 per
+                    # stage), sorted once the lock is released
+                    samples[k] = list(self._samples[k])
+                    for tag in _PCTS:
+                        out[f"{k}_{tag}_s"] = None
             for name, n in sorted(self._stage_bytes.items()):
                 out[f"{name}_bytes"] = n
             out["wall_s"] = round(time.perf_counter() - self._t0, 6)
@@ -264,7 +324,15 @@ class StageTimers:
             for name, (tot, n, mx) in sorted(self._depths.items()):
                 out[f"{name}_depth_max"] = mx
                 out[f"{name}_depth_mean"] = round(tot / max(n, 1), 3)
+            if self._span_log:
+                out["spans"] = [list(e) for e in self._span_log]
+                out["spans_dropped"] = self._spans_dropped
             busy = [k for k in self._stages
-                    if k not in self._latency_stages] or list(self._stages)
+                    if k not in self._latency_stages and "." not in k] \
+                or list(self._stages)
             out["bottleneck"] = max(busy, key=lambda k: self._seconds[k])
-            return out
+        for k, vals in samples.items():
+            vals.sort()
+            for tag, q in _PCTS.items():
+                out[f"{k}_{tag}_s"] = round(_nearest_rank(vals, q), 6)
+        return out

@@ -660,10 +660,11 @@ class ReplicaFleet:
             self._prune_failed()
             sig = self.load_signal()
             now = time.monotonic()
-            # the p95 signal is a LIFETIME histogram percentile (never
-            # windowed), so it is gated on live queue depth: a stale
-            # slow period must not keep an IDLE fleet flapping between
-            # scale-down (frac 0) and scale-up (sticky p95) forever
+            # the p95 signal is exact over each replica's latest 4,096
+            # requests, which may reach back past the last slow period,
+            # so it is gated on live queue depth: a stale slow period
+            # must not keep an IDLE fleet flapping between scale-down
+            # (frac 0) and scale-up (sticky p95)
             overload = sig["queue_frac"] > self.scale_up_queue_frac or (
                 self.scale_up_p95_s is not None
                 and sig["p95_s"] > self.scale_up_p95_s

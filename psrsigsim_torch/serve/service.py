@@ -43,10 +43,10 @@ request dicts" and "padded device batches through staged width buckets":
 * **Result cache** — a hit in the content-addressed cache
   (:class:`~psrsigsim_torch.serve.ResultCache`) completes the request at
   submit time without touching the queue or the device.
-* **Telemetry** — enqueue/batch/compute/respond stage seconds plus an
-  end-to-end ``request`` latency histogram accumulate in a shared
-  :class:`~psrsigsim_torch.runtime.StageTimers` (p50/p95/p99 in
-  ``/metrics``).
+* **Telemetry** — enqueue/batch/compute/respond stage seconds plus the
+  end-to-end ``request`` latency accumulate in a shared
+  :class:`~psrsigsim_torch.runtime.StageTimers` (exact p50/p95/p99 over
+  the latest 4,096 samples in ``/metrics``).
 
 Under a pod (:mod:`psrsigsim_torch.runtime.dist`) the service is the
 group's leader: its buckets span every process of the group

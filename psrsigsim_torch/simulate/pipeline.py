@@ -36,6 +36,7 @@ from ..ops.stats import (CHI2_WH_MIN_DF,
                          _hw_chi2_mode, chan_chi2_field, flat_chi2_field,
                          flat_chi2_ok, flat_normal_field, sampler_backend,
                          uniform)
+from ..runtime.telemetry import span
 from ..scenarios.registry import (apply_scenario_additive,
                                   apply_scenario_additive_search,
                                   apply_scenario_pulse,
@@ -128,7 +129,9 @@ def _fold_front(key, dm, noise_norm, profiles, cfg, freqs, chan_ids,
     else:
         dev = resolve_device(device)
         profiles = torch.as_tensor(np.asarray(profiles, np.float32), device=dev)
-    key = as_key(key) if isinstance(key, torch.Tensor) else as_key(key, "cpu")
+    with span("keys"):
+        key = (as_key(key) if isinstance(key, torch.Tensor)
+               else as_key(key, "cpu"))
     lead = key.shape[:-1]
     f32 = torch.float32
     dm = torch.as_tensor(dm, dtype=f32, device=dev).expand(lead)
@@ -149,8 +152,11 @@ def _fold_front(key, dm, noise_norm, profiles, cfg, freqs, chan_ids,
     # FFT instead of the full-length pair
     prof = (fourier_shift(profiles, delays_ms, dt=dt)
             if cfg.shift_mode == "envelope" else None)
-    return _FoldFront(dev, lead, key, stage_key(key, "pulse"),
-                      stage_key(key, "noise"), noise_norm, delays_ms,
+    # the stage keys after the launches above, so the card shifts the
+    # portrait while the host derives them
+    with span("keys"):
+        kp, kn = stage_key(key, "pulse"), stage_key(key, "noise")
+    return _FoldFront(dev, lead, key, kp, kn, noise_norm, delays_ms,
                       profiles, chan_ids, dt, prof)
 
 
@@ -427,8 +433,9 @@ def fold_pipeline_quantized(key, dm, noise_norm, profiles, cfg, freqs=None,
                 "sampler on the unfused path (see fused_route)")
     nchan = f.profiles.shape[0]
     # the seed words of both stages and their dfs cross in one copy each
-    seeds = to_device(seed_words(torch.stack([f.kp, f.kn]).reshape(2, -1, 2)),
-                      f.dev)
+    with span("keys"):
+        words = seed_words(torch.stack([f.kp, f.kn]).reshape(2, -1, 2))
+    seeds = to_device(words, f.dev)
     B = seeds.shape[1]
     dfs = torch.tensor([[0.0 if m == "chi2_1" else df] * B
                         for df, m in zip((cfg.nfold, cfg.noise_df), modes)],

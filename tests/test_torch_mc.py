@@ -496,6 +496,13 @@ def test_telemetry_lands_on_manifest(tmp_path, study_dm, hw):
         man = json.load(f)
     for stage in ("dispatch", "fetch", "reduce", "write"):
         assert man["pipeline"][f"{stage}_calls"] > 0
+    # the host keys and prior draws of every chunk, inside its dispatch
+    pipe = man["pipeline"]
+    for child in ("dispatch.keys", "dispatch.priors"):
+        assert pipe[f"{child}_calls"] >= pipe["dispatch_calls"] == 2
+    assert pipe["dispatch.keys_s"] + pipe["dispatch.priors_s"] \
+        <= pipe["dispatch_s"]
+    assert "spans" not in pipe
     assert man["artifact_sha256"] and progress == [(8, 16), (16, 16)]
 
 

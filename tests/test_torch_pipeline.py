@@ -468,9 +468,14 @@ def test_iter_chunks_timers_see_dispatch_and_fetch(ensemble):
     # the finite mask
     rows = N_OBS * cfg.nsub * cfg.meta.nchan
     nbytes = rows * 2 * (cfg.nph + 4) + rows * 8 + N_OBS * cfg.meta.nchan
-    assert snap["fetch_bytes"] == snap["bytes_fetched"] == nbytes
+    assert snap["fetch_bytes"] == nbytes
     assert snap["live_buffer_bytes_gauge"] == 0
     assert snap["fetch_queue_depth_max"] >= 0
+    # every chunk's host keys, a child of its dispatch (the observation
+    # keys, then the pipeline's stage keys); no span log without a profiler
+    assert snap["dispatch.keys_calls"] >= snap["dispatch_calls"]
+    assert 0 < snap["dispatch.keys_s"] <= snap["dispatch_s"]
+    assert "spans" not in snap and "." not in snap["bottleneck"]
 
 
 def test_entry_points_need_a_device_without_cuda(monkeypatch):
