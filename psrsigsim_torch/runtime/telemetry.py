@@ -24,7 +24,9 @@ the calling thread, and deep code opens a child of whatever span is open
 on its thread with the module-level :func:`span` —
 ``with span("keys"):`` records ``dispatch.keys`` — without a timers
 argument threaded through to it; with no span open it does nothing.  A
-child's time is also inside its parent's.  While a PyTorch profiler is
+child's time is also inside its parent's.  Deep code counts events the
+same way: :func:`count` bumps a counter of the timers that own the
+thread's innermost open span.  While a PyTorch profiler is
 active every closed span is also logged with its start and end on
 ``time.perf_counter_ns`` (the clock a device trace is anchored to), so a
 trace's idle gaps can be put down to the host work inside them.
@@ -44,7 +46,8 @@ import threading
 import time
 from collections import deque
 
-__all__ = ["StageTimers", "STAGES", "SAMPLES_KEPT", "SPAN_LOG_MAX", "span"]
+__all__ = ["StageTimers", "STAGES", "SAMPLES_KEPT", "SPAN_LOG_MAX", "span",
+           "count"]
 
 STAGES = ("dispatch", "fetch", "encode", "write")
 
@@ -128,6 +131,15 @@ def span(name):
         return _NO_SPAN
     p = stack[-1]
     return _Span(p.timers, f"{p.stage}.{name}", p.stage, p.chunk)
+
+
+def count(name, n=1):
+    """Bump counter ``name`` by ``n`` in the timers that own the innermost
+    span open on this thread (``<name>_count`` in their snapshots); with
+    no span open, nothing (one thread-local lookup)."""
+    stack = getattr(_local, "stack", None)
+    if stack:
+        stack[-1].timers.count(name, n)
 
 
 def _nbytes(tree):

@@ -44,7 +44,7 @@ from ..scenarios.registry import (apply_scenario_additive,
 from ..signal.state import SignalMeta
 from ..utils.constants import DM_K_MS_MHZ2
 from ..utils.device import resolve_device, to_device
-from ..utils.rng import as_key, permutation, stage_key
+from ..utils.rng import STAGES, as_key, fold_in, permutation, stage_key
 
 __all__ = ["default_shift_mode", "FoldPipelineConfig", "fold_pipeline",
            "fold_pipeline_batch", "fold_pipeline_hetero", "fold_pipeline_quantized", "fused_route",
@@ -153,9 +153,12 @@ def _fold_front(key, dm, noise_norm, profiles, cfg, freqs, chan_ids,
     prof = (fourier_shift(profiles, delays_ms, dt=dt)
             if cfg.shift_mode == "envelope" else None)
     # the stage keys after the launches above, so the card shifts the
-    # portrait while the host derives them
+    # portrait while the host derives them: both stages in one chain,
+    # stage_key(key, "pulse") and stage_key(key, "noise") bit for bit
     with span("keys"):
-        kp, kn = stage_key(key, "pulse"), stage_key(key, "noise")
+        sids = torch.tensor((STAGES["pulse"], STAGES["noise"]),
+                            device=key.device)
+        kp, kn = fold_in(fold_in(key[..., None, :], sids), 0).unbind(-2)
     return _FoldFront(dev, lead, key, kp, kn, noise_norm, delays_ms,
                       profiles, chan_ids, dt, prof)
 
@@ -170,9 +173,9 @@ def fold_pipeline(key, dm, noise_norm, profiles, cfg, freqs=None,
         key: observation keys ``(..., 2)`` (a tensor, or uint32 key data as
             ``jax.random.key_data`` gives it).  The per-stage keys are
             derived where ``key`` lies — numpy key data on the host, where
-            the threefry rounds of a batch of keys cost microseconds
-            instead of hundreds of small device launches — and then copied
-            to the device.
+            a threefry call runs in about a hundred numpy ``uint32``
+            operations instead of hundreds of small device launches — and
+            then copied to the device.
         dm: dispersion measures ``(...)`` (pc/cm^3).
         noise_norm: radiometer noise scales ``(...)``.
         profiles: normalized portrait ``(Nchan, Nph)``, or one per

@@ -17,8 +17,13 @@ streams, so a seed draws the same realization in both packages:
   threefry words of counter ``i``) and :func:`permutation` jax's
   ``random.permutation`` of ``arange(n)``: rounds of stable key-value sorts
   on fresh 32-bit sort keys;
-* every 32-bit operation is done in int64 and masked back to 32 bits, so
-  the code runs unchanged on the CPU and on the card.
+* :func:`threefry2x32` runs where its operands lie: on the host in numpy
+  ``uint32`` arrays, whose own wraparound does the modular arithmetic
+  (about a hundred ufuncs a call, each a microsecond or two on a batch of
+  keys), and on the card in int64 tensors with every 32-bit operation
+  masked back to 32 bits.  Both give the same words; inside an open
+  telemetry span each call is counted as ``rng.host_calls`` or
+  ``rng.torch_calls``.
 
 Two layers, as in the JAX package: :func:`stage_key` for the pipelines,
 and :class:`KeySequence`, the stateful dispenser of the object-oriented
@@ -33,6 +38,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..runtime.telemetry import count
 from .device import resolve_device
 
 __all__ = ["STAGES", "key", "as_key", "fold_in", "stage_key", "threefry2x32",
@@ -59,14 +65,18 @@ STAGES = {
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
+#: words a block of the host's rounds holds (four arrays of them stay in a
+#: core's cache)
+_HOST_BLOCK = 1 << 14
+
 
 def _rotl(v, r):
     return ((v << r) | (v >> (32 - r))) & MASK32
 
 
-def threefry2x32(k0, k1, x0, x1):
-    """Threefry-2x32 with 20 rounds on uint32 words held in int64 tensors
-    (broadcasting).  Returns the two output words."""
+def _threefry_torch(k0, k1, x0, x1):
+    """The 20 rounds on uint32 words held in int64 tensors, masked after
+    every add and rotate (the form that runs on the card)."""
     k2 = k0 ^ k1 ^ 0x1BD11BDA
     ks = (k0, k1, k2)
     x0 = (x0 + k0) & MASK32
@@ -78,6 +88,67 @@ def threefry2x32(k0, k1, x0, x1):
         x0 = (x0 + ks[(i + 1) % 3]) & MASK32
         x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & MASK32
     return x0, x1
+
+
+def _threefry_host(k0, k1, x0, x1):
+    """The 20 rounds in numpy ``uint32`` arrays, in place: the operands are
+    broadcast once and flattened, so every operation is an array's (a
+    numpy scalar would warn where it wraps) and wraps by itself.  A long
+    draw runs in blocks of :data:`_HOST_BLOCK` words that stay in the
+    core's cache through all the rounds."""
+    words = [v.numpy() if isinstance(v, torch.Tensor) else v
+             for v in (k0, k1, x0, x1)]
+    shape = np.broadcast(*words).shape
+    k0, k1, x0, x1 = (_host_words(w, shape) for w in words)
+    k2 = k0 ^ k1
+    k2 ^= 0x1BD11BDA
+    n = x0.size
+    t = np.empty(min(n, _HOST_BLOCK), np.uint32)
+    for lo in range(0, n, _HOST_BLOCK):
+        b = slice(lo, lo + _HOST_BLOCK)
+        _rounds_host(k0[b], k1[b], k2[b], x0[b], x1[b],
+                     t[:min(n - lo, _HOST_BLOCK)])
+    return (torch.from_numpy(x0.astype(np.int64).reshape(shape)),
+            torch.from_numpy(x1.astype(np.int64).reshape(shape)))
+
+
+def _host_words(w, shape):
+    """``w`` broadcast to ``shape`` as a flat ``uint32`` array of its own
+    (the values taken modulo 2**32)."""
+    out = np.empty(shape, np.uint32)
+    np.copyto(out, w, casting="unsafe")
+    return out.reshape(-1)
+
+
+def _rounds_host(k0, k1, k2, x0, x1, t):
+    """Threefry's rounds on one block of words, in place in ``x0`` and
+    ``x1`` (``t`` is scratch of the same size)."""
+    ks = (k0, k1, k2)
+    x0 += k0
+    x1 += k1
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 += x1
+            np.right_shift(x1, 32 - r, out=t)
+            x1 <<= r
+            x1 |= t
+            x1 ^= x0
+        x0 += ks[(i + 1) % 3]
+        x1 += ks[(i + 2) % 3]
+        x1 += i + 1
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 with 20 rounds on uint32 words held in int64 tensors
+    (broadcasting).  Returns the two output words, int64 tensors on the
+    operands' device: operands on the host run in numpy ``uint32``
+    arrays, operands on the card in int64 tensor operations."""
+    if all(v.device.type == "cpu" for v in (k0, k1, x0, x1)
+           if isinstance(v, torch.Tensor)):
+        count("rng.host_calls")
+        return _threefry_host(k0, k1, x0, x1)
+    count("rng.torch_calls")
+    return _threefry_torch(k0, k1, x0, x1)
 
 
 def key(seed, device=None):

@@ -142,6 +142,57 @@ def test_as_key_round_trips_uint32_key_data(ref):
                                   kd.astype(np.int64))
 
 
+ROOT = rng.key(42, device=CPU)
+KEYS = rng.stage_key(ROOT, "user", torch.arange(5))
+EDGE = (0, 2**31, 2**32 - 1)
+EDGE_KEYS = torch.tensor([[a, b] for a in EDGE for b in EDGE])
+HOST_CASES = {
+    "scalar_root_vector_data": lambda: rng.fold_in(ROOT, torch.arange(7)),
+    "batch_keys_batch_data": lambda: rng.fold_in(KEYS, torch.arange(5) * 977),
+    "broadcast_keys": lambda: rng.fold_in(KEYS[:, None, :], torch.arange(3)),
+    "edge_words": lambda: rng.fold_in(EDGE_KEYS, torch.tensor(EDGE * 3)),
+    "edge_counters": lambda: torch.stack(rng.threefry2x32(
+        EDGE_KEYS[:, 0, None], EDGE_KEYS[:, 1, None], torch.tensor(EDGE),
+        torch.tensor(EDGE[::-1]))),
+    "random_bits_hi_word": lambda: rng.random_bits(KEYS, 6, start=2**32 - 3),
+    "split": lambda: rng.split(KEYS, 3),
+    "randint": lambda: rng.randint(KEYS, 1_000_003),
+    # n > 1625: two rounds of sorts
+    "permutation": lambda: rng.permutation(KEYS[:2], 2000),
+}
+
+
+@pytest.mark.parametrize("case", sorted(HOST_CASES))
+def test_host_words_equal_torch_words(case, monkeypatch):
+    """The uint32 numpy rounds that host operands take give the int64
+    tensor path's words, bit for bit, in the same dtype and shape."""
+    host = HOST_CASES[case]()
+    monkeypatch.setattr(rng, "_threefry_host", rng._threefry_torch)
+    want = HOST_CASES[case]()
+    assert host.dtype == want.dtype == torch.int64
+    assert host.shape == want.shape
+    assert torch.equal(host, want)
+
+
+def test_fold_front_stage_keys_are_the_stage_keys():
+    """``_fold_front`` derives the pulse and noise keys in one chain: they
+    are ``stage_key(key, "pulse")`` and ``stage_key(key, "noise")``."""
+    from psrsigsim_torch.signal.state import SignalMeta
+    from psrsigsim_torch.simulate.pipeline import (FoldPipelineConfig,
+                                                   _fold_front)
+
+    meta = SignalMeta(sigtype="FilterBankSignal", fcent_mhz=1400.0,
+                      bw_mhz=400.0, nchan=4, samprate_mhz=0.2048, fold=True)
+    cfg = FoldPipelineConfig(meta=meta, period_s=0.005, nsub=2, nph=16,
+                             nfold=100.0, draw_norm=1.0, noise_df=100.0,
+                             dt_ms=0.078125, clip_max=200.0)
+    for k in (KEYS, ROOT, KEYS.reshape(5, 1, 2)):
+        f = _fold_front(k, 10.0, 1.0, np.ones((4, 16), np.float32), cfg,
+                        None, None, None, CPU)
+        assert torch.equal(f.kp, rng.stage_key(k, "pulse"))
+        assert torch.equal(f.kn, rng.stage_key(k, "noise"))
+
+
 def test_normal_within_2_ulp(ref):
     got = stats.normal(rng.key(7, device=CPU), N_NORMAL).numpy()
     d = _ulp(got, ref["normal"])

@@ -64,6 +64,28 @@ def test_module_span_without_a_parent_does_nothing():
     assert "dispatch.keys_calls" not in t.snapshot()
 
 
+def test_host_keys_count_their_threefry_calls():
+    """Inside a span, each threefry call on host keys bumps
+    ``rng.host_calls`` in the span's timers; with no span open nothing is
+    counted and nothing fails."""
+    import torch
+
+    from psrsigsim_torch.utils import rng
+
+    t = StageTimers()
+    k = rng.key(0, "cpu")
+    rng.stage_key(k, "user", torch.arange(4))
+    telemetry.count("rng.host_calls")
+    assert "rng.host_calls_count" not in t.snapshot()
+    with t.span("dispatch", chunk=0):
+        with span("keys"):
+            rng.stage_key(k, "user", torch.arange(4))
+        rng.random_bits(k, 3)
+    snap = t.snapshot()
+    assert snap["rng.host_calls_count"] == 3
+    assert "rng.torch_calls_count" not in snap
+
+
 def test_spans_are_per_thread():
     main, other = StageTimers(), StageTimers()
     opened, go = threading.Event(), threading.Event()
