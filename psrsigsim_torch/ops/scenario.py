@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..runtime.telemetry import count
 from ..utils.rng import fold_in, randint
 from .stats import _SQRT2, _from_uniform, _log1p, erf_inv, exp, fma, uniform
 
@@ -133,7 +134,9 @@ def _cell_keys(keys, cell_f, cell_t):
     into them.  Channels of one scintle share their frequency cell and
     subints their time cell, so each distinct (observation, cell_f) and
     (observation, cell_f, cell_t) is folded and drawn once: the same
-    draws, several times fewer threefry evaluations."""
+    draws, several times fewer threefry evaluations.  The distinct keys
+    are counted as ``scenario.scint_keys`` in the timers of the span open
+    on this thread."""
     cell_f = cell_f.reshape(keys.shape[0], -1).numpy()         # (N, C)
     cell_t = cell_t.reshape(cell_f.shape + (-1,)).numpy()      # (N, C, nsub)
     obs = np.arange(keys.shape[0])[:, None]
@@ -145,6 +148,7 @@ def _cell_keys(keys, cell_f, cell_t):
                  torch.from_numpy(u1 & low))
     u2, inv2 = np.unique(inv1.reshape(cell_f.shape)[..., None] * (low + 1)
                          + cell_t, return_inverse=True)
+    count("scenario.scint_keys", len(u2))
     return (fold_in(kc[torch.from_numpy(u2 >> 25)], torch.from_numpy(u2 & low)),
             torch.from_numpy(inv2.reshape(cell_t.shape)))
 

@@ -314,9 +314,11 @@ class FoldEnsemble:
         keys), on the ensemble's device; None without a scenario."""
         if self.scenario is None:
             return None
-        return scenario_rows(keys, self.scenario, scp, self.cfg,
-                             noise_level(self.cfg, norms),
-                             freqs=self._freqs_np, chan_ids=self._chan_ids)
+        with span("scenario"):
+            return scenario_rows(keys, self.scenario, scp, self.cfg,
+                                 noise_level(self.cfg, norms),
+                                 freqs=self._freqs_np,
+                                 chan_ids=self._chan_ids)
 
     def _prep_chunk(self, idx, seed, dms_full, norms_full, fold_salt=None):
         """Keys, DMs and noise scales for the global observation indices

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..ops.scenario import pulse_energies, rfi_levels, scint_gain
+from ..runtime.telemetry import count, span
 from ..utils.device import to_device
 from ..utils.rng import STAGES, fold_in
 
@@ -337,21 +338,24 @@ def _stage_keys(keys, stages):
 def _draw(keys, stack, p, *, nsub, freqs, fcent_mhz, sublen_s, f_lo_mhz,
           chan_ids):
     """The raw draws of ``stack`` for observation keys ``(..., 2)``, where
-    the keys lie: ``(gain, energy, levels, mask)``, None where off."""
+    the keys lie: ``(gain, energy, levels, mask)``, None where off.  Each
+    effect's draws are a child span named after the effect (a no-op with
+    no span open)."""
     sk = _stage_keys(keys, [EFFECTS[n].stage for n in stack.names()])
     gain = energy = levels = mask = None
     for i, (name, mode) in enumerate(stack.entries):
         k = sk[..., i, :]
-        if name == "scintillation":
-            gain = scint_gain(k, freqs, nsub, p["scint_dnu_d_mhz"],
-                              p["scint_dt_d_s"], p["scint_mod"], fcent_mhz,
-                              sublen_s, f_lo_mhz=f_lo_mhz)
-        elif name == "rfi":
-            levels, mask = rfi_levels(k, chan_ids, nsub, p["rfi_imp_prob"],
-                                      p["rfi_imp_snr"], p["rfi_nb_prob"],
-                                      p["rfi_nb_snr"])
-        elif name == "single_pulse":
-            energy = pulse_energies(k, nsub, mode, p[_SP_PARAM[mode]])
+        with span(name):
+            if name == "scintillation":
+                gain = scint_gain(k, freqs, nsub, p["scint_dnu_d_mhz"],
+                                  p["scint_dt_d_s"], p["scint_mod"],
+                                  fcent_mhz, sublen_s, f_lo_mhz=f_lo_mhz)
+            elif name == "rfi":
+                levels, mask = rfi_levels(
+                    k, chan_ids, nsub, p["rfi_imp_prob"], p["rfi_imp_snr"],
+                    p["rfi_nb_prob"], p["rfi_nb_snr"])
+            elif name == "single_pulse":
+                energy = pulse_energies(k, nsub, mode, p[_SP_PARAM[mode]])
     return gain, energy, levels, mask
 
 
@@ -378,7 +382,9 @@ def scenario_rows(keys, stack, params, cfg, noise_level, freqs=None,
             ``fcent - bw/2``, as the JAX package's fold path anchors them.
         chan_ids: GLOBAL channel ids; default ``arange(Nchan)``.
 
-    The factors land on ``noise_level``'s device.
+    The factors land on ``noise_level``'s device.  The batch's factor
+    cells (observations × channels × subints) are counted as
+    ``scenario.cells`` in the timers of the span open on this thread.
     """
     stack = parse_stack(stack)
     meta = cfg.meta
@@ -386,6 +392,8 @@ def scenario_rows(keys, stack, params, cfg, noise_level, freqs=None,
         freqs = np.asarray(meta.dat_freq_mhz(), np.float32)
     if chan_ids is None:
         chan_ids = torch.arange(meta.nchan)
+    count("scenario.cells",
+          int(np.prod(keys.shape[:-1])) * len(chan_ids) * int(cfg.nsub))
     noise_level = torch.as_tensor(noise_level, dtype=torch.float32)
     dev = noise_level.device
     gain, energy, levels, mask = _draw(

@@ -3,7 +3,9 @@ their ``<parent>.<child>`` names, the module-level span that does nothing
 without a parent, one stack per thread, children out of the bottleneck
 pick, parent totals that children leave alone, the span log that fills
 only under a profiler and on ``time.perf_counter_ns``, its bound, and
-exact percentiles held to ``numpy.percentile(..., method="inverted_cdf")``.
+exact percentiles held to ``numpy.percentile(..., method="inverted_cdf")``,
+and the scenario engine's spans and counters inside ``iter_chunks``'
+dispatch, absent from the scenario-free stream and leaving the bits alone.
 The last test runs the chunked entry points on the card (``fetch.pin`` and
 ``fetch.wait`` exist only there)."""
 
@@ -276,6 +278,69 @@ def test_the_histogram_and_the_duplicate_byte_total_are_gone():
     assert not hasattr(t, "histogram")
     for name in ("latency_bin_index", "latency_bin_edges", "LATENCY_NBINS"):
         assert not hasattr(telemetry, name)
+
+
+SCENARIO = ["scintillation", "rfi", "single_pulse:lognormal"]
+EFFECT_SPANS = ("dispatch.scenario.scintillation", "dispatch.scenario.rfi",
+                "dispatch.scenario.single_pulse")
+
+
+def _ensemble(scenario):
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_torch_pipeline import _geometry
+
+    from psrsigsim_torch.parallel import FoldEnsemble
+
+    return FoldEnsemble(*_geometry("psrsigsim_torch", "readme16"),
+                        device="cpu", scenario=scenario)
+
+
+def _chunks(ens, timers, **kw):
+    """Four observations in chunks of two, quantized, as host copies."""
+    return [(start, tuple(np.array(a) for a in block))
+            for start, block in ens.iter_chunks(4, chunk_size=2, seed=3,
+                                                quantized=True,
+                                                timers=timers, **kw)]
+
+
+def test_the_scenario_draws_are_spans_inside_the_dispatch():
+    """A scenario stream logs ``dispatch.scenario`` once a chunk, each
+    effect's draws as its child, and counts the factor cells and the
+    distinct scintle keys."""
+    ens = _ensemble(SCENARIO)
+    t = StageTimers()
+    _chunks(ens, t, rfi_mask=True,
+            scenario_params={"scint_mod": np.array([0.2, 0.5, 0.8, 1.0])})
+    snap = t.snapshot()
+    assert snap["dispatch_calls"] == snap["dispatch.scenario_calls"] == 2
+    for name in EFFECT_SPANS:
+        assert snap[f"{name}_calls"] == 2
+    children = sum(snap[f"{name}_s"] for name in EFFECT_SPANS)
+    assert children <= snap["dispatch.scenario_s"] <= snap["dispatch_s"]
+    cells = 4 * ens.cfg.meta.nchan * ens.cfg.nsub
+    assert snap["scenario.cells_count"] == cells
+    assert 0 < snap["scenario.scint_keys_count"] <= cells
+
+
+def test_the_scenario_free_stream_logs_no_scenario_span():
+    t = StageTimers()
+    _chunks(_ensemble(None), t)
+    snap = t.snapshot()
+    assert snap["dispatch_calls"] == 2
+    assert not [k for k in snap if "scenario" in k]
+
+
+def test_timers_leave_the_scenario_bits_alone():
+    ens = _ensemble(SCENARIO)
+    timed = _chunks(ens, StageTimers(), rfi_mask=True)
+    plain = _chunks(ens, None, rfi_mask=True)
+    assert [s for s, _ in timed] == [s for s, _ in plain] == [0, 2]
+    for (_, a), (_, b) in zip(timed, plain):
+        assert len(a) == len(b) == 4
+        for x, y in zip(a, b):
+            assert x.dtype == y.dtype and x.tobytes() == y.tobytes()
 
 
 @pytest.mark.cuda
