@@ -15,10 +15,12 @@ fields in its flat layout (rng_flat_field); the fused fold -> quantize
 -> pack kernel (csrc/fold_quantize.cu), which draws the same samples
 inside and writes the packed codes of run_quantized and iter_chunks; and
 the packed-digest kernel (csrc/packed_digest.cu), the integrity lattice's
-per-observation digest of a packed chunk; and the exact-gamma kernel
+per-observation digest of a packed chunk; the exact-gamma kernel
 (csrc/gamma_field.cu), jax.random.gamma's draws bit for bit, which every
 chi^2 of a df below 50 (other than 1) and every chi^2 under
-PSS_EXACT_CHI2=1 takes.  Phases:
+PSS_EXACT_CHI2=1 takes; and the scenario-draws kernel
+(csrc/scenario_draws.cu), which draws a scenario batch's factors on the
+card from its keys.  Phases:
 
 1. the card, its power limit, the torch/CUDA versions and the host CPU;
 2. the build of the kernels (one nvcc each, started together), with each
@@ -124,11 +126,15 @@ PSS_EXACT_CHI2=1 takes.  Phases:
    mode and for rfi alone, and on an edge shape that takes the general
    kernel; observations 0-7's codes bit-identical at batch widths 1, 8, 37
    and 128; observations 0-7 against device="cpu" (codes within 1 LSB on
-   at most 1%, the truth mask exact); the fused kernel's time with and
-   without
-   the factors (in turns) against their bounds, and the host's time to draw
-   one chunk's factors; (b) supervised_export(256, chunk_size=128,
-   writers=1): the files hold run_quantized's bytes, the journal's rfi
+   at most 1%, the truth mask exact); the scenario-draws kernel
+   (csrc/scenario_draws.cu): four launches in run_quantized(128), each
+   path's launches counted (exports, the facade, the study, SEARCH, the
+   corpora), its gains, energies, levels and mask bit-equal to the host
+   route's on one chunk, its kernels' device time against the bound of
+   the draws the chunk needs; the fused kernel's time with and without
+   the factors (in turns) against their bounds, and the time to draw one
+   chunk's factors on the host and on the card; (b)
+   supervised_export(256, chunk_size=128, writers=1): the files hold run_quantized's bytes, the journal's rfi
    records and the manifest's rfi block equal the host's truth masks, and a
    resume="verify" after deleting two files launches the fused kernel once;
    (c) Simulation.to_ensemble(scenario=...).run_quantized(128) launches the
@@ -677,6 +683,31 @@ def cuda_time_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def queued_device_ms(fn, reps, spin_s=0.2):
+    """Device ms of one call of ``fn`` with the host's launch cost hidden:
+    the calls are queued behind a spin kernel of ``spin_s`` seconds, so the
+    card runs them back to back between two events.  Raises when queueing
+    took longer than the spin (the reading would hold host gaps)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(spin_s * CLOCK_HZ))
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    queued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    if queued >= spin_s / 2:
+        raise AssertionError(f"queueing {reps} calls took {queued:.3f} s, "
+                             f"too near the {spin_s} s spin")
+    return start.elapsed_time(stop) / reps
+
+
 def bound(ops, n, nbytes):
     """The least time the card could take for ``n`` samples of ``ops``
     operations per sample by class, moving ``nbytes``: ``(bound_ms,
@@ -771,7 +802,7 @@ class Smoke:
         self.failed = []
         self.kernels = {"rng_field": {}, "rng_flat_field": {},
                         "fold_quantize": {}, "packed_digest": {},
-                        "gamma_field": {}}
+                        "gamma_field": {}, "scenario_draws": {}}
         self._main = None
         self.export_rates = {}  # phase 8's obs/s, beside phase 9's
         self.sup_clean = None  # phase 9's clean 1-writer sha256s and obs/s
@@ -1147,13 +1178,14 @@ class Smoke:
     def _zero_counts(self):
         from psrsigsim_torch.ops import digest
         from psrsigsim_torch.ops import fold_quantize as fq
-        from psrsigsim_torch.ops import gamma, rng_hw
+        from psrsigsim_torch.ops import gamma, rng_hw, scenario_draws
 
         rng_hw.rng_field.launches = 0
         rng_hw.rng_flat_field.launches = 0
         fq.fold_quantize.launches = 0
         digest.packed_digest.launches = 0
         gamma.gamma_field.launches = 0
+        scenario_draws.launches = 0
 
     def _path(self, label, counts):
         """Record one main path's launch counts under each kernel it
@@ -1164,12 +1196,12 @@ class Smoke:
 
     def _counts(self):
         """Launches since :meth:`_zero_counts`.  The sampler's flat layout
-        (SEARCH mode) and the exact-gamma kernel join the dict only when
-        they launched, so the other phases' exact comparisons fail on a
-        stray launch of either too."""
+        (SEARCH mode), the exact-gamma kernel and the scenario-draws kernel
+        join the dict only when they launched, so the other phases' exact
+        comparisons fail on a stray launch of any of them too."""
         from psrsigsim_torch.ops import digest
         from psrsigsim_torch.ops import fold_quantize as fq
-        from psrsigsim_torch.ops import gamma, rng_hw
+        from psrsigsim_torch.ops import gamma, rng_hw, scenario_draws
 
         counts = {"rng_field": rng_hw.rng_field.launches,
                   "fold_quantize": fq.fold_quantize.launches,
@@ -1178,6 +1210,8 @@ class Smoke:
             counts["rng_flat_field"] = rng_hw.rng_flat_field.launches
         if gamma.gamma_field.launches:
             counts["gamma_field"] = gamma.gamma_field.launches
+        if scenario_draws.launches:
+            counts["scenario_draws"] = scenario_draws.launches
         return counts
 
     def main_path(self):
@@ -2752,10 +2786,13 @@ class Smoke:
         torch.cuda.synchronize()
         t_first = time.perf_counter() - t0
         counts = self._counts()
+        # K10: the stage keys, then one launch per effect
         expect(counts, f"run_quantized({MAIN_NOBS}) with {SCEN_STACK}",
-               fold_quantize=1)
+               fold_quantize=1, scenario_draws=1 + len(SCEN_STACK))
         self.kernels["fold_quantize"]["scenario_launches"] = \
             counts["fold_quantize"]
+        self.kernels["scenario_draws"]["launches"] = counts["scenario_draws"]
+        self._path(f"12 run_quantized({MAIN_NOBS}) scenario", counts)
         if not bool(fin.all()) or not bool(rfi.any()) or int(d.min()) < -32767:
             raise AssertionError("scenario run_quantized: non-finite rows, no "
                                  "RFI or codes out of range")
@@ -2823,6 +2860,8 @@ class Smoke:
             f"{np.abs(diff).max()} LSB (limit 1 on 1%)")
         del host, hd
 
+        self.scenario_draws(ens, sp)
+
         # the kernel's time with and without the factors, in turns
         a, kw, (keys, dms, norms) = self.main_fused_args()
         rows = ens._rows(keys, norms, ens._prep_scenario(
@@ -2857,13 +2896,17 @@ class Smoke:
             f"({self.card_line})")
         del rows, fac
 
-        # the host's draws of one chunk's factors, and steady chunks
+        # one chunk's factors drawn on the host (factors bound for the
+        # host) and on the card (K10), and steady chunks
         idx = np.arange(MAIN_NOBS)
-        host_ms = []
+        host_ms, card_ms = [], []
         for _ in range(5):
             t0 = time.perf_counter()
-            ens._rows(keys, norms, ens._prep_scenario(idx, sp))
+            ens._rows(keys, norms.cpu(), ens._prep_scenario(idx, sp))
             host_ms.append(1e3 * (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            ens._rows(keys, norms, ens._prep_scenario(idx, sp))
+            card_ms.append(1e3 * (time.perf_counter() - t0))
         walls = {}
         for label, e, kwargs in (("free", free, {}),
                                  ("scenario", ens, {"scenario_params": sp})):
@@ -2875,8 +2918,10 @@ class Smoke:
             walls[label] = (time.perf_counter() - t0) / 5
             del out
         log(f"  (a) host ms to draw one {MAIN_NOBS}-observation chunk's "
-            f"factors (scenario_rows): " + ", ".join(
+            f"factors (scenario_rows) on the host: " + ", ".join(
                 f"{t:.1f}" for t in host_ms)
+            + "; on the card (K10's launches): " + ", ".join(
+                f"{t:.2f}" for t in card_ms)
             + f"; steady run_quantized({MAIN_NOBS}): scenario "
             f"{walls['scenario'] * 1e3:.2f} ms = "
             f"{MAIN_NOBS / walls['scenario']:.1f} obs/s, scenario-free "
@@ -2900,7 +2945,10 @@ class Smoke:
                                     writers=1, scenario_params=sp2)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            expect(self._counts(), "(b) supervised export", fold_quantize=2)
+            counts = self._counts()
+            expect(counts, "(b) supervised export", fold_quantize=2,
+                   scenario_draws=2 * (1 + len(SCEN_STACK)))
+            self._path("12 supervised export(256) scenario", counts)
 
             def hashes():
                 outp = {}
@@ -2962,7 +3010,8 @@ class Smoke:
             supervised_export(exp, SCEN_SUP_NOBS, out, TEMPLATE, exp.pulsar,
                               seed=0, chunk_size=MAIN_NOBS, writers=1,
                               scenario_params=sp2, resume="verify")
-            expect(self._counts(), "(b) verify resume", fold_quantize=1)
+            expect(self._counts(), "(b) verify resume", fold_quantize=1,
+                   scenario_draws=1 + len(SCEN_STACK))
             with open(os.path.join(out, "export_manifest.json")) as fh:
                 if hashes() != clean or json.load(fh)["rfi"] != man["rfi"]:
                     raise AssertionError("the verify resume changed the files "
@@ -2978,7 +3027,8 @@ class Smoke:
             fd = fe.run_quantized(MAIN_NOBS, seed=0, scenario_params=sp)
             torch.cuda.synchronize()
             expect(self._counts(), "(c) Simulation.to_ensemble(scenario=)"
-                   ".run_quantized", fold_quantize=1)
+                   ".run_quantized", fold_quantize=1,
+                   scenario_draws=1 + len(SCEN_STACK))
             ed = ens.run_quantized(MAIN_NOBS, seed=0, scenario_params=sp)
             if not all(torch.equal(x, y) for x, y in zip(fd, ed)):
                 raise AssertionError("the facade's scenario ensemble differs")
@@ -3000,7 +3050,11 @@ class Smoke:
         res = study.run(MC_TRIALS, chunk_size=MC_CHUNK)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        expect(self._counts(), "(d) study", rng_field=2 * MC_TRIALS // MC_CHUNK)
+        counts = self._counts()
+        # K10 a chunk: the stage keys, the gains and the energies
+        expect(counts, "(d) study", rng_field=2 * MC_TRIALS // MC_CHUNK,
+               scenario_draws=3 * MC_TRIALS // MC_CHUNK)
+        self._path(f"12 study({MC_TRIALS}) scenario", counts)
         t0 = time.perf_counter()
         res2 = study.run(MC_TRIALS, chunk_size=MC_CHUNK // 2)
         torch.cuda.synchronize()
@@ -3037,6 +3091,141 @@ class Smoke:
             f"device='cpu': parameters bit-equal, toa_err/toa_rms max abs "
             f"diff {d_shift:.3g} turns, toa_sigma/fit_amp max rel diff "
             f"{d_rel:.3g}")
+
+    def scenario_draws(self, ens, sp):
+        """Phase 12: K10 (``csrc/scenario_draws.cu``) against the host
+        route on one chunk of the main path's scenario ensemble, and its
+        four kernels' device time (the main path's launches, their inputs
+        already on the card) against the bound of the draws the chunk
+        needs."""
+        import numpy as np
+
+        from psrsigsim_torch.ops import scenario_draws
+        from psrsigsim_torch.ops.scenario import (pulse_energies, rfi_levels,
+                                                  scint_gain)
+        from psrsigsim_torch.runtime import StageTimers
+        from psrsigsim_torch.scenarios import registry as reg
+        from psrsigsim_torch.simulate.pipeline import noise_level
+
+        torch = self.torch
+        idx = np.arange(MAIN_NOBS)
+        keys, _, norms = ens._prep_chunk(idx, 0, None, None)
+        prm = ens._prep_scenario(idx, sp)
+        card = ens._rows(keys, norms, prm)
+        torch.cuda.synchronize()
+        timers = StageTimers()
+        with timers.span("host"):
+            t0 = time.perf_counter()
+            host = ens._rows(keys, norms.cpu(), prm)
+            plain_ms = [1e3 * (time.perf_counter() - t0)]
+        distinct = timers.counter("scenario.scint_keys")
+
+        def bits(rows):
+            return {n: getattr(rows, n).cpu() for n in
+                    ("gain", "energy", "level", "mask")}
+
+        def differ(got, want):
+            out = {}
+            for n, w in want.items():
+                g = got[n].cpu()
+                if g.dtype == torch.float32:
+                    g, w = g.view(torch.int32), w.view(torch.int32)
+                out[n] = int((g != w).sum())
+            return out
+
+        want = bits(host)
+        d_rows = differ(bits(card), want)
+        # the main path's four launches with their inputs on the card: the
+        # keys and parameters staged once (scenario_rows sends them in one
+        # copy), the noise level as _rows computes it
+        stack, cfg, meta = ens.scenario, ens.cfg, ens.cfg.meta
+        p = reg.param_dict(stack, prm)
+        okeys, cols = scenario_draws.to_card(list(p.values()), (MAIN_NOBS,),
+                                             self.dev, keys.cpu())
+        p = dict(zip(p, cols))
+        level = noise_level(cfg, norms)
+        stages = [reg.STAGES[reg.EFFECTS[n].stage] for n in stack.names()]
+        sublen = cfg.nfold * cfg.period_s
+        f_lo = meta.fcent_mhz - meta.bw_mhz / 2
+
+        def kernels():
+            sk = scenario_draws.stage_keys(okeys, stages)
+            out = {}
+            for (name, mode), k in zip(stack.entries, sk.unbind(-2)):
+                if name == "scintillation":
+                    out["gain"] = scint_gain(
+                        k, ens._freqs_np, cfg.nsub, p["scint_dnu_d_mhz"],
+                        p["scint_dt_d_s"], p["scint_mod"], meta.fcent_mhz,
+                        sublen, f_lo_mhz=f_lo)
+                elif name == "rfi":
+                    out["level"], out["mask"] = rfi_levels(
+                        k, ens._chan_ids, cfg.nsub, p["rfi_imp_prob"],
+                        p["rfi_imp_snr"], p["rfi_nb_prob"], p["rfi_nb_snr"],
+                        level)
+                else:
+                    out["energy"] = pulse_energies(
+                        k, cfg.nsub, mode, p[reg._SP_PARAM[mode]])
+            return out
+
+        before = scenario_draws.launches
+        d_kern = differ(kernels(), want)
+        torch.cuda.synchronize()
+        launches = scenario_draws.launches - before
+        if (launches != 1 + len(stack.entries) or any(d_rows.values())
+                or any(d_kern.values())):
+            raise AssertionError(
+                f"K10: {launches} launches ({1 + len(stack.entries)} "
+                f"expected); elements that differ from the host route: "
+                f"scenario_rows {d_rows}, the timed launches {d_kern}")
+        dev_ms = [queued_device_ms(kernels, 20) for _ in range(5)]
+        rows_ms = [queued_device_ms(lambda: ens._rows(keys, norms, prm), 20)
+                   for _ in range(3)]
+        for _ in range(2):
+            t0 = time.perf_counter()
+            ens._rows(keys, norms.cpu(), prm)
+            plain_ms.append(1e3 * (time.perf_counter() - t0))
+        B, C, nsub = MAIN_NOBS, meta.nchan, cfg.nsub
+        # the draws the chunk needs, each once (threefry calls of 73
+        # integer operations, csrc/threefry.cuh): 2 a stage key; 3 a
+        # distinct scintle key (two folds, one draw); the RFI's per
+        # observation folds 4, then 2 draws an (observation, subint) burst
+        # and 5 calls an (observation, channel) tone; 1 a log-normal
+        # energy.  Float32: the cell ids (cell_f 6 an (observation,
+        # channel), cell_t 6 a cell), the gain's fma and clamp (2 a cell),
+        # the level's products, sum, scale and mask (6 a cell); log1p ~20
+        # a distinct scintle key, a burst and a tone; the energy's uniform,
+        # erf_inv ~40 and exp ~15.  Bytes: the keys and parameters in, the
+        # gains, levels, mask and energies out.
+        cells, obs_sub, obs_chan = B * C * nsub, B * nsub, B * C
+        calls = (2 * len(stages) * B + 3 * distinct + 4 * B + 2 * obs_sub
+                 + 5 * obs_chan + obs_sub)
+        fp32 = ((6 + 2 + 6) * cells + 6 * obs_chan
+                + 20 * (distinct + obs_sub + obs_chan) + 60 * obs_sub)
+        t_issue = (THREEFRY_INT_OPS * calls + fp32) / ISSUE_RATE * 1e3
+        nbytes = (16 * B + 4 * len(p) * B + 16 * len(stages) * B
+                  + (4 + 4 + 1) * cells + 4 * obs_sub)
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        b_ms = max(t_issue, t_bytes)
+        ms = min(dev_ms)
+        self.kernels["scenario_draws"].update(
+            name="scenario_draws", route="cuda",
+            source="psrsigsim_torch/csrc/scenario_draws.cu",
+            replaces="psrsigsim_tpu/ops/scenario.py (scint_gain, rfi_levels, "
+                     "pulse_energies: XLA fusions, no Pallas kernel)",
+            max_abs_err=0.0, ms=ms, plain_ms=min(plain_ms), bound_ms=b_ms,
+            bound_by="operations" if t_issue >= t_bytes else "bytes",
+            library_ms=None)
+        log(f"  (a) K10 scenario_draws on one {B}-observation chunk ({B} x "
+            f"{C} x {nsub}, {distinct} distinct scintle keys): {launches} "
+            "launches; gains, energies, levels and mask bit-equal to the "
+            "host route, from scenario_rows and from the timed launches; "
+            "its kernels queued " + ", ".join(f"{t:.4f}" for t in dev_ms)
+            + f" ms; bound {b_ms:.4f} ms (issue {t_issue:.4f}, bytes "
+            f"{t_bytes:.4f}): {b_ms / ms:.1%}; the card's whole scenario_rows "
+            "queued (with the keys' copy and the noise level) "
+            + ", ".join(f"{t:.4f}" for t in rows_ms)
+            + " ms; the host route " + ", ".join(f"{t:.1f}" for t in plain_ms)
+            + f" ms ({self.card_line})")
 
     # -- 13 -----------------------------------------------------------------
     def search(self):
@@ -3166,14 +3355,18 @@ class Smoke:
         nh = SEARCH_HOST_NOBS
         stack = ["scintillation", "rfi", "single_pulse:lognormal"]
         sp = {"rfi_imp_prob": 0.3, "rfi_nb_prob": 0.3, "scint_mod": 0.8}
-        for label, kw in (("scenario-free", {}),
-                          ("scintillation + rfi + lognormal",
-                           {"scenario": stack, "scenario_params": sp})):
+        for label, kw, k10 in (
+                ("scenario-free", {}, {}),
+                ("scintillation + rfi + lognormal",
+                 {"scenario": stack, "scenario_params": sp},
+                 {"scenario_draws": 1 + len(stack)})):
             self._zero_counts()
             card = run(hk[:nh], **kw).cpu().numpy()
             counts = self._counts()
-            if counts != want:
+            if counts != {**want, **k10}:
                 raise AssertionError(f"{label}: launches {counts}")
+            if k10:
+                self._path(f"13 single_pipeline({nh}) scenario", counts)
             os.environ["PSS_SAMPLER"] = "hw"
             try:
                 t0 = time.perf_counter()
@@ -3285,9 +3478,12 @@ class Smoke:
                         h.update(name.encode() + fh.read())
             return h.hexdigest()
 
-        def flat_only(chunks):
+        def flat_only(chunks, effects=len(spec["scenarios"])):
+            # the flat layout's two fields a chunk; K10 a chunk: the stage
+            # keys, then one launch per effect
             return {"rng_field": 0, "fold_quantize": 0, "packed_digest": 0,
-                    "rng_flat_field": 2 * chunks}
+                    "rng_flat_field": 2 * chunks,
+                    "scenario_draws": (1 + effects) * chunks}
 
         try:
             # (a) a clean corpus in 64-record chunks, twice (the second
@@ -3308,6 +3504,8 @@ class Smoke:
                 if counts != flat_only(nchunks):
                     raise AssertionError(f"{label}: launches {counts}, "
                                          f"expected {flat_only(nchunks)}")
+                if label == "first":
+                    self._path(f"14 DatasetFactory.run({nrec})", counts)
                 runs[label] = (out, corpus_sha(out), wall, res)
                 snap = res["telemetry"]
                 stages = ", ".join(
@@ -3428,7 +3626,7 @@ class Smoke:
             wall = time.perf_counter() - t0
             counts = self._counts()
             nbytes = res["stride"] * spec4["n_records"]
-            if counts != flat_only(2):
+            if counts != flat_only(2, len(spec4["scenarios"])):
                 raise AssertionError(f"config-4 corpus: launches {counts}")
             r4 = DatasetReader(out4).read_index(spec4["n_records"] - 1)
             if not np.isfinite(r4["tile"]).all():
@@ -5860,7 +6058,8 @@ class Smoke:
                 f"rows {counts['rng_field']}, K1' flat "
                 f"{counts.get('rng_flat_field', 0)}, K3' "
                 f"{counts['fold_quantize']}, K4 {counts['packed_digest']}, "
-                f"K9 {counts.get('gamma_field', 0)}")
+                f"K9 {counts.get('gamma_field', 0)}, K10 "
+                f"{counts.get('scenario_draws', 0)}")
         log(f"  phase 23: {len(paths)} tutorials on cuda in "
             f"{time.perf_counter() - t0:.1f} s ({self.card_line})")
 

@@ -18,10 +18,10 @@ on a device tensor, ``.item()``, a pageable host-to-device copy of a
 staged constant — raises here whatever the linter thought.  A symbol
 that synchronizes by design is listed in :data:`SYNCS` with its reason
 and runs its second call with the mode off; it is never skipped (the
-scenario draws, made on the host by design, are also declared to return
-host tensors: :data:`HOST_RESULTS`).  On the CPU there is no card to wait
-for and both calls run plainly (the shape, dtype and device checks still
-hold every probe).
+scenario draws, probed on their host route with host keys, are also
+declared to return host tensors: :data:`HOST_RESULTS`).  On the CPU there
+is no card to wait for and both calls run plainly (the shape, dtype and
+device checks still hold every probe).
 """
 
 from __future__ import annotations
@@ -50,26 +50,28 @@ EXEMPT = {
 #: probes whose steady-state call synchronizes the host with the card by
 #: design (the second call runs with the sync-debug mode off)
 SYNCS = {
-    "scint_gain": "the scenario draws are made on the host by design "
-                  "(jax's threefry and XLA's arithmetic written out, "
-                  "DIVERGENCES P13): the keys and channel frequencies move "
-                  "to the host, the factors come back",
-    "rfi_levels": "a scenario draw made on the host by design (P13): the "
-                  "keys move to the host, the levels and mask come back",
-    "pulse_energies": "a scenario draw made on the host by design (P13): "
-                      "the keys move to the host, the energies come back",
+    "scint_gain": "the probe keeps the scenario draws' host route (host "
+                  "keys; keys on the card launch the scenario-draws "
+                  "kernel, DIVERGENCES P13): the parameters and channel "
+                  "frequencies move to the host, the factors come back",
+    "rfi_levels": "the probe keeps the host route of a scenario draw (host "
+                  "keys, P13): the parameters move to the host, the levels "
+                  "and mask come back",
+    "pulse_energies": "the probe keeps the host route of a scenario draw "
+                      "(host keys, P13): the parameter moves to the host, "
+                      "the energies come back",
     "rebin": "the variable-width gather indices and mask are built with "
              "numpy on the host and copied to the data's device with a "
              "blocking torch.as_tensor (the object-oriented flow's "
              "resampler, once per observe)",
-    "dataset_record": "a chunk's prior draws and scenario rows are made on "
-                      "the host (jax's threefry, P13) and moved to the card "
-                      "with a blocking .to(device) before the SEARCH tile",
+    "dataset_record": "a chunk's prior draws are made on the host (jax's "
+                      "threefry, P13) and moved to the card with a blocking "
+                      ".to(device) before the SEARCH tile",
 }
 
-#: probed symbols whose results land on the host whatever the inputs'
-#: device: the scenario draws, made on the host by design (P13); the
-#: pipelines hand their factors to the card themselves
+#: probed symbols whose results land on the host: the scenario draws,
+#: probed on their host route with host keys (P13; the pipelines' draws
+#: for the card run on the card)
 HOST_RESULTS = {"scint_gain", "rfi_levels", "pulse_energies"}
 
 
@@ -109,6 +111,7 @@ def _specs(device):
 
     key = dev(make_key(0, "cpu"))
     keys = dev(split(make_key(1, "cpu"), 3))
+    host_keys = split(make_key(1, "cpu"), 3)
     phase = torch.linspace(0.0, 2.0 * math.pi, 64)
     prof = dev(torch.cos(phase) + 1.0)
     gen = torch.Generator().manual_seed(0)
@@ -217,19 +220,19 @@ def _specs(device):
                          [((3, 16), f32)]),
         "scint_gain": (lambda k, fr, dnu, dt, m: ops.scint_gain(
             k, fr, 4, dnu, dt, m, 1400.0, 0.5),
-            (keys, freqs, dev(torch.full((3,), 20.0)),
+            (host_keys, freqs, dev(torch.full((3,), 20.0)),
              dev(torch.full((3,), 0.5)), dev(torch.ones(3))),
             [((3, 8, 4), f32)]),
         "rfi_levels": (lambda k, c, ip, ia, np_, na: ops.rfi_levels(
             k, c, 4, ip, ia, np_, na),
-            (keys, dev(torch.arange(8)), scalar, dev(torch.tensor(5.0)),
+            (host_keys, dev(torch.arange(8)), scalar, dev(torch.tensor(5.0)),
              scalar, dev(torch.tensor(3.0))),
             [((3, 8, 4), f32), ((3, 8, 4), torch.bool)]),
         # each mode is its own program: the probe covers every one
         "pulse_energies": (lambda k, s: tuple(
             ops.pulse_energies(k, 4, mode, s)
             for mode in ("lognormal", "powerlaw", "frb")),
-            (keys, scalar), [((3, 4), f32)] * 3),
+            (host_keys, scalar), [((3, 4), f32)] * 3),
         "block_downsample": (lambda d: ops.block_downsample(d, 4), (block,),
                              [((3, 16), f32)]),
         "rebin": (lambda d: ops.rebin(d, 16), (block,), [((3, 16), f32)]),

@@ -11,8 +11,8 @@ One training record is composed from pieces the port already has:
   layout on the card), with the scenario stack's SEARCH hooks;
 * the labels — the scenario factors of
   :func:`~psrsigsim_torch.scenarios.registry.scenario_rows`, drawn once
-  on the host per chunk: the injection, the RFI truth mask and the
-  per-pulse energies read that one draw (the JAX package recomputes them
+  per chunk on the chunk's device: the injection, the RFI truth mask and
+  the per-pulse energies read that one draw (the JAX package recomputes them
   in the same program from the same keys, which gives the same values),
   plus the sampled prior values themselves.
 
@@ -204,11 +204,11 @@ class RecordSampler:
     def dispatch(self, start, width, audit=False):
         """Launch one chunk: device tensors for records ``start ..
         start+width`` (indices wrap modulo ``n_records``; the caller trims
-        the wrapped tail).  The host's work (keys, priors, scenario draws)
-        is done on return, the device's may still run.  ``audit=True``
-        is a second launch of the same deterministic work, the integrity
-        layer's duplicate execution (psrsigsim_torch/DIVERGENCES.md
-        P10)."""
+        the wrapped tail).  The host's work (keys, priors, the scenario
+        draws' launches) is done on return, the device's may still run.
+        ``audit=True`` is a second launch of the same deterministic work,
+        the integrity layer's duplicate execution
+        (psrsigsim_torch/DIVERGENCES.md P10)."""
         idx = (int(start) + np.arange(int(width))) % self.n_records
         keys = stage_key(make_key(self.seed, "cpu"), "user",
                          torch.as_tensor(idx, dtype=torch.int64))

@@ -15,8 +15,11 @@ any batch.  The keys are jax's, bit for bit (:mod:`..utils.rng`); the
 float arithmetic is the JAX package's as XLA's CPU backend compiles it
 (``pow`` rounded from float64, ``log1p`` and ``exp`` by XLA's
 polynomials, its fused multiply-adds, divisions by constants as
-multiplications by the float32 reciprocal), evaluated on the host where
-the keys live (psrsigsim_torch/DIVERGENCES.md P13).
+multiplications by the float32 reciprocal), evaluated where the keys live
+(psrsigsim_torch/DIVERGENCES.md P13): host keys run the torch CPU ops
+below; keys on a CUDA device launch the scenario-draws kernel
+(:mod:`.scenario_draws`, K10), which gives the same bits.  There is no
+knob and no fallback from one route to the other.
 """
 
 from __future__ import annotations
@@ -25,7 +28,9 @@ import numpy as np
 import torch
 
 from ..runtime.telemetry import count
+from ..utils.device import to_device
 from ..utils.rng import fold_in, randint
+from . import scenario_draws
 from .stats import _SQRT2, _from_uniform, _log1p, erf_inv, exp, fma, uniform
 
 __all__ = ["scint_cells", "scint_gain", "rfi_levels", "pulse_energies",
@@ -36,8 +41,8 @@ __all__ = ["scint_cells", "scint_gain", "rfi_levels", "pulse_energies",
 SCINT_DNU_EXPONENT = 4.4
 SCINT_DT_EXPONENT = 1.2
 
-#: single-pulse energy-distribution modes
-SP_MODES = ("lognormal", "powerlaw", "frb")
+#: single-pulse energy-distribution modes (the card's numbering)
+SP_MODES = scenario_draws.ENERGY_MODES
 
 # scintle cell ids are clipped into this range before the key fold
 _MAX_CELL = 1 << 24
@@ -70,6 +75,22 @@ def _recip(v):
     return float(np.float32(1.0) / np.float32(v))
 
 
+def _scint_grid(freqs_mhz, fcent_mhz, f_lo_mhz):
+    """The channel grid's part of the scintle cells, on the host: each
+    channel's ``x^-3.4`` and ``x^1.2`` ``(C,)`` float32 (``x = f ·
+    (1/fcent)``, the powers rounded from the float64 power) and the band
+    floor's ``x_lo^-3.4`` (a float32 value; compile-time constants in the
+    JAX package)."""
+    x = _host(freqs_mhz) * _recip(fcent_mhz)
+    a = float(np.float32(SCINT_DNU_EXPONENT - 1.0))    # 3.4
+    x_lo = np.float32(np.float32(f_lo_mhz) / np.float32(fcent_mhz))
+    c_lo = float(np.float32(np.float64(x_lo) ** -np.float64(np.float32(a))))
+    x_pow = _powf(x, torch.tensor(-a, dtype=_F32))
+    x_pow_t = _powf(
+        x, torch.tensor(float(np.float32(SCINT_DT_EXPONENT)), dtype=_F32))
+    return x_pow, x_pow_t, c_lo
+
+
 def scint_cells(freqs_mhz, nsub, dnu_d_mhz, dt_d_s, fcent_mhz, sublen_s,
                 f_lo_mhz):
     """The scintle cell ids: ``cell_f`` ``(..., C)`` (the integrated
@@ -81,25 +102,37 @@ def scint_cells(freqs_mhz, nsub, dnu_d_mhz, dt_d_s, fcent_mhz, sublen_s,
     ``f_lo_mhz`` is the GLOBAL band floor (the fold path anchors it at
     ``fcent - bw/2``, not at the lowest channel), so the cell origin never
     depends on which channels are passed."""
-    f = _host(freqs_mhz)
-    inv = _recip(fcent_mhz)
-    x = f * inv                                        # (C,)
+    x_pow, x_pow_t, c_lo = _scint_grid(freqs_mhz, fcent_mhz, f_lo_mhz)
     dnu = torch.clamp_min(_host(dnu_d_mhz), 1e-6)
     dt = torch.clamp_min(_host(dt_d_s), 1e-6)
     a = float(np.float32(SCINT_DNU_EXPONENT - 1.0))    # 3.4
-    # x_lo and its power are compile-time constants in the JAX package
-    x_lo = np.float32(np.float32(f_lo_mhz) / np.float32(fcent_mhz))
-    c_lo = float(np.float32(np.float64(x_lo) ** -np.float64(np.float32(a))))
-    x_pow = _powf(x, torch.tensor(-a, dtype=_F32))
     scale = torch.full((), float(np.float32(fcent_mhz)), dtype=_F32) / dnu
     n_f = (scale[..., None] * (c_lo - x_pow)) * _recip(a)
     cell_f = _cell_clip(n_f)                           # (..., C)
     t_mid = ((torch.arange(int(nsub), dtype=_F32) + 0.5)
              * float(np.float32(sublen_s)))
-    dt_c = dt[..., None] * _powf(
-        x, torch.tensor(float(np.float32(SCINT_DT_EXPONENT)), dtype=_F32))
+    dt_c = dt[..., None] * x_pow_t
     cell_t = _cell_clip(t_mid / dt_c[..., None])       # (..., C, nsub)
     return cell_f, cell_t
+
+
+# the card's copies of channel grids (the scintle powers, the global
+# channel ids), made once per grid and device as ops/stats.py makes its
+# tables: a chunk's launches then copy only its keys and parameters
+_CARD_GRIDS = {}
+_CARD_GRIDS_MAX = 64
+
+
+def _card_grid(key, dev, make):
+    """``make()`` (device tensors of a channel grid), cached under ``(key,
+    dev)``."""
+    k = (key, str(dev))
+    v = _CARD_GRIDS.get(k)
+    if v is None:
+        if len(_CARD_GRIDS) >= _CARD_GRIDS_MAX:
+            _CARD_GRIDS.clear()
+        v = _CARD_GRIDS[k] = make()
+    return v
 
 
 def scint_gain(keys, freqs_mhz, nsub, dnu_d_mhz, dt_d_s, mod_index,
@@ -116,6 +149,9 @@ def scint_gain(keys, freqs_mhz, nsub, dnu_d_mhz, dt_d_s, mod_index,
     when they are the whole band)."""
     if f_lo_mhz is None:
         f_lo_mhz = float(_host(freqs_mhz).min())
+    if keys.device.type == "cuda":
+        return _scint_gain_card(keys, freqs_mhz, nsub, dnu_d_mhz, dt_d_s,
+                                mod_index, fcent_mhz, sublen_s, f_lo_mhz)
     keys = keys.to("cpu")
     lead = keys.shape[:-1]
     cell_f, cell_t = scint_cells(freqs_mhz, nsub, _host(dnu_d_mhz, lead),
@@ -126,6 +162,30 @@ def scint_gain(keys, freqs_mhz, nsub, dnu_d_mhz, dt_d_s, mod_index,
     m = torch.clamp(_host(mod_index, lead), 0.0, 1.0)
     # 1 + m (g - 1) with XLA's fused multiply-add
     return fma(m[..., None, None].expand_as(g), g - 1.0, 1.0)
+
+
+def _scint_gain_card(keys, freqs_mhz, nsub, dnu_d_mhz, dt_d_s, mod_index,
+                     fcent_mhz, sublen_s, f_lo_mhz):
+    """:func:`scint_gain` for keys on a CUDA device: K10 folds each cell's
+    key and draws its gain there, from the channel grid's powers."""
+    if isinstance(freqs_mhz, torch.Tensor):
+        freqs_mhz = (freqs_mhz if freqs_mhz.device.type == "cpu"
+                     else freqs_mhz.cpu()).numpy()
+    f = np.ascontiguousarray(freqs_mhz, np.float32)
+    if f.ndim != 1:
+        raise ValueError("scint_gain on the card takes one channel grid "
+                         f"(C,), got {f.shape}")
+
+    def make():
+        x_pow, x_pow_t, c_lo = _scint_grid(f, fcent_mhz, f_lo_mhz)
+        return to_device(torch.stack((x_pow, x_pow_t)), keys.device), c_lo
+
+    pows, c_lo = _card_grid(("scint", f.tobytes(), float(fcent_mhz),
+                             float(f_lo_mhz)), keys.device, make)
+    a = float(np.float32(SCINT_DNU_EXPONENT - 1.0))    # 3.4
+    return scenario_draws.scint_gains(
+        keys, pows, nsub, c_lo, _recip(a), float(np.float32(fcent_mhz)),
+        float(np.float32(sublen_s)), dnu_d_mhz, dt_d_s, mod_index)
 
 
 def _cell_keys(keys, cell_f, cell_t):
@@ -158,7 +218,8 @@ def _exponential1(keys):
     return -_log1p(-uniform(keys, 1)[..., 0])
 
 
-def rfi_levels(keys, chan_ids, nsub, imp_prob, imp_snr, nb_prob, nb_snr):
+def rfi_levels(keys, chan_ids, nsub, imp_prob, imp_snr, nb_prob, nb_snr,
+               noise_level=None):
     """RFI injection plan for the observations' RFI stage keys ``(...,
     2)``: ``(levels, mask)``, both ``(..., C, nsub)`` — float32 additive
     levels in units of the caller's mean noise level, and the bool ground
@@ -168,7 +229,23 @@ def rfi_levels(keys, chan_ids, nsub, imp_prob, imp_snr, nb_prob, nb_snr):
     ``imp_prob``, at ``imp_snr`` × one exponential energy, across every
     channel.  Narrowband tones: each GLOBAL channel id carries a persistent
     tone with probability ``nb_prob`` at ``nb_snr`` × its own exponential
-    energy.  Parameters are one per leading index (or scalars)."""
+    energy.  Parameters are one per leading index (or scalars).
+    ``noise_level`` (one per leading index or a scalar), where given,
+    multiplies the levels, in float32 after their sum."""
+    if keys.device.type == "cuda":
+        dev = keys.device
+        if isinstance(chan_ids, torch.Tensor) and chan_ids.device == dev:
+            ids = chan_ids.to(torch.int64)
+        else:
+            if isinstance(chan_ids, torch.Tensor):
+                chan_ids = (chan_ids if chan_ids.device.type == "cpu"
+                            else chan_ids.cpu()).numpy()
+            host = np.ascontiguousarray(chan_ids, np.int64)
+            ids = _card_grid(("chan_ids", host.tobytes()), dev,
+                             lambda: to_device(torch.as_tensor(
+                                 host, dtype=torch.int64), dev))
+        return scenario_draws.rfi_levels(keys, ids, nsub, imp_prob, imp_snr,
+                                         nb_prob, nb_snr, noise_level)
     keys = keys.to("cpu")
     lead = keys.shape[:-1]
     chan_ids = torch.as_tensor(chan_ids, dtype=torch.int64).to("cpu")
@@ -187,6 +264,8 @@ def rfi_levels(keys, chan_ids, nsub, imp_prob, imp_snr, nb_prob, nb_snr):
     nb_lvl = _host(nb_snr, lead)[..., None] * e_c * tone
     levels = imp_lvl[..., None, :] + nb_lvl[..., :, None]
     mask = burst[..., None, :] | tone[..., :, None]
+    if noise_level is not None:
+        levels = levels * _host(noise_level, lead)[..., None, None]
     return levels, mask
 
 
@@ -200,6 +279,11 @@ def pulse_energies(keys, nsub, mode, param):
       (alpha clipped to 1.05);
     * ``"frb"``: one uniformly drawn subint carries ``amp``, every other
       subint emits nothing."""
+    if mode not in SP_MODES:
+        raise ValueError(
+            f"unknown single-pulse mode {mode!r}; valid modes: {SP_MODES}")
+    if keys.device.type == "cuda":
+        return scenario_draws.pulse_energies(keys, nsub, mode, param)
     keys = keys.to("cpu")
     lead = keys.shape[:-1]
     n = int(nsub)
@@ -214,9 +298,6 @@ def pulse_energies(keys, nsub, mode, param):
         a = torch.clamp_min(p, 1.05)
         u = uniform(keys, n, minval=1e-7, maxval=1.0)
         return _powf(u, -1.0 / a) * (a - 1.0) / a
-    if mode == "frb":
-        j = randint(keys, n)
-        onehot = (torch.arange(n) == j[..., None]).to(_F32)
-        return p * onehot
-    raise ValueError(
-        f"unknown single-pulse mode {mode!r}; valid modes: {SP_MODES}")
+    j = randint(keys, n)                                      # frb
+    onehot = (torch.arange(n) == j[..., None]).to(_F32)
+    return p * onehot

@@ -310,8 +310,8 @@ class FoldEnsemble:
         return out
 
     def _rows(self, keys, norms, scp):
-        """The batch's scenario factors (drawn once, on the host, from its
-        keys), on the ensemble's device; None without a scenario."""
+        """The batch's scenario factors (drawn once from its keys, where
+        they land: the ensemble's device); None without a scenario."""
         if self.scenario is None:
             return None
         with span("scenario"):

@@ -33,6 +33,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops import scenario_draws
 from ..ops.scenario import pulse_energies, rfi_levels, scint_gain
 from ..runtime.telemetry import count, span
 from ..utils.device import to_device
@@ -336,15 +337,26 @@ def _stage_keys(keys, stages):
 
 
 def _draw(keys, stack, p, *, nsub, freqs, fcent_mhz, sublen_s, f_lo_mhz,
-          chan_ids):
-    """The raw draws of ``stack`` for observation keys ``(..., 2)``, where
-    the keys lie: ``(gain, energy, levels, mask)``, None where off.  Each
-    effect's draws are a child span named after the effect (a no-op with
-    no span open)."""
-    sk = _stage_keys(keys, [EFFECTS[n].stage for n in stack.names()])
+          chan_ids, device=None, noise_level=None):
+    """The raw draws of ``stack`` for observation keys ``(..., 2)``:
+    ``(gain, energy, levels, mask)``, None where off.  For a CUDA
+    ``device`` the keys and the parameters cross to it in one copy and the
+    scenario-draws kernel derives the stage keys and draws every effect
+    there; else every effect draws on the host.  ``noise_level``, where
+    given, multiplies the RFI levels.  Each effect's draws are a child
+    span named after the effect (a no-op with no span open)."""
+    stages = [EFFECTS[n].stage for n in stack.names()]
+    if keys.device.type != "cpu":
+        keys = keys.cpu()
+    if device is not None and torch.device(device).type == "cuda":
+        keys, cols = scenario_draws.to_card(
+            list(p.values()), keys.shape[:-1], torch.device(device), keys)
+        p = dict(zip(p, cols))
+        sk = scenario_draws.stage_keys(keys, [STAGES[s] for s in stages])
+    else:
+        sk = _stage_keys(keys, stages)
     gain = energy = levels = mask = None
-    for i, (name, mode) in enumerate(stack.entries):
-        k = sk[..., i, :]
+    for (name, mode), k in zip(stack.entries, sk.unbind(-2)):
         with span(name):
             if name == "scintillation":
                 gain = scint_gain(k, freqs, nsub, p["scint_dnu_d_mhz"],
@@ -353,7 +365,7 @@ def _draw(keys, stack, p, *, nsub, freqs, fcent_mhz, sublen_s, f_lo_mhz,
             elif name == "rfi":
                 levels, mask = rfi_levels(
                     k, chan_ids, nsub, p["rfi_imp_prob"], p["rfi_imp_snr"],
-                    p["rfi_nb_prob"], p["rfi_nb_snr"])
+                    p["rfi_nb_prob"], p["rfi_nb_snr"], noise_level)
             elif name == "single_pulse":
                 energy = pulse_energies(k, nsub, mode, p[_SP_PARAM[mode]])
     return gain, energy, levels, mask
@@ -365,8 +377,8 @@ def scenario_rows(keys, stack, params, cfg, noise_level, freqs=None,
     a :class:`ScenarioRows`.
 
     Args:
-        keys: observation keys ``(..., 2)``; the draws run where they lie
-            (the host, for the pipelines' keys).
+        keys: observation keys ``(..., 2)`` (on the host, for the
+            pipelines).
         stack: a :class:`ScenarioStack` (or labels for :func:`parse_stack`).
         params: ``{name: scalar or (...) tensor}`` (registry defaults fill
             unset names), or a sequence in ``stack.param_names()`` order.
@@ -382,7 +394,9 @@ def scenario_rows(keys, stack, params, cfg, noise_level, freqs=None,
             ``fcent - bw/2``, as the JAX package's fold path anchors them.
         chan_ids: GLOBAL channel ids; default ``arange(Nchan)``.
 
-    The factors land on ``noise_level``'s device.  The batch's factor
+    The factors land on ``noise_level``'s device, and are drawn there: on
+    a CUDA device by the scenario-draws kernel, from the keys and
+    parameters sent in one copy, else on the host.  The batch's factor
     cells (observations × channels × subints) are counted as
     ``scenario.cells`` in the timers of the span open on this thread.
     """
@@ -401,9 +415,8 @@ def scenario_rows(keys, stack, params, cfg, noise_level, freqs=None,
         fcent_mhz=meta.fcent_mhz, sublen_s=(
             cfg.nfold * cfg.period_s if hasattr(cfg, "nfold")
             else cfg.period_s),
-        f_lo_mhz=meta.fcent_mhz - meta.bw_mhz / 2, chan_ids=chan_ids)
-    if levels is not None:
-        levels = to_device(levels, dev) * noise_level[..., None, None]
+        f_lo_mhz=meta.fcent_mhz - meta.bw_mhz / 2, chan_ids=chan_ids,
+        device=dev, noise_level=noise_level)
     return ScenarioRows(*(None if t is None else to_device(t, dev)
                           for t in (gain, energy, levels, mask)))
 
@@ -548,26 +561,26 @@ def apply_additive_effects_search(key, block, stack, params, *, nsub, nph,
 
 def energy_truth(key, stack, params, *, nsub):
     """The ground-truth per-subint energies ``(..., nsub)`` for
-    observation keys ``(..., 2)`` — the same draws as the injection; None
-    when the stack has no single_pulse."""
+    observation keys ``(..., 2)`` — the same draws as the injection, made
+    on the host; None when the stack has no single_pulse."""
     stack = parse_stack(stack)
     if stack is None or "single_pulse" not in stack.names():
         return None
     mode = stack.mode("single_pulse")
     p = param_dict(stack, params)
-    k = _stage_keys(key, ["transient"])[..., 0, :]
+    k = _stage_keys(key.to("cpu"), ["transient"])[..., 0, :]
     return pulse_energies(k, nsub, mode, p[_SP_PARAM[mode]])
 
 
 def rfi_truth_mask(key, stack, params, *, nsub, chan_ids):
     """The ground-truth RFI contamination mask ``(..., C, nsub)`` bool for
-    observation keys ``(..., 2)`` — the same draws as the injection; None
-    when the stack has no RFI."""
+    observation keys ``(..., 2)`` — the same draws as the injection, made
+    on the host; None when the stack has no RFI."""
     stack = parse_stack(stack)
     if stack is None or "rfi" not in stack.names():
         return None
     p = param_dict(stack, params)
-    k = _stage_keys(key, ["rfi"])[..., 0, :]
+    k = _stage_keys(key.to("cpu"), ["rfi"])[..., 0, :]
     _, mask = rfi_levels(k, chan_ids, nsub, p["rfi_imp_prob"],
                          p["rfi_imp_snr"], p["rfi_nb_prob"], p["rfi_nb_snr"])
     return mask

@@ -363,8 +363,8 @@ def noise_level(cfg, noise_norm):
 
 def _scenario_rows(f, cfg, scenario, scenario_params):
     """The batch's scenario factors, drawn from its observation keys on the
-    host, for the channels ``f`` holds (the configuration's frequencies at
-    those GLOBAL channel ids)."""
+    noise scales' device, for the channels ``f`` holds (the configuration's
+    frequencies at those GLOBAL channel ids)."""
     chan_ids = f.chan_ids.cpu()
     freqs = np.asarray(cfg.meta.dat_freq_mhz(), np.float32)[chan_ids.numpy()]
     return scenario_rows(f.key, scenario, scenario_params, cfg,

@@ -29,8 +29,10 @@ that applies the JAX-version shims; they never touch the pytest worker.
 """
 
 import dataclasses
+import importlib.util
 import json
 import os
+import pathlib
 import subprocess
 import sys
 
@@ -212,11 +214,21 @@ def _child(out):
 
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
-    out = tmp_path_factory.mktemp("torch_scenarios")
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), str(out)],
-                          env=child_env(), capture_output=True, text=True,
-                          timeout=900)
-    assert proc.returncode == 0, proc.stderr[-4000:]
+    saved = os.environ.get("PSS_SCENARIO_REF")
+    if saved:
+        # the reference this file wrote as a script on a machine with jax
+        # (the card's machine has none)
+        out = pathlib.Path(saved)
+    else:
+        if importlib.util.find_spec("jax") is None:
+            pytest.skip("the JAX reference needs jax: run this file as a "
+                        "script where jax is installed and name its output "
+                        "directory in PSS_SCENARIO_REF")
+        out = tmp_path_factory.mktemp("torch_scenarios")
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               str(out)], env=child_env(),
+                              capture_output=True, text=True, timeout=900)
+        assert proc.returncode == 0, proc.stderr[-4000:]
     with np.load(out / "ref.npz") as z:
         res = dict(z)
     with open(out / "registry.json") as fh:
@@ -288,9 +300,27 @@ def test_registry_param_dict_and_errors():
 # -- the draws ---------------------------------------------------------------------------
 
 
-def test_scint_cells_exact_and_gains_within_2_ulp(ref):
+# the draws' keys on the host (the torch CPU route) and on the card (the
+# scenario-draws kernel, K10): both are held to the JAX package's draws
+KEY_DEVICES = ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)]
+
+
+def _on(dev):
+    if dev == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel, no CPU mode)")
+    return torch.device(dev)
+
+
+def _host_of(t, dev):
+    assert t.device.type == dev.type
+    return t.cpu().numpy()
+
+
+@pytest.mark.parametrize("dev", KEY_DEVICES)
+def test_scint_cells_exact_and_gains_within_2_ulp(ref, dev):
     from psrsigsim_torch.ops import scenario as S
 
+    dev = _on(dev)
     x = _ops_inputs()
     args = (_ops_freqs(), OPS["nsub"], torch.from_numpy(x["dnu"]),
             torch.from_numpy(x["dt"]))
@@ -300,37 +330,42 @@ def test_scint_cells_exact_and_gains_within_2_ulp(ref):
                 + (ct.numpy() != ref["cell_t"]).sum())
     assert flips == 0, f"{flips} scintle cell ids flipped"
     assert len(np.unique(ref["cell_t"])) > 100   # the cells do vary
-    g = S.scint_gain(_keys(ref, "scint"), *args, torch.from_numpy(x["mod"]),
-                     *geo)
+    g = S.scint_gain(_keys(ref, "scint").to(dev), *args,
+                     torch.from_numpy(x["mod"]), *geo)
     assert g.shape == ref["gain"].shape and g.dtype == torch.float32
-    assert _ulps(g.numpy(), ref["gain"]).max() <= 2
+    assert _ulps(_host_of(g, dev), ref["gain"]).max() <= 2
 
 
-def test_rfi_mask_exact_and_levels_within_2_ulp(ref):
+@pytest.mark.parametrize("dev", KEY_DEVICES)
+def test_rfi_mask_exact_and_levels_within_2_ulp(ref, dev):
     from psrsigsim_torch.ops import scenario as S
 
+    dev = _on(dev)
     x = _ops_inputs()
-    lv, mk = S.rfi_levels(_keys(ref, "rfi"), torch.arange(OPS["C"]),
+    lv, mk = S.rfi_levels(_keys(ref, "rfi").to(dev), torch.arange(OPS["C"]),
                           OPS["nsub"], *(torch.from_numpy(v) for v in x["rfi"]))
-    np.testing.assert_array_equal(mk.numpy(), ref["rfi_mask"])
+    np.testing.assert_array_equal(_host_of(mk, dev), ref["rfi_mask"])
     assert 0 < ref["rfi_mask"].mean() < 1
-    assert _ulps(lv.numpy(), ref["rfi_levels"]).max() <= 2
+    assert _ulps(_host_of(lv, dev), ref["rfi_levels"]).max() <= 2
 
 
+@pytest.mark.parametrize("dev", KEY_DEVICES)
 @pytest.mark.parametrize("mode,par,ulps", [("lognormal", "sigma", 2),
                                            ("powerlaw", "alpha", 1),
                                            ("frb", "amp", 0)])
-def test_pulse_energies_match_reference(ref, mode, par, ulps):
+def test_pulse_energies_match_reference(ref, mode, par, ulps, dev):
     from psrsigsim_torch.ops import scenario as S
 
-    e = S.pulse_energies(_keys(ref, "transient"), OPS["nsub"], mode,
-                         torch.from_numpy(_ops_inputs()[par]))
+    dev = _on(dev)
+    e = _host_of(S.pulse_energies(_keys(ref, "transient").to(dev),
+                                  OPS["nsub"], mode,
+                                  torch.from_numpy(_ops_inputs()[par])), dev)
     want = ref[f"energy_{mode}"]
     if mode == "frb":
-        np.testing.assert_array_equal(e.numpy(), want)
+        np.testing.assert_array_equal(e, want)
         assert ((want != 0).sum(axis=1) <= 1).all()
     else:
-        assert _ulps(e.numpy(), want).max() <= ulps
+        assert _ulps(e, want).max() <= ulps
 
 
 def test_unknown_mode_raises():
@@ -643,6 +678,216 @@ def test_scenario_kernel_matches_plain_version_on_card():
                                               byte_order=order, **kw)
                 assert torch.equal(got[0], want[0]), (route, fx, order)
                 assert torch.equal(got[1], want[1]), (route, fx, order)
+
+
+# the scenario-draws kernel's cases: (observations, channel ids of the
+# 64-channel band, subints, subint length in s, knobs) at BASELINE config
+# 1's band; knobs are scalars or ranges drawn per observation
+K10_CASES = {
+    # the benchmark cell's chunk: 128 x 64 x 20 at 60 s
+    "cell": (128, range(64), 20, 60.0, dict(
+        dnu=50.0, dt=60.0, mod=(0.2, 1.0), imp_prob=(0.0, 0.5), imp_snr=5.0,
+        nb_prob=0.1, nb_snr=3.0, noise=(0.5, 2.0), sigma=0.5,
+        alpha=(0.5, 6.0), amp=10.0)),
+    # single pulses: the time cell is one 5 ms period
+    "single_pulse": (8, range(64), 600, 0.005, dict(
+        dnu=(0.05, 500.0), dt=(0.01, 1.0), mod=(0.0, 1.0),
+        imp_prob=(0.0, 1.0), imp_snr=(0.0, 10.0), nb_prob=(0.0, 1.0),
+        nb_snr=(0.0, 10.0), noise=(0.5, 2.0), sigma=(0.0, 3.0),
+        alpha=(0.5, 6.0), amp=(0.0, 50.0))),
+    # a mesh position's channels, the cells anchored at the global floor
+    "sub_band": (48, range(16, 48), 20, 60.0, dict(
+        dnu=(0.05, 500.0), dt=(2.0, 2000.0), mod=(0.0, 1.0),
+        imp_prob=(0.0, 1.0), imp_snr=(0.0, 10.0), nb_prob=(0.0, 1.0),
+        nb_snr=(0.0, 10.0), noise=1.0, sigma=(0.0, 3.0), alpha=(0.5, 6.0),
+        amp=(0.0, 50.0))),
+    # the edges: no and saturated modulation, never and always RFI, a
+    # scintillation bandwidth that clips the cell ids at 2**24 (and one
+    # under the 1e-6 clamp)
+    "edges": (6, range(64), 20, 60.0, dict(
+        dnu=[1e-5, 1e-7, 50.0, 1e-5, 3.0, 1e-7],
+        dt=[60.0, 1e-9, 60.0, 0.5, 60.0, 1e-3],
+        mod=[0.0, 1.0, 0.0, 1.0, 0.5, 1.0],
+        imp_prob=[0.0, 1.0, 1.0, 0.0, 0.5, 1.0],
+        imp_snr=5.0, nb_prob=[0.0, 1.0, 0.0, 1.0, 0.1, 1.0], nb_snr=3.0,
+        noise=[1.0, 2.0, 0.5, 1.0, 1.0, 3.0], sigma=[0.0, 5.0, 0.5, 1.0,
+                                                     2.0, 0.1],
+        alpha=[1.0, 1.05, 10.0, 0.5, 2.5, 1.5], amp=[0.0, 1.0, 10.0, 1e4,
+                                                    -2.0, 3.0])),
+}
+
+
+def _k10_inputs(case):
+    """Host stage keys, channel frequencies and ids, and the knobs of a
+    :data:`K10_CASES` case (float32 scalars or per-observation arrays)."""
+    from psrsigsim_torch.utils import fold_in, key, stage_key
+
+    B, chans, nsub, sublen, knobs = K10_CASES[case]
+    r = np.random.default_rng(sorted(K10_CASES).index(case))
+    ids = np.asarray(chans, np.int64)
+    freqs = (1180.0 + 400.0 / 64 * (ids + 0.5)).astype(np.float32)
+    kn = {}
+    for k, v in knobs.items():
+        if isinstance(v, tuple):
+            v = r.uniform(*v, B)
+        kn[k] = (torch.tensor(np.asarray(v, np.float32)) if np.ndim(v)
+                 else float(np.float32(v)))
+    obs = fold_in(key(2**31 - 9, "cpu"), torch.arange(B))
+    keys = {s: stage_key(obs, s) for s in ("scint", "rfi", "transient")}
+    return keys, freqs, torch.from_numpy(ids), nsub, sublen, kn
+
+
+def _k10_draws(case, dev):
+    """Every draw of a case with its keys on ``dev``: the gains, the
+    levels (bare and scaled) and mask, and the energies of each mode."""
+    from psrsigsim_torch.ops import scenario as S
+
+    keys, freqs, ids, nsub, sublen, kn = _k10_inputs(case)
+    k = {s: v.to(dev) for s, v in keys.items()}
+    out = {"gain": S.scint_gain(k["scint"], freqs, nsub, kn["dnu"], kn["dt"],
+                                kn["mod"], 1380.0, sublen, f_lo_mhz=1180.0)}
+    rfi = (kn["imp_prob"], kn["imp_snr"], kn["nb_prob"], kn["nb_snr"])
+    out["level"], out["mask"] = S.rfi_levels(k["rfi"], ids, nsub, *rfi)
+    out["scaled"], _ = S.rfi_levels(k["rfi"], ids, nsub, *rfi,
+                                    noise_level=kn["noise"])
+    for mode, par in (("lognormal", "sigma"), ("powerlaw", "alpha"),
+                      ("frb", "amp")):
+        out[mode] = S.pulse_energies(k["transient"], nsub, mode, kn[par])
+    return out
+
+
+def _bits(t):
+    t = t.cpu()
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(K10_CASES))
+def test_scenario_draws_kernel_equals_the_host_route_on_card(case):
+    """Keys on the card launch K10 (one launch a draw, counted), and its
+    gains, levels, mask and energies are the host route's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel, no CPU mode)")
+    from psrsigsim_torch.ops import scenario as S
+    from psrsigsim_torch.ops import scenario_draws
+
+    host = _k10_draws(case, "cpu")
+    before = scenario_draws.launches
+    card = _k10_draws(case, "cuda")
+    assert scenario_draws.launches - before == len(card) - 1  # one rfi pair
+    for name, want in host.items():
+        got = card[name]
+        assert got.device.type == "cuda" and got.dtype == want.dtype, name
+        assert got.shape == want.shape, name
+        assert torch.equal(_bits(got), _bits(want)), (
+            f"{case} {name}: {int((_bits(got) != _bits(want)).sum())} of "
+            f"{want.numel()} differ")
+    if case == "edges":
+        keys, freqs, _, nsub, sublen, kn = _k10_inputs(case)
+        cf, ct = S.scint_cells(freqs, nsub, kn["dnu"], kn["dt"], 1380.0,
+                               sublen, 1180.0)
+        assert int(cf.max()) == 2**24 and int(ct.max()) == 2**24
+        assert host["mask"][1].all() and not host["mask"][0].any()
+        assert torch.equal(host["gain"][0], torch.ones_like(host["gain"][0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,nsub", [("powerlaw", 256), ("lognormal", 256),
+                                       ("frb", 7), ("frb", 600)])
+def test_scenario_draws_kernel_energies_over_a_million_draws(mode, nsub):
+    """Every single-pulse mode over 2**20 draws or more (the power law's
+    float64 pow rounded to float32 on both routes), bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel, no CPU mode)")
+    from psrsigsim_torch.ops import scenario as S
+    from psrsigsim_torch.utils import fold_in, key, stage_key
+
+    B = -(-2**20 // nsub)
+    keys = stage_key(fold_in(key(12345, "cpu"), torch.arange(B)), "transient")
+    par = torch.tensor(np.random.default_rng(nsub).uniform(
+        0.5, 6.0, B).astype(np.float32))
+    want = S.pulse_energies(keys, nsub, mode, par)
+    got = S.pulse_energies(keys.cuda(), nsub, mode, par.cuda())
+    diff = int((_bits(got) != _bits(want)).sum())
+    assert diff == 0, f"{mode}: {diff} of {want.numel()} draws differ"
+
+
+@pytest.mark.cuda
+def test_scenario_rows_on_card_equal_the_host_rows():
+    """scenario_rows with its factors bound for the card: the observation
+    keys and parameters cross in one copy, K10 derives the stage keys and
+    every effect launches it inside its span (four launches, counted as
+    scenario.card_launches), and the rows are the host's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel, no CPU mode)")
+    from psrsigsim_torch.runtime.telemetry import StageTimers
+
+    e = _small_ensemble(STACK)
+    idx = np.arange(128)
+    keys, _, norms = e._prep_chunk(idx, SEED, None, None)
+    prm = e._prep_scenario(idx, _cell_knobs(len(idx)))
+    want = e._rows(keys, norms, prm)
+    t = StageTimers()
+    with t.span("dispatch"):
+        got = e._rows(keys, norms.cuda(), prm)
+    assert t.counter("scenario.card_launches") == 4
+    assert t.counter("scenario.scint_keys") == 0
+    for name in ("gain", "energy", "level", "mask"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.device.type == "cuda", name
+        assert torch.equal(_bits(g), _bits(w)), name
+
+
+def _cell_knobs(n):
+    r = np.random.default_rng(21)
+    return {"scint_mod": r.uniform(0.2, 1.0, n).astype(np.float32),
+            "rfi_imp_prob": r.uniform(0.0, 0.5, n).astype(np.float32)}
+
+
+def test_host_keys_take_the_host_route():
+    """Factors bound for the host are drawn on the host: no K10 launch, no
+    card launch counted, the distinct scintle keys counted instead."""
+    from psrsigsim_torch.ops import scenario_draws
+    from psrsigsim_torch.runtime.telemetry import StageTimers
+
+    e = _small_ensemble(STACK)
+    idx = np.arange(16)
+    keys, _, norms = e._prep_chunk(idx, SEED, None, None)
+    before = scenario_draws.launches
+    t = StageTimers()
+    with t.span("dispatch"):
+        rows = e._rows(keys, norms, e._prep_scenario(idx, _cell_knobs(16)))
+    assert scenario_draws.launches == before
+    assert t.counter("scenario.card_launches") == 0
+    assert t.counter("scenario.scint_keys") > 0
+    assert all(getattr(rows, n).device.type == "cpu"
+               for n in ("gain", "energy", "level", "mask"))
+
+
+def test_card_packing_round_trips():
+    """scenario_draws.to_card's one buffer: the observation keys' words and
+    every parameter column read back as they went in (on the host, where
+    the copy is the identity), a value for all as one element, and the
+    kernel's columns take what is already there without a copy."""
+    from psrsigsim_torch.ops import scenario_draws as sd
+    from psrsigsim_torch.utils import fold_in, key
+
+    cpu = torch.device("cpu")
+    ok = fold_in(key(7, "cpu"), torch.arange(15)).reshape(5, 3, 2)
+    p = [0.25, torch.arange(15, dtype=torch.float32).view(5, 3) / 3,
+         np.float32(2.0**-20), np.arange(3, dtype=np.float64)]
+    keys, cols = sd.to_card(p, (5, 3), cpu, ok)
+    assert torch.equal(keys, ok) and len(cols) == 4
+    assert torch.equal(cols[0], torch.tensor([0.25]))
+    assert torch.equal(cols[1], p[1])
+    assert torch.equal(cols[2], torch.tensor([2.0**-20]))
+    assert torch.equal(cols[3], torch.arange(3.0).expand(5, 3))
+    assert sd.to_card([], (5, 3), cpu) == (None, [])
+    assert sd.to_card([1.5], (5, 3), cpu)[0] is None
+    got = sd._columns(cols + [3.0], (5, 3), cpu)
+    assert [s for _, s in got] == [0, 1, 0, 1, 0]
+    assert all(got[j][0] is cols[j] for j in range(4))
+    assert torch.equal(got[4][0], torch.tensor([3.0]))
 
 
 def test_fold_quantize_checks_factors():
