@@ -3,7 +3,7 @@
 
 Orchestrates the three pieces around the export engine's journal/commit
 discipline (shared loader
-:func:`~psrsigsim_torch.runtime.supervisor.load_chunk_journal`):
+:func:`~psrsigsim_torch.runtime.journal.load_chunk_journal`):
 
 1. **dispatch/fetch** — chunks of records run on the device through the
    :class:`~psrsigsim_torch.datasets.sampler.RecordSampler` with one
@@ -39,7 +39,8 @@ import numpy as np
 
 from .sampler import RecordSampler
 from .spec import (RECORD_FORMAT_VERSION, canonicalize, fingerprint_hash)
-from .writer import DatasetReader, ShardWriter, encode_record
+from .writer import (DatasetReader, ShardWriter, encode_record, shard_of,
+                     shard_path, slot_of)
 
 __all__ = ["DatasetFactory", "DatasetManifestError"]
 
@@ -108,7 +109,7 @@ class DatasetFactory:
         }
 
     def _check_manifest(self, out_dir, resume):
-        from ..io.export import _atomic_write_json
+        from ..runtime.journal import atomic_write_json
 
         fp = self.manifest_fields()
         path = os.path.join(out_dir, _MANIFEST_NAME)
@@ -131,7 +132,7 @@ class DatasetFactory:
             merged = {**{k: v for k, v in old.items() if k not in fp}, **fp}
         else:
             merged = dict(fp)
-        _atomic_write_json(path, merged, indent=1)
+        atomic_write_json(path, merged, indent=1)
 
     # -- the run ------------------------------------------------------------
 
@@ -179,8 +180,13 @@ class DatasetFactory:
         """
         import time as _time
 
-        from ..runtime.faults import crash_process
-        from ..runtime.supervisor import load_chunk_journal
+        from ..runtime.dist import is_leader
+        from ..runtime.integrity import (device_fields_digest_rows,
+                                         fields_digest_rows_host,
+                                         maybe_bitrot, refuse_on_pod,
+                                         resolve_integrity)
+        from ..runtime.journal import (ChunkJournal, load_chunk_journal,
+                                       remove_files, stamp_manifest)
         from ..runtime.telemetry import StageTimers
 
         if telemetry is None:
@@ -190,18 +196,9 @@ class DatasetFactory:
         names = [n for n, _, _ in layout]
         width = sampler.chunk_width(chunk_size)
 
-        from ..runtime.integrity import resolve_integrity
-
         checker = resolve_integrity(integrity, fingerprint=self.fingerprint,
                                     faults=faults)
-        from ..runtime.dist import is_leader, is_pod
-
-        if checker is not None and is_pod():
-            # audit/heal re-dispatches would break the pod's lockstep (the
-            # study's rule): refuse loudly, don't hang
-            raise RuntimeError(
-                "integrity checking is not supported on a pod mesh yet; "
-                "run integrity-armed corpora single-host")
+        refuse_on_pod(checker is not None, "corpora")
         # pod: every process computes every chunk (the exchange gives each
         # the whole chunk), ONE owns the shards/journal/manifest; followers
         # read the same journal and shards, so skip decisions stay in
@@ -225,14 +222,10 @@ class DatasetFactory:
             import glob as _glob
 
             done = {}
-            stale = [journal_path, cursor_path]
-            stale += _glob.glob(os.path.join(out_dir, "shard-*.records"))
-            stale += _glob.glob(os.path.join(out_dir, "shard-*.index.json"))
-            for p in stale:
-                try:
-                    os.unlink(p)
-                except FileNotFoundError:
-                    pass
+            remove_files(
+                journal_path, cursor_path,
+                *_glob.glob(os.path.join(out_dir, "shard-*.records")),
+                *_glob.glob(os.path.join(out_dir, "shard-*.index.json")))
         else:
             done = load_chunk_journal(journal_path, truncate=lead)
 
@@ -240,13 +233,13 @@ class DatasetFactory:
         # leader's records)
         writer = ShardWriter(out_dir, self.n_records, self.n_shards,
                              layout, RECORD_FORMAT_VERSION)
-        journal_f = None
+        journal = None
         if lead:
             # indexes are a pure function of the spec: write them first
             # (and on every resume — idempotent, atomic), so even a corpus
             # killed mid-run has self-describing shards
             writer.write_indexes(self.fingerprint, self.canonical["seed"])
-            journal_f = open(journal_path, "a")
+            journal = ChunkJournal(journal_path, cursor_path, faults=faults)
 
         commits = 0
         resumed = 0
@@ -273,8 +266,6 @@ class DatasetFactory:
             t0 = _time.perf_counter()
             dev = sampler.dispatch(start, width)
             if checker is not None:
-                from ..runtime.integrity import device_fields_digest_rows
-
                 # device.sdc arm perturbs the FIRST field buffer before
                 # the combined digest attests the chunk; the digest
                 # rides the fetch as one extra tiny array
@@ -304,71 +295,28 @@ class DatasetFactory:
             return recs
 
         def _integrity_verify(s0, c0, host):
-            """Lattice check + sampled duplicate-execution audit over
-            one fetched chunk's field buffers (pre-encode — the window
-            a host flip would otherwise reach the shards through);
-            returns the (possibly healed) field tuple and the trusted
-            device digest."""
-            from ..runtime.integrity import (device_fields_digest_rows,
-                                             fields_digest_rows_host)
-
+            """The verdict on one fetched chunk's field buffers, before
+            encode (the window a host flip would otherwise reach the
+            shards through); returns the (possibly healed) field tuple and
+            the trusted device digest."""
             fields = tuple(host[:-1])
-            dig_dev = np.asarray(host[-1]).astype(np.uint32)
             fields = (checker.corrupt_host(fields[0], ident=s0),) \
                 + fields[1:]
-            host_dig = fields_digest_rows_host(fields)
-            bad = checker.check_rows(dig_dev[:c0], host_dig[:c0],
-                                     ident=s0, producer="dataset")
-            audit = checker.audit_chunk(s0)
-            if not bad and not audit:
-                return fields, dig_dev
 
-            def _reexec(use_audit):
-                dev = sampler.dispatch(s0, width, audit=use_audit)
-                return dev, device_fields_digest_rows(dev)
+            def _reexec(audit):
+                dev = sampler.dispatch(s0, width, audit=audit)
+                return (lambda: tuple(t.cpu().numpy() for t in dev),
+                        device_fields_digest_rows(dev).cpu().numpy())
 
-            def _digests(t):
-                return t.cpu().numpy().astype(np.uint32)
-
-            out_a = None
-            if not bad:
-                out_a = _reexec(True)
-                dig_a = _digests(out_a[1])
-                mism = [int(j) for j in
-                        np.nonzero(dig_a[:c0] != dig_dev[:c0])[0]]
-                checker.note_audit(mism)
-                if not mism:
-                    return fields, dig_dev
-
-            evidence = {"producer": "dataset", "start": int(s0),
-                        "lattice_rows": [int(j) for j in bad]}
-
-            def reexecute():
-                a = out_a if out_a is not None else _reexec(True)
-                b = _reexec(False)
-                fetched = tuple(t.cpu().numpy() for t in a[0])
-                return fetched, _digests(a[1]), _digests(b[1])
-
-            def verify(res):
-                fetched, dig_a, dig_b = res
-                return (np.array_equal(dig_a, dig_b) and np.array_equal(
-                    fields_digest_rows_host(fetched), dig_a))
-
-            fetched, dig_a, _ = checker.heal_verified(
-                reexecute, verify, producer="dataset", ident=s0,
-                evidence=evidence)
-            sdc_rows = [int(j) for j in
-                        np.nonzero(dig_a[:c0] != dig_dev[:c0])[0]]
-            if sdc_rows and bad:
-                checker.note_audit(sdc_rows)
-            rec = {"e": "integrity",
-                   "kind": "audit" if sdc_rows else "checksum",
-                   "start": int(s0), "healed": True,
-                   "rows": sdc_rows or [int(j) for j in bad]}
-            journal_f.write(json.dumps(rec, sort_keys=True) + "\n")
-            journal_f.flush()
-            os.fsync(journal_f.fileno())
-            return fetched, dig_a
+            fields, dig, event = checker.verify_chunk(
+                host[-1], fields, fields_digest_rows_host, _reexec,
+                producer="dataset", ident=s0, rows=c0,
+                evidence={"start": int(s0)})
+            if event is not None:
+                journal.append({"e": "integrity", "kind": event[0],
+                                "start": int(s0), "healed": True,
+                                "rows": event[1]})
+            return fields, dig
 
         def _commit(start, recs, dig=None):
             """Durable record of one fresh chunk: record bytes land
@@ -376,9 +324,9 @@ class DatasetFactory:
             fsync, THEN the journal line, THEN the atomic cursor — a
             SIGKILL leaves either a committed record or none."""
             nonlocal commits
-            if journal_f is None:
+            commits += 1
+            if journal is None:
                 # a pod follower: the leader owns the durable record
-                commits += 1
                 return
             t0 = _time.perf_counter()
             touched = set()
@@ -394,36 +342,18 @@ class DatasetFactory:
                 # (checked equal to the host bytes before this commit)
                 rec["dig"] = int(np.bitwise_xor.reduce(
                     np.asarray(dig, np.uint32)[:len(recs)]))
-            journal_f.write(json.dumps(rec, sort_keys=True) + "\n")
-            journal_f.flush()
-            os.fsync(journal_f.fileno())
-            from ..io.export import _atomic_write_json
-
-            commits += 1
-            _atomic_write_json(cursor_path, {
-                "commits": commits, "journal_bytes": journal_f.tell()})
+            journal.commit(rec)
             telemetry.add("write", _time.perf_counter() - t0,
                           nbytes=len(recs) * writer.stride)
             telemetry.count("records", len(recs))
-            if faults is not None:
-                from ..runtime.integrity import maybe_bitrot
-                from .writer import shard_of, shard_path, slot_of
-
-                # disk.bitrot: decay record `start`'s freshly committed
-                # slot (tests) — found by scrub_dataset_dir / the
-                # sha-verifying resume, which recomputes the chunk
-                maybe_bitrot(
-                    faults,
-                    shard_path(out_dir, shard_of(start, self.n_shards)),
-                    token=f"start={start}",
-                    offset=slot_of(start, self.n_shards) * writer.stride)
-                cfg = faults.config("dataset.kill")
-                if cfg is not None:
-                    after = cfg.get("after_start")
-                    if after is None or after == start:
-                        if faults.fire("dataset.kill",
-                                       token=f"start={start}"):
-                            crash_process()
+            # disk.bitrot: decay record `start`'s freshly committed slot
+            # (tests) — found by scrub_dataset_dir / the sha-verifying
+            # resume, which recomputes the chunk
+            maybe_bitrot(
+                faults, shard_path(out_dir, shard_of(start, self.n_shards)),
+                token=f"start={start}",
+                offset=slot_of(start, self.n_shards) * writer.stride)
+            journal.maybe_kill("dataset.kill", start)
 
         stopped = False
         try:
@@ -438,7 +368,7 @@ class DatasetFactory:
                     host, dig = _integrity_verify(s0, c0, host)
                 # a pod follower drops the bytes in _commit: it pays no
                 # encode for them
-                recs = [] if journal_f is None else _encode(s0, c0, host)
+                recs = [] if journal is None else _encode(s0, c0, host)
                 _commit(s0, recs, dig=dig)
                 _report(c0)
                 if (_stop_after_chunks is not None
@@ -464,8 +394,8 @@ class DatasetFactory:
                 if stopped:
                     return None
         finally:
-            if journal_f is not None:
-                journal_f.close()
+            if journal is not None:
+                journal.close()
             writer.close()
 
         out = {
@@ -481,17 +411,8 @@ class DatasetFactory:
             # the corpus run's integrity verdict, in the summary AND
             # the durable manifest
             out["integrity"] = checker.stats()
-            from ..io.export import _atomic_write_json
-
-            man_path = os.path.join(out_dir, _MANIFEST_NAME)
-            try:
-                with open(man_path) as f:
-                    man = json.load(f)
-            except (OSError, json.JSONDecodeError):
-                man = None
-            if man is not None:
-                man["integrity"] = checker.stats()
-                _atomic_write_json(man_path, man, indent=1)
+            stamp_manifest(os.path.join(out_dir, _MANIFEST_NAME),
+                           integrity=out["integrity"])
         return out
 
     def reader(self, out_dir):

@@ -231,7 +231,7 @@ class ShardWriter:
     def write_indexes(self, fingerprint, seed, extra=None):
         """The per-shard JSON indexes (atomic write; idempotent — the
         content is a pure function of the spec)."""
-        from ..io.export import _atomic_write_json
+        from ..runtime.journal import atomic_write_json
 
         for s in range(self.n_shards):
             body = {
@@ -251,7 +251,7 @@ class ShardWriter:
             }
             if extra:
                 body.update(extra)
-            _atomic_write_json(index_path(self.out_dir, s), body, indent=1)
+            atomic_write_json(index_path(self.out_dir, s), body, indent=1)
 
     def close(self):
         for fd in self._fds.values():

@@ -59,6 +59,8 @@ import pickle
 import numpy as np
 
 from ..runtime.faults import crash_process, should_fire
+from ..runtime.journal import (EXPORT_MANIFEST_NAME, file_sha, load_manifest,
+                               write_manifest)
 from ..runtime.retry import RetriesExhausted, RetryPolicy, call_with_retry
 from ..utils.quantity import make_quant
 from .fits import FitsFile
@@ -66,8 +68,6 @@ from .psrfits import PSRFITS
 
 __all__ = ["export_ensemble_psrfits", "ExportManifestError",
            "pod_export_follower"]
-
-_MANIFEST_NAME = "export_manifest.json"
 
 # operator-facing hints for manifest fingerprint fields: a mismatch on a
 # content hash usually means a stale out_dir from an older run; a mismatch
@@ -405,16 +405,6 @@ class _FastObsWriter:
         return (pre, sub, post, pad)
 
 
-def _file_sha(path):
-    """Streaming sha256 of a finished output file (the manifest/verify
-    fingerprint of crash-safe resume)."""
-    h = hashlib.sha256()
-    with open(path, "rb") as f:
-        for block in iter(lambda: f.read(1 << 20), b""):
-            h.update(block)
-    return h.hexdigest()
-
-
 def _write_obs(state, path, triple, dm):
     """Write ONE observation (serial and worker paths): fast prototype
     writer once primed, full pipeline otherwise.  Returns the file's
@@ -426,7 +416,7 @@ def _write_obs(state, path, triple, dm):
         writer = state["_fast_writer"] = _FastObsWriter(state)
     sha = writer.write(path, triple, dm)
     if state.get("hash_files"):
-        return sha if sha is not None else _file_sha(path)
+        return sha if sha is not None else file_sha(path)
     return None
 
 
@@ -952,36 +942,6 @@ def _manifest_fingerprint(n_obs, seed, dms, noise_norms, tmpl, parfile,
     return fp
 
 
-def _load_manifest(out_dir):
-    """The manifest dict, or None when absent/unreadable (a truncated
-    manifest from a crash mid-rewrite must not kill the resume — the
-    journal and file hashes are the durable record)."""
-    path = os.path.join(out_dir, _MANIFEST_NAME)
-    try:
-        with open(path) as f:
-            return json.load(f)
-    except (FileNotFoundError, json.JSONDecodeError):
-        return None
-
-
-def _atomic_write_json(path, obj, indent=None):
-    """THE crash-safe JSON write: temp + fsync + rename, Orbax-style —
-    a crash leaves either the old file or the new one, never a truncated
-    hybrid.  Manifest and supervisor cursor both write through here so
-    the durability contract lives in one place."""
-    tmp = path + ".tmp"
-    with open(tmp, "w") as f:
-        json.dump(obj, f, indent=indent)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
-
-
-def _write_manifest(out_dir, manifest):
-    _atomic_write_json(os.path.join(out_dir, _MANIFEST_NAME), manifest,
-                       indent=1)
-
-
 def _check_manifest(out_dir, fp, resume):
     """Write the manifest on first use; on resume, refuse a mismatch
     (resume keyed on file existence alone would silently keep stale files
@@ -995,8 +955,8 @@ def _check_manifest(out_dir, fp, resume):
     with no readable fingerprint there is no way to prove the out_dir
     holds this ensemble, and trusting existing files anyway is exactly
     the silent-mixing bug the manifest exists to prevent."""
-    path = os.path.join(out_dir, _MANIFEST_NAME)
-    old = _load_manifest(out_dir)
+    path = os.path.join(out_dir, EXPORT_MANIFEST_NAME)
+    old = load_manifest(out_dir)
     if old is None and resume and os.path.exists(path):
         raise RuntimeError(
             f"manifest {path} exists but is unreadable; cannot prove the "
@@ -1014,7 +974,7 @@ def _check_manifest(out_dir, fp, resume):
                 raise ExportManifestError(out_dir, mismatches)
             extras = {k: v for k, v in old.items() if k not in fp}
             merged = {**extras, **fp}
-    _write_manifest(out_dir, merged)
+    write_manifest(out_dir, merged)
 
 
 def _export_paths(out_dir, n_obs, obs_per_file, packer):
@@ -1334,6 +1294,7 @@ def export_ensemble_psrfits(ens, n_obs, out_dir, template, pulsar,
         list of the output file paths (length ``ceil(n_obs/obs_per_file)``).
     """
     from ..runtime.dist import is_leader as _pod_leader, is_pod as _pod
+    from ..runtime.integrity import refuse_on_pod, resolve_integrity
     from ..runtime.telemetry import StageTimers
 
     if _pod() and not _pod_leader():
@@ -1351,11 +1312,7 @@ def export_ensemble_psrfits(ens, n_obs, out_dir, template, pulsar,
             "pod exports must be supervised: use "
             "psrsigsim_torch.runtime.supervised_export (the follower "
             "mirror assumes the supervised leader's chunk sequence)")
-    if _pod() and integrity is not None:
-        raise RuntimeError(
-            "integrity checking is not supported on a pod mesh yet "
-            "(duplicate-execution audits break host lockstep); export "
-            "integrity-armed runs single-host")
+    refuse_on_pod(integrity is not None, "exports")
     pipeline_depth = int(pipeline_depth)
     if pipeline_depth < 0:
         raise ValueError("pipeline_depth must be >= 0")
@@ -1390,8 +1347,6 @@ def export_ensemble_psrfits(ens, n_obs, out_dir, template, pulsar,
         obs_per_file, scenario=getattr(ens, "scenario", None),
         scenario_params=scenario_params)
     _check_manifest(out_dir, fp, resume)
-    from ..runtime.integrity import resolve_integrity
-
     checker = resolve_integrity(
         integrity,
         fingerprint=hashlib.sha256(
@@ -1410,9 +1365,9 @@ def export_ensemble_psrfits(ens, n_obs, out_dir, template, pulsar,
             raise ValueError(
                 f"manifest_extra keys {sorted(clash)} collide with "
                 "fingerprint fields")
-        man = _load_manifest(out_dir) or dict(fp)
+        man = load_manifest(out_dir) or dict(fp)
         man.update(manifest_extra)
-        _write_manifest(out_dir, man)
+        write_manifest(out_dir, man)
 
     if writers is None:
         writers = min(8, os.cpu_count() or 1)
@@ -1660,7 +1615,7 @@ def export_ensemble_psrfits(ens, n_obs, out_dir, template, pulsar,
     ran = any(snap[f"{s}_calls"] for s in ("dispatch", "fetch", "encode",
                                            "write"))
     if ran or checker is not None:
-        man = _load_manifest(out_dir)
+        man = load_manifest(out_dir)
         if man is not None:
             if ran:
                 man["pipeline"] = {"depth": pipeline_depth,
@@ -1671,7 +1626,7 @@ def export_ensemble_psrfits(ens, n_obs, out_dir, template, pulsar,
                 # record: whether the lattice/audit ever fired and whether
                 # this host's device is SDC-suspect
                 man["integrity"] = checker.stats()
-            _write_manifest(out_dir, man)
+            write_manifest(out_dir, man)
     return paths
 
 
@@ -1683,88 +1638,44 @@ def _host(t):
 def _integrity_check_chunk(ens, checker, supervisor, start, chunk_size,
                            n_obs, seed, dms, noise_norms, scenario_params,
                            data, scl, offs, dig_dev):
-    """One chunk through the integrity lattice + audit (the export
-    producer's wiring of :mod:`psrsigsim_torch.runtime.integrity`).
-
-    Layer 1: recompute the per-observation digest from the FETCHED triple
-    and compare against the device's claim — a mismatch is corruption in
-    the fetch->encode window.  Layer 2: for the deterministic
-    ``audit_frac`` sample of chunks, re-run the SAME chunk (same width,
-    same indices — bit-identical by the chunk-invariance contract) and
-    compare claims.  Any disagreement heals through verified
-    re-execution: two independent executions must agree with each other
-    and with their own host re-digest; the agreed bytes replace the chunk
-    (byte-identical to a clean run — healing never re-draws), the event
-    lands in the run journal, and a disagreement that survives
-    re-execution raises :class:`~psrsigsim_torch.runtime.IntegrityError`
-    (permanent — fail fast with the evidence).
-
-    Returns the (possibly healed) ``(data, scl, offs)``."""
+    """One chunk through the integrity verdict
+    (:meth:`~psrsigsim_torch.runtime.IntegrityChecker.verify_chunk`): the
+    lattice over the FETCHED triple, and for sampled chunks a duplicate
+    execution of the SAME chunk (same width, same indices — bit-identical
+    by the chunk-invariance contract).  A healed chunk's event lands in
+    the run journal.  Returns the (possibly healed) ``(data, scl,
+    offs)``."""
     from ..runtime.integrity import triple_digest_rows
 
     count = data.shape[0]
-    dig_dev = np.asarray(dig_dev, np.uint32)[:count]
     # host.corrupt arm (tests): flip a fetched value right where the
     # exporter would encode it
     data = checker.corrupt_host(data, ident=start)
-    host_dig = triple_digest_rows(data, scl, offs)
-    bad_rows = checker.check_rows(dig_dev, host_dig, ident=start,
-                                  producer="export")
-    audit = checker.audit_chunk(start)
-    if not bad_rows and not audit:
-        return data, scl, offs
-
     # re-run at the EXACT width and index content of the main pass —
     # identical rows, so digests are comparable bit for bit (a mesh pads
     # the chunk to its obs shards, as iter_chunks does)
     eff = ens.mesh.padded(min(int(chunk_size), int(n_obs)))
     idx = (start + np.arange(eff)) % n_obs
 
-    def _reexec(audit_run):
-        return ens.run_quantized_at(
+    def _reexec(audit):
+        out = ens.run_quantized_at(
             idx, seed=seed, dms=dms, noise_norms=noise_norms,
             byte_order="big", scenario_params=scenario_params,
-            audit=audit_run, return_digest=True)
+            audit=audit, return_digest=True)
+        return lambda: tuple(_host(t) for t in out[:3]), _host(out[-1])
 
-    out_a = None
-    if not bad_rows:
-        # audit-only path: ONE duplicate execution; matching claims mean
-        # the device reproduced itself and the original bytes stand
-        out_a = _reexec(True)
-        dig_a = _host(out_a[-1]).view(np.uint32)[:count]
-        mism = [int(j) for j in np.nonzero(dig_a != dig_dev)[0]]
-        checker.note_audit(mism)
-        if not mism:
-            return data, scl, offs
-
-    evidence = {"producer": "export", "start": int(start),
-                "lattice_rows": [int(j) for j in bad_rows],
-                "device_digests": [int(v) for v in dig_dev]}
-
-    def reexecute():
-        a = out_a if out_a is not None else _reexec(True)
-        b = _reexec(False)
-        return (_host(a[0]), _host(a[1]), _host(a[2]),
-                _host(a[-1]).view(np.uint32), _host(b[-1]).view(np.uint32))
-
-    def verify(res):
-        da, sa, oa, dig_a, dig_b = res
-        # two independent executions must agree with each other AND with
-        # the host re-digest of the bytes we are about to adopt
-        return (np.array_equal(dig_a, dig_b)
-                and np.array_equal(triple_digest_rows(da, sa, oa), dig_a))
-
-    da, sa, oa, dig_a, _ = checker.heal_verified(
-        reexecute, verify, producer="export", ident=start,
-        evidence=evidence)
-    sdc_rows = [int(j) for j in np.nonzero(dig_a[:count] != dig_dev)[0]]
-    if sdc_rows and bad_rows:
-        checker.note_audit(sdc_rows)   # the audit-only path counted its own
-    supervisor.record_integrity(
-        "audit" if sdc_rows else "checksum", start,
-        obs=[start + j for j in (sdc_rows or bad_rows)], healed=True,
-        detail={"lattice_rows": len(bad_rows), "sdc_rows": len(sdc_rows)})
-    return da[:count], sa[:count], oa[:count]
+    (data, scl, offs), _, event = checker.verify_chunk(
+        dig_dev, (data, scl, offs), lambda a: triple_digest_rows(*a),
+        _reexec, producer="export", ident=start, rows=count,
+        evidence={"start": int(start), "device_digests": [
+            int(v) for v in np.asarray(dig_dev, np.uint32)[:count]]})
+    if event is not None:
+        kind, rows, lattice = event
+        supervisor.record_integrity(
+            kind, start, obs=[start + j for j in rows], healed=True,
+            detail={"lattice_rows": len(lattice),
+                    "sdc_rows": len(rows) if kind == "audit" else 0})
+    return data[:count], scl[:count], offs[:count]
 
 
 def _retry_quarantined(ens, supervisor, state, packer, paths, bad_obs,

@@ -192,7 +192,7 @@ class StudyResult:
         fingerprint.  The fingerprinted files carry NO wall-clock state,
         so an interrupted-and-resumed sweep reproduces them byte for
         byte."""
-        from ..io.export import _atomic_write_json
+        from ..runtime.journal import atomic_write_json
 
         os.makedirs(out_dir, exist_ok=True)
         blob = (json.dumps(self.summary(), sort_keys=True, indent=1)
@@ -236,7 +236,7 @@ class StudyResult:
             # sweep's durable bottleneck record (same rule as the export
             # manifest's pipeline key)
             man["pipeline"] = self.telemetry
-        _atomic_write_json(man_path, man, indent=1)
+        atomic_write_json(man_path, man, indent=1)
         return self.fingerprint
 
     @classmethod

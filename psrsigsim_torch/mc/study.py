@@ -457,7 +457,7 @@ class MonteCarloStudy:
 
     @staticmethod
     def _check_manifest(out_dir, fp, resume):
-        from ..io.export import _atomic_write_json
+        from ..runtime.journal import atomic_write_json
 
         path = os.path.join(out_dir, _MANIFEST_NAME)
         old = None
@@ -479,7 +479,7 @@ class MonteCarloStudy:
             merged = {**{k: v for k, v in old.items() if k not in fp}, **fp}
         else:
             merged = dict(fp)
-        _atomic_write_json(path, merged, indent=1)
+        atomic_write_json(path, merged, indent=1)
 
     # -- the sweep ---------------------------------------------------------
 
@@ -523,10 +523,12 @@ class MonteCarloStudy:
         """
         import time as _time
 
-        from ..runtime.faults import crash_process
+        from ..runtime.dist import is_leader
         from ..runtime.integrity import (device_digest_rows, digest_rows,
-                                         maybe_bitrot, resolve_integrity)
-        from ..runtime.supervisor import load_chunk_journal
+                                         maybe_bitrot, refuse_on_pod,
+                                         resolve_integrity)
+        from ..runtime.journal import (ChunkJournal, load_chunk_journal,
+                                       remove_files, stamp_manifest)
         from ..runtime.telemetry import StageTimers
         from .results import StudyResult
 
@@ -546,16 +548,7 @@ class MonteCarloStudy:
         checker = resolve_integrity(
             integrity, fingerprint=self._fingerprint_digest(n_trials),
             faults=faults)
-        from ..runtime.dist import is_leader, is_pod
-
-        if checker is not None and is_pod():
-            # the audit and the heal re-run a chunk on the detecting
-            # process alone, which would desynchronize the pod's exchange:
-            # refuse loudly instead of hanging
-            raise RuntimeError(
-                "integrity checking is not supported on a pod mesh yet "
-                "(duplicate-execution audits break host lockstep); run "
-                "integrity-armed sweeps single-host")
+        refuse_on_pod(checker is not None, "sweeps")
         # under a pod every process computes the FULL result (the exchange
         # gives each the whole chunk), but exactly one owns the durable
         # side effects: manifest, journal, raw rows, cursor, artifact.
@@ -569,7 +562,7 @@ class MonteCarloStudy:
         mn_tot = np.full(M, np.inf, np.float32)
         mx_tot = np.full(M, -np.inf, np.float32)
 
-        journal_f = raw_fd = None
+        journal = raw_fd = None
         done = {}
         if out_dir is not None:
             os.makedirs(out_dir, exist_ok=True)
@@ -580,13 +573,10 @@ class MonteCarloStudy:
                 self._check_manifest(out_dir, self.fingerprint(n_trials),
                                      resume)
                 if not resume:
-                    for path in (journal_path, cursor_path, raw_path):
-                        try:
-                            os.unlink(path)
-                        except FileNotFoundError:
-                            pass
+                    remove_files(journal_path, cursor_path, raw_path)
                 raw_fd = os.open(raw_path, os.O_RDWR | os.O_CREAT, 0o644)
-                journal_f = open(journal_path, "a")
+                journal = ChunkJournal(journal_path, cursor_path,
+                                       faults=faults)
             elif resume and os.path.exists(raw_path):
                 # a follower reads the leader's rows, never writes them
                 raw_fd = os.open(raw_path, os.O_RDONLY)
@@ -640,13 +630,11 @@ class MonteCarloStudy:
             atomic cursor — a SIGKILL leaves either a committed record or
             none."""
             nonlocal commits
-            if journal_f is None:
+            commits += 1
+            if journal is None:
                 # an in-memory run, or a pod follower (the leader owns the
                 # durable record)
-                commits += 1
                 return
-            from ..io.export import _atomic_write_json
-
             t0 = _time.perf_counter()
             blob = rows.tobytes()
             os.pwrite(raw_fd, blob, start * M * 4)
@@ -661,25 +649,14 @@ class MonteCarloStudy:
                 # commit ran
                 rec["dig"] = int(np.bitwise_xor.reduce(
                     np.asarray(dig, np.uint32)[:count]))
-            journal_f.write(json.dumps(rec, sort_keys=True) + "\n")
-            journal_f.flush()
-            os.fsync(journal_f.fileno())
-            commits += 1
-            _atomic_write_json(cursor_path, {
-                "commits": commits, "journal_bytes": journal_f.tell()})
+            journal.commit(rec)
             telemetry.add("write", _time.perf_counter() - t0)
-            if faults is not None:
-                # disk.bitrot: decay THIS chunk's freshly journaled rows
-                # (tests) — found by scrub_mc_dir / the sha-verifying
-                # resume, never served as good
-                maybe_bitrot(faults, raw_path, token=f"start={start}",
-                             offset=start * M * 4)
-                cfg = faults.config("mc.kill")
-                if cfg is not None:
-                    after = cfg.get("after_start")
-                    if after is None or after == start:
-                        if faults.fire("mc.kill", token=f"start={start}"):
-                            crash_process()
+            # disk.bitrot: decay THIS chunk's freshly journaled rows
+            # (tests) — found by scrub_mc_dir / the sha-verifying resume,
+            # never served as good
+            maybe_bitrot(faults, raw_path, token=f"start={start}",
+                         offset=start * M * 4)
+            journal.maybe_kill("mc.kill", start)
 
         def _dispatch(start, count):
             """Launch one chunk: its device tensors and, on the card, the
@@ -703,63 +680,28 @@ class MonteCarloStudy:
             return tuple(t.cpu().numpy() for t in dev)
 
         def _integrity_verify(s0, c0, host):
-            """Lattice check + sampled duplicate-execution audit of one
-            fetched chunk; returns the (possibly healed) host tuple
-            ``(metrics, hist, mn, mx)`` and the trusted device digest."""
+            """The verdict on one fetched chunk (checksum lattice +
+            sampled duplicate execution); returns the (possibly healed)
+            host tuple ``(metrics, hist, mn, mx)`` and the trusted device
+            digest."""
             metrics, hist, mn, mx, dig_dev = host
-            dig_dev = np.asarray(dig_dev, np.uint32)
             metrics = checker.corrupt_host(metrics, ident=s0)
-            host_dig = digest_rows(np.ascontiguousarray(metrics))
-            bad = checker.check_rows(dig_dev[:c0], host_dig[:c0], ident=s0,
-                                     producer="mc")
-            audit = checker.audit_chunk(s0)
-            if not bad and not audit:
-                return (metrics, hist, mn, mx), dig_dev
 
-            def _reexec():
+            def _reexec(audit):
                 out = self._chunk_program(s0, n_trials, width, c0)
-                return out, device_digest_rows(out[0])
+                return (lambda: _host(out),
+                        device_digest_rows(out[0]).cpu().numpy())
 
-            out_a = None
-            if not bad:
-                out_a = _reexec()
-                dig_a = out_a[1].cpu().numpy().astype(np.uint32)
-                mism = [int(j) for j in
-                        np.nonzero(dig_a[:c0] != dig_dev[:c0])[0]]
-                checker.note_audit(mism)
-                if not mism:
-                    return (metrics, hist, mn, mx), dig_dev
-
-            evidence = {"producer": "mc", "start": int(s0),
-                        "lattice_rows": [int(j) for j in bad]}
-
-            def reexecute():
-                a = out_a if out_a is not None else _reexec()
-                b = _reexec()
-                return (_host(a[0]), a[1].cpu().numpy().astype(np.uint32),
-                        b[1].cpu().numpy().astype(np.uint32))
-
-            def verify(res):
-                fetched, dig_a, dig_b = res
-                return (np.array_equal(dig_a, dig_b) and np.array_equal(
-                    digest_rows(np.ascontiguousarray(fetched[0])), dig_a))
-
-            fetched, dig_a, _ = checker.heal_verified(
-                reexecute, verify, producer="mc", ident=s0,
-                evidence=evidence)
-            sdc_rows = [int(j) for j in
-                        np.nonzero(dig_a[:c0] != dig_dev[:c0])[0]]
-            if sdc_rows and bad:
-                checker.note_audit(sdc_rows)
-            if journal_f is not None:
-                rec = {"e": "integrity",
-                       "kind": "audit" if sdc_rows else "checksum",
-                       "start": int(s0), "healed": True,
-                       "rows": sdc_rows or [int(j) for j in bad]}
-                journal_f.write(json.dumps(rec, sort_keys=True) + "\n")
-                journal_f.flush()
-                os.fsync(journal_f.fileno())
-            return tuple(fetched), dig_a
+            fetched, dig, event = checker.verify_chunk(
+                dig_dev, (metrics, hist, mn, mx),
+                lambda a: digest_rows(np.ascontiguousarray(a[0])), _reexec,
+                producer="mc", ident=s0, rows=c0,
+                evidence={"start": int(s0)})
+            if event is not None and journal is not None:
+                journal.append({"e": "integrity", "kind": event[0],
+                                "start": int(s0), "healed": True,
+                                "rows": event[1]})
+            return tuple(fetched), dig
 
         def _fetch(start, dev, ready):
             """The chunk on the host.  ``fetch.wait`` is the wait for this
@@ -815,24 +757,15 @@ class MonteCarloStudy:
                 if stopped:
                     return None
         finally:
-            if journal_f is not None:
-                journal_f.close()
+            if journal is not None:
+                journal.close()
             if raw_fd is not None:
                 os.close(raw_fd)
 
         if checker is not None and out_dir is not None:
             # the sweep's integrity verdict joins the durable record
-            from ..io.export import _atomic_write_json
-
-            man_path = os.path.join(out_dir, _MANIFEST_NAME)
-            try:
-                with open(man_path) as f:
-                    man = json.load(f)
-            except (OSError, json.JSONDecodeError):
-                man = None
-            if man is not None:
-                man["integrity"] = checker.stats()
-                _atomic_write_json(man_path, man, indent=1)
+            stamp_manifest(os.path.join(out_dir, _MANIFEST_NAME),
+                           integrity=checker.stats())
 
         telemetry.gauge("pod_leader", int(lead))
         result = StudyResult(

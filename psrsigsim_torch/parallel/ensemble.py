@@ -27,6 +27,7 @@ import torch
 
 from ..ops.quantize import quantize_packed
 from ..ops.stats import CHI2_WH_MIN_DF, sampler_backend
+from ..runtime.integrity import refuse_on_pod
 from ..runtime.telemetry import span
 from ..scenarios.registry import _param, parse_stack, scenario_rows
 from ..simulate.pipeline import (_fold_pipeline_hetero, build_fold_config,
@@ -240,16 +241,6 @@ class FoldEnsemble:
         return self._slabs.run(
             lambda k, dn, r, p, f, c: fn(k, *dn, r, p, f, c),
             keys, (dms, norms), rows, dims, self.device)
-
-    def _single_host_integrity(self, armed):
-        """The integrity layer's audits and heals re-run a chunk on the
-        detecting process alone, which would break a pod's lockstep: a
-        pod mesh refuses them (the reference's rule)."""
-        if armed and self.mesh.spans_processes:
-            raise RuntimeError(
-                "integrity checking is not supported on a pod mesh yet "
-                "(duplicate-execution audits break host lockstep); run "
-                "integrity-armed work single-host")
 
     @staticmethod
     def _validate_per_obs(n_obs, dms, noise_norms):
@@ -481,7 +472,8 @@ class FoldEnsemble:
         if byte_order not in ("little", "big"):
             raise ValueError("byte_order must be 'little' or 'big'")
         self._require_rfi(return_rfi, "return_rfi")
-        self._single_host_integrity(audit or return_digest)
+        refuse_on_pod(audit or return_digest, "work",
+                      pod=self.mesh.spans_processes)
         # names only: per-observation arrays here are the PARENT run's
         # full arrays (indexed by global ids), so their length is not
         # ours to check
@@ -600,7 +592,8 @@ class FoldEnsemble:
         if integrity is not None and not quantized:
             raise ValueError("integrity requires quantized=True (the "
                              "checksum lattice rides the packed transport)")
-        self._single_host_integrity(integrity is not None)
+        refuse_on_pod(integrity is not None, "work",
+                      pod=self.mesh.spans_processes)
         self._require_rfi(rfi_mask, "rfi_mask")
         self._validate_per_obs(n_obs, dms, noise_norms)
         self._validate_scenario_params(n_obs, scenario_params)

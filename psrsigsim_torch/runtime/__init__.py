@@ -7,10 +7,17 @@
   salted retry, and an append-only chunk journal + atomic cursor; and
   :class:`ProcessSupervisor`, the serving fleet's spawn/watch/restart
   loop around one replica process.
+- :mod:`~psrsigsim_torch.runtime.journal` — the durable record every
+  chunked producer (export, study, dataset factory) writes through:
+  crash-safe JSON, the export manifest, file hashes, and the append-only
+  :class:`~psrsigsim_torch.runtime.journal.ChunkJournal` with its atomic
+  cursor and ``*.kill`` fault points, plus the one torn-tail loader.
 - :mod:`~psrsigsim_torch.runtime.integrity` — the silent-corruption
-  defense of the export: the checksum lattice (per-observation digests
-  computed on the card by the packed-digest kernel and re-checked on the
-  host), duplicate-execution audits and the scrub of committed files.
+  defense: the checksum lattice (per-row digests computed on the card
+  and re-checked on the host), duplicate-execution audits, the one
+  per-chunk verdict every producer runs
+  (:meth:`IntegrityChecker.verify_chunk`) and the scrub of committed
+  files.
 - :mod:`~psrsigsim_torch.runtime.telemetry` — per-stage timers for the
   streaming export pipeline (dispatch/fetch/encode/write, queue depths,
   bytes), accumulated into the export manifest.
@@ -48,11 +55,11 @@ from .faults import FaultPlan
 from .integrity import (IntegrityChecker, IntegrityError,
                         resolve_integrity, scrub_dataset_dir,
                         scrub_export_dir, scrub_mc_dir)
+from .journal import load_chunk_journal, load_journal_records
 from .programs import (ProgramRegistry, enable_compilation_cache,
                        global_registry)
 from .retry import RetriesExhausted, RetryPolicy, call_with_retry
 from .supervisor import (ProcessSupervisor, RunResult, RunSupervisor,
-                         load_chunk_journal, load_journal_records,
                          supervised_export)
 from .telemetry import StageTimers
 

@@ -63,10 +63,12 @@ import threading
 
 import numpy as np
 
+from .journal import file_sha, load_chunk_journal, load_manifest
 from .retry import RetryPolicy, call_with_retry
 
 __all__ = [
     "IntegrityChecker", "IntegrityError", "resolve_integrity",
+    "refuse_on_pod",
     "digest_rows", "digest_array", "device_digest_rows",
     "device_packed_digest_rows", "fields_digest_rows_host",
     "device_fields_digest_rows",
@@ -463,6 +465,74 @@ class IntegrityChecker:
             self.sdc_suspect = True
         raise IntegrityError(message, evidence)
 
+    def verify_chunk(self, dig_dev, host, host_digest, reexec, *, producer,
+                     ident, rows=None, evidence=None):
+        """THE per-chunk verdict every producer runs on a fetched chunk.
+
+        ``dig_dev`` holds the device's per-row digests of ``host`` (the
+        fetched host arrays, after the producer's ``host.corrupt`` arm);
+        ``host_digest(arrays)`` re-digests arrays on the host;
+        ``reexec(audit)`` runs the chunk again (``audit`` True for the
+        duplicate execution, False for the heal's independent second run)
+        and returns ``(fetch, digests)``: its device digests on the host
+        and a callable that fetches its host arrays, called only for the
+        run whose arrays are adopted.  Only the first ``rows`` rows count
+        (all when None; the rest pad the chunk), and ``ident`` keys the
+        audit sample.
+
+        1. the lattice: host re-digest against the device's claim;
+        2. a sampled chunk with a clean lattice runs once more, and a
+           duplicate that reproduces the claim lets the chunk stand;
+        3. otherwise two executions that agree with each other and with
+           their own host re-digest replace the chunk
+           (:meth:`heal_verified`; one that cannot is permanent).
+
+        Returns ``(arrays, digests, event)``: the arrays to adopt, the
+        digests they are trusted under, and None or the healed event
+        ``(kind, rows, lattice_rows)`` — ``kind`` ``"checksum"`` for a
+        fetch-window corruption, ``"audit"`` for a device that disagreed
+        with its re-execution; ``rows`` the chunk rows at fault; and
+        ``lattice_rows`` those the lattice flagged.
+        """
+        dig_dev = np.asarray(dig_dev, np.uint32)
+        bad = self.check_rows(dig_dev[:rows], host_digest(host)[:rows],
+                              ident=ident, producer=producer)
+        if not bad and not self.audit_chunk(ident):
+            return host, dig_dev, None
+
+        def _run(audit):
+            fetch, dig = reexec(audit)
+            return fetch, np.asarray(dig, np.uint32)
+
+        first = None
+        if not bad:
+            first = _run(True)
+            mism = [int(j) for j in
+                    np.nonzero(first[1][:rows] != dig_dev[:rows])[0]]
+            self.note_audit(mism)
+            if not mism:
+                return host, dig_dev, None
+
+        def reexecute():
+            a = first if first is not None else _run(True)
+            b = _run(False)
+            return a[0](), a[1], b[1]
+
+        def verify(res):
+            arrays, dig_a, dig_b = res
+            return (np.array_equal(dig_a, dig_b)
+                    and np.array_equal(host_digest(arrays), dig_a))
+
+        arrays, dig_a, _ = self.heal_verified(
+            reexecute, verify, producer=producer, ident=ident,
+            evidence={"producer": producer, **(evidence or {}),
+                      "lattice_rows": bad})
+        sdc = [int(j) for j in np.nonzero(dig_a[:rows] != dig_dev[:rows])[0]]
+        if sdc and bad:
+            self.note_audit(sdc)   # the audit-only path counted its own
+        return arrays, dig_a, ("audit" if sdc else "checksum", sdc or bad,
+                               bad)
+
     def heal_verified(self, reexecute, verify, *, producer, ident,
                       evidence=None):
         """Run ``reexecute()`` and require ``verify(result) -> True`` —
@@ -507,6 +577,24 @@ class IntegrityChecker:
                 f"sdc_suspect={self.sdc_suspect})")
 
 
+def refuse_on_pod(armed, work, pod=None):
+    """The integrity layer's audits and heals re-run a chunk on the
+    detecting process alone, which would break a pod's host lockstep: an
+    ``armed`` run on a pod (``pod``; by default whether this process is in
+    one) refuses loudly instead of hanging."""
+    if not armed:
+        return
+    if pod is None:
+        from .dist import is_pod
+
+        pod = is_pod()
+    if pod:
+        raise RuntimeError(
+            "integrity checking is not supported on a pod yet "
+            "(duplicate-execution audits break host lockstep); run "
+            f"integrity-armed {work} single-host")
+
+
 def resolve_integrity(integrity, fingerprint="", faults=None):
     """The one arming rule.
 
@@ -543,14 +631,6 @@ def resolve_integrity(integrity, fingerprint="", faults=None):
 # ---------------------------------------------------------------------------
 
 
-def _file_sha256(path):
-    h = hashlib.sha256()
-    with open(path, "rb") as f:
-        for block in iter(lambda: f.read(1 << 20), b""):
-            h.update(block)
-    return h.hexdigest()
-
-
 class DirScrubber:
     """Incremental scrubber over a ``{basename: sha256}`` record (an
     export manifest's ``files`` map): :meth:`step` re-hashes a bounded
@@ -582,7 +662,7 @@ class DirScrubber:
             self._pos += 1
             path = os.path.join(self.out_dir, name)
             try:
-                ok = _file_sha256(path) == self.hashes[name]
+                ok = file_sha(path) == self.hashes[name]
             except OSError:
                 continue   # missing: resume already treats it as undone
             if ok:
@@ -614,9 +694,7 @@ def scrub_export_dir(out_dir, quarantine=True):
     ``supervised_export(..., resume=True)`` re-runs exactly those
     observations — detection here, heal on resume, bytes identical to a
     never-rotted run."""
-    from ..io.export import _load_manifest
-
-    man = _load_manifest(out_dir) or {}
+    man = load_manifest(out_dir) or {}
     return DirScrubber(out_dir, man.get("files", {}),
                        quarantine=quarantine).run_all()
 
@@ -630,7 +708,6 @@ def scrub_mc_dir(out_dir):
     import json
 
     from ..mc import study as _study
-    from .supervisor import load_chunk_journal
 
     journal = os.path.join(out_dir, _study._JOURNAL_NAME)
     raw = os.path.join(out_dir, _study._TRIALS_RAW)
@@ -665,7 +742,6 @@ def scrub_dataset_dir(out_dir):
     journaled chunks from the shard bytes and recomputes any that fail."""
     from ..datasets import factory as _factory
     from ..datasets.writer import DatasetReader
-    from .supervisor import load_chunk_journal
 
     done = load_chunk_journal(os.path.join(out_dir, _factory._JOURNAL_NAME))
     if not os.path.exists(os.path.join(out_dir, _factory._MANIFEST_NAME)):

@@ -15,7 +15,8 @@ its environment:
   torn disk or a truncated file from a previous crash is re-written, not
   silently shipped.
 - **Chunk journal + atomic cursor** — one fsync'd journal line per
-  committed chunk (files + hashes) and a temp+rename cursor file.  A
+  committed chunk (files + hashes) and a temp+rename cursor file
+  (:class:`~psrsigsim_torch.runtime.journal.ChunkJournal`).  A
   SIGKILL at ANY point leaves either a committed record or none; the
   resume path re-derives everything else from hashes, so output is
   bit-identical to an uninterrupted run.
@@ -45,7 +46,6 @@ ensembles built with an RFI scenario).
 
 from __future__ import annotations
 
-import json
 import os
 import signal
 import subprocess
@@ -54,96 +54,24 @@ import time
 
 import numpy as np
 
-from .faults import crash_process
+from .journal import (RUN_JOURNAL_NAME, ChunkJournal, file_sha,
+                      load_chunk_journal, load_journal_records,
+                      load_manifest, load_resume_hashes, remove_files,
+                      write_manifest)
 from .retry import RetryPolicy
 
+# the journal loaders (runtime/journal.py) are re-exported for callers
+# that import them from here
 __all__ = ["RunSupervisor", "RunResult", "supervised_export",
            "ProcessSupervisor", "load_chunk_journal",
            "load_journal_records"]
 
-_JOURNAL_NAME = "run_journal.jsonl"
 _CURSOR_NAME = "run_cursor.json"
 
 # folded into a quarantined observation's key for its single re-run: any
 # fixed nonzero constant works; it only has to differ from the epoch
 # folds (small ints) other derivations use
 RETRY_FOLD_SALT = 0x7E7247
-
-
-def load_journal_records(path, truncate=True):
-    """Every valid complete record of an append-only fsync'd journal,
-    in order, plus the byte length of the journal's valid prefix.
-
-    THE shared torn-tail rule of every journal (the JAX package's
-    Monte-Carlo, dataset and serving journals follow it too; the port
-    has the export supervisor's so far): a crash can leave at most
-    one torn final line, which is skipped AND — when ``truncate`` —
-    truncated away: appending a later run's records after a
-    newline-less fragment would weld two records into one permanently
-    unparseable line, silently discarding every later commit on the
-    NEXT load.  Truncating costs at most one chunk's recompute.
-
-    Returns ``(records, valid_end)``; a missing journal is ``([], 0)``.
-    Callers doing open-time replay must hold whatever cross-process
-    lock guards their journal (no writer may be mid-append while the
-    tail is truncated) — the run journal is single-writer by
-    construction.
-    """
-    records = []
-    valid_end = 0
-    try:
-        with open(path, "rb") as f:
-            for line in f:
-                if not line.endswith(b"\n"):
-                    break  # torn mid-write: unsafe to append after
-                try:
-                    rec = json.loads(line)
-                except json.JSONDecodeError:
-                    break
-                valid_end += len(line)
-                records.append(rec)
-    except FileNotFoundError:
-        return records, 0
-    if truncate and valid_end < os.path.getsize(path):
-        with open(path, "rb+") as f:
-            f.truncate(valid_end)
-    return records, valid_end
-
-
-def load_chunk_journal(path, event="chunk", key="start", truncate=True):
-    """Valid committed-chunk records of an append-only fsync'd journal,
-    keyed by ``int(rec[key])`` for records whose ``"e"`` equals
-    ``event`` — the chunked-run view over
-    :func:`load_journal_records` (one torn-tail rule in the repo).  A pod
-    follower passes ``truncate=False``: the live leader owns the file."""
-    records, _ = load_journal_records(path, truncate=truncate)
-    return {int(rec[key]): rec for rec in records if rec.get("e") == event}
-
-
-def load_resume_hashes(out_dir, journal_path=None, truncate=True):
-    """The basename -> sha256 map hash-verified resume checks committed
-    export files against, rebuilt from the manifest plus the journal's
-    commit records.  Returns ``(hashes, records)`` (the raw records so
-    :meth:`RunSupervisor._load_previous` can replay its extra events).
-
-    THE one hash source for resume: the leader's supervisor and the pod
-    follower mirror (:func:`psrsigsim_torch.io.export.pod_export_follower`)
-    both load through here, so their skip decisions derive from the same
-    bytes.  Followers pass ``truncate=False``: the live leader owns the
-    journal file."""
-    from ..io.export import _load_manifest
-
-    hashes = {}
-    man = _load_manifest(out_dir)
-    if man is not None:
-        hashes.update(man.get("files", {}))
-    records, _ = load_journal_records(
-        journal_path or os.path.join(out_dir, _JOURNAL_NAME),
-        truncate=truncate)
-    for rec in records:
-        if rec.get("e") == "commit":
-            hashes.update(rec.get("files", {}))
-    return hashes, records
 
 
 def file_done_check(path, hashes, verify, verified):
@@ -161,10 +89,8 @@ def file_done_check(path, hashes, verify, verified):
     if not verify:
         verified.add(path)
         return True
-    from ..io.export import _file_sha
-
     want = hashes.get(os.path.basename(path))
-    if want is not None and _file_sha(path) == want:
+    if want is not None and file_sha(path) == want:
         verified.add(path)
         return True
     return False
@@ -235,9 +161,9 @@ class RunSupervisor:
         self.faults = faults
         self.retry_enabled = bool(retry)
         self.retry_fold_salt = int(retry_fold_salt)
-        self.journal_path = os.path.join(self.out_dir, _JOURNAL_NAME)
-        self.cursor_path = os.path.join(self.out_dir, _CURSOR_NAME)
-        self._journal_f = None
+        self._journal = ChunkJournal(
+            os.path.join(self.out_dir, RUN_JOURNAL_NAME),
+            os.path.join(self.out_dir, _CURSOR_NAME), faults=faults)
         self._hashes = {}        # basename -> sha256 of committed files
         self._verified = set()   # paths already proven ok THIS run
         self._quarantined = set()  # ever flagged non-finite this run
@@ -246,13 +172,8 @@ class RunSupervisor:
         self._recovered = set()
         self._still_bad = set()
         self._degraded = False
-        self._commits = 0
         if not resume:
-            for p in (self.journal_path, self.cursor_path):
-                try:
-                    os.unlink(p)
-                except FileNotFoundError:
-                    pass
+            remove_files(self._journal.path, self._journal.cursor_path)
         else:
             self._load_previous()
 
@@ -265,7 +186,7 @@ class RunSupervisor:
         crash is skipped and truncated, costing at most one chunk's
         re-verify."""
         hashes, records = load_resume_hashes(self.out_dir,
-                                             self.journal_path)
+                                             self._journal.path)
         self._hashes.update(hashes)
         for rec in records:
             if rec.get("e") in ("rfi", "rfi_retry"):
@@ -321,17 +242,15 @@ class RunSupervisor:
         the event, and return the newly bad global ids."""
         finite = np.asarray(finite)
         bad_rows = np.where(~finite.all(axis=tuple(range(1, finite.ndim))))[0]
-        out = set()
+        recs = []
         for j in bad_rows:
             i = start + int(j)
-            out.add(i)
             self._quarantined.add(i)
-            self._append_journal({
-                "e": "quarantine", "obs": i,
-                "bad_chans": int((~finite[j]).sum())})
-        if out:
-            self._sync_journal()
-        return out
+            recs.append({"e": "quarantine", "obs": i,
+                         "bad_chans": int((~finite[j]).sum())})
+        if recs:
+            self._journal.append(*recs)
+        return {rec["obs"] for rec in recs}
 
     def observe_rfi(self, start, mask):
         """Digest one chunk's ground-truth RFI mask ``(count,
@@ -352,11 +271,10 @@ class RunSupervisor:
             self._rfi_obs[i] = cells
             fresh.append((i, cells))
         if fresh:
-            self._append_journal({
+            self._journal.append({
                 "e": "rfi", "start": int(start),
                 "obs": [i for i, _ in fresh],
                 "cells": [c for _, c in fresh]})
-            self._sync_journal()
 
     def observe_rfi_retry(self, indices, mask):
         """Overwrite the RFI truth for re-folded observations: a healed
@@ -383,11 +301,10 @@ class RunSupervisor:
                 self._rfi_obs[i] = cells
             changed.append((i, cells))
         if changed:
-            self._append_journal({
+            self._journal.append({
                 "e": "rfi_retry",
                 "obs": [i for i, _ in changed],
                 "cells": [c for _, c in changed]})
-            self._sync_journal()
 
     def chunk_committed(self, token, results):
         """A chunk's files are durably on disk: record their hashes in
@@ -400,11 +317,8 @@ class RunSupervisor:
         self._hashes.update(files)
         self._verified.update(p for p, _ in results)
         kind, ident = token[0], token[1]
-        self._append_journal({"e": "commit", "kind": kind, "ident": ident,
+        self._journal.commit({"e": "commit", "kind": kind, "ident": ident,
                               "files": files})
-        self._sync_journal()
-        self._commits += 1
-        self._write_cursor()
         if self.faults is not None:
             # disk.bitrot injection: decay a just-committed file AFTER
             # its sha256 became the durable record — exactly what the
@@ -413,7 +327,13 @@ class RunSupervisor:
 
             for p, _sha in results:
                 maybe_bitrot(self.faults, p)
-        self._maybe_kill(kind, ident)
+        # run.kill: ``after_start`` matches the chunk start (one-obs-per-
+        # file exports) or the group index (packed exports) — a target the
+        # commit stream can never reach must not silently disarm a fault
+        # test by construction, so both token families participate
+        self._journal.maybe_kill(
+            "run.kill", ident,
+            targetable=kind in ("chunk", "group", "groups"))
 
     def record_retry(self, group, retried, still_bad):
         """The retry phase's verdict for one file/group: which
@@ -421,11 +341,10 @@ class RunSupervisor:
         self._retried.update(retried)
         self._recovered.update(i for i in retried if i not in still_bad)
         self._still_bad.update(still_bad)
-        self._append_journal({
+        self._journal.append({
             "e": "retry", "group": int(group),
             "obs": [int(i) for i in retried],
             "still_bad": [int(i) for i in still_bad]})
-        self._sync_journal()
 
     def record_integrity(self, kind, start, obs=(), healed=True,
                          detail=None):
@@ -441,59 +360,14 @@ class RunSupervisor:
                "obs": [int(i) for i in obs], "healed": bool(healed)}
         if detail:
             rec["detail"] = dict(detail)
-        self._append_journal(rec)
-        self._sync_journal()
+        self._journal.append(rec)
 
     def note_degraded(self):
         self._degraded = True
-        self._append_journal({"e": "degraded"})
-        self._sync_journal()
+        self._journal.append({"e": "degraded"})
 
     def quarantined_indices(self):
         return set(self._quarantined)
-
-    # -- journal / cursor plumbing ----------------------------------------
-
-    def _append_journal(self, rec):
-        if self._journal_f is None:
-            self._journal_f = open(self.journal_path, "a")
-        self._journal_f.write(json.dumps(rec, sort_keys=True) + "\n")
-
-    def _sync_journal(self):
-        if self._journal_f is not None:
-            self._journal_f.flush()
-            os.fsync(self._journal_f.fileno())
-
-    def _write_cursor(self):
-        """Atomic cursor: commit count + journal byte offset — a SIGKILL
-        leaves the old cursor or the new one, never a torn file."""
-        from ..io.export import _atomic_write_json
-
-        pos = self._journal_f.tell() if self._journal_f is not None else 0
-        _atomic_write_json(self.cursor_path,
-                           {"commits": self._commits, "journal_bytes": pos})
-
-    def _maybe_kill(self, kind, ident):
-        """``run.kill`` injection point: SIGKILL the exporting process
-        right after the configured commit — the preempted-host scenario
-        for kill/resume tests.  ``after_start`` matches the chunk start
-        (one-obs-per-file exports) or the group index (packed exports:
-        ``kind`` "group"/"groups") — a target the commit stream can never
-        reach must not silently disarm a fault test by construction, so
-        both token families participate.  Marker-file once-semantics keep
-        the resume run alive."""
-        if self.faults is None:
-            return
-        cfg = self.faults.config("run.kill")
-        if cfg is None:
-            return
-        after = cfg.get("after_start")
-        idents = list(ident) if isinstance(ident, (list, tuple)) else [ident]
-        if after is not None and not (
-                kind in ("chunk", "group", "groups") and after in idents):
-            return
-        if self.faults.fire("run.kill", token=f"start={idents[0]}"):
-            crash_process()
 
     # -- finalize ----------------------------------------------------------
 
@@ -502,16 +376,12 @@ class RunSupervisor:
         :func:`supervised_export` calls this so a driver looping over
         failed runs does not accumulate leaked fds; everything recorded
         so far is already durable (appends are fsync'd per commit)."""
-        if self._journal_f is not None:
-            self._journal_f.close()
-            self._journal_f = None
+        self._journal.close()
 
     def finalize(self, paths):
         """Fold the run's durable record into the manifest (atomic
         rewrite), close the journal, and summarize."""
-        from ..io.export import _load_manifest, _write_manifest
-
-        man = _load_manifest(self.out_dir) or {}
+        man = load_manifest(self.out_dir) or {}
         man["files"] = dict(sorted(self._hashes.items()))
         man["quarantined"] = sorted(int(i) for i in self._still_bad)
         if self._rfi_obs:
@@ -521,7 +391,7 @@ class RunSupervisor:
                 "obs_with_rfi": len(self._rfi_obs),
                 "contaminated_cells": int(sum(self._rfi_obs.values())),
             }
-        _write_manifest(self.out_dir, man)
+        write_manifest(self.out_dir, man)
         self.close()
         return RunResult(paths, self._still_bad, self._retried,
                          self._recovered, self._degraded, self._hashes,

@@ -323,7 +323,7 @@ class ResultCache:
     def _open_journal_locked(self):
         """Open-time replay under the cross-process lock, through the
         repo's ONE torn-tail loader
-        (:func:`~psrsigsim_torch.runtime.supervisor.load_journal_records`
+        (:func:`~psrsigsim_torch.runtime.journal.load_journal_records`
         — no writer is mid-append while we hold the flock, so a
         newline-less tail is definitely a crash remnant and is
         truncated), then compaction when dead records passed the
@@ -331,7 +331,7 @@ class ResultCache:
         miss-path ``_refresh_locked`` deliberately stays hand-rolled:
         it runs WITHOUT the flock, where a peer may be mid-append and
         an incomplete tail must be left alone, never truncated.)"""
-        from ..runtime.supervisor import load_journal_records
+        from ..runtime.journal import load_journal_records
 
         records, valid_end = load_journal_records(self.journal_path)
         try:

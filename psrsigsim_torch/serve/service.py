@@ -222,15 +222,11 @@ class SimulationService:
         self.timers = (telemetry if telemetry is not None
                        else StageTimers(extra_stages=SERVE_STAGES,
                                         latency_stages=SERVE_LATENCY_STAGES))
-        from ..runtime.integrity import resolve_integrity
+        from ..runtime.integrity import refuse_on_pod, resolve_integrity
 
         self.integrity = resolve_integrity(integrity, fingerprint="serve",
                                            faults=faults)
-        if self.integrity is not None and is_pod():
-            raise RuntimeError(
-                "integrity checking is not supported on a pod serving group "
-                "yet (duplicate-execution audits break host lockstep); arm "
-                "it on single-process replicas only")
+        refuse_on_pod(self.integrity is not None, "serving")
         self.max_queue = int(max_queue)
         self.batch_window_s = float(batch_window_s)
         self.retry_after_s = float(retry_after_s)
@@ -769,54 +765,23 @@ class SimulationService:
         checker = self.integrity
         token = batch[0].id
 
-        def _exec():
-            dev = self.registry.execute_device(gh, width, keys, dms, norms,
-                                               nulls, sc=sc)
-            dev = checker.apply_sdc(dev, token=token)
-            return dev, device_digest_rows(dev).cpu().numpy().astype(
-                np.uint32)
+        def _exec(audit=False):
+            # every run re-executes the same staged bucket on the same
+            # inputs (P7/P10), which is exactly the transient-SDC screen
+            dev = checker.apply_sdc(
+                self.registry.execute_device(gh, width, keys, dms, norms,
+                                             nulls, sc=sc), token=token)
+            return (lambda: dev.cpu().numpy(),
+                    device_digest_rows(dev).cpu().numpy())
 
-        dev, dig_dev = _exec()
-        out = checker.corrupt_host(dev.cpu().numpy(), token=token)
-        host_dig = digest_rows(out)
-        bad = checker.check_rows(dig_dev, host_dig, producer="serve")
-        audit = checker.audit_chunk(token)
-        if not bad and not audit:
-            return out, host_dig
-
-        out_a = None
-        if not bad:
-            # audit-only: duplicate execution re-runs the same staged
-            # bucket on the same inputs (P7/P10), which is exactly the
-            # transient-SDC screen
-            out_a = _exec()
-            mism = [int(j) for j in np.nonzero(out_a[1] != dig_dev)[0]]
-            checker.note_audit(mism)
-            if not mism:
-                return out, host_dig
-
-        evidence = {"producer": "serve", "geometry": gh[:12],
-                    "spec": token[:12], "lattice_rows": [int(j)
-                                                         for j in bad]}
-
-        def reexecute():
-            a = out_a if out_a is not None else _exec()
-            b = _exec()
-            return a[0].cpu().numpy(), a[1], b[1]
-
-        def verify(res):
-            fetched, dig_a, dig_b = res
-            return (np.array_equal(dig_a, dig_b)
-                    and np.array_equal(digest_rows(fetched), dig_a))
-
-        fetched, dig_a, _ = checker.heal_verified(
-            reexecute, verify, producer="serve", ident=token[:12],
-            evidence=evidence)
-        sdc_rows = [int(j) for j in np.nonzero(dig_a != dig_dev)[0]]
-        if sdc_rows and bad:
-            checker.note_audit(sdc_rows)
-        self.timers.count("integrity_healed")
-        return fetched, dig_a
+        fetch, dig_dev = _exec()
+        out, dig, event = checker.verify_chunk(
+            dig_dev, checker.corrupt_host(fetch(), token=token), digest_rows,
+            _exec, producer="serve", ident=token,
+            evidence={"geometry": gh[:12], "spec": token[:12]})
+        if event is not None:
+            self.timers.count("integrity_healed")
+        return out, dig
 
     def _batch_loop(self):
         with self._on_device():

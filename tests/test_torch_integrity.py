@@ -235,6 +235,87 @@ def test_failed_heal_is_permanent():
     assert st["permanent_failures"] == 1 and st["sdc_suspect"]
 
 
+
+# (case, audit_frac, host rows that differ from the good bytes, rows the
+# device's claim attests wrongly, whether the heal's second run disagrees)
+VERDICTS = [("clean", 0.0, (), (), False),
+            ("lattice_row", 0.0, (1,), (), False),
+            ("audit_mismatch", 1.0, (2,), (2,), False),
+            ("audit_clean", 1.0, (), (), False),
+            ("heal_disagrees", 0.0, (1,), (), True)]
+
+
+@pytest.mark.parametrize("case,frac,host_bad,dev_bad,split",
+                         VERDICTS, ids=[v[0] for v in VERDICTS])
+def test_verify_chunk_outcomes(case, frac, host_bad, dev_bad, split):
+    """The one verdict every producer runs, on small numpy chunks with a
+    scripted re-execution: what it adopts, under which digests, the event
+    it reports and the counters it leaves."""
+    from psrsigsim_torch.runtime import IntegrityChecker, IntegrityError
+    from psrsigsim_torch.runtime.integrity import digest_rows
+
+    good = np.arange(4 * 6, dtype=np.int16).reshape(4, 6)
+    # row 3 pads the chunk: a disagreement there is never looked at
+    pad = good.copy()
+    pad[3] += 7
+
+    def flipped(rows):
+        a = good.copy()
+        for r in rows:
+            a[r, 0] ^= 1
+        return a
+
+    host = (flipped(host_bad),)
+    dig_dev = digest_rows(flipped(dev_bad) if dev_bad else pad)
+    calls, fetches = [], []
+
+    def reexec(audit):
+        calls.append(audit)
+        dig = digest_rows(good)
+        if split and not audit:
+            dig = dig ^ np.uint32(1)
+        return (lambda: fetches.append(audit) or (good.copy(),),
+                dig.astype(np.int64))
+
+    ck = IntegrityChecker(audit_frac=frac, fingerprint="fp")
+    kw = dict(producer="mc", ident=16, rows=3, evidence={"start": 16})
+    if case == "heal_disagrees":
+        with pytest.raises(IntegrityError, match="chunk 16") as err:
+            ck.verify_chunk(dig_dev, host, lambda a: digest_rows(a[0]),
+                            reexec, **kw)
+        assert err.value.evidence == {"producer": "mc", "start": 16,
+                                      "lattice_rows": [1]}
+        assert calls == [True, False] and fetches == [True]
+        assert ck.stats() == {
+            "audit_frac": 0.0, "checks": 1, "checksum_mismatches": 1,
+            "audits": 0, "audit_mismatches": 0, "healed_chunks": 0,
+            "permanent_failures": 1, "sdc_suspect": True}
+        return
+    arrays, digs, event = ck.verify_chunk(
+        dig_dev, host, lambda a: digest_rows(a[0]), reexec, **kw)
+    healed = case in ("lattice_row", "audit_mismatch")
+    if healed:
+        np.testing.assert_array_equal(arrays[0], good)
+        np.testing.assert_array_equal(digs, digest_rows(good))
+        assert calls == [True, False]
+    else:
+        assert arrays is host
+        np.testing.assert_array_equal(digs, dig_dev)
+        assert calls == ([True] if frac else [])
+    # only the adopted run's arrays cross to the host
+    assert fetches == ([True] if healed else [])
+    assert digs.dtype == np.uint32
+    assert event == {"clean": None, "audit_clean": None,
+                     "lattice_row": ("checksum", [1], [1]),
+                     "audit_mismatch": ("audit", [2], [])}[case]
+    audit_bad = case == "audit_mismatch"
+    assert ck.stats() == {
+        "audit_frac": frac, "checks": 1,
+        "checksum_mismatches": int(case == "lattice_row"),
+        "audits": int(frac > 0), "audit_mismatches": int(audit_bad),
+        "healed_chunks": int(healed), "permanent_failures": 0,
+        "sdc_suspect": audit_bad}
+
 # -- the integrity-armed export, the port against itself --------------------
 
 N_OBS = 5

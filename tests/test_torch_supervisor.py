@@ -610,6 +610,52 @@ def test_journal_loader_rules(tmp_path):
     assert list(load_chunk_journal(path)) == [0]
 
 
+def test_chunk_journal_commit_bytes(tmp_path, monkeypatch):
+    """The chunk journal every producer commits through: the line bytes,
+    the fsync'd cursor, and each producer's kill point firing only right
+    after the commit its ``after_start`` names."""
+    from psrsigsim_torch.runtime import FaultPlan, journal
+
+    syncs, kills = [], []
+    real_fsync = os.fsync
+    monkeypatch.setattr(os, "fsync",
+                        lambda fd: (syncs.append(fd), real_fsync(fd)))
+    monkeypatch.setattr(journal, "crash_process", lambda: kills.append(1))
+    jpath, cpath = str(tmp_path / "j.jsonl"), str(tmp_path / "c.json")
+    plan = FaultPlan(str(tmp_path / "plan"), {
+        "run.kill": {"after_start": 3}, "mc.kill": {"after_start": 8},
+        "dataset.kill": {"after_start": 4}})
+    j = journal.ChunkJournal(jpath, cpath, faults=plan)
+    assert not os.path.exists(jpath)   # opens at the first record
+    j.append({"e": "integrity", "start": 0})
+    assert len(syncs) == 1
+    j.commit({"start": 0, "e": "chunk", "count": 4})
+    assert len(syncs) == 3   # the line, then the cursor's temp file
+    lines = [b'{"e": "integrity", "start": 0}\n',
+             b'{"count": 4, "e": "chunk", "start": 0}\n']
+    with open(jpath, "rb") as fh:
+        assert fh.read() == b"".join(lines)
+    with open(cpath, "rb") as fh:
+        assert fh.read() == (b'{"commits": 1, "journal_bytes": %d}'
+                             % sum(map(len, lines)))
+    assert not os.path.exists(cpath + ".tmp")
+
+    def fired(point, ident, **kw):
+        before = len(kills)
+        j.maybe_kill(point, ident, **kw)
+        return len(kills) > before
+
+    assert not fired("mc.kill", 0) and not fired("dataset.kill", 0)
+    assert not fired("run.kill", 3, targetable=False)  # a retry commit
+    assert not fired("run.kill", [1, 2])
+    assert fired("run.kill", [2, 3])   # a packed export's group batch
+    assert not fired("run.kill", 3)    # once
+    assert fired("dataset.kill", 4) and fired("mc.kill", 8)
+    j.close()
+    j.close()
+    journal.ChunkJournal(jpath, cpath).maybe_kill("mc.kill", 8)
+    assert len(kills) == 3
+
 def test_resume_false_resets_journal_and_cursor(tmp_path):
     from psrsigsim_torch.runtime import RunSupervisor
 
