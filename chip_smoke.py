@@ -20,7 +20,8 @@ per-observation digest of a packed chunk; the exact-gamma kernel
 chi^2 of a df below 50 (other than 1) and every chi^2 under
 PSS_EXACT_CHI2=1 takes; and the scenario-draws kernel
 (csrc/scenario_draws.cu), which draws a scenario batch's factors on the
-card from its keys.  Phases:
+card from its keys; and the envelope-shift kernel (csrc/envelope_shift.cu),
+the Fourier shift's double-float ramp and spectrum product.  Phases:
 
 1. the card, its power limit, the torch/CUDA versions and the host CPU;
 2. the build of the kernels (one nvcc each, started together), with each
@@ -41,12 +42,20 @@ card from its keys.  Phases:
    main path's full-width chunk in both byte orders, count < B, and edge
    shapes (nbin not a multiple of 4, a buffer not 8-byte aligned, extreme
    codes);
+3d. the envelope-shift kernel against its plain version (the torch chain
+   on the card), theta and the shifted spectrum bit for bit at the
+   multi-pulsar ensemble's two buckets, the stream's shared portrait, the
+   study's per-trial portraits, a full-stream shift and a spectrum
+   broadcast over an inner axis, one launch each; its time at the
+   4096-bin bucket queued behind a spin kernel, against its bound
+   (benchmark/rooflines.py's bound_s);
 4. statistics of the sampler's fields and their split invariance;
 5. the main paths at full width, BASELINE config 1 (J1713+0747 template,
    64 channels, 2048 bins, 20 x 60 s subints): 128 observations through
    FoldEnsemble.run_quantized and iter_chunks (the fused kernel), then 16
    through FoldEnsemble.run (the sampler), each with every kernel's launch
-   count set to 0 just before and read just after; then which of cuFFT's
+   count set to 0 just before and read just after (the envelope-shift
+   kernel exactly once a chunk: 3, then 1); then which of cuFFT's
    real transforms rounds the same rows apart in a batch of 8 x 64 and of
    128 x 64 rows (logged) and the shift's grouped transforms, which must
    not; and observations 0-7's codes, scales and offsets at batch widths
@@ -192,7 +201,8 @@ card from its keys.  Phases:
    sampler's rows layout in chi2_sel mode with per-row dfs against its
    plain version, bit for bit, at the biggest bucket's shape, and its
    time; (b) MultiPulsarFoldEnsemble.run(8) with epoch_chunk=2 launching
-   the sampler exactly 2 x buckets x 4 times, channel means,
+   the sampler exactly 2 x buckets x 4 times and the envelope-shift
+   kernel once a bucket (staging), later runs none, channel means,
    pulsar-epochs/s, peak memory; (c) run(4) + run(4, epoch_start=4) and
    epoch_chunk=4 bit-equal to run(8); (d) 4 pulsars x 2 epochs against
    device="cpu" within the fold bound; (e) one pulsar alone bit-equal to
@@ -314,14 +324,14 @@ card from its keys.  Phases:
    trace_check.SYNCS with its reason; six exempt as host helpers), then
    the serving buckets (widths 1 and 8), the dataset record chunk and the
    main path's steady ``run_quantized(128)`` at config 1's full width; the
-   probe must launch K1' in both layouts, K3' and K4; the counts probed,
+   probe must launch K1' in both layouts, K3', K4 and K11; the counts probed,
    syncing by design and exempt, the launches and the seconds are logged;
 23. the 12 tutorials of docs/torch/ on the card through the CPU test's
    runner (psrsigsim_torch/tools/tutorials.py): every block in order, in
    one namespace a tutorial with DEVICE = "cuda", from a scratch
    directory under build/ (deleted afterwards), with its
    numeric-RuntimeWarning gate; each tutorial's seconds and its launches
-   of K1' (rows and flat), K3', K4 and K9 logged.  A failing block fails
+   of K1' (rows and flat), K3', K4, K9, K10 and K11 logged.  A failing block fails
    the phase.
 
 The line before the last is one JSON object with each kernel's launches
@@ -404,6 +414,15 @@ NORMAL_OPS = {"int32": PHILOX_INT_OPS / 4, "fp32": (2 * 7) / 4,
 # the add into the sum (the position multipliers depend on the position
 # only, shared by every observation of a chunk)
 DIGEST_OPS = {"int32": 3}
+# the envelope shift (K11), per harmonic of a row: k * ratio in
+# double-float (Veltkamp split of k, the Dekker product, the low term and
+# the quick two-sum: 18), df_mod1's sums (10), theta, the complex product
+# (2 multiplies, 2 FMAs), and cosf and sinf, software routines of ~14
+# float32 operations each on theta's range (a range reduction and a
+# polynomial); conversions: the int->float of k, three floors and the two
+# reductions' roundings.  A row's ratio is formed once per thread.  Its
+# bound is benchmark/rooflines.py's bound_s of these counts.
+SHIFT_OPS = {"fp32": 18 + 10 + 1 + 4 + 2 * 14, "sfu": 1 + 3 + 2}
 # the single-rate count of the first sampler design (one Philox call per
 # sample, every operation at the float32 FMA rate), kept for continuity
 RNG_OPS_PER_SAMPLE_ONE_CALL = 98 + 7 + 6 + 6
@@ -802,7 +821,8 @@ class Smoke:
         self.failed = []
         self.kernels = {"rng_field": {}, "rng_flat_field": {},
                         "fold_quantize": {}, "packed_digest": {},
-                        "gamma_field": {}, "scenario_draws": {}}
+                        "gamma_field": {}, "scenario_draws": {},
+                        "envelope_shift": {}}
         self._main = None
         self.export_rates = {}  # phase 8's obs/s, beside phase 9's
         self.sup_clean = None  # phase 9's clean 1-writer sha256s and obs/s
@@ -1139,6 +1159,88 @@ class Smoke:
             del packed
         self.kernels["packed_digest"]["max_abs_err"] = float(worst)
 
+    # -- 3d -----------------------------------------------------------------
+    def envelope_shift_vs_plain(self):
+        """K11 (``csrc/envelope_shift.cu``) against its plain version, the
+        torch chain, on the card: theta and the shifted spectrum bit for
+        bit at the multi-pulsar ensemble's buckets, the stream's shared
+        portrait, the study's per-trial portraits and the full-stream
+        shift; one launch a ``fourier_shift``; its time at the 4096-bin
+        bucket against the bound."""
+        torch = self.torch
+        from psrsigsim_torch.ops import envelope_shift as es
+
+        dev = self.dev
+        gen = torch.Generator().manual_seed(5)
+
+        def inputs(lead, sshape, dt, n):
+            spec = torch.fft.rfft(torch.randn(lead + (n,), generator=gen),
+                                  dim=-1).to(dev)
+            shifts = (300.0 * torch.rand(sshape, generator=gen)).to(dev)
+            if not isinstance(dt, float):
+                dt = (0.001 + 0.003 * torch.rand(dt, generator=gen)).to(dev)
+            return spec, shifts, dt, n
+
+        def bits(t):
+            t = torch.view_as_real(t) if t.is_complex() else t
+            return t.contiguous().view(torch.int32)
+
+        cases = {"msp128 4096-bin bucket": ((92, 1, 64), (92, 1, 64),
+                                            (92, 1, 1, 1), 4096),
+                 "msp128 2048-bin bucket": ((36, 1, 64), (36, 1, 64),
+                                            (36, 1, 1, 1), 2048),
+                 "stream, shared portrait": ((64,), (128, 64), 0.00177, 2048),
+                 "study, per-trial portraits": ((256, 64), (256, 64),
+                                                0.00177, 2048),
+                 "full-stream shift": ((4, 64), (4, 64), 0.00177, 40960)}
+        for label, case in cases.items():
+            spec, shifts, dt, n = inputs(*case)
+            theta = es.ramp_theta(shifts, dt, n, dev)
+            if not torch.equal(bits(theta),
+                               bits(es.ramp_theta_plain(shifts, dt, n, dev))):
+                raise AssertionError(f"{label}: theta differs from the chain")
+            before = es.envelope_shift.launches
+            got = es.envelope_shift(spec, shifts, dt, n)
+            if es.envelope_shift.launches != before + 1:
+                raise AssertionError(f"{label}: not one launch")
+            want = es.envelope_shift_plain(spec, shifts, dt, n)
+            if not torch.equal(bits(got), bits(want)):
+                raise AssertionError(f"{label}: the shifted spectrum differs "
+                                     "from the chain")
+            log(f"  {label} {tuple(got.shape)}: theta and spectrum "
+                "bit-equal to the plain version, 1 launch")
+        # time at the 4096-bin bucket, the multi-pulsar ensemble's largest
+        # launch (once per bucket, when it stages the bucket)
+        spec, shifts, dt, n = inputs(*cases["msp128 4096-bin bucket"])
+        # queued behind a spin kernel: the wrapper's host time would
+        # otherwise pace a 0.1 ms launch
+        ms = queued_device_ms(lambda: es.envelope_shift(spec, shifts, dt, n),
+                              20)
+        plain_ms = cuda_time_ms(
+            lambda: es.envelope_shift_plain(spec, shifts, dt, n), 3)
+        from benchmark.rooflines import bound_s
+
+        elems = spec.numel()
+        # the spectrum read and the output written, 8 B each a harmonic,
+        # and a row's shift and spacing
+        nbytes = 16 * elems + 8 * spec.numel() // spec.shape[-1]
+        b_s, b_by = bound_s(SHIFT_OPS, elems, nbytes)
+        b_ms = b_s * 1e3
+        self.kernels["envelope_shift"].update(
+            name="envelope_shift", route="cuda",
+            source="psrsigsim_torch/csrc/envelope_shift.cu",
+            replaces="psrsigsim_tpu/ops/shift.py:97-117 (XLA fusion of the "
+                     "double-float ramp, cos/sin and the product)",
+            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None)
+        log(f"  envelope_shift {tuple(spec.shape)} complex64 "
+            f"({nbytes / 1e9:.3f} GB moved): {ms:.4f} ms, "
+            f"{b_ms / ms:.1%} of the bound; plain {plain_ms:.3f} ms; bound "
+            f"{b_ms:.4f} ms, {b_by} (rooflines.bound_s: fp32 "
+            f"{SHIFT_OPS['fp32'] * elems / RATES['fp32'] * 1e3:.4f}, "
+            f"bytes {nbytes / PEAK_BYTES_PER_S * 1e3:.4f}) on "
+            f"{self.card_line}")
+
     # -- 4 ------------------------------------------------------------------
     def statistics(self):
         torch = self.torch
@@ -1178,6 +1280,7 @@ class Smoke:
     def _zero_counts(self):
         from psrsigsim_torch.ops import digest
         from psrsigsim_torch.ops import fold_quantize as fq
+        from psrsigsim_torch.ops import envelope_shift as es
         from psrsigsim_torch.ops import gamma, rng_hw, scenario_draws
 
         rng_hw.rng_field.launches = 0
@@ -1186,6 +1289,7 @@ class Smoke:
         digest.packed_digest.launches = 0
         gamma.gamma_field.launches = 0
         scenario_draws.launches = 0
+        es.envelope_shift.launches = 0
 
     def _path(self, label, counts):
         """Record one main path's launch counts under each kernel it
@@ -1196,10 +1300,12 @@ class Smoke:
 
     def _counts(self):
         """Launches since :meth:`_zero_counts`.  The sampler's flat layout
-        (SEARCH mode), the exact-gamma kernel and the scenario-draws kernel
-        join the dict only when they launched, so the other phases' exact
-        comparisons fail on a stray launch of any of them too."""
+        (SEARCH mode), the exact-gamma kernel, the scenario-draws kernel and
+        the envelope-shift kernel join the dict only when they launched, so
+        the other phases' exact comparisons fail on a stray launch of any
+        of them too."""
         from psrsigsim_torch.ops import digest
+        from psrsigsim_torch.ops import envelope_shift as es
         from psrsigsim_torch.ops import fold_quantize as fq
         from psrsigsim_torch.ops import gamma, rng_hw, scenario_draws
 
@@ -1212,6 +1318,8 @@ class Smoke:
             counts["gamma_field"] = gamma.gamma_field.launches
         if scenario_draws.launches:
             counts["scenario_draws"] = scenario_draws.launches
+        if es.envelope_shift.launches:
+            counts["envelope_shift"] = es.envelope_shift.launches
         return counts
 
     def main_path(self):
@@ -1245,6 +1353,8 @@ class Smoke:
         counts = self._counts()
         peak = torch.cuda.max_memory_allocated()
         self.kernels["fold_quantize"]["launches"] = counts["fold_quantize"]
+        self.kernels["envelope_shift"]["launches"] = counts.get(
+            "envelope_shift", 0)
         self._path(f"5 run_quantized({MAIN_NOBS}) + iter_chunks"
                    f"({2 * MAIN_NOBS})", counts)
         log(f"  launches in run_quantized({MAIN_NOBS}) + iter_chunks"
@@ -1256,6 +1366,11 @@ class Smoke:
             raise AssertionError("the quantized path ran the unfused body")
         if counts["packed_digest"] != 0:
             raise AssertionError("the unarmed path ran the digest kernel")
+        # K11 once a chunk, where the front shifts the chunk's portraits:
+        # run_quantized's one chunk and iter_chunks' two
+        if counts.get("envelope_shift", 0) != 3:
+            raise AssertionError("the quantized path did not shift once a "
+                                 f"chunk: {counts}")
 
         d = data.cpu().numpy()
         s = scl.cpu().numpy()
@@ -1331,6 +1446,9 @@ class Smoke:
             raise AssertionError("the float path never launched the sampler")
         if counts["fold_quantize"] != 0:
             raise AssertionError("the float path launched the fused kernel")
+        if counts.get("envelope_shift", 0) != 1:
+            raise AssertionError(f"run({FLOAT_NOBS}) did not shift once: "
+                                 f"{counts}")
         if tuple(blocks.shape) != (FLOAT_NOBS, cfg.meta.nchan, cfg.nsamp):
             raise AssertionError(f"unexpected shape {tuple(blocks.shape)}")
         if not bool(torch.isfinite(blocks).all()):
@@ -1737,10 +1855,10 @@ class Smoke:
                 pipe = json.load(fh)["pipeline"]
             log("  manifest pipeline: " + json.dumps(pipe, sort_keys=True))
             if counts != {"fold_quantize": 2, "rng_field": 0,
-                          "packed_digest": 0}:
+                          "packed_digest": 0, "envelope_shift": 2}:
                 raise AssertionError(f"export launches {counts}, expected 2 "
-                                     "fused-kernel launches, no sampler and "
-                                     "no digest")
+                                     "fused-kernel launches and 2 envelope "
+                                     "shifts, no sampler and no digest")
             one = os.path.join(work, "per_file_w1")
             opaths, _ = run_export(
                 f"export {EXPORT_NOBS} obs, one per file, depth 2, 1 writer",
@@ -1777,10 +1895,13 @@ class Smoke:
                 _, counts = run_export(
                     f"resume after deleting observations {list(victims)}",
                     per_file, EXPORT_NOBS, pipeline_depth=2, writers=1)
-                if counts["fold_quantize"] != want:
+                if (counts["fold_quantize"] != want
+                        or counts.get("envelope_shift", 0) != want):
                     raise AssertionError(f"resume launched the fused kernel "
-                                         f"{counts['fold_quantize']} times, "
-                                         f"expected {want}")
+                                         f"{counts['fold_quantize']} times "
+                                         f"and K11 "
+                                         f"{counts.get('envelope_shift', 0)}"
+                                         f", expected {want} each")
                 if any(sha(paths[i]) != before[i] for i in victims):
                     raise AssertionError("a resumed file differs")
             log("  resumed files byte-identical (sha256)")
@@ -1885,7 +2006,8 @@ class Smoke:
             clean = os.path.join(work, "clean")
             res, counts, wall1 = run("supervised export, 1 writer", clean,
                                      writers=1)
-            expect(counts, fold_quantize=2, packed_digest=0)
+            expect(counts, fold_quantize=2, packed_digest=0,
+                   envelope_shift=2)
             commits = [r for r in journal(clean) if r["e"] == "commit"]
             if [(r["kind"], r["ident"]) for r in commits] != \
                     [("chunk", 0), ("chunk", MAIN_NOBS)]:
@@ -1913,7 +2035,8 @@ class Smoke:
             pool = os.path.join(work, "pool")
             _, counts, wallp = run(f"supervised export, {writers} writers",
                                    pool)
-            expect(counts, fold_quantize=2, packed_digest=0)
+            expect(counts, fold_quantize=2, packed_digest=0,
+                   envelope_shift=2)
             if disk_hashes(pool) != want:
                 raise AssertionError("the pool's files differ from the "
                                      "in-process writer's")
@@ -1932,7 +2055,8 @@ class Smoke:
                 f"nan.obs on {bad}, 1 writer", nan, writers=1,
                 faults=FaultPlan(os.path.join(work, "nan_plan"),
                                  {"nan.obs": {"indices": bad}}))
-            expect(counts, fold_quantize=3, packed_digest=0)
+            expect(counts, fold_quantize=3, packed_digest=0,
+                   envelope_shift=3)
             if not (res.retried == bad and res.recovered == bad
                     and res.quarantined == []):
                 raise AssertionError(f"quarantine outcome {res!r}")
@@ -1969,7 +2093,8 @@ class Smoke:
                                   "device.sdc": {"after_start": MAIN_NOBS}}))
             self.kernels["packed_digest"]["launches"] = counts["packed_digest"]
             self._path("9 supervised export, integrity leg", counts)
-            expect(counts, fold_quantize=6, packed_digest=6)
+            expect(counts, fold_quantize=6, packed_digest=6,
+                   envelope_shift=6)
             st = ck.stats()
             log(f"  integrity stats: {json.dumps(st, sort_keys=True)}")
             if not (st["checksum_mismatches"] == 1
@@ -2049,7 +2174,8 @@ class Smoke:
                 "1 journal commit")
             _, counts, _ = run('resume="verify", 1 writer', killed,
                                writers=1, resume="verify")
-            expect(counts, fold_quantize=1, packed_digest=0)
+            expect(counts, fold_quantize=1, packed_digest=0,
+                   envelope_shift=1)
             if disk_hashes(killed) != want:
                 raise AssertionError("the resumed export differs from the "
                                      "clean run")
@@ -2313,7 +2439,7 @@ class Smoke:
                                      "the hand-built ensemble's")
             del got, want
             if counts != {"rng_field": 0, "fold_quantize": 1,
-                          "packed_digest": 0}:
+                          "packed_digest": 0, "envelope_shift": 1}:
                 raise AssertionError(f"to_ensemble().run_quantized launches "
                                      f"{counts}")
             self._zero_counts()
@@ -2325,7 +2451,7 @@ class Smoke:
                                      "hand-built ensemble's")
             del got
             if counts_run != {"rng_field": 2, "fold_quantize": 0,
-                              "packed_digest": 0}:
+                              "packed_digest": 0, "envelope_shift": 1}:
                 raise AssertionError(f"to_ensemble().run launches {counts_run}")
             log(f"  (c) to_ensemble().run_quantized({MAIN_NOBS}, seed=0) "
                 f"bit-equal to the hand-built ensemble's (launches {counts}); "
@@ -2343,9 +2469,10 @@ class Smoke:
             counts = self._counts()
             self.oo_export_launches = counts
             if counts != {"rng_field": 0, "fold_quantize": 2,
-                          "packed_digest": 0}:
+                          "packed_digest": 0, "envelope_shift": 2}:
                 raise AssertionError(f"export_ensemble launches {counts}, "
-                                     "expected the fused kernel twice")
+                                     "expected the fused kernel and K11 "
+                                     "twice")
             journal = {}
             with open(os.path.join(out, "run_journal.jsonl")) as fh:
                 for line in fh:
@@ -2466,7 +2593,8 @@ class Smoke:
             res, counts, t_first, _ = run(study, "(a) first run", MC_TRIALS,
                                           MC_CHUNK)
             launches_a = counts
-            if counts != dict(no_kernels, rng_field=2 * MC_TRIALS // MC_CHUNK):
+            if counts != dict(no_kernels, rng_field=2 * MC_TRIALS // MC_CHUNK,
+                              envelope_shift=MC_TRIALS // MC_CHUNK):
                 raise AssertionError(f"run({MC_TRIALS}, chunk_size="
                                      f"{MC_CHUNK}) launches {counts}")
             check_rows(res, MC_TRIALS, study.param_names)
@@ -2534,7 +2662,8 @@ class Smoke:
             counts = self._counts()
             line = json.loads(cli_out.getvalue().strip().splitlines()[-1])
             if rc != 0 or line["artifact_sha256"] != ref[1] or counts != dict(
-                    no_kernels, rng_field=2 * MC_TRIALS // MC_CHUNK):
+                    no_kernels, rng_field=2 * MC_TRIALS // MC_CHUNK,
+                    envelope_shift=MC_TRIALS // MC_CHUNK):
                 raise AssertionError(f"the CLI: rc {rc}, fingerprint "
                                      f"{line['artifact_sha256'][:16]}, "
                                      f"launches {counts}")
@@ -2592,7 +2721,7 @@ class Smoke:
             t_kill = time.perf_counter() - t0
             _, counts, _, _ = run(study, "(a) resume after SIGKILL",
                                   MC_TRIALS, MC_CHUNK, out_dir=killed)
-            if counts != dict(no_kernels, rng_field=2):
+            if counts != dict(no_kernels, rng_field=2, envelope_shift=1):
                 raise AssertionError(f"the resume launched {counts}")
             if artifact(killed) != clean:
                 raise AssertionError("the resumed study differs from the "
@@ -2641,6 +2770,8 @@ class Smoke:
             peak_b = torch.cuda.max_memory_allocated()
             launches_b = counts
             if counts != dict(no_kernels, rng_field=2 * MC_FACADE_TRIALS
+                              // MC_FACADE_CHUNK,
+                              envelope_shift=MC_FACADE_TRIALS
                               // MC_FACADE_CHUNK):
                 raise AssertionError(f"run_mc_study launches {counts}")
             check_rows(res_b, MC_FACADE_TRIALS, ("dm", "noise_scale"))
@@ -2679,7 +2810,7 @@ class Smoke:
             torch.cuda.synchronize()
             t_exp = time.perf_counter() - t0
             counts = self._counts()
-            if counts != dict(no_kernels, fold_quantize=2):
+            if counts != dict(no_kernels, fold_quantize=2, envelope_shift=2):
                 raise AssertionError(f"export_psrfits launches {counts}")
             ens = sim.to_ensemble()
             direct = supervised_export(
@@ -2788,7 +2919,8 @@ class Smoke:
         counts = self._counts()
         # K10: the stage keys, then one launch per effect
         expect(counts, f"run_quantized({MAIN_NOBS}) with {SCEN_STACK}",
-               fold_quantize=1, scenario_draws=1 + len(SCEN_STACK))
+               fold_quantize=1, scenario_draws=1 + len(SCEN_STACK),
+               envelope_shift=1)
         self.kernels["fold_quantize"]["scenario_launches"] = \
             counts["fold_quantize"]
         self.kernels["scenario_draws"]["launches"] = counts["scenario_draws"]
@@ -2947,7 +3079,8 @@ class Smoke:
             wall = time.perf_counter() - t0
             counts = self._counts()
             expect(counts, "(b) supervised export", fold_quantize=2,
-                   scenario_draws=2 * (1 + len(SCEN_STACK)))
+                   scenario_draws=2 * (1 + len(SCEN_STACK)),
+                   envelope_shift=2)
             self._path("12 supervised export(256) scenario", counts)
 
             def hashes():
@@ -3011,7 +3144,7 @@ class Smoke:
                               seed=0, chunk_size=MAIN_NOBS, writers=1,
                               scenario_params=sp2, resume="verify")
             expect(self._counts(), "(b) verify resume", fold_quantize=1,
-                   scenario_draws=1 + len(SCEN_STACK))
+                   scenario_draws=1 + len(SCEN_STACK), envelope_shift=1)
             with open(os.path.join(out, "export_manifest.json")) as fh:
                 if hashes() != clean or json.load(fh)["rfi"] != man["rfi"]:
                     raise AssertionError("the verify resume changed the files "
@@ -3028,7 +3161,7 @@ class Smoke:
             torch.cuda.synchronize()
             expect(self._counts(), "(c) Simulation.to_ensemble(scenario=)"
                    ".run_quantized", fold_quantize=1,
-                   scenario_draws=1 + len(SCEN_STACK))
+                   scenario_draws=1 + len(SCEN_STACK), envelope_shift=1)
             ed = ens.run_quantized(MAIN_NOBS, seed=0, scenario_params=sp)
             if not all(torch.equal(x, y) for x, y in zip(fd, ed)):
                 raise AssertionError("the facade's scenario ensemble differs")
@@ -3053,7 +3186,8 @@ class Smoke:
         counts = self._counts()
         # K10 a chunk: the stage keys, the gains and the energies
         expect(counts, "(d) study", rng_field=2 * MC_TRIALS // MC_CHUNK,
-               scenario_draws=3 * MC_TRIALS // MC_CHUNK)
+               scenario_draws=3 * MC_TRIALS // MC_CHUNK,
+               envelope_shift=MC_TRIALS // MC_CHUNK)
         self._path(f"12 study({MC_TRIALS}) scenario", counts)
         t0 = time.perf_counter()
         res2 = study.run(MC_TRIALS, chunk_size=MC_CHUNK // 2)
@@ -3301,7 +3435,7 @@ class Smoke:
         t_first = time.perf_counter() - t0
         counts = self._counts()
         want = {"rng_field": 1, "fold_quantize": 0, "packed_digest": 0,
-                "rng_flat_field": 2}
+                "rng_flat_field": 2, "envelope_shift": 1}
         if counts != want:
             raise AssertionError(f"single_pipeline({SEARCH_NOBS}): launches "
                                  f"{counts}, expected {want}")
@@ -3480,10 +3614,11 @@ class Smoke:
 
         def flat_only(chunks, effects=len(spec["scenarios"])):
             # the flat layout's two fields a chunk; K10 a chunk: the stage
-            # keys, then one launch per effect
+            # keys, then one launch per effect; K11 once a chunk
             return {"rng_field": 0, "fold_quantize": 0, "packed_digest": 0,
                     "rng_flat_field": 2 * chunks,
-                    "scenario_draws": (1 + effects) * chunks}
+                    "scenario_draws": (1 + effects) * chunks,
+                    "envelope_shift": chunks}
 
         try:
             # (a) a clean corpus in 64-record chunks, twice (the second
@@ -3983,7 +4118,10 @@ class Smoke:
         peak = torch.cuda.max_memory_allocated() - base
         counts = self._counts()
         n_launch = 2 * ens.n_buckets * -(-E // chunk)
-        want = {"rng_field": n_launch, "fold_quantize": 0, "packed_digest": 0}
+        # K11 once a bucket, when this first run stages the bucket's
+        # shifted portraits; later runs shift nothing
+        want = {"rng_field": n_launch, "fold_quantize": 0, "packed_digest": 0,
+                "envelope_shift": ens.n_buckets}
         if counts != want:
             raise AssertionError(f"run({E}): launches {counts}, expected "
                                  f"{want}")
@@ -4012,12 +4150,17 @@ class Smoke:
         del out
         reps = 3
         torch.cuda.synchronize()
+        self._zero_counts()
         t0 = time.perf_counter()
         for _ in range(reps):
             out = ens.run(E, seed=0)
         torch.cuda.synchronize()
         t_ss = (time.perf_counter() - t0) / reps
         del out
+        steady = self._counts()
+        if steady != {"rng_field": reps * n_launch, "fold_quantize": 0,
+                      "packed_digest": 0}:
+            raise AssertionError(f"{reps} staged run({E}): launches {steady}")
         wall, busy, nev, by_name, _ = device_profile(
             torch, lambda: ens.run(E, seed=0))
         log(f"  steady run({E}): {t_ss * 1e3:.1f} ms = "
@@ -4294,8 +4437,9 @@ class Smoke:
             counts = self._counts()
             execs = svc.registry.device_calls - calls0
             peak = torch.cuda.max_memory_allocated() - base
+            # K11 once a bucket execution (its front's shift)
             want = {"rng_field": 2 * execs, "fold_quantize": 0,
-                    "packed_digest": 0}
+                    "packed_digest": 0, "envelope_shift": execs}
             log(f"  (b) {SERVE_BURST} concurrent requests: {execs} bucket "
                 f"executions {svc.registry.call_counts()}, launches {counts}")
             if counts != want or execs <= 0:
@@ -4452,9 +4596,10 @@ class Smoke:
         log(f"  in-process service on the card: {len(want)} requests in "
             f"{t_ref:.2f} s, {execs} bucket executions, launches {counts}")
         if counts != {"rng_field": 2 * execs, "fold_quantize": 0,
-                      "packed_digest": 0}:
+                      "packed_digest": 0, "envelope_shift": execs}:
             raise AssertionError(f"in-process launches {counts}, expected "
-                                 f"2 x {execs} of rng_field alone")
+                                 f"2 x {execs} of rng_field and {execs} of "
+                                 "envelope_shift alone")
         cfg, _, _ = build_geometry(canonicalize(SERVE_SPEC))
         for row in want.values():
             arr = np.frombuffer(row, np.float32)
@@ -4903,7 +5048,8 @@ class Smoke:
         wall = time.perf_counter() - t0
         counts = self._counts()
         want = {"rng_field": 0, "fold_quantize": 0, "packed_digest": 0,
-                "gamma_field": 2}
+                "gamma_field": 2,
+                "envelope_shift": 1}
         if counts != want:
             raise AssertionError(f"run_quantized({MAIN_NOBS}) at Nfold 20: "
                                  f"launches {counts}, expected {want}")
@@ -4939,7 +5085,8 @@ class Smoke:
         finally:
             shutil.rmtree(work, ignore_errors=True)
         want = {"rng_field": 0, "fold_quantize": 0, "packed_digest": 0,
-                "gamma_field": 4}
+                "gamma_field": 4,
+                "envelope_shift": 2}
         self._path(f"19 export({GAMMA_EXPORT_NOBS}) Nfold 20", counts)
         log(f"  (d) iter_chunks -> export of {GAMMA_EXPORT_NOBS} at Nfold 20, "
             f"writers=1: {len(paths)} files, {nbytes / 1e9:.3f} GB in "
@@ -4969,7 +5116,8 @@ class Smoke:
             f" run_quantized({MAIN_NOBS}) {wall:.3f} s = "
             f"{MAIN_NOBS / wall:.1f} obs/s; launches {counts}")
         want = {"rng_field": 0, "fold_quantize": 0, "packed_digest": 0,
-                "gamma_field": 2}
+                "gamma_field": 2,
+                "envelope_shift": 1}
         if counts != want:
             raise AssertionError(f"hatch run_quantized: launches {counts}, "
                                  f"expected {want}")
@@ -5035,7 +5183,8 @@ class Smoke:
             f"(after a warm call); launches {counts}; channel means max rel "
             f"dev {rel.max():.3g}")
         want = {"rng_field": 0, "fold_quantize": 0, "packed_digest": 0,
-                "gamma_field": 3}
+                "gamma_field": 3,
+                "envelope_shift": 1}
         if (counts != want or rel.max() > 0.02
                 or not bool(torch.isfinite(block).all())):
             raise AssertionError("SEARCH under the hatch failed")
@@ -5192,7 +5341,8 @@ class Smoke:
                 # the nulled pulses' replacement row
                 counts = self._expect(f"20a seq_search {mode} n={n}",
                                       {"rng_field": n,
-                                       "rng_flat_field": 2 * n})
+                                       "rng_flat_field": 2 * n,
+                                       "envelope_shift": n})
                 if tuple(out.shape) != tuple(ref.shape) or not bool(
                         torch.isfinite(out).all()):
                     raise AssertionError(f"seq_search {mode} n={n}: shape "
@@ -5237,7 +5387,8 @@ class Smoke:
             self._zero_counts()
             out, t = self._timed(lambda: run(hk, dms, nns, pdev))
             counts = self._expect(f"20b obs_seq {shape}",
-                                  {"rng_field": k, "rng_flat_field": 2 * k})
+                                  {"rng_field": k, "rng_flat_field": 2 * k,
+                                   "envelope_shift": k})
             equal = bool(torch.equal(out, ref))
             log(f"  (b) obs x seq {shape}: {B} observations in "
                 f"{t * 1e3:.2f} ms = {B / t:.1f} obs/s (phase 13's "
@@ -5368,7 +5519,7 @@ class Smoke:
             got = ens.run_quantized(MAIN_NOBS)
             self._sync()
             self._expect(f"20d run_quantized({MAIN_NOBS}) {shape}",
-                         {"fold_quantize": k})
+                         {"fold_quantize": k, "envelope_shift": k})
             for name, a, b in zip(("codes", "DAT_SCL", "DAT_OFFS"), got, want):
                 if not torch.equal(a, b):
                     raise AssertionError(f"{shape}: {name} differ from the "
@@ -5378,7 +5529,7 @@ class Smoke:
             gotf = ens.run(FLOAT_NOBS)
             self._sync()
             self._expect(f"20d run({FLOAT_NOBS}) {shape}",
-                         {"rng_field": 2 * k})
+                         {"rng_field": 2 * k, "envelope_shift": k})
             if not torch.equal(gotf, wantf):
                 raise AssertionError(f"{shape}: run({FLOAT_NOBS}) differs")
             log(f"  (d) {shape}: run_quantized({MAIN_NOBS}) bit-equal, fused "
@@ -5405,6 +5556,8 @@ class Smoke:
                     chunk_size=MAIN_NOBS, writers=1))
                 self._expect(f"20d export({EXPORT_NOBS}) {label}",
                              {"fold_quantize": (EXPORT_NOBS // MAIN_NOBS)
+                              * ens.mesh.size,
+                              "envelope_shift": (EXPORT_NOBS // MAIN_NOBS)
                               * ens.mesh.size})
                 h = {}
                 for name in sorted(os.listdir(out)):
@@ -5454,7 +5607,9 @@ class Smoke:
             shards = 1 if not kw else 4
             self._expect(f"20e study({MESH_MC_TRIALS}) {label}",
                          {"rng_field": 2 * shards * (MESH_MC_TRIALS
-                                                     // MC_CHUNK)})
+                                                     // MC_CHUNK),
+                          "envelope_shift": shards * (MESH_MC_TRIALS
+                                                      // MC_CHUNK)})
             log(f"  (e) study {label} (a second run): {MESH_MC_TRIALS} "
                 f"trials in {t:.3f} s = {MESH_MC_TRIALS / t:.1f} trials/s")
         if not (np.array_equal(res["(4, 1)"].metrics,
@@ -5534,7 +5689,8 @@ class Smoke:
                 out, t = self._timed(lambda: run(hk, dm, nn, pdev))
                 # per shard: pulse, noise and the replacement row
                 counts = self._expect(f"20e exact seq_search n={n}",
-                                      {"gamma_field": 3 * n})
+                                      {"gamma_field": 3 * n,
+                                       "envelope_shift": n})
                 equal = bool(torch.equal(out, ref))
                 log(f"  (e) PSS_EXACT_CHI2=1 n={n}: {t * 1e3:.2f} ms, "
                     f"launches {counts}, bit-equal to single_pipeline "
@@ -6002,7 +6158,7 @@ class Smoke:
         if self.torch.cuda.get_sync_debug_mode() != 0:
             raise AssertionError("the probe left the sync-debug mode on")
         for name in ("rng_field", "rng_flat_field", "fold_quantize",
-                     "packed_digest"):
+                     "packed_digest", "envelope_shift"):
             if not counts.get(name):
                 raise AssertionError(f"the probe never launched {name}: "
                                      f"{counts}")
@@ -6059,7 +6215,8 @@ class Smoke:
                 f"{counts.get('rng_flat_field', 0)}, K3' "
                 f"{counts['fold_quantize']}, K4 {counts['packed_digest']}, "
                 f"K9 {counts.get('gamma_field', 0)}, K10 "
-                f"{counts.get('scenario_draws', 0)}")
+                f"{counts.get('scenario_draws', 0)}, K11 "
+                f"{counts.get('envelope_shift', 0)}")
         log(f"  phase 23: {len(paths)} tutorials on cuda in "
             f"{time.perf_counter() - t0:.1f} s ({self.card_line})")
 
@@ -6071,6 +6228,8 @@ class Smoke:
             self.phase("3b fold_quantize vs plain and unfused",
                        self.fused_vs_plain)
             self.phase("3c packed_digest vs plain", self.digest_vs_plain)
+            self.phase("3d envelope_shift vs plain",
+                       self.envelope_shift_vs_plain)
             self.phase("4 statistics", self.statistics)
             self.phase("5 main paths", self.main_path)
             if with_profile:

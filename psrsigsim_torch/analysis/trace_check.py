@@ -99,6 +99,7 @@ def _specs(device):
     import torch
 
     from .. import ops
+    from ..ops import envelope_shift as es
     from ..ops import fold_quantize as fq
     from ..ops.rng_hw import seed_words
     from ..utils.rng import key as make_key
@@ -127,6 +128,7 @@ def _specs(device):
     scalar = dev(torch.tensor(0.5))
     packed = dev(torch.randint(-9, 9, (2, 2, 8, 12), dtype=i16,
                                generator=gen))
+    spec = dev(torch.fft.rfft(torch.randn(64, generator=gen)))
 
     def fold_quantize(s, d, p, n):
         return fq.fold_quantize(s, d, ("chi2_wh", "chi2_wh"), p, n, nsub=2)
@@ -177,6 +179,16 @@ def _specs(device):
                                 [((2,), i32)]),
         "fourier_shift": (lambda d, s: ops.fourier_shift(d, s, 0.5),
                           (block, dev(torch.arange(3.0))), [((3, 64), f32)]),
+        # the envelope shift's kernel: one spectrum row shared by three
+        # shifts, a sample spacing per shift
+        "envelope_shift": (lambda sp, s, d: es.envelope_shift(sp, s, d, 64),
+                           (spec, dev(torch.arange(3.0)),
+                            dev(torch.full((3, 1), 0.5))),
+                           [((3, 33), torch.complex64)]),
+        "envelope_shift_plain": (
+            lambda sp, s, d: ops.envelope_shift_plain(sp, s, d, 64),
+            (spec, dev(torch.arange(3.0)), dev(torch.full((3, 1), 0.5))),
+            [((3, 33), torch.complex64)]),
         "coherent_dedisperse": (lambda d, dm: ops.coherent_dedisperse(
             d, dm, 1400.0, 200.0, 1.0), (block, scalar), [((3, 64), f32)]),
         "coherent_dedispersion_transfer": (

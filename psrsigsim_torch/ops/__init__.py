@@ -2,8 +2,9 @@
 
 Plain functions on tensors: the random fields (:mod:`.stats`, with the
 CUDA sampler kernel in :mod:`.rng_hw` and the exact-gamma kernel in
-:mod:`.gamma`), the Fourier shift (:mod:`.shift`,
-on :mod:`.dfloat`), the PSRFITS quantizer (:mod:`.quantize`), the fused
+:mod:`.gamma`), the Fourier shift (:mod:`.shift`, its ramp on
+:mod:`.dfloat` and, on the card, the envelope-shift kernel in
+:mod:`.envelope_shift`), the PSRFITS quantizer (:mod:`.quantize`), the fused
 fold → quantize → pack kernel (:mod:`.fold_quantize`), coherent
 (de)dispersion (:mod:`.shift`) and the baseband channelizer
 (:mod:`.channelize`), the integrity
@@ -28,6 +29,7 @@ _LAZY = {
     "rng_field": "rng_hw", "rng_field_plain": "rng_hw",
     "rng_flat_field": "rng_hw", "rng_flat_field_plain": "rng_hw",
     "hw_chan_field": "rng_hw", "fourier_shift": "shift",
+    "envelope_shift_plain": "envelope_shift",
     "coherent_dedisperse": "shift",
     "coherent_dedispersion_transfer": "shift",
     "channelize_power": "channelize",
@@ -49,8 +51,10 @@ _LAZY = {
 def __getattr__(name):
     import importlib
 
-    if name == "fold_quantize":
-        return importlib.import_module(".fold_quantize", __name__)
+    if name in ("fold_quantize", "envelope_shift"):
+        # the kernel modules, named as their wrappers (``.fold_quantize``,
+        # ``.envelope_shift``): importing one binds the module here anyway
+        return importlib.import_module(f".{name}", __name__)
     if name not in _LAZY:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
     return getattr(importlib.import_module(f".{_LAZY[name]}", __name__), name)
@@ -76,6 +80,8 @@ __all__ = [
     "packed_digest",
     "packed_digest_plain",
     "fourier_shift",
+    "envelope_shift",
+    "envelope_shift_plain",
     "coherent_dedisperse",
     "coherent_dedispersion_transfer",
     "channelize_power",

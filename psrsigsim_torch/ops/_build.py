@@ -22,7 +22,7 @@ from pathlib import Path
 __all__ = ["KERNELS", "NVCC_FLAGS", "build_all", "library", "count_launch"]
 
 KERNELS = ("rng_field", "fold_quantize", "packed_digest", "gamma_field",
-           "scenario_draws")
+           "scenario_draws", "envelope_shift")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",

@@ -29,15 +29,13 @@ import numpy as np
 import torch
 
 from ..utils.device import to_device
-from .dfloat import (df_mod1, df_mul_f32, df_mul_f32_fused, df_recip,
-                     split_f64)
+from .dfloat import df_mod1, df_mul_f32_fused, split_f64
+from .envelope_shift import _TWO_PI32, envelope_shift
 
 __all__ = ["fourier_shift", "fft_group_rows",
            "coherent_dedispersion_transfer", "dedispersion_filter",
            "coherent_dedisperse", "OSPlan",
            "plan_dedisperse_os", "coherent_dedisperse_os"]
-
-_TWO_PI32 = float(np.float32(2 * np.pi))
 
 # (rows, elements) one FFT call holds at most, by device type.  On the card
 # cuFFT takes another algorithm above ~1024-2048 rows of 256-2048 samples,
@@ -124,22 +122,9 @@ def fourier_shift(data, shifts, dt=1.0):
         return _irfft_rows(spec * to_device(filt, data.device), n)
 
     # device ramp in double-float32: the shift/period ratio and the k*ratio
-    # products carry ~48 mantissa bits before the mod-1 reduction
-    dev = data.device
-    if isinstance(dt, torch.Tensor):
-        period = float(n) * dt.to(device=dev, dtype=torch.float32)
-        rhi, rlo = df_recip(period)
-    else:
-        rh, rl = split_f64(1.0 / (n * float(dt)))
-        rhi = torch.full((), float(rh), dtype=torch.float32, device=dev)
-        rlo = torch.full((), float(rl), dtype=torch.float32, device=dev)
-    shifts32 = torch.as_tensor(shifts, dtype=torch.float32, device=dev)[..., None]
-    ratio_hi, ratio_lo = df_mul_f32(shifts32, rhi, rlo)
-    k = torch.arange(n // 2 + 1, dtype=torch.float32, device=dev)
-    chi, clo = df_mul_f32(k, ratio_hi, ratio_lo)
-    theta = (-_TWO_PI32) * df_mod1(chi, clo)
-    phase = torch.complex(torch.cos(theta), torch.sin(theta))
-    return _irfft_rows(spec * phase, n)
+    # products carry ~48 mantissa bits before the mod-1 reduction; on the
+    # card one kernel over the broadcast rows (K11), elsewhere torch ops
+    return _irfft_rows(envelope_shift(spec, shifts, dt, n), n)
 
 
 _DM_K_S = 1.0 / 2.41e-4  # s MHz^2 cm^3 / pc

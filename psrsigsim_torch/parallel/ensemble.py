@@ -30,7 +30,8 @@ from ..ops.stats import CHI2_WH_MIN_DF, sampler_backend
 from ..runtime.integrity import refuse_on_pod
 from ..runtime.telemetry import span
 from ..scenarios.registry import _param, parse_stack, scenario_rows
-from ..simulate.pipeline import (_fold_pipeline_hetero, build_fold_config,
+from ..simulate.pipeline import (_dispersion_delays, _fold_pipeline_hetero,
+                                 _shifted_portrait, build_fold_config,
                                  fold_pipeline, fold_pipeline_quantized,
                                  fold_subints, fused_route, natural_nbin,
                                  noise_level)
@@ -974,8 +975,10 @@ class MultiPulsarFoldEnsemble:
     def _staged(self, bkey, members):
         """A bucket's per-pulsar inputs on the device, staged once and
         reused by every run (only the keys change): its pulsar list padded
-        to the obs shards (tiled), the per-channel inputs cut into the
-        mesh's chan slabs."""
+        to the obs shards (tiled), in envelope mode each portrait shifted
+        by its pulsar's delays (``shifted``; ``profiles`` keeps the
+        portraits as given), the per-channel inputs cut into the mesh's
+        chan slabs."""
         if bkey in self._bucket_data:
             return self._bucket_data[bkey]
         dev = self.device
@@ -998,8 +1001,17 @@ class MultiPulsarFoldEnsemble:
                                    for _, p, _, _ in w]))[:, None],
             freqs=col(np.stack([np.asarray(c.meta.dat_freq_mhz(), np.float32)
                                 for c, _, _, _ in w]))[:, None],
+            shifted=None,
         )
-        staged["slabs"] = MeshSlabs(self.mesh, staged["profiles"][:, 0],
+        portraits = staged["profiles"]
+        if w[0][0].shift_mode == "envelope":
+            # a pulsar's shifted portrait depends on nothing a run draws:
+            # shifted here once, for every run, as the front would shift it
+            staged["shifted"] = portraits = _shifted_portrait(
+                portraits,
+                _dispersion_delays(staged["dms"], staged["freqs"], None),
+                staged["dts"][..., None, None])
+        staged["slabs"] = MeshSlabs(self.mesh, portraits[:, 0],
                                     staged["freqs"][:, 0], lead=1)
         self._bucket_data[bkey] = staged
         return staged
@@ -1015,7 +1027,8 @@ class MultiPulsarFoldEnsemble:
             dms, norms, nfolds, draw_norms, dts = cols
             return _fold_pipeline_hetero(
                 k, dms, norms, nfolds, draw_norms, prof[:, None], cfg0,
-                freqs[:, None], chan_ids, None, dts, prof.device)
+                freqs[:, None], chan_ids, None, dts, prof.device,
+                shifted=st["shifted"] is not None)
 
         cols = tuple(st[k] for k in ("dms", "norms", "nfolds", "draw_norms",
                                      "dts"))

@@ -195,7 +195,8 @@ def _search_seq_body(cfg, n, L):
                 # the global mask rolled by each channel's integer delay,
                 # this slab's window of it
                 row = _null_mask_row(f.key, cfg, 0, nsamp, dev)
-                dint = torch.round(f.delays_ms * inv_dt).to(torch.int64)
+                dint = torch.round(f.obs_delays_ms() * inv_dt).to(
+                    torch.int64)
                 mask = _roll_rows(row.reshape(-1, nsamp),
                                   dint.reshape(-1, nchan), t0, L)
                 mask = mask.reshape(block.shape)

@@ -36,7 +36,7 @@ from ..ops.stats import (CHI2_WH_MIN_DF,
                          _hw_chi2_mode, chan_chi2_field, flat_chi2_field,
                          flat_chi2_ok, flat_normal_field, sampler_backend,
                          uniform)
-from ..runtime.telemetry import span
+from ..runtime.telemetry import count, span
 from ..scenarios.registry import (apply_scenario_additive,
                                   apply_scenario_additive_search,
                                   apply_scenario_pulse,
@@ -101,6 +101,13 @@ def _dispersion_delays(dm, freqs, extra_delays_ms):
     return delays_ms
 
 
+def _shifted_portrait(profiles, delays_ms, dt):
+    """Dispersion applied to the PERIODIC envelope: the portrait shifted by
+    the delays, one small ``(..., Nchan, Nph)`` FFT instead of the
+    full-length pair."""
+    return fourier_shift(profiles, delays_ms, dt=dt)
+
+
 class _FoldFront(NamedTuple):
     """What both fold routes start from (see :func:`_fold_front`)."""
 
@@ -110,20 +117,39 @@ class _FoldFront(NamedTuple):
     kp: torch.Tensor          # pulse stage keys, where ``key`` lies
     kn: torch.Tensor          # noise stage keys, where ``key`` lies
     noise_norm: torch.Tensor  # (...) on dev
-    delays_ms: torch.Tensor   # (..., Nchan) on dev
+    delays_ms: torch.Tensor   # DM's own shape + (Nchan,) on dev
     profiles: torch.Tensor    # (Nchan, Nph) on dev
     chan_ids: torch.Tensor
-    dt: object                # sample spacing: cfg.dt_ms, or (..., 1, 1) on dev
-    prof: torch.Tensor | None  # envelope mode: (..., Nchan, Nph) shifted
+    dt: object                # sample spacing: cfg.dt_ms, or dt_ms's shape
+                              # + (1, 1) on dev
+    prof: torch.Tensor | None  # envelope mode: the shifted portrait, the
+                               # delays' shape + (Nph,), broadcasting
+                               # against lead + (Nchan, Nph)
+
+    def obs_delays_ms(self):
+        """``delays_ms`` with one row per observation, ``lead + (Nchan,)``
+        (a view)."""
+        return self.delays_ms.expand(self.lead + self.delays_ms.shape[-1:])
 
 
 def _fold_front(key, dm, noise_norm, profiles, cfg, freqs, chan_ids,
-                extra_delays_ms, device, dt_ms=None):
+                extra_delays_ms, device, dt_ms=None, shifted=False):
     """The front half shared by the fold routes: inputs on the device, the
     pulse and noise stage keys, the DM (+ extra) delays and, in envelope
     mode, the portrait shifted by them (one small ``(..., Nchan, Nph)``
     FFT).  ``dt_ms``: one sample spacing per observation (the
-    heterogeneous route), else the static ``cfg.dt_ms``."""
+    heterogeneous route), else the static ``cfg.dt_ms``.
+
+    The delays, the sample spacing and the shifted portrait keep the
+    broadcast shape of the inputs they come from (DM, ``dt_ms``, the
+    portrait and the frequencies), not the keys': where those are shared
+    across observations (a pulsar's epochs in the multi-pulsar ensemble,
+    ``(P, 1)`` against ``(P, E)`` keys; one DM for a batch) each distinct
+    row is shifted once, and the body broadcasts it over the
+    observations.  ``shifted``: ``profiles`` already are the envelope-mode
+    portrait shifted by these delays (:func:`_shifted_portrait`; the
+    multi-pulsar ensemble shifts each bucket's once, when it stages it),
+    so the front shifts nothing."""
     if isinstance(profiles, torch.Tensor):
         dev = profiles.device
     else:
@@ -134,7 +160,21 @@ def _fold_front(key, dm, noise_norm, profiles, cfg, freqs, chan_ids,
                else as_key(key, "cpu"))
     lead = key.shape[:-1]
     f32 = torch.float32
-    dm = torch.as_tensor(dm, dtype=f32, device=dev).expand(lead)
+
+    def broadcastable(v):
+        """``v`` as a float32 tensor on the device in its own shape, which
+        must broadcast to the observations'."""
+        t = torch.as_tensor(v, dtype=f32, device=dev)
+        try:   # numpy's: torch.broadcast_shapes imports sympy at first use
+            fits = np.broadcast_shapes(t.shape, lead) == tuple(lead)
+        except ValueError:
+            fits = False
+        if not fits:
+            raise ValueError(f"shape {tuple(t.shape)} does not broadcast to "
+                             f"the keys' {tuple(lead)}")
+        return t
+
+    dm = broadcastable(dm)
     noise_norm = torch.as_tensor(noise_norm, dtype=f32, device=dev).expand(lead)
     if freqs is None:
         freqs = np.asarray(cfg.meta.dat_freq_mhz(), np.float32)
@@ -146,12 +186,14 @@ def _fold_front(key, dm, noise_norm, profiles, cfg, freqs, chan_ids,
     delays_ms = _dispersion_delays(dm, freqs, extra_delays_ms)
     dt = cfg.dt_ms
     if dt_ms is not None:
-        dt = torch.as_tensor(dt_ms, dtype=f32, device=dev).expand(lead)
-        dt = dt[..., None, None]
-    # dispersion applied to the PERIODIC envelope: one small (Nchan, Nph)
-    # FFT instead of the full-length pair
-    prof = (fourier_shift(profiles, delays_ms, dt=dt)
-            if cfg.shift_mode == "envelope" else None)
+        dt = broadcastable(dt_ms)[..., None, None]
+    prof = None
+    if cfg.shift_mode == "envelope":
+        prof = profiles if shifted else _shifted_portrait(profiles,
+                                                          delays_ms, dt)
+    if not shifted:
+        count("shift.obs_rows", int(np.prod(lead, dtype=np.int64))
+              * delays_ms.shape[-1])
     # the stage keys after the launches above, so the card shifts the
     # portrait while the host derives them: both stages in one chain,
     # stage_key(key, "pulse") and stage_key(key, "noise") bit for bit
@@ -338,11 +380,12 @@ def fold_pipeline_hetero(key, dm, noise_norm, nfold, draw_norm, profiles, cfg,
 
 def _fold_pipeline_hetero(key, dm, noise_norm, nfold, draw_norm, profiles,
                           cfg, freqs, chan_ids, extra_delays_ms, dt_ms,
-                          device):
+                          device, shifted=False):
     """:func:`fold_pipeline_hetero` without the Nfold check (the ensemble
-    checks once, when it stages a bucket)."""
+    checks once, when it stages a bucket); ``shifted`` as
+    :func:`_fold_front`'s."""
     f = _fold_front(key, dm, noise_norm, profiles, cfg, freqs, chan_ids,
-                    extra_delays_ms, device, dt_ms=dt_ms)
+                    extra_delays_ms, device, dt_ms=dt_ms, shifted=shifted)
 
     def per_obs(v):
         return torch.as_tensor(v, dtype=torch.float32,
@@ -454,7 +497,8 @@ def fold_pipeline_quantized(key, dm, noise_norm, profiles, cfg, freqs=None,
                 factors[name] = t.reshape(shape).contiguous()
     packed, finite = fold_quantize(
         seeds, to_device(dfs, f.dev), modes,
-        f.prof.reshape(B, nchan, cfg.nph).contiguous(),
+        f.prof.expand(f.lead + (nchan, cfg.nph)).reshape(
+            B, nchan, cfg.nph).contiguous(),
         f.noise_norm.reshape(B).contiguous(), nsub=cfg.nsub,
         draw_norm=cfg.draw_norm, chan0=int(f.chan_ids[0]), t0=0,
         byte_order=byte_order, **factors)
@@ -702,7 +746,7 @@ def single_pipeline(key, dm, noise_norm, profiles, cfg, freqs=None,
             # by the constant dt as a multiply by its float32 reciprocal,
             # rounds half to even), circular rolls of the shared row
             inv_dt = float(np.float32(1.0) / np.float32(cfg.dt_ms))
-            dint = torch.round(f.delays_ms * inv_dt).to(torch.int64)
+            dint = torch.round(f.obs_delays_ms() * inv_dt).to(torch.int64)
             mask = _roll_rows(mask_row.reshape(-1, nsamp),
                               dint.reshape(-1, dint.shape[-1]))
             mask = mask.reshape(block.shape)

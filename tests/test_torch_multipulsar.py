@@ -290,6 +290,127 @@ def test_epoch_splits_and_chunks_change_no_draw(monkeypatch, population,
         assert torch.equal(chunked[i], whole[i])
 
 
+def _pulsar_epoch_inputs(population, epochs=3):
+    """Two pulsars of one bucket as the ensemble stages them: keys ``(P,
+    E)``, per-pulsar columns ``(P, 1)``, portraits ``(P, 1, C, Nph)`` and
+    frequencies ``(P, 1, C)``."""
+    from psrsigsim_torch.utils import fold_in, key, stage_key
+
+    h = {k: torch.from_numpy(v) for k, v in
+         _hetero_inputs(population).items()}
+    keys = fold_in(stage_key(key(4, "cpu"), "user",
+                             torch.arange(2))[:, None, :],
+                   torch.arange(epochs)[None, :])
+    cols = {k: h[k][:, None] for k in ("dm", "norm", "nfold", "draw_norm",
+                                       "dt")}
+    return keys, cols, h["prof"][:, None], h["freqs"][:, None]
+
+
+def test_fold_front_shifts_each_pulsar_once(population):
+    """``_fold_front`` keeps DM's, dt's and the portrait's own shape: ``(P,
+    1)`` columns give a ``(P, 1, C, Nph)`` shifted portrait against ``(P,
+    E)`` keys, and one delay row per pulsar (per observation on demand)."""
+    from psrsigsim_torch.simulate.pipeline import _fold_front
+
+    keys, c, prof, freqs = _pulsar_epoch_inputs(population)
+    cfg = population[0][0]
+    f = _fold_front(keys, c["dm"], c["norm"], prof, cfg, freqs, None, None,
+                    "cpu", dt_ms=c["dt"])
+    P, E, C = 2, keys.shape[1], cfg.meta.nchan
+    assert f.lead == (P, E)
+    assert f.prof.shape == (P, 1, C, cfg.nph)
+    assert f.delays_ms.shape == (P, 1, C)
+    assert f.dt.shape == (P, 1, 1, 1)
+    assert f.obs_delays_ms().shape == (P, E, C)
+    assert f.noise_norm.shape == (P, E)
+    with pytest.raises(ValueError, match="broadcast"):
+        _fold_front(keys, torch.zeros(P, E + 1), c["norm"], prof, cfg, freqs,
+                    None, None, "cpu", dt_ms=c["dt"])
+
+
+def test_hetero_per_pulsar_columns_equal_per_epoch_ones(population):
+    """``_fold_pipeline_hetero`` with ``(P, 1)`` DMs and sample spacings
+    equals, bit for bit, the same call with both expanded to the keys'
+    ``(P, E)``: a row's shift does not depend on how many rows share it."""
+    from psrsigsim_torch.simulate.pipeline import _fold_pipeline_hetero
+
+    keys, c, prof, freqs = _pulsar_epoch_inputs(population)
+    cfg = population[0][0]
+    lead = keys.shape[:-1]
+
+    def run(dm, dt):
+        return _fold_pipeline_hetero(keys, dm, c["norm"], c["nfold"],
+                                     c["draw_norm"], prof, cfg, freqs, None,
+                                     None, dt, "cpu")
+
+    shared = run(c["dm"], c["dt"])
+    expanded = run(c["dm"].expand(lead).contiguous(),
+                   c["dt"].expand(lead).contiguous())
+    assert shared.shape == lead + (cfg.meta.nchan, cfg.nsamp)
+    assert torch.equal(shared, expanded)
+
+
+def _count_shifts(monkeypatch):
+    """Rows the tensor branch of ``fourier_shift`` shifts, wherever it is
+    called from."""
+    from psrsigsim_torch.ops import shift
+
+    rows = []
+    inner = shift.envelope_shift
+
+    def counted(spec, shifts, dt, n):
+        out = inner(spec, shifts, dt, n)
+        rows.append(out.numel() // (n // 2 + 1))
+        return out
+
+    monkeypatch.setattr(shift, "envelope_shift", counted)
+    return rows
+
+
+def test_staged_buckets_shift_each_portrait_once(monkeypatch, population):
+    """The ensemble shifts each bucket's portraits when it stages the
+    bucket, one row a pulsar and channel; later runs shift nothing."""
+    rows = _count_shifts(monkeypatch)
+    ens = _ensemble(population, epoch_chunk=1)
+    ens.run(2, seed=0)
+    nchan = population[0][0].meta.nchan
+    assert sorted(rows) == sorted(len(m) * nchan
+                                  for m in ens._buckets.values())
+    rows.clear()
+    ens.run(3, seed=1, epoch_start=2)
+    assert rows == []
+
+
+def test_staged_portraits_equal_the_fronts_shift(population):
+    """A bucket's blocks from the staged, shifted portraits equal, bit for
+    bit, ``_fold_pipeline_hetero`` shifting the raw portraits itself."""
+    from psrsigsim_torch.simulate.pipeline import _fold_pipeline_hetero
+    from psrsigsim_torch.utils import fold_in, key, stage_key
+
+    ens = _ensemble(population)
+    out = ens.run(2, seed=6, epoch_start=3)
+    for members in ens._buckets.values():
+        w = [population[i] for i in members]
+        cfg = w[0][0]
+        keys = fold_in(stage_key(key(6, "cpu"), "user",
+                                 torch.as_tensor(members))[:, None, :],
+                       torch.arange(3, 5)[None, :])
+
+        def col(v):
+            """Per-pulsar values ``(P, 1, ...)``, as the ensemble stages
+            them."""
+            return torch.as_tensor(np.asarray(v, np.float32))[:, None]
+
+        want = _fold_pipeline_hetero(
+            keys, col([d for *_, d in w]), col([n for _, _, n, _ in w]),
+            col([c.nfold for c, *_ in w]), col([c.draw_norm for c, *_ in w]),
+            col(np.stack([p for _, p, _, _ in w])), cfg,
+            col(np.stack([c.meta.dat_freq_mhz() for c, *_ in w])),
+            None, None, col([c.dt_ms for c, *_ in w]), "cpu")
+        for slot, i in enumerate(members):
+            assert torch.equal(out[i], want[slot])
+
+
 def test_rows_do_not_depend_on_bucket_companions(population):
     """Pulsar 0 keeps its global index; its bucket's other members change
     (pulsars 1 and 3 swapped for 2048-bin ones): its rows are the same
