@@ -525,14 +525,6 @@ GAMMA_SEARCH_NOBS = 4    # (g): SEARCH under the hatch at config 4's geometry
 # threefry2x32's integer operations a call (csrc/threefry.cuh: 20 rounds of
 # add, rotate, XOR; 5 key injections of 2 adds; the key-schedule XOR)
 THREEFRY_INT_OPS = 73
-# K9's float32 operations, counted from csrc/gamma_field.cu: an inner pass
-# draws a normal (the uniform 3; log1p's small branch 20: 12 FMAs, the
-# division as one, 7 more; erf_inv's 8 FMAs, 8 coefficient selects and 7
-# more) and v = fma(x, c, 1) with its test: 48; an outer pass forms X, V
-# and U (5), the squeeze bound and its test (3), two XLA logs (26 each) and
-# the log test (7): 67 (the division's and the selects' expansions are not
-# counted, so the bound is a lower one)
-GAMMA_FP32_INNER, GAMMA_FP32_OUTER = 48, 67
 # phase 20: meshes of repeated cuda:0 positions.  (a) seq_sharded_search at
 # config 4 over n shards (16: 51,200-sample slabs, not whole RNG blocks);
 # (b) 16 observations over (obs, seq) meshes; (c) config 3 at n = 2 with a
@@ -5196,22 +5188,16 @@ class Smoke:
         alphas = torch.full((R, n), cfg.nfold / 2.0, device=dev)
         library_ms = cuda_time_ms(lambda: torch._standard_gamma(alphas), 5)
         del alphas
-        # the threefry calls the output needs (csrc/gamma_field.cu's
-        # bound): the element's key, then its first pass's key; three a
-        # pass and one after each rejection; two an inner pass and one
-        # after each repeat; two a boost
-        p = passes[10.0]
-        calls = 1 + 3 * p["outer"] + 3 * p["inner"] + 2 * p["boost"]
-        int_ops = THREEFRY_INT_OPS * calls + 4 * (p["outer"] + p["inner"])
-        fp_ops = GAMMA_FP32_INNER * p["inner"] + GAMMA_FP32_OUTER * p["outer"] + 2
-        t_issue = (int_ops + fp_ops) * R * n / ISSUE_RATE * 1e3
-        t_bytes = (4 * R * n + R * (8 + 16)) / PEAK_BYTES_PER_S * 1e3
-        b_ms = max(t_issue, t_bytes)
-        b_by = "operations" if t_issue >= t_bytes else "bytes"
-        # the integer pipe alone (64 a clock) is no bound here: ptxas
-        # issues part of the adds as IMAD on the FMA pipe
-        parts = {"issue": t_issue, "bytes": t_bytes,
-                 "int32_pipe_alone": int_ops * R * n / RATES["int32"] * 1e3}
+        # K9's bound: benchmark/rooflines_gamma.py's, from the threefry
+        # calls and the float work the stream needs at this alpha and its
+        # expected passes (the passes the plain version counted in (a) are
+        # logged beside them)
+        from benchmark.rooflines_gamma import k9_gamma_field, ops_per_draw
+
+        alpha = cfg.nfold / 2.0
+        b_s, b_by = k9_gamma_field(R, n, alpha)
+        b_ms = b_s * 1e3
+        ops, calls = ops_per_draw(alpha)
         self.kernels["gamma_field"].update(
             name="gamma_field", route="cuda",
             source="psrsigsim_torch/csrc/gamma_field.cu",
@@ -5219,13 +5205,14 @@ class Smoke:
                      "jax.random.gamma, an XLA while loop, no Pallas kernel)",
             ms=ms, plain_ms=plain_full_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=library_ms)
-        log(f"  (h) gamma_field ({R} x {n}, alpha {cfg.nfold / 2:g}): {ms:.4f} "
+        log(f"  (h) gamma_field ({R} x {n}, alpha {alpha:g}): {ms:.4f} "
             f"ms; plain {plain_full_ms:.0f} ms ({plain_one_ms:.0f} ms at one "
             f"observation); torch._standard_gamma {library_ms:.4f} ms; "
-            f"{calls:.3f} threefry calls, {int_ops:.1f} integer and "
-            f"{fp_ops:.1f} float32 operations an element; bound {b_ms:.4f} "
-            f"ms, {b_by} at the issue limit ({fmt_parts(parts)}); K9 at "
-            f"{b_ms / ms:.1%} of it, on {self.card_line}")
+            f"{calls:.3f} threefry calls and {ops['fp32']:.1f} operations an "
+            f"element ({ops['int32']:.1f} of them the integer pipe's own; "
+            f"passes counted in (a) {passes[10.0]}); bound {b_ms:.4f} ms, "
+            f"{b_by} (rooflines_gamma); K9 at {b_ms / ms:.1%} of it, on "
+            f"{self.card_line}")
 
     def _gamma_oo(self, device):
         """Phase 19(f): make_pulses -> ISM().disperse -> observe(noise) of

@@ -13,7 +13,11 @@ XLA's CPU arithmetic, both rejection loops per element
 * :func:`gamma_field` — the wrapper.  A CUDA tensor launches the kernel
   (counted in ``gamma_field.launches``); a CPU tensor runs
   :func:`~psrsigsim_torch.ops.stats.gamma_plain`, the same function in
-  torch ops.  There is no fallback from one to the other.
+  torch ops.  There is no fallback from one to the other.  Inside an
+  open span (:mod:`psrsigsim_torch.runtime.telemetry`) a call on either
+  device counts its rows in ``gamma.rows`` and its draws in
+  ``gamma.draws``; an α check that reads a card tensor (a host sync)
+  counts in ``gamma.host_checks``.
 
 The per-row constants ``d``, ``c`` and ``1/α`` come from
 :func:`~psrsigsim_torch.ops.stats.gamma_consts` for both, so the kernel
@@ -27,6 +31,7 @@ import ctypes
 
 import torch
 
+from ..runtime.telemetry import count
 from . import _build
 from .stats import gamma_consts, gamma_plain, xla_tables
 
@@ -101,6 +106,8 @@ def gamma_field(keys, alpha, n, start=0, scale=1.0, traced=False,
     n, start = int(n), int(start)
     _check(keys, alpha, n, start)
     dev = keys.device
+    count("gamma.rows", keys.shape[0])
+    count("gamma.draws", keys.shape[0] * n)
     if dev.type == "cpu":
         if cube and not bool((alpha >= 1.0).all()):
             raise ValueError("cube=True needs alpha >= 1 (no boost)")
@@ -112,8 +119,10 @@ def gamma_field(keys, alpha, n, start=0, scale=1.0, traced=False,
     if R == 0 or n == 0:
         return out
     alpha = alpha.to(torch.float32)
-    if cube and not bool((alpha >= 1.0).all()):
-        raise ValueError("cube=True needs alpha >= 1 (no boost)")
+    if cube:
+        count("gamma.host_checks")
+        if not bool((alpha >= 1.0).all()):
+            raise ValueError("cube=True needs alpha >= 1 (no boost)")
     _, d, c, inv_alpha = gamma_consts(alpha, traced)
     params = torch.stack((alpha, d, c, inv_alpha), dim=1).contiguous()
     kd = keys.to(torch.int64) & 0xFFFFFFFF

@@ -40,6 +40,7 @@ import os
 import numpy as np
 import torch
 
+from ..runtime.telemetry import count, span
 from ..utils.device import to_device
 from ..utils.rng import fold_in, randint, random_bits, threefry2x32
 from ._xla_tables import _EXP2F, _POWF_LOG2, _RSQRT_TABLE
@@ -430,8 +431,12 @@ def gamma_consts(alpha, traced=False):
     JAX package's jitted pipelines) has its constants folded by XLA's
     evaluator, correctly rounded; a traced one (an eager call, a
     per-observation df) computes ``c = (1/3) · rsqrt(d)``, XLA's
-    :func:`rsqrt_xla` (psrsigsim_torch/DIVERGENCES.md P21)."""
+    :func:`rsqrt_xla` (psrsigsim_torch/DIVERGENCES.md P21).  The check
+    ``alpha > 0`` reads ``alpha`` on the host: for a card tensor a sync,
+    counted in ``gamma.host_checks``."""
     alpha = alpha.to(_F32)
+    if alpha.device.type != "cpu":
+        count("gamma.host_checks")
     if not bool((alpha > 0).all()):
         raise ValueError("gamma needs alpha > 0")
     boost = alpha < 1.0
@@ -721,9 +726,14 @@ def _blocked_chan_gamma(key, chan_ids, df, t0, length, block):
     each (channel, global block) key draws ``chi2_sample(k, df, (block,))``
     through the gamma sampler, as the reference's blocked draw does; a
     static df takes XLA's folded constants, a df tensor (one per leading
-    index of the keys) the traced ones."""
-    kb, off = _block_keys(key, chan_ids, t0, length, block)
-    z = _exact_chi2(kb, df, (block,), traced=isinstance(df, torch.Tensor))
+    index of the keys) the traced ones.  The blocked keys and the draws
+    are timed as a child ``fields`` of the span open on this thread (a
+    chunk's ``dispatch.fields`` under ``iter_chunks``; nothing without
+    one)."""
+    with span("fields"):
+        kb, off = _block_keys(key, chan_ids, t0, length, block)
+        z = _exact_chi2(kb, df, (block,),
+                        traced=isinstance(df, torch.Tensor))
     z = z.reshape(z.shape[:-2] + (z.shape[-2] * block,))
     return z[..., off:off + length]
 

@@ -372,9 +372,13 @@ class FoldEnsemble:
 
     def _unfused_packed(self, keys, dms, norms, byte_order, rows=None):
         """The unfused body: float blocks, then the finite guard, the
-        quantizer and the packing (:func:`.quantize.quantize_packed`)."""
-        return quantize_packed(self._blocks(keys, dms, norms, rows),
-                               self.cfg.nsub, self.cfg.nph, byte_order)
+        quantizer and the packing (:func:`.quantize.quantize_packed`),
+        whose launches are timed as a child ``quantize`` of the span open
+        on this thread (``dispatch.quantize`` under :meth:`iter_chunks`)."""
+        blocks = self._blocks(keys, dms, norms, rows)
+        with span("quantize"):
+            return quantize_packed(blocks, self.cfg.nsub, self.cfg.nph,
+                                   byte_order)
 
     def _split_packed_device(self, packed):
         """Device-side inverse of :func:`.quantize.pack_triple` (slice +
