@@ -4931,7 +4931,10 @@ class Smoke:
 
         # (a) K9 against its plain version on the card, bit for bit: the
         # (observation, channel, block) keys of a whole 128-observation
-        # chunk's pulse field, and a shape-level draw
+        # chunk's pulse field, and a shape-level draw.  K9 gets α as a
+        # Python number, the form a static df's draws pass it in (its rows
+        # filled on the card from the host's constants); the plain version
+        # a card tensor, its constants computed on the card
         obs = stage_key(key(0, dev), "user",
                         torch.arange(MAIN_NOBS, device=dev))
         rows = fold_in(fold_in(stage_key(obs, "pulse")[:, None, :],
@@ -4941,7 +4944,7 @@ class Smoke:
         worst, passes, plain_full_ms = 0.0, {}, None
         for alpha in GAMMA_ALPHAS:
             a = torch.full((R,), alpha, device=dev)
-            got = gamma.gamma_field(rows, a, n, scale=2.0)
+            got = gamma.gamma_field(rows, alpha, n, scale=2.0)
             counts = {}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -4973,8 +4976,8 @@ class Smoke:
                                     (0.5, True, False),
                                     (cfg.noise_df / 2.0, False, True)):
             a = torch.full((1,), alpha, device=dev)
-            got = gamma.gamma_field(k1, a, C * L, scale=2.0, traced=traced,
-                                    cube=cube)
+            got = gamma.gamma_field(k1, float(a), C * L, scale=2.0,
+                                    traced=traced, cube=cube)
             want = stats.gamma_plain(k1, a, C * L, traced=traced, scale=2.0,
                                      cube=cube)
             diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
@@ -5182,8 +5185,9 @@ class Smoke:
             raise AssertionError("SEARCH under the hatch failed")
         del block
 
-        # (h) K9's time at the main path's shape (one chunk's pulse field)
-        a = torch.full((R,), cfg.nfold / 2.0, device=dev)
+        # (h) K9's time at the main path's shape (one chunk's pulse field),
+        # α a host number as the main path passes it
+        a = float(np.float32(cfg.nfold) / np.float32(2.0))
         ms = cuda_time_ms(lambda: gamma.gamma_field(rows, a, n, scale=2.0), 5)
         alphas = torch.full((R, n), cfg.nfold / 2.0, device=dev)
         library_ms = cuda_time_ms(lambda: torch._standard_gamma(alphas), 5)

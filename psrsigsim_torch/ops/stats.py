@@ -423,6 +423,16 @@ def powf(x, y):
     return _flush(torch.where(ylogx <= -150.0, 0.0, yv).to(_F32))
 
 
+def check_alpha(alpha):
+    """Raise ``ValueError`` unless every float32 ``alpha`` is > 0 (NaN
+    fails it).  It reads ``alpha`` on the host: free for a CPU tensor, a
+    sync for a card tensor, counted in ``gamma.host_checks``."""
+    if alpha.device.type != "cpu":
+        count("gamma.host_checks")
+    if not bool((alpha > 0).all()):
+        raise ValueError("gamma needs alpha > 0")
+
+
 def gamma_consts(alpha, traced=False):
     """Per-row constants of jax's Marsaglia–Tsang sampler for float32
     ``alpha`` (> 0): ``(boost, d, c, inv_alpha)`` — α < 1 is boosted to
@@ -431,14 +441,13 @@ def gamma_consts(alpha, traced=False):
     JAX package's jitted pipelines) has its constants folded by XLA's
     evaluator, correctly rounded; a traced one (an eager call, a
     per-observation df) computes ``c = (1/3) · rsqrt(d)``, XLA's
-    :func:`rsqrt_xla` (psrsigsim_torch/DIVERGENCES.md P21).  The check
-    ``alpha > 0`` reads ``alpha`` on the host: for a card tensor a sync,
-    counted in ``gamma.host_checks``."""
+    :func:`rsqrt_xla` (psrsigsim_torch/DIVERGENCES.md P21).  ``alpha`` is
+    checked first (:func:`check_alpha`).  The constants are the same bits
+    on the host and on the card;
+    :func:`~psrsigsim_torch.ops.gamma.gamma_field` computes them on the
+    host for every α it is given (``gamma.host_alpha``)."""
     alpha = alpha.to(_F32)
-    if alpha.device.type != "cpu":
-        count("gamma.host_checks")
-    if not bool((alpha > 0).all()):
-        raise ValueError("gamma needs alpha > 0")
+    check_alpha(alpha)
     boost = alpha < 1.0
     a = torch.where(boost, alpha + 1.0, alpha)
     d = a - _THIRD
@@ -592,17 +601,24 @@ def _exact_chi2(key, df, shape, traced):
     one entry per leading index of the keys (per observation) or of a
     prefix of them.  Drawn by :func:`~psrsigsim_torch.ops.gamma.gamma_field`
     (the kernel on the card, :func:`gamma_plain` on the host); ``traced``
-    as there."""
+    as there.  α goes down where it was born: a static df as the Python
+    number float32(df)/2, a host df tensor as a CPU tensor, so that
+    ``gamma_field`` checks α (> 0; ``ValueError`` before any draw) and
+    computes its constants on the host, and the launch reads nothing back
+    (``gamma.host_alpha``); a df tensor on the card is read back once
+    for it, a sync (``gamma.host_checks``)."""
     from .gamma import gamma_field
 
     shape = _shape(shape)
     lead = key.shape[:-1]
     if isinstance(df, torch.Tensor):
-        k = df.to(device=key.device, dtype=_F32)
+        k = df.to(dtype=_F32)
+        if k.device.type != "cpu":
+            k = k.to(key.device)
         k = k.reshape(k.shape + (1,) * (len(lead) - k.dim())).expand(lead)
+        alpha = (k / 2.0).reshape(-1).contiguous()
     else:
-        k = torch.full(lead, float(df), dtype=_F32, device=key.device)
-    alpha = (k / 2.0).reshape(-1).contiguous()
+        alpha = float(np.float32(df) / np.float32(2.0))
     out = gamma_field(key.reshape(-1, 2), alpha, int(np.prod(shape)),
                       scale=2.0, traced=traced)
     return out.reshape(lead + shape)
@@ -672,7 +688,8 @@ def chi2_noise_compiled(key, df, data, norm):
     exact-gamma draw of α = df/2 ≥ 1 is ``(d·V)·2``, and there XLA folds
     the constants into the scalar, ``fma(V, f32(norm·f32(2d)), data)``;
     below α = 1 the boost stands between them and only the 2 moves, which
-    changes no bit."""
+    changes no bit.  α goes to ``gamma_field`` as a host number, checked
+    and its constants computed on the host, as in :func:`_exact_chi2`."""
     static_df = _static_df(df)
     shape = tuple(data.shape)
     if (static_df is not None and static_df >= 2.0
@@ -682,7 +699,7 @@ def chi2_noise_compiled(key, df, data, norm):
         alpha = torch.full((1,), static_df, dtype=_F32) / 2.0
         d = gamma_consts(alpha)[1]
         c = float(torch.tensor(norm, dtype=_F32) * (d * 2.0))
-        v = gamma_field(key.reshape(-1, 2), alpha.to(key.device),
+        v = gamma_field(key.reshape(-1, 2), float(alpha),
                         int(np.prod(shape)), cube=True)
         return fma(v.reshape(key.shape[:-1] + shape), c, data)
     return fma(chi2_sample_compiled(key, df, shape), norm, data)

@@ -14,9 +14,12 @@ fields drawn as ``2 * gamma(key, 10)``) cut to 16 channels, 4 subints and
   (Wilson-Hilferty at df 20);
 * the branch's spans and counters: ``dispatch.fields`` and
   ``dispatch.quantize`` under ``dispatch``, ``gamma.rows`` and
-  ``gamma.draws``, a full chunk's rows in an ensemble's tail chunk, none
-  of them on the fused route or off the branch, and the same bytes with
-  and without timers."""
+  ``gamma.draws``, ``gamma.host_alpha`` once a launch and no
+  ``gamma.host_checks`` (α is a host number), a full chunk's rows in an
+  ensemble's tail chunk, none of them on the fused route or off the
+  branch, and the same bytes with and without timers;
+* on the card (``cuda``-marked): the same counters, and the branch's
+  ``run_quantized`` clean under sync-debug "error"."""
 
 import json
 import sys
@@ -142,7 +145,9 @@ def test_the_branch_counts_its_rows_and_nests_its_spans(config):
     rows = 2 * 2 * config["nchan"] * blocks
     assert snap["gamma.rows_count"] == rows
     assert snap["gamma.draws_count"] == rows * 4096
-    # host tensors: no alpha check reads a card
+    # alpha a host number: checked, and its constants computed, on the
+    # host once a launch; no check reads a card
+    assert snap["gamma.host_alpha_count"] == 2 * snap["dispatch_calls"]
     assert "gamma.host_checks_count" not in snap
     assert snap["dispatch.fields_calls"] == 2 * snap["dispatch_calls"] == 2
     assert snap["dispatch.quantize_calls"] == snap["dispatch_calls"]
@@ -154,6 +159,44 @@ def test_the_branch_counts_its_rows_and_nests_its_spans(config):
     for a, b in zip(got, plain):
         for x, y in zip(a[2:], b[2:]):
             np.testing.assert_array_equal(x, y)
+
+
+def _card_ensemble(config):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel, no CPU mode)")
+    return objects.fold_ensemble(config, "cuda")
+
+
+@pytest.mark.cuda
+def test_the_branch_reads_no_alpha_back_on_the_card(config):
+    """On the card, as on the host: every K9 launch's alpha is checked on
+    the host (two a chunk), none reads the card."""
+    from psrsigsim_torch.ops.gamma import gamma_field
+    from psrsigsim_torch.runtime import StageTimers
+
+    ens = _card_ensemble(config)
+    timers = StageTimers()
+    before = gamma_field.launches
+    for _ in ens.iter_chunks(4, chunk_size=2, seed=SEED, quantized=True,
+                             byte_order="big", timers=timers):
+        pass
+    snap = timers.snapshot()
+    assert snap["dispatch_calls"] == 2
+    assert gamma_field.launches - before == 2 * snap["dispatch_calls"]
+    assert snap["gamma.host_alpha_count"] == 2 * snap["dispatch_calls"]
+    assert "gamma.host_checks_count" not in snap
+
+
+@pytest.mark.cuda
+def test_the_branch_runs_without_a_sync_on_the_card(config):
+    """The exact branch's steady ``run_quantized`` at Nfold 20 runs under
+    sync-debug "error": no host read stands between its launches."""
+    from psrsigsim_torch.analysis.trace_check import run_ensemble_trace_check
+
+    ens = _card_ensemble(config)
+    assert ens.cfg.nfold == pytest.approx(20.0)
+    (res,) = run_ensemble_trace_check(ens, 2)
+    assert res.status == "ok"
 
 
 def test_a_tail_chunk_draws_a_full_chunk(config):

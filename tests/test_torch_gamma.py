@@ -15,7 +15,11 @@ traced α (the host's ``rsqrtss`` estimate and two Newton steps), and the
 boost's power of an α below 1, glibc's ``powf`` (which XLA calls) except
 where XLA rewrites a static power 2 or 3 as products
 (psrsigsim_torch/DIVERGENCES.md P21).  The α list adds 0.3 and 1/3 to the
-production set to reach both power paths.  The pipelines and the
+production set to reach both power paths.  α's check (α ≤ 0, NaN, or
+below 1 with ``cube`` raise before anything is drawn, on every route) and
+a host α's constants (a number's or a CPU tensor's, computed on the host:
+``gamma_consts``' bits, and on the card the same rows and draws as a card
+α) are held too.  The pipelines and the
 object-oriented flow are tests/test_torch_gamma_flows.py.  Reference values
 come from a child process (this file run as a script) that applies the
 JAX-version shims R1 and R2.
@@ -167,6 +171,126 @@ def test_gamma_field_counts_only_kernel_launches_and_checks():
         gamma_field(_key(0)[None], torch.tensor([0.0]), 16)
 
 
+NAN = float("nan")
+# every χ² route that draws the exact gamma; NaN fails the reference's
+# ``df < 50`` as well, so it reaches the gamma only under the hatch
+CHI2_ROUTES = ("_exact_chi2", "chi2_sample", "chi2_sample_compiled",
+               "chi2_noise_compiled", "blocked_chan_chi2")
+# (alpha, cube) that gamma_field refuses
+BAD_ALPHAS = ((0.0, False), (-1.0, False), (NAN, False), (0.0, True),
+              (NAN, True), (0.5, True))
+# (how α is given, the keys' device)
+ALPHA_KINDS = (("number", "cpu"), ("host", "cpu"), ("number", "cuda"),
+               ("host", "cuda"), ("card", "cuda"))
+
+
+def _bad_alpha_cases():
+    cases = [pytest.param(route, None, df, False, id=f"{route}-df{df}")
+             for route in CHI2_ROUTES for df in (0.0, -2.0, NAN)]
+    for kind, dev in ALPHA_KINDS:
+        for alpha, cube in BAD_ALPHAS:
+            cases.append(pytest.param(
+                "gamma_field", (kind, dev), alpha, cube,
+                id=f"gamma_field-{kind}-{dev}-{alpha}-cube{int(cube)}",
+                marks=[pytest.mark.cuda] if dev == "cuda" else []))
+    return cases
+
+
+def _draw_route(route, given, value, cube):
+    from psrsigsim_torch.ops import stats
+    from psrsigsim_torch.ops.gamma import gamma_field
+
+    k = _key(3)
+    if route == "gamma_field":
+        kind, dev = given
+        keys = k[None].expand(4, 2).to(dev)
+        alpha = value
+        if kind != "number":
+            alpha = torch.full((4,), value, device=(
+                "cpu" if kind == "host" else dev))
+        return gamma_field(keys, alpha, 64, cube=cube)
+    if route == "_exact_chi2":
+        return stats._exact_chi2(k[None], value, (64,), traced=False)
+    if route == "chi2_noise_compiled":
+        return stats.chi2_noise_compiled(k, value, torch.zeros(64), 1.5)
+    if route == "blocked_chan_chi2":
+        return stats.blocked_chan_chi2(k, torch.arange(2), value, 0, 100)
+    return getattr(stats, route)(k, value, (64,))
+
+
+@pytest.mark.parametrize("route,given,value,cube", _bad_alpha_cases())
+def test_a_bad_alpha_raises_before_anything_is_drawn(monkeypatch, route,
+                                                     given, value, cube):
+    """α ≤ 0, NaN, or below 1 with ``cube`` raises ``ValueError`` on every
+    route, however α is given, before a launch or a plain draw: nothing
+    launched and no rows counted.  Only a card α reads the card for it."""
+    from psrsigsim_torch.ops.gamma import gamma_field
+    from psrsigsim_torch.runtime import StageTimers
+
+    card = given is not None and given[0] == "card"
+    if (given is not None and given[1] == "cuda"
+            and not torch.cuda.is_available()):
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel, no CPU mode)")
+    if value != value:
+        monkeypatch.setenv("PSS_EXACT_CHI2", "1")
+    timers = StageTimers()
+    before = gamma_field.launches
+    with pytest.raises(ValueError, match="alpha"):
+        with timers.span("dispatch"):
+            _draw_route(route, given, value, cube)
+    assert gamma_field.launches == before
+    snap = timers.snapshot()
+    for name in ("rows", "draws", "host_alpha"):
+        assert f"gamma.{name}_count" not in snap
+    assert ("gamma.host_checks_count" in snap) == card
+
+
+def _params_want(alpha, traced, dev):
+    from psrsigsim_torch.ops.stats import gamma_consts
+
+    a = torch.full((5,), alpha, dtype=torch.float32, device=dev)
+    return torch.stack((a,) + gamma_consts(a, traced)[1:], dim=1)
+
+
+@pytest.mark.parametrize("alpha", ALPHAS)
+@pytest.mark.parametrize("mode", ["static", "traced"])
+def test_host_alpha_constants_equal_the_tensor_ones(alpha, mode):
+    """The kernel's rows (α, d, c, 1/α) of a number α and of a host tensor
+    α, computed on the host, are ``gamma_consts``' of the tensor, bit for
+    bit, in both arithmetics (DIVERGENCES P21)."""
+    from psrsigsim_torch.ops.gamma import _host_alpha, _kernel_params
+
+    traced = mode == "traced"
+    want = _params_want(alpha, traced, "cpu")
+    for given in (alpha, torch.full((5,), alpha)):
+        got = _kernel_params(_host_alpha(given, False), 5, "cpu", traced)
+        assert got.shape == (5, 4)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("route", CHI2_ROUTES)
+@pytest.mark.parametrize("df", [3.3, 7.5, 20.0, 24.9])
+def test_routes_pass_a_static_alpha_as_a_host_number(monkeypatch, route, df):
+    """Every route hands ``gamma_field`` a static df's α as a Python
+    number, float32(df)/2: the tensor α it built on the device before, bit
+    for bit."""
+    from psrsigsim_torch.ops import gamma
+
+    seen = []
+
+    def spy(keys, alpha, n, **kw):
+        seen.append(alpha)
+        return torch.zeros((keys.shape[0], n))
+
+    monkeypatch.setattr(gamma, "gamma_field", spy)
+    _draw_route(route, None, df, False)
+    want = float(torch.full((1,), df, dtype=torch.float32) / 2.0)
+    assert len(seen) == 1 and type(seen[0]) is float
+    assert np.float32(seen[0]).view(np.int32) == np.float32(want).view(
+        np.int32)
+    assert seen[0] == float(np.float32(seen[0]))
+
+
 def test_rsqrt_matches_the_table_form():
     """XLA's rsqrt (estimate + two Newton steps) is within 1 ulp of the
     correctly rounded one, and the estimate within 2^-11."""
@@ -259,6 +383,43 @@ def test_kernel_matches_plain_version_on_card():
                 want = gamma_plain(keys, a, 5000, 7, traced, cube=True)
                 got = gamma_field(keys, a, 5000, start=7, traced=traced,
                                   cube=True)
+                assert torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha", ALPHAS)
+def test_host_alpha_rows_and_draws_equal_a_card_alphas(alpha):
+    """On the card, a number α's rows (filled in there from the host's
+    constants) are the card's ``gamma_consts`` bit for bit, and its draws
+    are a card tensor α's (read back once, ``gamma.host_checks``) and the
+    card's plain version's, whose constants are computed on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel, no CPU mode)")
+    from psrsigsim_torch.ops.gamma import (_host_alpha, _kernel_params,
+                                           gamma_field)
+    from psrsigsim_torch.ops.stats import gamma_plain
+    from psrsigsim_torch.runtime import StageTimers
+    from psrsigsim_torch.utils import fold_in
+
+    dev = torch.device("cuda")
+    keys = fold_in(_key(2)[None], torch.arange(5)).to(dev)
+    card = torch.full((5,), alpha, dtype=torch.float32, device=dev)
+    for traced in (False, True):
+        got = _kernel_params(_host_alpha(alpha, False), 5, dev, traced)
+        want = _params_want(alpha, traced, dev)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        for cube in ((False, True) if alpha >= 1.0 else (False,)):
+            got = gamma_field(keys, alpha, 3000, start=5, scale=2.0,
+                              traced=traced, cube=cube)
+            timers = StageTimers()
+            with timers.span("dispatch"):
+                from_card = gamma_field(keys, card, 3000, start=5, scale=2.0,
+                                        traced=traced, cube=cube)
+            assert timers.snapshot()["gamma.host_checks_count"] == 1
+            plain = gamma_plain(keys, card, 3000, start=5, traced=traced,
+                                scale=2.0, cube=cube)
+            for want in (from_card, plain):
                 assert torch.equal(got.view(torch.int32),
                                    want.view(torch.int32))
 
